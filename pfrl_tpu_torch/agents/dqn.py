@@ -1,0 +1,134 @@
+"""DQN algorithm core (counterpart of ``pfrl_tpu/agents/dqn.py::DQNCore``).
+
+The JAX core is a set of pure functions over an immutable ``DQNState`` of
+parameter trees. Here :class:`DQNState` holds the online and target
+``nn.Module``s and the optimizer's second moments, and ``update`` and
+``sync_target`` change them **in place** (and return the same state). The
+host shell ``DQN`` is not ported yet.
+"""
+
+import copy
+import dataclasses
+from typing import Callable, List
+
+import torch
+from torch import nn
+
+from pfrl_tpu_torch.ops.value_loss import compute_weighted_value_loss
+from pfrl_tpu_torch.replay.transition import TransitionBatch
+
+
+@dataclasses.dataclass
+class DQNState:
+    model: nn.Module         # the JAX DQNState.params
+    target_model: nn.Module  # ... .target_params
+    opt_state: List[torch.Tensor]  # RMSprop nu, one per model parameter
+    n_updates: int = 0
+
+
+def _identity(x):
+    return x
+
+
+class DQNCore:
+    """``model`` is a template: ``init`` copies it, re-initializes the copy
+    from a generator (``model.reset_parameters(generator)``) and moves it to
+    the observations' device."""
+
+    def __init__(
+        self,
+        model: nn.Module,
+        optimizer,
+        explorer,
+        gamma: float = 0.99,
+        clip_delta: bool = True,
+        batch_accumulator: str = "mean",
+        target_update_method: str = "hard",
+        soft_update_tau: float = 1e-2,
+        phi: Callable = _identity,
+    ):
+        if target_update_method not in ("hard", "soft"):
+            raise ValueError(f"target_update_method: {target_update_method!r}")
+        self.model = model
+        self.optimizer = optimizer
+        self.explorer = explorer
+        self.gamma = gamma
+        self.clip_delta = clip_delta
+        self.batch_accumulator = batch_accumulator
+        self.target_update_method = target_update_method
+        self.soft_update_tau = soft_update_tau
+        self.phi = phi
+
+    # ----------------------------------------------------------------- setup
+    def init(self, generator: torch.Generator, example_obs: torch.Tensor) -> DQNState:
+        """``generator`` (on the CPU) draws the initial weights;
+        ``example_obs`` is a batched observation on the target device."""
+        model = copy.deepcopy(self.model)
+        model.reset_parameters(generator)
+        model.to(example_obs.device)
+        with torch.no_grad():
+            self.action_value(model, example_obs)  # shape check
+        return self.state_from_model(model)
+
+    def state_from_model(self, model: nn.Module) -> DQNState:
+        """A fresh state around ``model``: target = a copy, zero moments."""
+        target = copy.deepcopy(model)
+        target.requires_grad_(False)
+        return DQNState(
+            model=model,
+            target_model=target,
+            opt_state=self.optimizer.init(list(model.parameters())),
+        )
+
+    # ------------------------------------------------------------------- act
+    def action_value(self, model: nn.Module, obs: torch.Tensor):
+        return model(self.phi(obs))
+
+    @torch.no_grad()
+    def select_action(self, state: DQNState, draws, obs, t: int, training: bool):
+        greedy = self.action_value(state.model, obs).greedy_actions()
+        if not training:
+            return greedy
+        return self.explorer.select_action(draws, t, greedy)
+
+    # ---------------------------------------------------------------- update
+    def compute_y_and_t(self, model, target_model, batch: TransitionBatch):
+        y = self.action_value(model, batch.obs).evaluate_actions(batch.action)
+        with torch.no_grad():
+            max_next_q = self.action_value(target_model, batch.next_obs).max()
+            t = batch.reward + batch.discount * (
+                1.0 - batch.is_terminal.to(torch.float32)
+            ) * max_next_q
+        return y, t
+
+    def loss_and_errors(self, model, target_model, batch: TransitionBatch):
+        y, t = self.compute_y_and_t(model, target_model, batch)
+        loss = compute_weighted_value_loss(
+            y,
+            t,
+            batch.weight,
+            clip_delta=self.clip_delta,
+            batch_accumulator=self.batch_accumulator,
+        )
+        return loss, (torch.abs(y - t).detach(), y.detach().mean())
+
+    def update(self, state: DQNState, batch: TransitionBatch):
+        """One gradient step, in place. Returns ``(state, aux)``; ``aux``
+        carries the per-sample ``errors`` for PER feedback."""
+        params = list(state.model.parameters())
+        loss, (errors, q_mean) = self.loss_and_errors(state.model, state.target_model, batch)
+        grads = torch.autograd.grad(loss, params)
+        self.optimizer.update(params, grads, state.opt_state)
+        state.n_updates += 1
+        return state, {"loss": loss.detach(), "average_q": q_mean, "errors": errors}
+
+    @torch.no_grad()
+    def sync_target(self, state: DQNState) -> DQNState:
+        """Hard copy, or Polyak ``(1 - tau) * target + tau * online``."""
+        tau = self.soft_update_tau
+        for t, s in zip(state.target_model.parameters(), state.model.parameters()):
+            if self.target_update_method == "hard":
+                t.copy_(s)
+            else:
+                t.copy_((1.0 - tau) * t + tau * s)
+        return state

@@ -1,0 +1,98 @@
+"""The ported slice's configuration: prioritized-replay Nature DQN on
+AtariSim frames.
+
+It is ``bench.py``'s ``bench_dqn`` workload with the uniform ring swapped
+for proportional prioritized replay, as
+``examples/atari/train_dqn_ale.py --sim --prioritized`` builds it: 64 lanes
+of 84x84x4 uint8 frames, Nature CNN + linear head, linear-decay
+epsilon-greedy, DQN with a summed Huber loss and hard target syncs every
+10,000 transitions, optax-semantics RMSprop(2.5e-4, decay 0.95, eps 1e-2),
+a 100,000-slot uint8 PER ring read by adjacency and dequantized in the
+gather, one batch-32 update per 4 transitions after 2,000.
+"""
+
+from typing import Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from pfrl_tpu_torch import initializers
+from pfrl_tpu_torch.agents.dqn import DQNCore
+from pfrl_tpu_torch.envs.atari_sim import AtariSim
+from pfrl_tpu_torch.experiments.runner import OffPolicyRunner, RunnerConfig
+from pfrl_tpu_torch.explorers.epsilon_greedy import LinearDecayEpsilonGreedy
+from pfrl_tpu_torch.models.atari_cnn import LargeAtariCNN
+from pfrl_tpu_torch.optimizers.rmsprop import RMSprop
+from pfrl_tpu_torch.q_functions.state_q_functions import DiscreteActionValueHead
+from pfrl_tpu_torch.replay.prioritized import PrioritizedReplayBuffer
+from pfrl_tpu_torch.utils.batch_states import atari_phi
+
+
+class NatureQ(nn.Module):
+    """LargeAtariCNN -> Linear(512, n_actions) -> DiscreteActionValueHead,
+    the ``NatureQ`` that ``bench.py`` defines in flax. The head keeps flax
+    ``nn.Dense``'s default init: truncated LeCun normal, zero bias."""
+
+    def __init__(self, n_actions: int = 6, frame_shape: Tuple[int, int, int] = (84, 84, 4)):
+        super().__init__()
+        h, w, c = frame_shape
+        self.torso = LargeAtariCNN(n_input_channels=c, input_hw=(h, w))
+        self.head = nn.Linear(self.torso.dense.out_features, n_actions)
+        self.q = DiscreteActionValueHead()
+        self.reset_parameters()
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        self.torso.reset_parameters(generator)
+        initializers.truncated_lecun_normal_(self.head.weight, generator)
+        self.head.bias.zero_()
+
+    def flax_names(self) -> Dict[str, str]:
+        names = {f"torso.{k}": f"LargeAtariCNN_0/{v}" for k, v in self.torso.flax_names().items()}
+        names["head"] = "Dense_0"
+        return names
+
+    def forward(self, x: torch.Tensor):
+        return self.q(self.head(self.torso(x)))
+
+
+def make_per_dqn_runner(
+    num_envs: int = 64,
+    capacity: int = 100_000,
+    replay_start_size: int = 2_000,
+    update_interval: int = 4,
+    target_update_interval: int = 10_000,
+    minibatch_size: int = 32,
+    n_actions: int = 6,
+    frame_shape: Tuple[int, int, int] = (84, 84, 4),
+    device=None,
+) -> OffPolicyRunner:
+    """The slice at the given sizes (defaults: the full configuration) on
+    ``device`` (default: the CUDA device)."""
+    env = AtariSim(n_actions=n_actions, frame_shape=frame_shape, device=device)
+    core = DQNCore(
+        model=NatureQ(n_actions, frame_shape),
+        optimizer=RMSprop(2.5e-4, decay=0.95, eps=1e-2),
+        explorer=LinearDecayEpsilonGreedy(1.0, 0.1, 1_000_000, n_actions),
+        gamma=0.99,
+        batch_accumulator="sum",
+        phi=atari_phi,
+    )
+    buffer = PrioritizedReplayBuffer(
+        capacity,
+        alpha=0.6,
+        beta0=0.4,
+        gamma=0.99,
+        num_lanes=num_envs,
+        store_next_obs=False,
+        fused_dequant_scale=1.0 / 255.0,
+        device=env.device,
+    )
+    config = RunnerConfig(
+        num_envs=num_envs,
+        replay_start_size=replay_start_size,
+        update_interval=update_interval,
+        target_update_interval=target_update_interval,
+        minibatch_size=minibatch_size,
+    )
+    return OffPolicyRunner(env, core, buffer, config, device=env.device)

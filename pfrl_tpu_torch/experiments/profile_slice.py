@@ -1,0 +1,133 @@
+"""Where the slice's time goes on the card.
+
+    python -m pfrl_tpu_torch.experiments.profile_slice [--steps 8] [--out PATH]
+
+Runs the full-width slice (``make_per_dqn_runner()``: prioritized-replay
+Nature DQN, 64 lanes of 84x84x4 uint8 frames, 16 updates per scan step)
+past replay start on the CUDA device, then:
+
+1. times ``--steps`` scan steps as they run (host clock, synchronized);
+2. times the same number of steps again with each phase of the scan step
+   wrapped in a synchronizing host timer: act, env step, replay add, and
+   per update the PER sample (with the prefix-sample kernel inside it), the
+   gradient step and the priority feedback, and the target sync;
+3. records ``--steps`` more steps with ``torch.profiler``: kernels
+   launched per scan step, the device's busy time, and the kernels that
+   take the most of it. The busy share is taken against the unprofiled
+   time of step 1, since the profiler slows the host.
+
+Prints a summary and writes the record as JSON to ``--out``.
+"""
+
+import argparse
+import collections
+import json
+import time
+from pathlib import Path
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from pfrl_tpu_torch.experiments.atari_per_dqn import make_per_dqn_runner
+
+PHASES = (
+    ("core", "select_action", "act"),
+    ("env", "step", "env step"),
+    ("buffer", "add", "replay add"),
+    ("buffer", "sample", "PER sample"),
+    ("buffer", "_find_slots", "  of which prefix_sample + clamp"),
+    ("core", "update", "gradient step"),
+    ("buffer", "update_priorities", "priority feedback"),
+    ("core", "sync_target", "target sync"),
+)
+
+
+def _synced(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _wrap(acc, label, fn):
+    def timed(*args, **kwargs):
+        out, seconds = _synced(lambda: fn(*args, **kwargs))
+        acc[label] += seconds
+        return out
+
+    return timed
+
+
+def profile_slice(steps: int) -> dict:
+    runner = make_per_dqn_runner()
+    cfg = runner.config
+    state = runner.init(0)
+    warm = -(-cfg.replay_start_size // cfg.num_envs) + 2  # past replay start
+    state, _ = runner.run_chunk(state, warm)
+
+    (state, _), plain_s = _synced(lambda: runner.run_chunk(state, steps))
+
+    acc = collections.defaultdict(float)
+    owners = {"core": runner.core, "env": runner.env, "buffer": runner.buffer}
+    originals = []
+    for owner, attr, label in PHASES:
+        obj = owners[owner]
+        originals.append((obj, attr))
+        setattr(obj, attr, _wrap(acc, label, getattr(obj, attr)))
+    (state, _), phased_s = _synced(lambda: runner.run_chunk(state, steps))
+    for obj, attr in originals:
+        delattr(obj, attr)  # back to the class's method
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        (state, _), profiled_s = _synced(lambda: runner.run_chunk(state, steps))
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name = collections.defaultdict(lambda: [0.0, 0])
+    for e in kernels:
+        by_name[e.name][0] += e.time_range.elapsed_us()
+        by_name[e.name][1] += 1
+    busy_us = sum(v[0] for v in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
+
+    nested = {"  of which prefix_sample + clamp"}
+    accounted = sum(v for k, v in acc.items() if k not in nested)
+    per_step_ms = {k: v / steps * 1e3 for k, v in acc.items()}
+    per_step_ms["other (runner bookkeeping, timers)"] = (phased_s - accounted) / steps * 1e3
+    return {
+        "device": torch.cuda.get_device_name(0),
+        "steps": steps,
+        "updates_per_step": cfg.updates_per_step,
+        "scan_step_ms": plain_s / steps * 1e3,
+        "env_steps_per_s": steps * cfg.num_envs / plain_s,
+        "phase_ms_per_step_synchronized": per_step_ms,
+        "phased_scan_step_ms": phased_s / steps * 1e3,
+        "profiled_scan_step_ms": profiled_s / steps * 1e3,
+        "device_launches_per_step": len(kernels) / steps,
+        "device_busy_ms_per_step": busy_us / steps / 1e3,
+        "device_busy_share": busy_us / 1e6 / plain_s,
+        "top_device_ops": [
+            {"name": name, "ms_per_step": us / steps / 1e3, "launches_per_step": n / steps}
+            for name, (us, n) in top
+        ],
+    }
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--steps", type=int, default=8)
+    parser.add_argument("--out", default="chiprun_out/profile_slice.json")
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_slice: needs a CUDA device")
+    record = profile_slice(args.steps)
+    out = Path(args.out)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(record, indent=1))
+    print(json.dumps({k: v for k, v in record.items() if k != "top_device_ops"}, indent=1))
+    for op in record["top_device_ops"]:
+        print(f"{op['ms_per_step']:9.3f} ms/step {op['launches_per_step']:8.1f} launches/step  {op['name'][:90]}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,202 @@
+"""Off-policy training loop (counterpart of ``pfrl_tpu/experiments/runner.py``).
+
+The JAX runner compiles ``act -> env.step -> replay.add -> gated updates ->
+target sync`` into one program iterated with ``lax.scan``. Here a scan step
+is :meth:`OffPolicyRunner._one_step` and ``run_chunk`` is a Python loop over
+it. The step counter ``t`` lives on the host (it gates updates and target
+syncs, so the host needs it anyway); everything else stays on the device and
+no step waits for the device.
+
+:class:`RunnerState` is updated **in place**, the replay ring above all.
+
+Ported: the non-episodic, non-recurrent, single-device branches, with the
+sequential sample -> update -> priority-feedback loop of prioritized replay.
+Not ported yet: the uniform-replay presample branch, episodic and recurrent
+cores, meshes, ``JaxEvalLoop``.
+"""
+
+import dataclasses
+from typing import Any, Dict, Tuple
+
+import torch
+
+from pfrl_tpu_torch._device import check_same_device, resolve_device, use_full_fp32
+from pfrl_tpu_torch.envs.vector_env import VectorTorchEnv
+from pfrl_tpu_torch.replay.prioritized import PrioritizedReplayBuffer
+from pfrl_tpu_torch.replay.transition import Transition
+from pfrl_tpu_torch.utils.draws import Draws
+
+
+@dataclasses.dataclass
+class RunnerConfig:
+    """Cadences in env *transitions*: with L lanes each scan step advances
+    t by L, and ``L * n_times_update / update_interval`` gradient steps run
+    per scan step once ``t >= replay_start_size``."""
+
+    num_envs: int = 128
+    replay_start_size: int = 1000
+    update_interval: int = 1
+    n_times_update: int = 1
+    target_update_interval: int = 1000
+    minibatch_size: int = 32
+
+    @property
+    def updates_per_step(self) -> int:
+        per = self.num_envs * self.n_times_update / self.update_interval
+        if per != int(per) or per < 1:
+            raise ValueError(
+                f"num_envs*n_times_update ({self.num_envs}*{self.n_times_update}) "
+                f"must be a multiple of update_interval ({self.update_interval})"
+            )
+        return int(per)
+
+
+@dataclasses.dataclass
+class RunnerState:
+    env_states: Any
+    obs: torch.Tensor
+    train_state: Any
+    replay_state: Any
+    draws: Any                     # the JAX state's rng
+    t: int                         # env transitions so far
+    episode_return: torch.Tensor   # [L] running returns
+    recent_returns: torch.Tensor   # [window] ring of completed returns
+    recent_count: torch.Tensor     # int32 0-d
+
+
+class OffPolicyRunner:
+    """DQN-family off-policy training on one device."""
+
+    def __init__(
+        self,
+        env,
+        core,
+        buffer,
+        config: RunnerConfig,
+        return_window: int = 256,
+        device=None,
+    ):
+        self.device = check_same_device(
+            runner=resolve_device(device), env=env.device, buffer=buffer.device
+        )
+        if not isinstance(buffer, PrioritizedReplayBuffer):
+            raise NotImplementedError(
+                "only prioritized replay is ported; the uniform presample "
+                "branch is not"
+            )
+        if buffer.num_lanes != config.num_envs:
+            raise ValueError("buffer num_lanes must equal runner num_envs")
+        config.updates_per_step  # validates the cadence
+        self.env = VectorTorchEnv(env, config.num_envs)
+        self.core = core
+        self.buffer = buffer
+        self.config = config
+        self.return_window = return_window
+        if self.device.type == "cuda":
+            use_full_fp32()
+
+    # ----------------------------------------------------------------- init
+    def init(self, seed: int, draws=None) -> RunnerState:
+        """``draws`` replaces the default source, one ``torch.Generator`` on
+        the device seeded with ``seed``. The weights are drawn from a CPU
+        generator seeded with ``seed``."""
+        if draws is None:
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(seed)
+            draws = Draws(gen)
+        env_states, obs = self.env.reset(draws)
+        train_state = self.core.init(torch.Generator().manual_seed(seed), obs)
+        zeros = lambda dtype: torch.zeros((), dtype=dtype, device=self.device)  # noqa: E731
+        example = Transition(
+            obs=obs[0],
+            action=zeros(torch.int32),
+            reward=zeros(torch.float32),
+            next_obs=obs[0],
+            terminated=zeros(torch.bool),
+            done=zeros(torch.bool),
+        )
+        L = self.config.num_envs
+        return RunnerState(
+            env_states=env_states,
+            obs=obs,
+            train_state=train_state,
+            replay_state=self.buffer.init(example),
+            draws=draws,
+            t=0,
+            episode_return=torch.zeros(L, dtype=torch.float32, device=self.device),
+            recent_returns=torch.zeros(self.return_window, dtype=torch.float32, device=self.device),
+            recent_count=zeros(torch.int32),
+        )
+
+    # ----------------------------------------------------------------- step
+    def _one_step(self, state: RunnerState) -> Dict[str, torch.Tensor]:
+        cfg = self.config
+        L = cfg.num_envs
+        actions = self.core.select_action(state.train_state, state.draws, state.obs, state.t, True)
+        env_states, vec = self.env.step(state.draws, state.env_states, actions)
+        ts = vec.ts
+        self.buffer.add(
+            state.replay_state,
+            Transition(
+                obs=state.obs,
+                action=actions,
+                reward=ts.reward,
+                next_obs=ts.obs,
+                terminated=ts.terminated,
+                done=ts.done,
+            ),
+        )
+        t_prev, t = state.t, state.t + L
+
+        # Episode returns into the recent ring; unfinished lanes write into a
+        # spare last slot that is dropped.
+        ep_ret = state.episode_return + ts.reward
+        finished = ts.done
+        n_finished = torch.sum(finished, dtype=torch.int32)
+        lane_order = torch.argsort((~finished).to(torch.int8), stable=True)
+        pos = (state.recent_count + torch.arange(L, dtype=torch.int32, device=self.device)) % self.return_window
+        write_pos = torch.where(finished[lane_order], pos, self.return_window)
+        ring = torch.cat([state.recent_returns, state.recent_returns.new_zeros(1)])
+        ring[write_pos] = ep_ret[lane_order]
+
+        loss = self._maybe_update(state, t)
+
+        # Target sync on interval crossing (in env transitions).
+        if t // cfg.target_update_interval != t_prev // cfg.target_update_interval:
+            self.core.sync_target(state.train_state)
+
+        state.env_states = env_states
+        state.obs = vec.obs
+        state.t = t
+        state.episode_return = torch.where(finished, 0.0, ep_ret)
+        state.recent_returns = ring[: self.return_window]
+        state.recent_count = state.recent_count + n_finished
+        return {"reward_mean": torch.mean(ts.reward), "loss": loss, "done_count": n_finished}
+
+    def _maybe_update(self, state: RunnerState, t: int) -> torch.Tensor:
+        """``updates_per_step`` sequential sample -> update -> feedback
+        iterations once ``t >= replay_start_size``; returns the last loss."""
+        cfg = self.config
+        loss = torch.zeros((), dtype=torch.float32, device=self.device)
+        if t < cfg.replay_start_size:
+            return loss
+        for _ in range(cfg.updates_per_step):
+            batch, _ = self.buffer.sample(state.replay_state, state.draws, cfg.minibatch_size)
+            _, aux = self.core.update(state.train_state, batch)
+            self.buffer.update_priorities(state.replay_state, batch.indices, aux["errors"])
+            loss = aux["loss"]
+        return loss
+
+    # ---------------------------------------------------------------- chunks
+    def run_chunk(self, state: RunnerState, num_steps: int) -> Tuple[RunnerState, Dict[str, torch.Tensor]]:
+        """Run ``num_steps`` scan steps (``num_steps * L`` transitions);
+        metrics come back stacked, ``[num_steps]`` each, on the device."""
+        steps = [self._one_step(state) for _ in range(num_steps)]
+        metrics = {k: torch.stack([m[k] for m in steps]) for k in steps[0]}
+        return state, metrics
+
+    def recent_return_mean(self, state: RunnerState) -> float:
+        n = min(int(state.recent_count), self.return_window)
+        if n == 0:
+            return float("nan")
+        return float(state.recent_returns[:n].mean())

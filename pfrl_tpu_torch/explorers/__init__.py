@@ -1,0 +1,4 @@
+from pfrl_tpu_torch.explorers.epsilon_greedy import (  # noqa: F401
+    LinearDecayEpsilonGreedy,
+    epsilon_greedy,
+)

@@ -1,0 +1,84 @@
+"""Build the port's CUDA kernels at first use and load them with ctypes.
+
+Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
+for ``sm_90a`` into ``_build/lib<name>-<hash>.so`` beside this package (a
+directory git ignores), keyed by a hash of the source and the flags, so an
+edited source is rebuilt and an unchanged one is reused. Nothing is built
+on import.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Iterable
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+KERNELS = ("prefix_sample",)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
+        return os.path.join(CUDA_HOME, "bin", "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build the kernels")
+
+
+def library_path(name: str) -> Path:
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(names: Iterable[str] = KERNELS) -> Dict[str, Path]:
+    """Compile every missing library, all ``nvcc`` processes at once.
+
+    Writes each compiler's output (``-Xptxas -v``: registers, shared
+    memory, spills) to ``_build/<name>.log``; raises if any build fails.
+    """
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    paths = {n: library_path(n) for n in names}
+    jobs = {}
+    for name, path in paths.items():
+        if path.exists():
+            continue
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        jobs[name] = (tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        ))
+    failed = []
+    for name, (tmp, proc) in jobs.items():
+        log, _ = proc.communicate()
+        (BUILD_DIR / f"{name}.log").write_text(log)
+        if proc.returncode != 0:
+            failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+            continue
+        os.replace(tmp, paths[name])
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return paths
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The built library for ``csrc/<name>.cu``, building it if needed."""
+    lib = _loaded.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(str(build([name])[name]))
+        _loaded[name] = lib
+    return lib

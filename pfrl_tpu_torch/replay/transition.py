@@ -1,0 +1,39 @@
+"""Transitions (counterpart of ``pfrl_tpu/replay/transition.py``).
+
+Every field is one tensor with a leading batch dimension; the JAX package's
+pytree observations and ``extras`` leaves are not needed on the ported
+path and are left out.
+"""
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+
+@dataclasses.dataclass
+class Transition:
+    """One env step per lane."""
+
+    obs: torch.Tensor
+    action: torch.Tensor
+    reward: torch.Tensor
+    next_obs: Optional[torch.Tensor]
+    terminated: torch.Tensor  # true episode end: no bootstrap
+    done: torch.Tensor        # terminated | truncated: episode boundary
+
+
+@dataclasses.dataclass
+class TransitionBatch:
+    """An n-step-folded sample: ``discount`` is gamma**k for the k steps
+    folded, ``is_terminal`` kills the bootstrap, ``weight`` is the PER
+    importance weight, ``indices`` route priority feedback."""
+
+    obs: torch.Tensor
+    action: torch.Tensor
+    reward: torch.Tensor
+    next_obs: torch.Tensor
+    discount: torch.Tensor
+    is_terminal: torch.Tensor
+    weight: torch.Tensor
+    indices: torch.Tensor

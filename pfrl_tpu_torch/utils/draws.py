@@ -1,0 +1,29 @@
+"""Sources of random draws, the port's counterpart of JAX PRNG keys.
+
+JAX threads a key through every random function; the port passes a draw
+source instead: any object with ``uniform(n)`` and ``randint(high, n)``.
+:class:`Draws` takes every draw from one ``torch.Generator`` on the device.
+The parity tests pass a source of their own that hands the JAX package the
+very same numbers (the two frameworks' generators never agree).
+"""
+
+import torch
+
+
+class Draws:
+    """Uniform floats and integers from one ``torch.Generator``."""
+
+    def __init__(self, generator: torch.Generator):
+        self.generator = generator
+        self.device = generator.device
+
+    def uniform(self, n: int) -> torch.Tensor:
+        """float32 ``[n]`` in ``[0, 1)``."""
+        return torch.rand(n, generator=self.generator, device=self.device)
+
+    def randint(self, high: int, n: int) -> torch.Tensor:
+        """int32 ``[n]`` in ``[0, high)``."""
+        return torch.randint(
+            0, high, (n,), generator=self.generator, device=self.device,
+            dtype=torch.int32,
+        )
