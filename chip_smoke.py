@@ -11,7 +11,9 @@ result, without them. Its phases, each raising on failure:
 1. build every hand-written kernel from ``pfrl_tpu_torch/csrc``;
 2. hold each kernel against its plain PyTorch version on the card at the
    main path's shapes, and time the kernel, the plain version and a
-   one-call PyTorch yardstick;
+   one-call PyTorch yardstick. The prefix sampler is timed at the main
+   path's C = 131,072 leaves and at C = 1,048,576 (a 10**6-slot buffer),
+   B = 32, with the occupancy and shared memory of its one cluster;
 3. check the slice on a small input: the same run on the card (through the
    kernel) and on the CPU (through the plain version), from the same draws
    and weights, must agree;
@@ -27,6 +29,7 @@ goes to ``chiprun_out/chip_smoke.json``.
 
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -41,6 +44,8 @@ OUT_DIR = HERE / "chiprun_out"
 # H100 SXM, dense, from NVIDIA's data sheet: HBM rate and fp32 (non-tensor) rate.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+
+HOST_TURNS = 6  # host timings alternate direction this many times; median kept
 
 FULL_STEPS_WARM = 32    # t = 2,048 at the end: the first updates run
 FULL_STEPS_TIMED = 128  # t = 10,240 at the end: one target sync crossed
@@ -126,41 +131,100 @@ def _integer_case(rs, c, b, device):
     cs = np.cumsum(prio)
     total = float(cs[-1])
     targets = np.concatenate([
-        rs.uniform(0.0, total, b - 4), [cs[c // 3], 0.0, total, total + 3.0]
-    ]).astype(np.float32)
+        rs.uniform(0.0, total, max(b - 4, 0)), [cs[c // 3], 0.0, total, total + 3.0]
+    ])[:b].astype(np.float32)
     return torch.from_numpy(prio).to(device), torch.from_numpy(targets).to(device)
 
 
-def check_prefix_sample(device, tree_leaves: int, batch: int) -> dict:
-    """The kernel against ``prefix_sample_reference`` on the card.
+def _real_case(rs, c, live, b):
+    """``live`` real-valued priorities as the PER buffer holds them, then
+    zeros; stratified targets over the total."""
+    prio = np.zeros(c, np.float32)
+    prio[:live] = (rs.uniform(0.0, 1.0, live) + 0.01) ** 0.6
+    total = float(prio.astype(np.float64).sum())
+    targets = ((np.arange(b) + rs.uniform(size=b)) / b * total).astype(np.float32)
+    return prio, targets
+
+
+def _exact(got, want, what):
+    torch.cuda.synchronize()
+    err = int((got.long() - want.long()).abs().max())
+    if got.dtype != torch.int32 or got.shape != want.shape or err != 0:
+        raise AssertionError(f"prefix_sample {what}: max |kernel - plain| = {err}")
+    return err
+
+
+def _bound_ms(c, b):
+    # Least work: read the leaves and targets once, write the counts once;
+    # one add per leaf for the prefix and a binary search per target.
+    bytes_ms = (4 * c + 4 * b + 4 * b) / HBM_BYTES_PER_S * 1e3
+    ops_ms = (c + b * math.ceil(math.log2(c))) / FP32_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def time_shape(device, c, live, batch) -> dict:
+    """Device and host time of the kernel, of the plain version and of
+    cumsum + searchsorted at one shape, and the kernel's occupancy."""
+    from pfrl_tpu_torch.ops import prefix_sample as ps
+
+    prio, targets = _real_case(np.random.RandomState(c), c, live, batch)
+    p, t = torch.from_numpy(prio).to(device), torch.from_numpy(targets).to(device)
+    kernel_fn = lambda: ps.prefix_sample(p, t)  # noqa: E731
+    plain_fn = lambda: ps.prefix_sample_reference(p, t)  # noqa: E731
+    library_fn = lambda: torch.searchsorted(torch.cumsum(p, 0), t, right=True)  # noqa: E731
+    ms, plain_ms, library_ms = (time_ms(f) for f in (kernel_fn, plain_fn, library_fn))
+    # The host's speed drifts within a run: host times are taken in turns,
+    # forward and backward, and each is the median of its turns.
+    fns = [("kernel", kernel_fn), ("plain", plain_fn), ("library", library_fn)]
+    turns = {k: [] for k, _ in fns}
+    for r in range(HOST_TURNS):
+        for k, f in fns if r % 2 == 0 else fns[::-1]:
+            turns[k].append(host_us(f))
+    host = {k: statistics.median(v) for k, v in turns.items()}
+    bound_ms, bound_by = _bound_ms(c, batch)
+    return {
+        "shape": {"C": c, "B": batch, "live_leaves": live},
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "library_ms": library_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "host_us_per_call": host,
+        "host_us_turns": turns,
+        "cluster_info": ps.cluster_info(c),
+    }
+
+
+def check_prefix_sample(device, tree_leaves: int, batch: int, large_leaves: int) -> dict:
+    """The kernel against ``prefix_sample_reference`` on the card, then its
+    times at the main path's shape and at ``large_leaves``.
 
     Integer-valued priorities sum exactly in any order: the counts must be
     equal. Real-valued ones may differ only where a target lies within
     ``1e-6 * total`` of a cumulative boundary (float64 cumsum as judge).
     """
-    from pfrl_tpu_torch.ops.prefix_sample import prefix_sample, prefix_sample_reference
+    from pfrl_tpu_torch.ops import prefix_sample as ps
 
     rs = np.random.RandomState(0)
     max_err = 0
-    for c, b in ((tree_leaves, batch), (3 * 1024 + 517, 5), (200_001, 200)):
+    # (C, B, leading leaves cut off, so the view starts 4 bytes past 16).
+    cases = ((tree_leaves, batch, 0), (large_leaves, batch, 0), (3 * 1024 + 517, 5, 0),
+             (200_001, 200, 0), (5, 8, 0), (tree_leaves, 1000, 0), (tree_leaves + 3, batch, 1))
+    for c, b, cut in cases:
         p, t = _integer_case(rs, c, b, device)
-        got, want = prefix_sample(p, t), prefix_sample_reference(p, t)
-        torch.cuda.synchronize()
-        err = int((got.long() - want.long()).abs().max())
-        if got.dtype != torch.int32 or got.shape != (b,) or err != 0:
-            raise AssertionError(f"prefix_sample C={c} B={b}: max |kernel - plain| = {err}")
-        if (c, b) == (tree_leaves, batch):
+        p = p[cut:]
+        want = ps.prefix_sample_reference(p, t)
+        err = _exact(ps.prefix_sample(p, t), want, f"C={c - cut} B={b}")
+        if (c, b, cut) == (tree_leaves, batch, 0):
             max_err = err
 
     # The main path's leaves: 100,000 live real-valued priorities, then zeros.
-    prio = np.zeros(tree_leaves, np.float32)
-    prio[:100_000] = (rs.uniform(0.0, 1.0, 100_000) + 0.01) ** 0.6
+    prio, targets = _real_case(rs, tree_leaves, 100_000, batch)
     total = float(prio.astype(np.float64).sum())
-    targets = ((np.arange(batch) + rs.uniform(size=batch)) / batch * total).astype(np.float32)
     p = torch.from_numpy(prio).to(device)
     t = torch.from_numpy(targets).to(device)
-    got = prefix_sample(p, t).cpu().numpy()
-    want = prefix_sample_reference(p, t).cpu().numpy()
+    got = ps.prefix_sample(p, t).cpu().numpy()
+    want = ps.prefix_sample_reference(p, t).cpu().numpy()
     cs64 = np.cumsum(prio.astype(np.float64))
     real_mismatches = 0
     for g, w, tb in zip(got, want, targets):
@@ -170,32 +234,31 @@ def check_prefix_sample(device, tree_leaves: int, batch: int) -> dict:
             if np.max(np.abs(cs64[lo:hi] - tb)) > 1e-6 * total:
                 raise AssertionError(f"prefix_sample real-valued: {g} vs {w} at target {tb}")
 
-    kernel_fn = lambda: prefix_sample(p, t)  # noqa: E731
-    plain_fn = lambda: prefix_sample_reference(p, t)  # noqa: E731
-    library_fn = lambda: torch.searchsorted(torch.cumsum(p, 0), t, right=True)  # noqa: E731
-    ms, plain_ms, library_ms = (time_ms(f) for f in (kernel_fn, plain_fn, library_fn))
-    host = {k: host_us(f) for k, f in (("kernel", kernel_fn), ("plain", plain_fn), ("library", library_fn))}
-    # Least work: read the leaves and targets once, write the counts once;
-    # one add per leaf for the prefix and a binary search per target.
-    bytes_moved = 4 * tree_leaves + 4 * batch + 4 * batch
-    ops = tree_leaves + batch * math.ceil(math.log2(tree_leaves))
-    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / FP32_OPS_PER_S * 1e3
+    main = time_shape(device, tree_leaves, 100_000, batch)
+    large = time_shape(device, large_leaves, 1_000_000, batch)
     return {
         "name": "prefix_sample",
         "route": "cuda",
         "source": "pfrl_tpu_torch/csrc/prefix_sample.cu",
         "replaces": "pfrl_tpu/ops/pallas_kernels.py:162",
         "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": library_ms,
+        **main,
+        "cluster": ps.CLUSTER,
         "real_valued_mismatches_within_rounding": real_mismatches,
-        "host_us_per_call": host,
-        "shape": {"C": tree_leaves, "B": batch},
+        "large": large,
     }
+
+
+def print_shape(r: dict, card: str) -> None:
+    info = r["cluster_info"]
+    print(
+        f"prefix_sample C={r['shape']['C']} B={r['shape']['B']}: kernel {r['ms'] * 1e3:.2f} us, "
+        f"plain {r['plain_ms'] * 1e3:.2f} us, cumsum+searchsorted {r['library_ms'] * 1e3:.2f} us, "
+        f"bound {r['bound_ms'] * 1e3:.3f} us ({r['bound_by']}); one cluster of {info['cluster']} "
+        f"blocks, {info['max_active_clusters']} such at once, {info['smem_bytes_per_block']} bytes "
+        f"of shared memory per block; "
+        f"host us per call {json.dumps(r['host_us_per_call'])} on {card}"
+    )
 
 
 # --------------------------------------------------------------------- phase 3
@@ -332,14 +395,9 @@ def main() -> int:
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     record = {"card": card, "build": build_kernels()}
 
-    kernel = check_prefix_sample(device, tree_capacity(100_000), 32)
-    print(
-        f"prefix_sample C={kernel['shape']['C']} B={kernel['shape']['B']}: kernel "
-        f"{kernel['ms'] * 1e3:.2f} us, plain {kernel['plain_ms'] * 1e3:.2f} us, "
-        f"cumsum+searchsorted {kernel['library_ms'] * 1e3:.2f} us, bound "
-        f"{kernel['bound_ms'] * 1e3:.3f} us ({kernel['bound_by']}) on {card}; "
-        f"host us per call {json.dumps(kernel['host_us_per_call'])}"
-    )
+    kernel = check_prefix_sample(device, tree_capacity(100_000), 32, tree_capacity(1_000_000))
+    print_shape(kernel, card)
+    print_shape(kernel["large"], card)
     record["small_slice"] = check_small_slice(device)
     record["full_slice"] = run_full_slice(card)
     kernel["launches"] = record["full_slice"]["kernel_launches"]

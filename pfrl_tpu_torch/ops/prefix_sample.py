@@ -44,47 +44,77 @@ def _check(priorities: torch.Tensor, targets: torch.Tensor) -> None:
         raise ValueError(f"unsupported device {priorities.device}")
 
 
-def _library() -> ctypes.CDLL:
-    lib = cuda_build.load("prefix_sample")
-    if not getattr(lib, "_typed", False):
-        lib.prefix_sample_launch.argtypes = [
-            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ]
-        lib.prefix_sample_launch.restype = ctypes.c_int
-        lib.prefix_sample_chunk.argtypes = []
-        lib.prefix_sample_chunk.restype = ctypes.c_int
-        lib.prefix_sample_error_string.argtypes = [ctypes.c_int]
-        lib.prefix_sample_error_string.restype = ctypes.c_char_p
-        lib._typed = True
+CLUSTER = 16  # blocks in the kernel's one cluster: kCluster in csrc/prefix_sample.cu
+
+_lib = None
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Sets the argument and result types of a built kernel library."""
+    lib.prefix_sample_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+    ]
+    lib.prefix_sample_launch.restype = ctypes.c_int
+    lib.prefix_sample_max_active_clusters.argtypes = [ctypes.c_longlong, ctypes.POINTER(ctypes.c_int)]
+    lib.prefix_sample_max_active_clusters.restype = ctypes.c_int
+    lib.prefix_sample_smem_bytes.argtypes = [ctypes.c_longlong]
+    lib.prefix_sample_smem_bytes.restype = ctypes.c_longlong
+    lib.prefix_sample_error_string.argtypes = [ctypes.c_int]
+    lib.prefix_sample_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _library() -> ctypes.CDLL:
+    """The built kernel library, bound once."""
+    global _lib
+    if _lib is None:
+        _lib = _bind(cuda_build.load("prefix_sample"))
+    return _lib
+
+
+def _raise(lib: ctypes.CDLL, err: int, what: str) -> None:
+    msg = lib.prefix_sample_error_string(err).decode()
+    raise RuntimeError(f"prefix_sample {what} failed: {msg} ({err})")
+
+
+def cluster_info(n: int) -> dict:
+    """Dynamic shared memory per block and how many of the kernel's
+    clusters the current device can hold at once, for a call over ``n``
+    leaves."""
+    lib = _library()
+    count = ctypes.c_int(0)
+    err = lib.prefix_sample_max_active_clusters(n, ctypes.byref(count))
+    if err != 0:
+        _raise(lib, err, "occupancy query")
+    return {
+        "cluster": CLUSTER,
+        "smem_bytes_per_block": lib.prefix_sample_smem_bytes(n),
+        "max_active_clusters": count.value,
+    }
 
 
 def prefix_sample(priorities: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """int32 ``[B]`` counts; launches the CUDA kernel on CUDA tensors.
 
-    Takes float32 1-D contiguous ``priorities [C]`` and ``targets [B]`` on
-    one device, any C and B in [1, 2**31 - 1]. Raises on anything else.
-    Each kernel launch adds one to ``prefix_sample.launches``.
+    Takes float32 1-D contiguous ``priorities [C]`` (non-negative) and
+    ``targets [B]`` on one device, any C and B in [1, 2**31 - 1]. Raises on
+    anything else. Each call on CUDA tensors is one kernel launch and adds
+    one to ``prefix_sample.launches``.
     """
     _check(priorities, targets)
-    if priorities.device.type == "cpu":
-        return prefix_sample_reference(priorities, targets)
-    lib = _library()
-    n, b = priorities.shape[0], targets.shape[0]
-    chunk = lib.prefix_sample_chunk()
     device = priorities.device
-    totals = torch.empty((n + chunk - 1) // chunk, dtype=torch.float32, device=device)
+    if device.type == "cpu":
+        return prefix_sample_reference(priorities, targets)
+    lib = _lib or _library()
+    n, b = priorities.shape[0], targets.shape[0]
     out = torch.empty(b, dtype=torch.int32, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.prefix_sample_launch(
-            priorities.data_ptr(), n, targets.data_ptr(), b,
-            totals.data_ptr(), out.data_ptr(), stream,
-        )
+    err = lib.prefix_sample_launch(
+        priorities.data_ptr(), n, targets.data_ptr(), b, out.data_ptr(),
+        torch._C._cuda_getCurrentRawStream(device.index), device.index,
+    )
     if err != 0:
-        msg = lib.prefix_sample_error_string(err).decode()
-        raise RuntimeError(f"prefix_sample kernel launch failed: {msg} ({err})")
+        _raise(lib, err, "kernel launch")
     prefix_sample.launches += 1
     return out
 
