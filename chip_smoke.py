@@ -14,17 +14,29 @@ result, without them. Its phases, each raising on failure:
    one-call PyTorch yardstick. The prefix sampler is timed at the main
    path's C = 131,072 leaves and at C = 1,048,576 (a 10**6-slot buffer),
    B = 32, with the occupancy and shared memory of its one cluster;
-3. check the slice on a small input: the same run on the card (through the
-   kernel) and on the CPU (through the plain version), from the same draws
-   and weights, must agree;
-4. drive the slice at full width (prioritized-replay Nature DQN: 64 lanes
-   of 84x84x4 uint8 AtariSim frames, a 100,000-slot ring on the card,
-   batch-32 updates every 4 transitions from 2,000 on) past replay start
-   and through a target sync, counting the kernel's launches.
+3. check each configuration on a small input: the same run on the card
+   (through the kernel, where it samples by priority) and on the CPU
+   (through the plain version), from the same draws and weights, must
+   agree. The configurations are prioritized-replay Nature DQN, Rainbow,
+   and Nature DQN and Double DQN over the uniform ring;
+4. drive prioritized-replay Nature DQN at full width (64 lanes of 84x84x4
+   uint8 AtariSim frames, a 100,000-slot ring on the card, batch-32
+   updates every 4 transitions from 2,000 on) past replay start and
+   through a target sync, counting the kernel's launches;
+5. drive Rainbow at full width with the recipe's every width and cadence
+   (noisy distributional dueling network, 51 atoms, categorical Double
+   DQN, Adam, 3-step prioritized replay, updates from 20,000 on) for 500
+   scan steps, through the target sync at 32,000, counting the kernel's
+   launches, then its greedy evaluation loop (5 lanes, 500 steps);
+6. drive Nature DQN and Double DQN over the uniform ring at full width for
+   64 scan steps past replay start; this path launches no kernel.
 
-The last lines of its output are the kernels' JSON line, the card's name
-and power limit, and ``{"ok": true, "device": {...}}``. The full record
-goes to ``chiprun_out/chip_smoke.json``.
+The kernels' launch counts are set to 0 just before each full-width path
+and read just after it; the kernels' JSON line gives their sum over the
+paths, the record the count of each. The last lines of the output are the
+kernels' JSON line, the card's name and power limit, and
+``{"ok": true, "device": {...}}``. The full record goes to
+``chiprun_out/chip_smoke.json``.
 """
 
 import json
@@ -49,6 +61,10 @@ HOST_TURNS = 6  # host timings alternate direction this many times; median kept
 
 FULL_STEPS_WARM = 32    # t = 2,048 at the end: the first updates run
 FULL_STEPS_TIMED = 128  # t = 10,240 at the end: one target sync crossed
+
+RAINBOW_STEPS = 500     # t = 32,000 at the end: the target sync on the last step
+RAINBOW_STEPS_WARM = 4  # the first scan steps with updates, before the timed ones
+UNIFORM_STEPS_TIMED = 64
 
 
 def card_line() -> str:
@@ -104,6 +120,14 @@ class SeededDraws:
 
     def randint(self, high: int, n: int) -> torch.Tensor:
         return torch.from_numpy(self.rs.randint(0, high, n).astype(np.int32)).to(self.device)
+
+    def normal(self, n: int) -> torch.Tensor:
+        return torch.from_numpy(self.rs.standard_normal(n).astype(np.float32)).to(self.device)
+
+    def randint_below(self, high: torch.Tensor, n: int) -> torch.Tensor:
+        """``high`` is a 0-d tensor on the device and stays there."""
+        bits = torch.from_numpy(self.rs.randint(0, 1 << 62, n, dtype=np.int64)).to(self.device)
+        return (bits % high).to(torch.int32)
 
 
 # --------------------------------------------------------------------- phase 1
@@ -262,49 +286,105 @@ def print_shape(r: dict, card: str) -> None:
 
 
 # --------------------------------------------------------------------- phase 3
-def check_small_slice(device) -> dict:
-    """A 4-lane, 20-step run of the slice on the card and on the CPU."""
-    from pfrl_tpu_torch.experiments.atari_per_dqn import make_per_dqn_runner
+def _small_configs() -> dict:
+    """name -> (function making a 4-lane runner on a device, scan steps, kernel
+    launches expected on the card). Updates start at 32 transitions and
+    the target syncs at 48."""
+    from pfrl_tpu_torch.experiments.atari_per_dqn import make_dqn_runner
+    from pfrl_tpu_torch.experiments.atari_rainbow import make_rainbow_runner
+
+    small = dict(num_envs=4, replay_start_size=32, target_update_interval=48, minibatch_size=8)
+    # The uniform runs take 2 updates per scan step from a ring that wraps,
+    # and stop at 17 scan steps: from the 18th on, DQN's losses move by 1e-3
+    # under a 1e-7 change of the weights (the target's max switches actions).
+    uniform = dict(capacity=48, update_interval=2, **small)
+    return {
+        "per-dqn": (lambda dev: make_dqn_runner(prioritized=True, capacity=8196, device=dev, **small), 20, 13),
+        "rainbow": (lambda dev: make_rainbow_runner(capacity=8196, steps=400, device=dev, **small), 20, 13),
+        "dqn": (lambda dev: make_dqn_runner(device=dev, **uniform), 17, 0),
+        "double-dqn": (lambda dev: make_dqn_runner(double=True, device=dev, **uniform), 17, 0),
+    }
+
+
+def check_small_slice(name: str, build, steps: int, expect_launches: int, device) -> dict:
+    """A 4-lane run of one configuration on the card and on the CPU."""
     from pfrl_tpu_torch.ops.prefix_sample import prefix_sample
 
     def run(dev):
-        runner = make_per_dqn_runner(
-            num_envs=4, capacity=8196, replay_start_size=32,
-            target_update_interval=48, minibatch_size=8, device=dev,
-        )
+        runner = build(dev)
         state = runner.init(0, draws=SeededDraws(0, dev))
-        state, metrics = runner.run_chunk(state, 20)
-        return state, metrics
+        target0 = [p.detach().clone() for p in state.train_state.target_model.parameters()]
+        state, metrics = runner.run_chunk(state, steps)
+        synced = any(
+            not torch.equal(a, b) for a, b in zip(target0, state.train_state.target_model.parameters())
+        )
+        return runner, state, metrics, synced
 
     before = prefix_sample.launches
-    gpu, gpu_m = run(device)
+    runner, gpu, gpu_m, gpu_synced = run(device)
     torch.cuda.synchronize()
     launches = prefix_sample.launches - before
-    cpu, cpu_m = run("cpu")
-    if launches != gpu.train_state.n_updates or launches != 13:
-        raise AssertionError(f"small slice: {launches} kernel launches, {gpu.train_state.n_updates} updates")
-    if gpu.t != cpu.t or int(gpu.replay_state.cursor) != int(cpu.replay_state.cursor):
-        raise AssertionError("small slice: step counters differ")
-    if not torch.equal(gpu.replay_state.base.storage["obs"].cpu(), cpu.replay_state.base.storage["obs"]):
-        raise AssertionError("small slice: replay rings differ")
+    _, cpu, cpu_m, cpu_synced = run("cpu")
+    updates = runner.config.updates_per_step * sum(
+        1 for k in range(1, steps + 1) if k * runner.config.num_envs >= runner.config.replay_start_size
+    )
+    if launches != expect_launches or gpu.train_state.n_updates != updates:
+        raise AssertionError(
+            f"small {name}: {launches} kernel launches, {gpu.train_state.n_updates} updates, "
+            f"{expect_launches} and {updates} expected"
+        )
+    if not (gpu_synced and cpu_synced):
+        raise AssertionError(f"small {name}: no target sync")
+    ring = lambda s: getattr(s.replay_state, "base", s.replay_state)  # noqa: E731
+    if gpu.t != cpu.t or int(ring(gpu).cursor) != int(ring(cpu).cursor):
+        raise AssertionError(f"small {name}: step counters differ")
+    for leaf in ("obs", "action"):
+        if not torch.equal(ring(gpu).storage[leaf].cpu(), ring(cpu).storage[leaf]):
+            raise AssertionError(f"small {name}: replay rings differ in {leaf}")
     diffs = {}
 
-    def close(name, a, b, rtol, atol):
+    def close(what, a, b, rtol, atol):
         a, b = a.detach().cpu().double(), b.detach().cpu().double()
-        diffs[name] = float((a - b).abs().max())
+        diffs[what] = max(diffs.get(what, 0.0), float((a - b).abs().max()))
         if not torch.allclose(a, b, rtol=rtol, atol=atol):
-            raise AssertionError(f"small slice: {name} differs by {diffs[name]}")
+            raise AssertionError(f"small {name}: {what} differs by {diffs[what]}")
 
     # fp32 on both sides (no TF32); convolutions reduce in other orders.
     close("loss", gpu_m["loss"], cpu_m["loss"], 1e-3, 1e-5)
-    close("tree", gpu.replay_state.tree, cpu.replay_state.tree, 1e-4, 1e-5)
-    for (name, a), b in zip(gpu.train_state.model.named_parameters(), cpu.train_state.model.parameters()):
-        close(name, a, b, 1e-4, 1e-6)
-    print(f"small slice: card vs CPU agree, largest differences {json.dumps(diffs)}")
-    return {"kernel_launches": launches, "max_abs_diff": diffs}
+    if not runner.buffer.iid_samples:
+        close("tree", gpu.replay_state.tree, cpu.replay_state.tree, 1e-4, 1e-5)
+    for which in ("model", "target_model"):
+        pairs = zip(getattr(gpu.train_state, which).parameters(), getattr(cpu.train_state, which).parameters())
+        for a, b in pairs:
+            close(f"{which} parameters", a, b, 1e-4, 1e-6)
+    print(f"small {name}: card vs CPU agree over {steps} scan steps, {updates} updates, "
+          f"{launches} kernel launches; largest differences {json.dumps(diffs)}")
+    return {"steps": steps, "updates": updates, "kernel_launches": launches, "max_abs_diff": diffs}
 
 
 # --------------------------------------------------------------------- phase 4
+def _updates_in(cfg, first_step: int, last_step: int) -> int:
+    """Gradient steps the runner takes in scan steps first_step..last_step."""
+    return sum(
+        cfg.updates_per_step for k in range(first_step, last_step + 1)
+        if k * cfg.num_envs >= cfg.replay_start_size
+    )
+
+
+def _expected_beta(buffer, samples: int) -> float:
+    """The float32 additions the buffer makes, one per sample."""
+    beta, add = np.float32(buffer.beta0), np.float32(buffer.beta_add)
+    for _ in range(samples):
+        beta = min(np.float32(beta + add), np.float32(1.0))
+    return float(beta)
+
+
+def _raise_on_failed(path: str, checks: dict) -> None:
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"{path}: failed checks {failed}")
+
+
 def run_full_slice(card: str) -> dict:
     from pfrl_tpu_torch.experiments.atari_per_dqn import make_per_dqn_runner
     from pfrl_tpu_torch.ops.prefix_sample import prefix_sample
@@ -327,13 +407,8 @@ def run_full_slice(card: str) -> dict:
     launches = prefix_sample.launches
 
     steps = FULL_STEPS_WARM + FULL_STEPS_TIMED
-    samples = sum(
-        cfg.updates_per_step for k in range(1, steps + 1) if k * cfg.num_envs >= cfg.replay_start_size
-    )
-    timed_updates = sum(
-        cfg.updates_per_step for k in range(FULL_STEPS_WARM + 1, steps + 1)
-        if k * cfg.num_envs >= cfg.replay_start_size
-    )
+    samples = _updates_in(cfg, 1, steps)
+    timed_updates = _updates_in(cfg, FULL_STEPS_WARM + 1, steps)
     loss = torch.cat([warm["loss"], timed["loss"]])
     leaves = state.replay_state.tree[runner.buffer.tree_capacity:][: runner.buffer.capacity]
     distinct = int(torch.unique(leaves[leaves > 0]).numel())
@@ -341,7 +416,7 @@ def run_full_slice(card: str) -> dict:
     synced = any(not torch.equal(a, b) for a, b in zip(target0, state.train_state.target_model.parameters()))
     crossed = state.t // cfg.target_update_interval > 0
 
-    checks = {
+    _raise_on_failed("full slice", {
         "t advanced": state.t == steps * cfg.num_envs,
         "loss finite": bool(torch.isfinite(loss).all()) and float(loss[-1]) > 0,
         "kernel launches == PER samples": launches == samples == state.train_state.n_updates,
@@ -350,10 +425,7 @@ def run_full_slice(card: str) -> dict:
             beta, min(1.0, beta0 + samples * runner.buffer.beta_add), rel_tol=1e-4
         ),
         "target synced on crossing": synced == crossed,
-    }
-    failed = [k for k, ok in checks.items() if not ok]
-    if failed:
-        raise AssertionError(f"full slice: failed checks {failed}")
+    })
     timed_s = t2 - t1
     result = {
         "steps": steps,
@@ -379,6 +451,172 @@ def run_full_slice(card: str) -> dict:
     return result
 
 
+# --------------------------------------------------------------------- phase 5
+def run_full_rainbow(card: str) -> dict:
+    """Rainbow with the recipe's every value, cut to 500 scan steps: no
+    updates below 20,000 transitions, then 16 per scan step, and the
+    target sync when the last step reaches 32,000."""
+    from pfrl_tpu_torch.envs.atari_sim import AtariSim
+    from pfrl_tpu_torch.experiments.atari_rainbow import make_rainbow_runner
+    from pfrl_tpu_torch.experiments.runner import EvalLoop
+    from pfrl_tpu_torch.ops.prefix_sample import prefix_sample
+
+    runner = make_rainbow_runner()  # the CUDA device, the recipe's sizes
+    cfg, buffer, core = runner.config, runner.buffer, runner.core
+    state = runner.init(0)
+    torch.cuda.synchronize()
+    train = state.train_state
+    target0 = [p.detach().clone() for p in train.target_model.parameters()]
+    collect_steps = (cfg.replay_start_size - 1) // cfg.num_envs  # the last step with t < 20,000
+    warm_end = collect_steps + RAINBOW_STEPS_WARM
+
+    prefix_sample.launches = 0
+    t0 = time.perf_counter()
+    state, collect = runner.run_chunk(state, collect_steps)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    launches_collecting = prefix_sample.launches
+    state, warm = runner.run_chunk(state, RAINBOW_STEPS_WARM)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    state, timed = runner.run_chunk(state, RAINBOW_STEPS - warm_end)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    launches = prefix_sample.launches
+
+    samples = _updates_in(cfg, 1, RAINBOW_STEPS)
+    timed_updates = _updates_in(cfg, warm_end + 1, RAINBOW_STEPS)
+    loss = torch.cat([warm["loss"], timed["loss"]])
+    rs = state.replay_state
+    leaves = rs.tree[buffer.tree_capacity:][: buffer.capacity]
+    # Every slot enters at the running maximum (1 until the first feedback).
+    fed_back = int(((leaves > 0) & (leaves != 1.0)).sum())
+    beta = float(rs.beta)
+
+    with torch.no_grad():
+        av1 = core.action_value(train.model, state.obs, state.draws)
+        av2 = core.action_value(train.model, state.obs, state.draws)
+    row_sums = av1.q_dist.sum(-1)
+    evaluator = EvalLoop(AtariSim(n_actions=6), core, num_episodes=5, max_steps=500)
+    t4 = time.perf_counter()
+    returns = evaluator.evaluate(train, state.draws)
+    t5 = time.perf_counter()
+
+    _raise_on_failed("rainbow", {
+        "t advanced": state.t == RAINBOW_STEPS * cfg.num_envs == cfg.target_update_interval,
+        "no update before replay start": launches_collecting == 0 and not bool(collect["loss"].any()),
+        "loss finite and positive": bool(torch.isfinite(loss).all()) and bool((loss > 0).all()),
+        "kernel launches == PER samples == n_updates": launches == samples == train.n_updates > 0,
+        "priorities changed": fed_back > 0 and float(rs.max_priority) > 1.0,
+        "beta annealed by beta_add per sample": beta > buffer.beta0
+        and abs(beta - _expected_beta(buffer, samples)) <= 1e-7,
+        "Adam's count == n_updates": train.opt_state.count == train.n_updates,
+        "q_dist rows sum to 1": av1.q_dist.shape == (cfg.num_envs, 6, 51)
+        and float((row_sums - 1.0).abs().max()) <= 1e-5,
+        "noise differs between two act steps": not torch.equal(av1.q_dist, av2.q_dist),
+        "target synced on the last step": all(
+            torch.equal(a, b) for a, b in zip(train.model.parameters(), train.target_model.parameters())
+        ) and any(not torch.equal(a, b) for a, b in zip(target0, train.target_model.parameters())),
+        "5 finite evaluation returns": returns.shape == (5,) and bool(np.isfinite(returns).all()),
+    })
+    timed_steps, timed_s = RAINBOW_STEPS - warm_end, t3 - t2
+    result = {
+        "steps": RAINBOW_STEPS,
+        "t": state.t,
+        "kernel_launches": launches,
+        "per_samples": samples,
+        "launches_per_scan_step": cfg.updates_per_step,
+        "env_steps_per_s": timed_steps * cfg.num_envs / timed_s,
+        "updates_per_s": timed_updates / timed_s,
+        "collect_only_env_steps_per_s": collect_steps * cfg.num_envs / (t1 - t0),
+        "collect_chunk_s": t1 - t0,
+        "warm_chunk_s": t2 - t1,
+        "timed_chunk_s": timed_s,
+        "timed_scan_steps": timed_steps,
+        "eval_s": t5 - t4,
+        "eval_returns": [float(r) for r in returns],
+        "last_loss": float(loss[-1]),
+        "beta": beta,
+        "slots_off_the_initial_priority": fed_back,
+        "max_priority": float(rs.max_priority),
+        "adam_count": train.opt_state.count,
+        "q_dist_max_row_sum_error": float((row_sums - 1.0).abs().max()),
+        "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+    }
+    print(
+        f"rainbow: env-steps/s {result['env_steps_per_s']:.1f} updates/s "
+        f"{result['updates_per_s']:.1f} over {timed_steps} scan steps with updates; "
+        f"{result['collect_only_env_steps_per_s']:.1f} env-steps/s over the {collect_steps} before "
+        f"replay start; evaluation {result['eval_s']:.1f} s, returns {result['eval_returns']} "
+        f"(64 lanes, fp32, no TF32) on {card}"
+    )
+    return result
+
+
+# --------------------------------------------------------------------- phase 6
+def run_full_uniform(card: str, double: bool) -> dict:
+    """Nature DQN or Double DQN over the uniform ring at full width: one
+    id draw per scan step, no kernel."""
+    from pfrl_tpu_torch.experiments.atari_per_dqn import make_dqn_runner
+    from pfrl_tpu_torch.ops.prefix_sample import prefix_sample
+    from pfrl_tpu_torch.utils.draws import Draws
+
+    class CountingDraws(Draws):
+        id_draws, ids_drawn = 0, 0
+
+        def randint_below(self, high, n):
+            self.id_draws += 1
+            self.ids_drawn += n
+            return super().randint_below(high, n)
+
+    name = "double-dqn" if double else "dqn"
+    runner = make_dqn_runner(double=double)  # the CUDA device, at full width
+    cfg = runner.config
+    generator = torch.Generator(device=runner.device)
+    generator.manual_seed(0)
+    draws = CountingDraws(generator)
+    state = runner.init(0, draws=draws)
+    torch.cuda.synchronize()
+
+    prefix_sample.launches = 0
+    state, warm = runner.run_chunk(state, FULL_STEPS_WARM)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    state, timed = runner.run_chunk(state, UNIFORM_STEPS_TIMED)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+
+    steps = FULL_STEPS_WARM + UNIFORM_STEPS_TIMED
+    updates = _updates_in(cfg, 1, steps)
+    update_steps = updates // cfg.updates_per_step
+    loss = torch.cat([warm["loss"], timed["loss"]])
+    _raise_on_failed(name, {
+        "t advanced": state.t == steps * cfg.num_envs,
+        "loss finite": bool(torch.isfinite(loss).all()) and float(loss[-1]) > 0,
+        "n_updates as expected": state.train_state.n_updates == updates > 0,
+        "one id draw per scan step": draws.id_draws == update_steps
+        and draws.ids_drawn == updates * cfg.minibatch_size,
+        "no kernel on this path": prefix_sample.launches == 0,
+    })
+    timed_s = t2 - t1
+    result = {
+        "steps": steps,
+        "t": state.t,
+        "n_updates": updates,
+        "id_draws": draws.id_draws,
+        "env_steps_per_s": UNIFORM_STEPS_TIMED * cfg.num_envs / timed_s,
+        "updates_per_s": _updates_in(cfg, FULL_STEPS_WARM + 1, steps) / timed_s,
+        "timed_chunk_s": timed_s,
+        "last_loss": float(loss[-1]),
+    }
+    print(
+        f"{name} (uniform ring): env-steps/s {result['env_steps_per_s']:.1f} updates/s "
+        f"{result['updates_per_s']:.1f} over {UNIFORM_STEPS_TIMED} scan steps "
+        f"(64 lanes, fp32, no TF32) on {card}"
+    )
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -393,15 +631,41 @@ def main() -> int:
     device = resolve_device()
     card = card_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    record = {"card": card, "build": build_kernels()}
+    record = {"card": card, "phase_seconds": {}}
 
-    kernel = check_prefix_sample(device, tree_capacity(100_000), 32, tree_capacity(1_000_000))
+    def phase(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()  # the next path allocates a ring of its own
+        record["phase_seconds"][name] = time.perf_counter() - t0
+        print(f"phase {name}: {record['phase_seconds'][name]:.1f} s")
+        return out
+
+    record["build"] = phase("build", build_kernels)
+    kernel = phase(
+        "kernel checks", check_prefix_sample, device, tree_capacity(100_000), 32, tree_capacity(1_000_000)
+    )
     print_shape(kernel, card)
     print_shape(kernel["large"], card)
-    record["small_slice"] = check_small_slice(device)
-    record["full_slice"] = run_full_slice(card)
-    kernel["launches"] = record["full_slice"]["kernel_launches"]
+    record["small_slices"] = {
+        name: phase(f"small {name}", check_small_slice, name, build, steps, launches, device)
+        for name, (build, steps, launches) in _small_configs().items()
+    }
+    record["full_slice"] = phase("full per-dqn", run_full_slice, card)
+    record["full_rainbow"] = phase("full rainbow", run_full_rainbow, card)
+    record["full_uniform"] = {
+        name: phase(f"full {name}", run_full_uniform, card, double)
+        for name, double in (("dqn", False), ("double-dqn", True))
+    }
+    # Counted over each path that samples by priority, from 0 at its start.
+    kernel["launches_by_path"] = {
+        "per-dqn": record["full_slice"]["kernel_launches"],
+        "rainbow": record["full_rainbow"]["kernel_launches"],
+    }
+    kernel["launches"] = sum(kernel["launches_by_path"].values())
     record["kernels"] = [kernel]
+    print(f"prefix_sample launches by full-width path: {json.dumps(kernel['launches_by_path'])}")
 
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1))

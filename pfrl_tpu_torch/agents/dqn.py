@@ -2,27 +2,37 @@
 
 The JAX core is a set of pure functions over an immutable ``DQNState`` of
 parameter trees. Here :class:`DQNState` holds the online and target
-``nn.Module``s and the optimizer's second moments, and ``update`` and
-``sync_target`` change them **in place** (and return the same state). The
-host shell ``DQN`` is not ported yet.
+``nn.Module``s and the optimizer's state, and ``update`` and ``sync_target``
+change them **in place** (and return the same state).
+
+Where the JAX core threads a PRNG key (``rngs={"noise": rng}``), the port
+hands the model a draw source (:mod:`pfrl_tpu_torch.utils.draws`): noisy
+layers draw from it on every forward, models without noise ignore it.
+
+Ported subclasses: ``double_dqn.DoubleDQNCore``,
+``categorical_dqn.CategoricalDQNCore`` and ``CategoricalDoubleDQNCore``.
+Not ported yet: the host shell ``DQN`` (``batch_act`` / ``batch_observe``),
+``compute_dtype`` (bf16 compute over fp32 masters), and the AL, PAL, DPP,
+IQN and recurrent cores.
 """
 
 import copy
 import dataclasses
-from typing import Callable, List
+from typing import Any, Callable
 
 import torch
 from torch import nn
 
 from pfrl_tpu_torch.ops.value_loss import compute_weighted_value_loss
 from pfrl_tpu_torch.replay.transition import TransitionBatch
+from pfrl_tpu_torch.utils.draws import Draws
 
 
 @dataclasses.dataclass
 class DQNState:
     model: nn.Module         # the JAX DQNState.params
     target_model: nn.Module  # ... .target_params
-    opt_state: List[torch.Tensor]  # RMSprop nu, one per model parameter
+    opt_state: Any           # whatever the optimizer's ``init`` returns
     n_updates: int = 0
 
 
@@ -66,8 +76,12 @@ class DQNCore:
         model = copy.deepcopy(self.model)
         model.reset_parameters(generator)
         model.to(example_obs.device)
+        # Shape check; a noisy model draws noise for it from a source of its
+        # own, as the JAX core's init does, never from the run's stream.
+        noise = torch.Generator(device=example_obs.device)
+        noise.manual_seed(generator.initial_seed())
         with torch.no_grad():
-            self.action_value(model, example_obs)  # shape check
+            self.action_value(model, example_obs, Draws(noise))
         return self.state_from_model(model)
 
     def state_from_model(self, model: nn.Module) -> DQNState:
@@ -81,28 +95,37 @@ class DQNCore:
         )
 
     # ------------------------------------------------------------------- act
-    def action_value(self, model: nn.Module, obs: torch.Tensor):
-        return model(self.phi(obs))
+    def action_value(self, model: nn.Module, obs: torch.Tensor, draws=None):
+        return model(self.phi(obs), draws)
 
     @torch.no_grad()
     def select_action(self, state: DQNState, draws, obs, t: int, training: bool):
-        greedy = self.action_value(state.model, obs).greedy_actions()
+        """The model's noise is drawn first, then the explorer's draws; a
+        noisy model draws its noise when evaluating too, as in the JAX core."""
+        av = self.action_value(state.model, obs, draws)
+        greedy = av.greedy_actions()
         if not training:
             return greedy
-        return self.explorer.select_action(draws, t, greedy)
+        return self.explorer.select_action(draws, t, greedy, av)
 
     # ---------------------------------------------------------------- update
-    def compute_y_and_t(self, model, target_model, batch: TransitionBatch):
-        y = self.action_value(model, batch.obs).evaluate_actions(batch.action)
+    @staticmethod
+    def bootstrap(batch: TransitionBatch, next_q: torch.Tensor) -> torch.Tensor:
+        return batch.reward + batch.discount * (
+            1.0 - batch.is_terminal.to(torch.float32)
+        ) * next_q
+
+    def compute_y_and_t(self, model, target_model, batch: TransitionBatch, draws=None):
+        """Forwards in the JAX core's order: online on obs, target on
+        next_obs."""
+        y = self.action_value(model, batch.obs, draws).evaluate_actions(batch.action)
         with torch.no_grad():
-            max_next_q = self.action_value(target_model, batch.next_obs).max()
-            t = batch.reward + batch.discount * (
-                1.0 - batch.is_terminal.to(torch.float32)
-            ) * max_next_q
+            max_next_q = self.action_value(target_model, batch.next_obs, draws).max()
+            t = self.bootstrap(batch, max_next_q)
         return y, t
 
-    def loss_and_errors(self, model, target_model, batch: TransitionBatch):
-        y, t = self.compute_y_and_t(model, target_model, batch)
+    def loss_and_errors(self, model, target_model, batch: TransitionBatch, draws=None):
+        y, t = self.compute_y_and_t(model, target_model, batch, draws)
         loss = compute_weighted_value_loss(
             y,
             t,
@@ -112,11 +135,14 @@ class DQNCore:
         )
         return loss, (torch.abs(y - t).detach(), y.detach().mean())
 
-    def update(self, state: DQNState, batch: TransitionBatch):
+    def update(self, state: DQNState, batch: TransitionBatch, draws=None):
         """One gradient step, in place. Returns ``(state, aux)``; ``aux``
-        carries the per-sample ``errors`` for PER feedback."""
+        carries the per-sample ``errors`` for PER feedback. ``draws`` is the
+        noise source of a noisy model."""
         params = list(state.model.parameters())
-        loss, (errors, q_mean) = self.loss_and_errors(state.model, state.target_model, batch)
+        loss, (errors, q_mean) = self.loss_and_errors(
+            state.model, state.target_model, batch, draws
+        )
         grads = torch.autograd.grad(loss, params)
         self.optimizer.update(params, grads, state.opt_state)
         state.n_updates += 1

@@ -1,4 +1,5 @@
 from pfrl_tpu_torch.experiments.runner import (  # noqa: F401
+    EvalLoop,
     OffPolicyRunner,
     RunnerConfig,
     RunnerState,

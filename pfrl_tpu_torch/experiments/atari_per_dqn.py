@@ -1,14 +1,16 @@
-"""The ported slice's configuration: prioritized-replay Nature DQN on
-AtariSim frames.
+"""The Nature-DQN configurations on AtariSim frames.
 
-It is ``bench.py``'s ``bench_dqn`` workload with the uniform ring swapped
-for proportional prioritized replay, as
-``examples/atari/train_dqn_ale.py --sim --prioritized`` builds it: 64 lanes
+:func:`make_dqn_runner` is ``bench.py``'s ``bench_dqn`` workload: 64 lanes
 of 84x84x4 uint8 frames, Nature CNN + linear head, linear-decay
 epsilon-greedy, DQN with a summed Huber loss and hard target syncs every
 10,000 transitions, optax-semantics RMSprop(2.5e-4, decay 0.95, eps 1e-2),
-a 100,000-slot uint8 PER ring read by adjacency and dequantized in the
-gather, one batch-32 update per 4 transitions after 2,000.
+a 100,000-slot uint8 ring read by adjacency and dequantized in the gather,
+one batch-32 update per 4 transitions after 2,000. Its ``double`` and
+``prioritized`` switches are those of
+``examples/atari/train_dqn_ale.py --sim [--double] [--prioritized]``: the
+Double-DQN target, and proportional prioritized replay (alpha 0.6, beta
+0.4) in place of the uniform ring. :func:`make_per_dqn_runner` is the
+prioritized one, the first slice that was ported.
 """
 
 from typing import Dict, Optional, Tuple
@@ -17,6 +19,7 @@ import torch
 from torch import nn
 
 from pfrl_tpu_torch import initializers
+from pfrl_tpu_torch.agents.double_dqn import DoubleDQNCore
 from pfrl_tpu_torch.agents.dqn import DQNCore
 from pfrl_tpu_torch.envs.atari_sim import AtariSim
 from pfrl_tpu_torch.experiments.runner import OffPolicyRunner, RunnerConfig
@@ -25,6 +28,7 @@ from pfrl_tpu_torch.models.atari_cnn import LargeAtariCNN
 from pfrl_tpu_torch.optimizers.rmsprop import RMSprop
 from pfrl_tpu_torch.q_functions.state_q_functions import DiscreteActionValueHead
 from pfrl_tpu_torch.replay.prioritized import PrioritizedReplayBuffer
+from pfrl_tpu_torch.replay.uniform import ReplayBuffer
 from pfrl_tpu_torch.utils.batch_states import atari_phi
 
 
@@ -52,11 +56,11 @@ class NatureQ(nn.Module):
         names["head"] = "Dense_0"
         return names
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, draws=None):
         return self.q(self.head(self.torso(x)))
 
 
-def make_per_dqn_runner(
+def make_dqn_runner(
     num_envs: int = 64,
     capacity: int = 100_000,
     replay_start_size: int = 2_000,
@@ -65,12 +69,14 @@ def make_per_dqn_runner(
     minibatch_size: int = 32,
     n_actions: int = 6,
     frame_shape: Tuple[int, int, int] = (84, 84, 4),
+    double: bool = False,
+    prioritized: bool = False,
     device=None,
 ) -> OffPolicyRunner:
-    """The slice at the given sizes (defaults: the full configuration) on
+    """Nature DQN at the given sizes (defaults: the full configuration) on
     ``device`` (default: the CUDA device)."""
     env = AtariSim(n_actions=n_actions, frame_shape=frame_shape, device=device)
-    core = DQNCore(
+    core = (DoubleDQNCore if double else DQNCore)(
         model=NatureQ(n_actions, frame_shape),
         optimizer=RMSprop(2.5e-4, decay=0.95, eps=1e-2),
         explorer=LinearDecayEpsilonGreedy(1.0, 0.1, 1_000_000, n_actions),
@@ -78,16 +84,17 @@ def make_per_dqn_runner(
         batch_accumulator="sum",
         phi=atari_phi,
     )
-    buffer = PrioritizedReplayBuffer(
-        capacity,
-        alpha=0.6,
-        beta0=0.4,
+    ring = dict(
         gamma=0.99,
         num_lanes=num_envs,
         store_next_obs=False,
         fused_dequant_scale=1.0 / 255.0,
         device=env.device,
     )
+    if prioritized:
+        buffer = PrioritizedReplayBuffer(capacity, alpha=0.6, beta0=0.4, **ring)
+    else:
+        buffer = ReplayBuffer(capacity, **ring)
     config = RunnerConfig(
         num_envs=num_envs,
         replay_start_size=replay_start_size,
@@ -96,3 +103,8 @@ def make_per_dqn_runner(
         minibatch_size=minibatch_size,
     )
     return OffPolicyRunner(env, core, buffer, config, device=env.device)
+
+
+def make_per_dqn_runner(**sizes) -> OffPolicyRunner:
+    """:func:`make_dqn_runner` with prioritized replay."""
+    return make_dqn_runner(prioritized=True, **sizes)

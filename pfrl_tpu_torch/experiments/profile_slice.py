@@ -1,16 +1,23 @@
-"""Where the slice's time goes on the card.
+"""Where a full-width configuration's time goes on the card.
 
-    python -m pfrl_tpu_torch.experiments.profile_slice [--steps 8] [--out PATH]
+    python -m pfrl_tpu_torch.experiments.profile_slice
+        [--config per-dqn|dqn|rainbow] [--steps 8] [--out PATH]
 
-Runs the full-width slice (``make_per_dqn_runner()``: prioritized-replay
-Nature DQN, 64 lanes of 84x84x4 uint8 frames, 16 updates per scan step)
-past replay start on the CUDA device, then:
+Runs one configuration at full width (64 lanes of 84x84x4 uint8 frames, 16
+batch-32 updates per scan step) on the CUDA device: ``per-dqn``
+(``make_per_dqn_runner()``, prioritized-replay Nature DQN), ``dqn``
+(``make_dqn_runner()``, the same over the uniform ring) or ``rainbow``
+(``make_rainbow_runner()``). The replay start is cut to 2,048 transitions
+where the recipe's is later (Rainbow: 20,000), which changes no phase's
+work: the ring's size and every shape stay. Past replay start it:
 
 1. times ``--steps`` scan steps as they run (host clock, synchronized);
 2. times the same number of steps again with each phase of the scan step
    wrapped in a synchronizing host timer: act, env step, replay add, and
-   per update the PER sample (with the prefix-sample kernel inside it), the
-   gradient step and the priority feedback, and the target sync;
+   per update the sample (prioritized: with the prefix-sample kernel and the
+   row gather inside it; uniform: one id draw per scan step and a row
+   gather per update), the gradient step and the priority feedback, and
+   the target sync;
 3. records ``--steps`` more steps with ``torch.profiler``: kernels
    launched per scan step, the device's busy time, and the kernels that
    take the most of it. The busy share is taken against the unprofiled
@@ -29,17 +36,32 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from pfrl_tpu_torch.experiments.atari_per_dqn import make_per_dqn_runner
+from pfrl_tpu_torch.experiments.atari_per_dqn import make_dqn_runner, make_per_dqn_runner
+from pfrl_tpu_torch.experiments.atari_rainbow import make_rainbow_runner
 
-PHASES = (
+CONFIGS = {
+    "per-dqn": make_per_dqn_runner,
+    "dqn": make_dqn_runner,
+    "rainbow": lambda: make_rainbow_runner(replay_start_size=2_048),
+}
+
+COMMON_PHASES = (
     ("core", "select_action", "act"),
     ("env", "step", "env step"),
     ("buffer", "add", "replay add"),
+    ("core", "update", "gradient step"),
+    ("core", "sync_target", "target sync"),
+)
+# Labels that start with two spaces are parts of the phase above them.
+PRIORITIZED_PHASES = (
     ("buffer", "sample", "PER sample"),
     ("buffer", "_find_slots", "  of which prefix_sample + clamp"),
-    ("core", "update", "gradient step"),
+    ("buffer", "gather", "  of which row gather"),
     ("buffer", "update_priorities", "priority feedback"),
-    ("core", "sync_target", "target sync"),
+)
+UNIFORM_PHASES = (
+    ("buffer", "sample_indices", "id draw"),
+    ("buffer", "gather", "row gather"),
 )
 
 
@@ -60,9 +82,10 @@ def _wrap(acc, label, fn):
     return timed
 
 
-def profile_slice(steps: int) -> dict:
-    runner = make_per_dqn_runner()
+def profile_slice(config: str, steps: int) -> dict:
+    runner = CONFIGS[config]()
     cfg = runner.config
+    phases = COMMON_PHASES + (UNIFORM_PHASES if runner.buffer.iid_samples else PRIORITIZED_PHASES)
     state = runner.init(0)
     warm = -(-cfg.replay_start_size // cfg.num_envs) + 2  # past replay start
     state, _ = runner.run_chunk(state, warm)
@@ -72,7 +95,7 @@ def profile_slice(steps: int) -> dict:
     acc = collections.defaultdict(float)
     owners = {"core": runner.core, "env": runner.env, "buffer": runner.buffer}
     originals = []
-    for owner, attr, label in PHASES:
+    for owner, attr, label in phases:
         obj = owners[owner]
         originals.append((obj, attr))
         setattr(obj, attr, _wrap(acc, label, getattr(obj, attr)))
@@ -90,12 +113,12 @@ def profile_slice(steps: int) -> dict:
     busy_us = sum(v[0] for v in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
 
-    nested = {"  of which prefix_sample + clamp"}
-    accounted = sum(v for k, v in acc.items() if k not in nested)
+    accounted = sum(v for k, v in acc.items() if not k.startswith("  "))
     per_step_ms = {k: v / steps * 1e3 for k, v in acc.items()}
     per_step_ms["other (runner bookkeeping, timers)"] = (phased_s - accounted) / steps * 1e3
     return {
         "device": torch.cuda.get_device_name(0),
+        "config": config,
         "steps": steps,
         "updates_per_step": cfg.updates_per_step,
         "scan_step_ms": plain_s / steps * 1e3,
@@ -115,13 +138,14 @@ def profile_slice(steps: int) -> dict:
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--config", choices=sorted(CONFIGS), default="per-dqn")
     parser.add_argument("--steps", type=int, default=8)
-    parser.add_argument("--out", default="chiprun_out/profile_slice.json")
+    parser.add_argument("--out", default=None, help="default: chiprun_out/profile_<config>.json")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice: needs a CUDA device")
-    record = profile_slice(args.steps)
-    out = Path(args.out)
+    record = profile_slice(args.config, args.steps)
+    out = Path(args.out or f"chiprun_out/profile_{args.config}.json")
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(record, indent=1))
     print(json.dumps({k: v for k, v in record.items() if k != "top_device_ops"}, indent=1))

@@ -9,20 +9,25 @@ no step waits for the device.
 
 :class:`RunnerState` is updated **in place**, the replay ring above all.
 
-Ported: the non-episodic, non-recurrent, single-device branches, with the
-sequential sample -> update -> priority-feedback loop of prioritized replay.
-Not ported yet: the uniform-replay presample branch, episodic and recurrent
-cores, meshes, ``JaxEvalLoop``.
+Ported: the non-episodic, non-recurrent, single-device branches. Buffers
+with priority feedback (``iid_samples`` false) take the sequential
+sample -> update -> feedback loop; uniform buffers take the presample
+branch, one id draw per scan step and a row gather per update.
+:class:`EvalLoop` is the counterpart of ``JaxEvalLoop``.
+Not ported yet, each raising ``NotImplementedError`` by name: episodic
+replay (``sample_episodes`` / ``update_episodic``), recurrent cores
+(``select_action_recurrent``, carried act state), cores that store extras
+with each transition (``select_action_with_extras``), and device meshes.
 """
 
 import dataclasses
 from typing import Any, Dict, Tuple
 
+import numpy as np
 import torch
 
 from pfrl_tpu_torch._device import check_same_device, resolve_device, use_full_fp32
 from pfrl_tpu_torch.envs.vector_env import VectorTorchEnv
-from pfrl_tpu_torch.replay.prioritized import PrioritizedReplayBuffer
 from pfrl_tpu_torch.replay.transition import Transition
 from pfrl_tpu_torch.utils.draws import Draws
 
@@ -75,15 +80,12 @@ class OffPolicyRunner:
         config: RunnerConfig,
         return_window: int = 256,
         device=None,
+        mesh=None,
     ):
+        _reject_unported(core, buffer, mesh)
         self.device = check_same_device(
             runner=resolve_device(device), env=env.device, buffer=buffer.device
         )
-        if not isinstance(buffer, PrioritizedReplayBuffer):
-            raise NotImplementedError(
-                "only prioritized replay is ported; the uniform presample "
-                "branch is not"
-            )
         if buffer.num_lanes != config.num_envs:
             raise ValueError("buffer num_lanes must equal runner num_envs")
         config.updates_per_step  # validates the cadence
@@ -174,18 +176,28 @@ class OffPolicyRunner:
         return {"reward_mean": torch.mean(ts.reward), "loss": loss, "done_count": n_finished}
 
     def _maybe_update(self, state: RunnerState, t: int) -> torch.Tensor:
-        """``updates_per_step`` sequential sample -> update -> feedback
-        iterations once ``t >= replay_start_size``; returns the last loss."""
+        """``updates_per_step`` gradient steps once ``t >= replay_start_size``;
+        returns the last loss."""
         cfg = self.config
         loss = torch.zeros((), dtype=torch.float32, device=self.device)
         if t < cfg.replay_start_size:
             return loss
+        draws, train, replay = state.draws, state.train_state, state.replay_state
+        if self.buffer.iid_samples:
+            # The ids of every minibatch of this scan step in one draw; each
+            # update gathers only its own rows. Ids first, then each update's
+            # noise, as the JAX runner splits its key.
+            all_ids = self.buffer.sample_indices(
+                replay, draws, cfg.updates_per_step * cfg.minibatch_size
+            ).reshape(cfg.updates_per_step, cfg.minibatch_size)
+            for ids in all_ids:
+                _, aux = self.core.update(train, self.buffer.gather(replay, ids), draws)
+            return aux["loss"]
         for _ in range(cfg.updates_per_step):
-            batch, _ = self.buffer.sample(state.replay_state, state.draws, cfg.minibatch_size)
-            _, aux = self.core.update(state.train_state, batch)
-            self.buffer.update_priorities(state.replay_state, batch.indices, aux["errors"])
-            loss = aux["loss"]
-        return loss
+            batch, _ = self.buffer.sample(replay, draws, cfg.minibatch_size)
+            _, aux = self.core.update(train, batch, draws)
+            self.buffer.update_priorities(replay, batch.indices, aux["errors"])
+        return aux["loss"]
 
     # ---------------------------------------------------------------- chunks
     def run_chunk(self, state: RunnerState, num_steps: int) -> Tuple[RunnerState, Dict[str, torch.Tensor]]:
@@ -200,3 +212,53 @@ class OffPolicyRunner:
         if n == 0:
             return float("nan")
         return float(state.recent_returns[:n].mean())
+
+
+def _reject_unported(core, buffer=None, mesh=None) -> None:
+    """Raise for a configuration whose branch of the JAX runner is not
+    ported, naming the branch."""
+    if mesh is not None:
+        raise NotImplementedError("the mesh (multi-device) branch is not ported")
+    if hasattr(buffer, "sample_episodes"):
+        raise NotImplementedError("the episodic replay branch (sample_episodes) is not ported")
+    if hasattr(core, "select_action_recurrent"):
+        raise NotImplementedError("the recurrent branch (select_action_recurrent) is not ported")
+    if hasattr(core, "select_action_with_extras"):
+        raise NotImplementedError("the extras branch (select_action_with_extras) is not ported")
+
+
+class EvalLoop:
+    """Evaluation over ``num_episodes`` lanes (counterpart of ``JaxEvalLoop``).
+
+    Acts without the explorer (``training=False``) for ``max_steps`` steps
+    and scores the first finished episode of each lane; a lane that never
+    finished gives its partial return. A noisy model still draws noise.
+    """
+
+    def __init__(self, env, core, num_episodes: int, max_steps: int, device=None):
+        _reject_unported(core)
+        self.device = check_same_device(runner=resolve_device(device), env=env.device)
+        self.env = VectorTorchEnv(env, num_episodes)
+        self.core = core
+        self.max_steps = max_steps
+        if self.device.type == "cuda":
+            use_full_fp32()
+
+    @torch.no_grad()
+    def evaluate(self, train_state, draws) -> np.ndarray:
+        """float32 ``[num_episodes]`` returns, on the host. Each step draws
+        the act noise first, then the env's resets."""
+        L = self.env.num_envs
+        env_states, obs = self.env.reset(draws)
+        ep_ret = torch.zeros(L, dtype=torch.float32, device=self.device)
+        final_ret = torch.zeros_like(ep_ret)
+        finished = torch.zeros(L, dtype=torch.bool, device=self.device)
+        for _ in range(self.max_steps):
+            actions = self.core.select_action(train_state, draws, obs, 0, False)
+            env_states, vec = self.env.step(draws, env_states, actions)
+            ep_ret = ep_ret + vec.ts.reward * (~finished)
+            newly = vec.ts.done & ~finished
+            final_ret = torch.where(newly, ep_ret, final_ret)
+            finished = finished | vec.ts.done
+            obs = vec.obs
+        return torch.where(finished, final_ret, ep_ret).cpu().numpy()

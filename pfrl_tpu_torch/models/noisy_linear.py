@@ -1,0 +1,59 @@
+"""Factorized NoisyNet linear layer (counterpart of
+``pfrl_tpu/models/noisy_linear.py``).
+
+The flax layer draws its noise from the ``'noise'`` rng stream on every
+call. Here the noise comes from the draw source handed down the forward
+(:mod:`pfrl_tpu_torch.utils.draws`): ``eps_in`` first, then ``eps_out``,
+fresh on every forward.
+"""
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+
+def _f(x: torch.Tensor) -> torch.Tensor:
+    return torch.sign(x) * torch.sqrt(torch.abs(x))
+
+
+class FactorizedNoisyLinear(nn.Module):
+    """``y = x @ (w_mu + w_sigma * outer(f(eps_out), f(eps_in))).T
+    + b_mu + b_sigma * f(eps_out)`` with weights stored ``[out, in]``.
+
+    Init as the JAX layer: both ``mu`` uniform in ``+-sqrt(3 / fan_in)``,
+    both ``sigma`` the constant ``sigma_scale / sqrt(fan_in)``.
+    """
+
+    flax_scope = "FactorizedNoisyDense"
+
+    def __init__(self, in_features: int, out_features: int, sigma_scale: float = 0.4):
+        super().__init__()
+        self.in_features = in_features
+        self.out_features = out_features
+        self.sigma_scale = sigma_scale
+        self.w_mu = nn.Parameter(torch.empty(out_features, in_features))
+        self.b_mu = nn.Parameter(torch.empty(out_features))
+        self.w_sigma = nn.Parameter(torch.empty(out_features, in_features))
+        self.b_sigma = nn.Parameter(torch.empty(out_features))
+        self.reset_parameters()
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        bound = (3.0 / self.in_features) ** 0.5
+        self.w_mu.uniform_(-bound, bound, generator=generator)
+        self.b_mu.uniform_(-bound, bound, generator=generator)
+        sigma0 = self.sigma_scale / self.in_features**0.5
+        self.w_sigma.fill_(sigma0)
+        self.b_sigma.fill_(sigma0)
+
+    def forward(self, x: torch.Tensor, draws=None, deterministic: bool = False) -> torch.Tensor:
+        if deterministic:
+            return x @ self.w_mu.T + self.b_mu
+        if draws is None:
+            raise ValueError("a noisy layer needs a draw source unless deterministic=True")
+        eps_in = _f(draws.normal(self.in_features))
+        eps_out = _f(draws.normal(self.out_features))
+        w = self.w_mu + self.w_sigma * torch.outer(eps_out, eps_in)
+        b = self.b_mu + self.b_sigma * eps_out
+        return x @ w.T + b

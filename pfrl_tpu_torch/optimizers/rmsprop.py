@@ -13,6 +13,7 @@ elementwise update on tensors, in place, in optax's order of operations.
 
 from typing import List, Sequence
 
+import numpy as np
 import torch
 
 
@@ -25,6 +26,13 @@ class RMSprop:
     def init(self, params: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         """The second moments ``nu``, zero, one per parameter."""
         return [torch.zeros_like(p) for p in params]
+
+    def load_state(self, state: List[torch.Tensor], nu, count=None) -> None:
+        """Copy second moments given as arrays in parameter order; optax's
+        RMSprop keeps no count."""
+        with torch.no_grad():
+            for dst, src in zip(state, nu):
+                dst.copy_(torch.from_numpy(np.array(src)))
 
     @torch.no_grad()
     def update(

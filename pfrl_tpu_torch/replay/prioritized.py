@@ -41,6 +41,9 @@ class PrioritizedReplayState:
 
 
 class PrioritizedReplayBuffer(ReplayBuffer):
+    #: Each sample depends on the priorities the last update fed back.
+    iid_samples = False
+
     def __init__(
         self,
         capacity: int,

@@ -85,6 +85,11 @@ class ReplayBuffer:
         self.fused_dequant_scale = fused_dequant_scale
         self.device = resolve_device(device)
 
+    #: Samples are iid draws with no cross-sample state (no priority
+    #: feedback): the runner draws the ids of all of a scan step's
+    #: minibatches at once. PrioritizedReplayBuffer overrides this to False.
+    iid_samples = True
+
     def _leaves(self, t: Transition) -> Dict[str, torch.Tensor]:
         leaves = {
             "obs": t.obs, "action": t.action, "reward": t.reward,
@@ -137,6 +142,12 @@ class ReplayBuffer:
         lo = torch.clamp_min(state.cursor - self.capacity, 0)
         hi = state.cursor - (self.num_steps - 1 + extra) * self.num_lanes
         return lo, hi
+
+    def sample_indices(self, state: ReplayState, draws, batch_size: int) -> torch.Tensor:
+        """``batch_size`` monotonic int32 ids, uniform over the sampleable
+        range; the range stays on the device."""
+        lo, hi = self._sampleable_range(state)
+        return lo + draws.randint_below(torch.clamp_min(hi - lo, 1), batch_size)
 
     def _take(self, x, ids, shape: Tuple[int, ...], dequant: bool = False):
         """Rows ``x[ids]`` trimmed to the true item width and reshaped;
@@ -194,3 +205,10 @@ class ReplayBuffer:
             weight=torch.ones_like(folded_reward),
             indices=ids,
         )
+
+    def sample(self, state: ReplayState, draws, batch_size: int) -> TransitionBatch:
+        return self.gather(state, self.sample_indices(state, draws, batch_size))
+
+    def update_priorities(self, state: ReplayState, ids, errors) -> ReplayState:
+        """Priority feedback is a no-op for the uniform buffer."""
+        return state

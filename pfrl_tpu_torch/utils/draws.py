@@ -1,8 +1,9 @@
 """Sources of random draws, the port's counterpart of JAX PRNG keys.
 
 JAX threads a key through every random function; the port passes a draw
-source instead: any object with ``uniform(n)`` and ``randint(high, n)``.
-:class:`Draws` takes every draw from one ``torch.Generator`` on the device.
+source instead: any object with ``uniform(n)``, ``normal(n)``,
+``randint(high, n)`` and ``randint_below(high, n)``. :class:`Draws` takes
+every draw from one ``torch.Generator`` on the device.
 The parity tests pass a source of their own that hands the JAX package the
 very same numbers (the two frameworks' generators never agree).
 """
@@ -11,7 +12,7 @@ import torch
 
 
 class Draws:
-    """Uniform floats and integers from one ``torch.Generator``."""
+    """Uniform and normal floats and integers from one ``torch.Generator``."""
 
     def __init__(self, generator: torch.Generator):
         self.generator = generator
@@ -27,3 +28,19 @@ class Draws:
             0, high, (n,), generator=self.generator, device=self.device,
             dtype=torch.int32,
         )
+
+    def normal(self, n: int) -> torch.Tensor:
+        """float32 ``[n]``, standard normal."""
+        return torch.randn(n, generator=self.generator, device=self.device)
+
+    def randint_below(self, high: torch.Tensor, n: int) -> torch.Tensor:
+        """int32 ``[n]`` in ``[0, high)`` for a positive bound that is a 0-d
+        integer tensor on the device (a ring's fill level, say). The bound
+        is never read on the host, so the draw does not wait for the device.
+        62 random bits modulo the bound: the bias is below ``high / 2**62``.
+        """
+        bits = torch.randint(
+            0, 1 << 62, (n,), generator=self.generator, device=self.device,
+            dtype=torch.int64,
+        )
+        return (bits % high).to(torch.int32)

@@ -237,6 +237,37 @@ def test_per_sample_after_wrap_maps_slots_to_live_ids():
     _assert_batches_equal(tb, jb)
 
 
+@pytest.mark.parametrize("cap", [24, 4100])  # tree of 32 leaves / of 8192 (Pallas)
+def test_per_three_step_sampling_matches_jax_across_episode_ends(cap):
+    """3-step returns read by adjacency under PER, as Rainbow runs it:
+    episodes end inside the window, adds age slots in between samples."""
+    lanes, batch, gamma = 2, 16, 0.99
+    jbuf, tbuf = _per_pair(cap, lanes, 3, "batch")
+    assert not tbuf.store_next_obs and tbuf.num_steps == 3
+    steps = _steps(6, lanes, 30, p_done=0.35)
+    js, ts = _fill(jbuf, tbuf, steps[:14])
+    rs = np.random.RandomState(7)
+    seen = {"cut": 0, "full": 0, "terminal": 0}
+    for k, d in enumerate(steps[14:]):
+        key = jax.random.PRNGKey(20 + k)
+        jb, js = jbuf.sample(js, key, batch)
+        tb, ts = tbuf.sample(ts, FixedDraws(np.asarray(jax.random.uniform(key, (batch,)))), batch)
+        np.testing.assert_array_equal(tb.indices.numpy(), np.asarray(jb.indices))
+        np.testing.assert_allclose(tb.weight.numpy(), np.asarray(jb.weight), rtol=1e-6)
+        _assert_batches_equal(tb, jb)
+        full = np.isclose(tb.discount.numpy(), gamma**3)
+        seen["full"] += int(full.sum())
+        seen["cut"] += int((~full).sum())
+        seen["terminal"] += int(tb.is_terminal.sum())
+        fb = rs.uniform(0.0, 1.2, batch).astype(np.float32)
+        uniq = np.unique(np.asarray(jb.indices), return_index=True)[1]  # C6
+        js = jbuf.update_priorities(js, jb.indices[uniq], jnp.asarray(fb[uniq]))
+        ts = tbuf.update_priorities(ts, tb.indices[uniq], torch.from_numpy(fb[uniq]))
+        js, ts = jbuf.add(js, _jax_tr(d)), tbuf.add(ts, _torch_tr(d))
+        _assert_per_states_equal(ts, js)
+    assert min(seen.values()) > 0, seen  # windows cut short, whole, and terminal ones
+
+
 def test_priority_from_errors_matches_jax():
     jbuf, tbuf = _per_pair(16, 2, 1, "batch")
     e = np.array([-1.0, 0.0, 0.3, 1.0, 4.0], np.float32)

@@ -62,23 +62,38 @@ class JaxNatureQ(nn.Module):
 
 
 class KeyedDraws:
-    """A draw source whose every draw comes from its own JAX key, logged."""
+    """A draw source whose every draw comes from its own JAX key, logged
+    as ``(key, values)``; ``kinds`` names the method behind each entry."""
 
     def __init__(self, seed):
         self.base = jax.random.PRNGKey(seed)
         self.log = []
+        self.kinds = []
 
-    def _record(self, key, values):
+    def _record(self, kind, draw):
+        key = jax.random.fold_in(self.base, len(self.log))
+        values = np.array(draw(key))
         self.log.append((key, values))
+        self.kinds.append(kind)
         return torch.from_numpy(values)
 
     def uniform(self, n):
-        key = jax.random.fold_in(self.base, len(self.log))
-        return self._record(key, np.array(jax.random.uniform(key, (n,))))
+        return self._record("uniform", lambda key: jax.random.uniform(key, (n,)))
+
+    def normal(self, n):
+        return self._record("normal", lambda key: jax.random.normal(key, (n,)))
 
     def randint(self, high, n):
-        key = jax.random.fold_in(self.base, len(self.log))
-        return self._record(key, np.array(jax.random.randint(key, (n,), 0, high, dtype=jnp.int32)))
+        return self._record(
+            "randint", lambda key: jax.random.randint(key, (n,), 0, high, dtype=jnp.int32)
+        )
+
+    def randint_below(self, high, n):
+        """The bound is a 0-d tensor; JAX's own integers for that bound."""
+        bound = int(high)
+        return self._record(
+            "randint_below", lambda key: jax.random.randint(key, (n,), 0, bound, dtype=jnp.int32)
+        )
 
 
 def _jax_reset_states(seeds, u):
