@@ -18,18 +18,30 @@ result, without them. Its phases, each raising on failure:
    (through the kernel, where it samples by priority) and on the CPU
    (through the plain version), from the same draws and weights, must
    agree. The configurations are prioritized-replay Nature DQN, Rainbow,
-   and Nature DQN and Double DQN over the uniform ring;
+   Nature DQN and Double DQN over the uniform ring, and SAC, TD3 and DDPG
+   for continuous control;
 4. drive prioritized-replay Nature DQN at full width (64 lanes of 84x84x4
    uint8 AtariSim frames, a 100,000-slot ring on the card, batch-32
-   updates every 4 transitions from 2,000 on) past replay start and
-   through a target sync, counting the kernel's launches;
+   updates every 4 transitions from 2,000 on) for 96 scan steps, past
+   replay start, counting the kernel's launches;
 5. drive Rainbow at full width with the recipe's every width and cadence
    (noisy distributional dueling network, 51 atoms, categorical Double
    DQN, Adam, 3-step prioritized replay, updates from 20,000 on) for 500
    scan steps, through the target sync at 32,000, counting the kernel's
    launches, then its greedy evaluation loop (5 lanes, 500 steps);
 6. drive Nature DQN and Double DQN over the uniform ring at full width for
-   64 scan steps past replay start; this path launches no kernel.
+   32 scan steps past replay start; this path launches no kernel;
+7. drive SAC and TD3 at full width (32 lanes of MujocoSim, obs 17, action
+   6, 256 x 256 networks, a 100,000-slot float32 ring that stores
+   ``next_obs``, one batch-256 update per transition from 1,000 on): 31
+   scan steps of collection, then 100 with 32 updates each, then the
+   greedy evaluation loop (5 lanes, 1,000 steps, through the truncation at
+   step 1,000); these paths launch no kernel;
+8. drive DDPG at full width (16 lanes of the time-limited,
+   action-normalized Pendulum, 64 x 64 networks, batch-128 updates every 4
+   transitions) through its 1,000 burn-in transitions and on to 405 scan
+   steps, so that every lane crosses the 200-step time limit twice, then
+   its evaluation loop (10 lanes, 201 steps); no kernel either.
 
 The kernels' launch counts are set to 0 just before each full-width path
 and read just after it; the kernels' JSON line gives their sum over the
@@ -59,12 +71,19 @@ FP32_OPS_PER_S = 67e12
 
 HOST_TURNS = 6  # host timings alternate direction this many times; median kept
 
-FULL_STEPS_WARM = 32    # t = 2,048 at the end: the first updates run
-FULL_STEPS_TIMED = 128  # t = 10,240 at the end: one target sync crossed
+FULL_STEPS_WARM = 32   # t = 2,048 at the end: the first updates run
+FULL_STEPS_TIMED = 64  # t = 6,144 at the end (the target sync at 10,000 is Rainbow's and the small runs' to cross)
 
 RAINBOW_STEPS = 500     # t = 32,000 at the end: the target sync on the last step
 RAINBOW_STEPS_WARM = 4  # the first scan steps with updates, before the timed ones
-UNIFORM_STEPS_TIMED = 64
+UNIFORM_STEPS_TIMED = 32
+
+MUJOCO_STEPS_WARM = 4      # the first scan steps with updates (from t = 1,024), before the timed ones
+MUJOCO_STEPS_TIMED = 96    # 3,072 updates
+MUJOCO_EVAL = (5, 1_000)   # lanes, steps: the truncation at step 1,000 is crossed
+DDPG_STEPS_WARM = 2
+DDPG_STEPS = 405           # every lane is truncated at its steps 200 and 400
+DDPG_EVAL = (10, 201)
 
 
 def card_line() -> str:
@@ -306,6 +325,20 @@ def _small_configs() -> dict:
     }
 
 
+class _Differences:
+    """Card-vs-CPU comparisons of one small run: the largest difference
+    per quantity, raising where one exceeds its tolerance."""
+
+    def __init__(self, name: str):
+        self.name, self.largest = name, {}
+
+    def close(self, what, a, b, rtol, atol) -> None:
+        a, b = a.detach().cpu().double(), b.detach().cpu().double()
+        self.largest[what] = max(self.largest.get(what, 0.0), float((a - b).abs().max()))
+        if not torch.allclose(a, b, rtol=rtol, atol=atol):
+            raise AssertionError(f"small {self.name}: {what} differs by {self.largest[what]}")
+
+
 def check_small_slice(name: str, build, steps: int, expect_launches: int, device) -> dict:
     """A 4-lane run of one configuration on the card and on the CPU."""
     from pfrl_tpu_torch.ops.prefix_sample import prefix_sample
@@ -341,14 +374,8 @@ def check_small_slice(name: str, build, steps: int, expect_launches: int, device
     for leaf in ("obs", "action"):
         if not torch.equal(ring(gpu).storage[leaf].cpu(), ring(cpu).storage[leaf]):
             raise AssertionError(f"small {name}: replay rings differ in {leaf}")
-    diffs = {}
-
-    def close(what, a, b, rtol, atol):
-        a, b = a.detach().cpu().double(), b.detach().cpu().double()
-        diffs[what] = max(diffs.get(what, 0.0), float((a - b).abs().max()))
-        if not torch.allclose(a, b, rtol=rtol, atol=atol):
-            raise AssertionError(f"small {name}: {what} differs by {diffs[what]}")
-
+    differences = _Differences(name)
+    close, diffs = differences.close, differences.largest
     # fp32 on both sides (no TF32); convolutions reduce in other orders.
     close("loss", gpu_m["loss"], cpu_m["loss"], 1e-3, 1e-5)
     if not runner.buffer.iid_samples:
@@ -617,6 +644,298 @@ def run_full_uniform(card: str, double: bool) -> dict:
     return result
 
 
+# ------------------------------------------------------------- phases 3, 7, 8
+def _small_actor_critic_configs() -> dict:
+    """name -> function making a 4-lane runner on a device: hidden 32,
+    batch 16, updates from 32 transitions; episodes cut to 12 steps
+    (MujocoSim) and 10 (Pendulum, burn-in 24 transitions) so that lanes are
+    truncated and reset inside the run."""
+    from pfrl_tpu_torch.envs.mujoco_sim import MujocoSim
+    from pfrl_tpu_torch.envs.pendulum import Pendulum
+    from pfrl_tpu_torch.envs.wrappers import NormalizeActionSpace, TimeLimit
+    from pfrl_tpu_torch.experiments import mujoco_actor_critic as mac
+
+    small = dict(num_envs=4, capacity=96, replay_start_size=32, minibatch_size=16, hidden=32)
+    pendulum = lambda dev: NormalizeActionSpace(TimeLimit(Pendulum(device=dev), 10))  # noqa: E731
+    return {
+        "sac": lambda dev: mac.make_sac_runner(env=MujocoSim(episode_len=12, device=dev), **small),
+        "td3": lambda dev: mac.make_td3_runner(env=MujocoSim(episode_len=12, device=dev), **small),
+        "ddpg": lambda dev: mac.make_ddpg_runner(env=pendulum(dev), update_interval=2, burnin_steps=24, **small),
+    }
+
+
+def _networks(train_state) -> dict:
+    """name -> module, for every network of an actor-critic train state."""
+    return {k: v for k, v in vars(train_state).items() if isinstance(v, torch.nn.Module)}
+
+
+def check_small_actor_critic(name: str, build, steps: int, device) -> dict:
+    """A 4-lane run of SAC, TD3 or DDPG on the card and on the CPU from
+    the same draws and weights: losses within rtol 1e-3 (floor 1e-5), every
+    network's and target's parameters and SAC's temperature within 2e-5
+    (fp32 on both sides; ``tanh``, ``exp`` and the dots' order differ)."""
+    from pfrl_tpu_torch.ops.prefix_sample import prefix_sample
+
+    def run(dev):
+        runner = build(dev)
+        state = runner.init(0, draws=SeededDraws(0, dev))
+        state, metrics = runner.run_chunk(state, steps)
+        return runner, state, metrics
+
+    prefix_sample.launches = 0
+    runner, gpu, gpu_m = run(device)
+    torch.cuda.synchronize()
+    launches = prefix_sample.launches
+    _, cpu, cpu_m = run("cpu")
+    cfg = runner.config
+    updates = _updates_in(cfg, 1, steps)
+    differences = _Differences(name)
+    close, diffs = differences.close, differences.largest
+    close("loss", gpu_m["loss"], cpu_m["loss"], 1e-3, 1e-5)
+    close("reward_mean", gpu_m["reward_mean"], cpu_m["reward_mean"], 1e-4, 1e-5)
+    for which, module in _networks(gpu.train_state).items():
+        for a, b in zip(module.parameters(), getattr(cpu.train_state, which).parameters()):
+            close(f"{which} parameters", a, b, 0.0, 2e-5)
+    if name == "sac":
+        close("temperature", gpu.train_state.log_temperature.exp(), cpu.train_state.log_temperature.exp(), 0.0, 2e-5)
+    _raise_on_failed(f"small {name}", {
+        "no kernel on this path": launches == 0,
+        "n_updates as expected": gpu.train_state.n_updates == cpu.train_state.n_updates == updates > 0,
+        "step counters agree": gpu.t == cpu.t == steps * cfg.num_envs
+        and int(gpu.replay_state.cursor) == int(cpu.replay_state.cursor) == gpu.t,
+        "episodes were truncated and reset": int(gpu_m["done_count"].sum()) == int(cpu_m["done_count"].sum()) > 0,
+        "losses positive once updates run": bool((gpu_m["loss"][-1] > 0)),
+    })
+    print(f"small {name}: card vs CPU agree over {steps} scan steps, {updates} updates, "
+          f"{launches} kernel launches; largest differences {json.dumps(diffs)}")
+    return {"steps": steps, "updates": updates, "kernel_launches": launches, "max_abs_diff": diffs}
+
+
+def _distance(a, b) -> float:
+    return math.sqrt(sum(float(((x.detach() - y.detach()) ** 2).sum()) for x, y in zip(a.parameters(), b.parameters())))
+
+
+def _targets_follow(train, initial: dict) -> bool:
+    """Each target differs from its online net and is closer to it than
+    the initial weights are."""
+    nets = _networks(train)
+    for name, target in nets.items():
+        if name.startswith("target_"):
+            online = nets[name[len("target_"):]]
+            if not 0.0 < _distance(target, online) < _distance(initial[name], online):
+                return False
+    return True
+
+
+class _WatchedEnv:
+    """An env that counts, on the device, the truncations and terminations
+    it hands on."""
+
+    def __init__(self, env):
+        self.env = env
+        self.observation_space, self.action_space, self.device = env.observation_space, env.action_space, env.device
+        self.truncations = torch.zeros((), dtype=torch.int64, device=env.device)
+        self.terminations = torch.zeros((), dtype=torch.int64, device=env.device)
+
+    def reset(self, draws, num_envs):
+        return self.env.reset(draws, num_envs)
+
+    def step(self, state, actions):
+        state, ts = self.env.step(state, actions)
+        self.truncations += ts.truncated.sum()
+        self.terminations += ts.terminated.sum()
+        return state, ts
+
+
+def _evaluate(runner, train, draws, lanes: int, steps: int):
+    from pfrl_tpu_torch.experiments.runner import EvalLoop
+
+    env = _WatchedEnv(runner.env.env)
+    loop = EvalLoop(env, runner.core, num_episodes=lanes, max_steps=steps)
+    t0 = time.perf_counter()
+    returns = loop.evaluate(train, draws)
+    return returns, time.perf_counter() - t0, int(env.truncations), int(env.terminations)
+
+
+def run_full_mujoco(card: str, name: str) -> dict:
+    """SAC or TD3 on MujocoSim with ``bench.py``'s every width and cadence,
+    cut to 131 scan steps: 31 collecting, then 100 with 32 updates each."""
+    import copy
+
+    from pfrl_tpu_torch.experiments import mujoco_actor_critic as mac
+    from pfrl_tpu_torch.ops.prefix_sample import prefix_sample
+
+    runner = (mac.make_sac_runner if name == "sac" else mac.make_td3_runner)()  # the CUDA device, full width
+    cfg, core, buffer = runner.config, runner.core, runner.buffer
+    state = runner.init(0)
+    torch.cuda.synchronize()
+    train = state.train_state
+    initial = {k: copy.deepcopy(v) for k, v in _networks(train).items()}
+    collect_steps = (cfg.replay_start_size - 1) // cfg.num_envs  # the last step with t < 1,000
+    warm_end = collect_steps + MUJOCO_STEPS_WARM
+    steps = warm_end + MUJOCO_STEPS_TIMED
+
+    prefix_sample.launches = 0
+    t0 = time.perf_counter()
+    state, collect = runner.run_chunk(state, collect_steps)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    state, warm = runner.run_chunk(state, MUJOCO_STEPS_WARM)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    state, timed = runner.run_chunk(state, MUJOCO_STEPS_TIMED)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+
+    updates = _updates_in(cfg, 1, steps)
+    timed_updates = _updates_in(cfg, warm_end + 1, steps)
+    loss = torch.cat([warm["loss"], timed["loss"]])
+    counts = {k: v.count for k, v in vars(train).items() if k.endswith("opt_state")}
+    expected = {k: updates for k in counts}
+    if name == "td3":
+        expected["policy_opt_state"] = -(-updates // 2)  # the actor steps on even updates
+    stored = state.replay_state.storage
+    rows = min(state.t, buffer.capacity)
+    checks = {
+        "t advanced": state.t == steps * cfg.num_envs == int(state.replay_state.cursor),
+        "no update before replay start": not bool(collect["loss"].any()),
+        "losses finite": bool(torch.isfinite(loss).all()) and bool((loss > 0).all()),
+        "n_updates as expected": train.n_updates == updates >= 3_072,
+        "every Adam count as expected": counts == expected,
+        "stored actions in [-1, 1]": float(stored["action"][:rows].abs().max()) <= 1.0,
+        "next_obs stored": stored["next_obs"].shape == (buffer.capacity, 17)
+        and stored["obs"].dtype == torch.float32 and stored["action"].shape == (buffer.capacity, 6),
+        "targets follow their online nets": _targets_follow(train, initial),
+        "no kernel on this path": prefix_sample.launches == 0,
+    }
+    # One more update by hand, to read what the runner's metrics leave out.
+    _, aux = core.update(train, buffer.sample(state.replay_state, state.draws, cfg.minibatch_size), state.draws)
+    extra = {k: float(v) for k, v in aux.items() if v.dim() == 0}
+    checks["every loss in aux finite"] = all(math.isfinite(v) for v in extra.values())
+    if name == "sac":
+        temperature = float(train.log_temperature.detach().exp())
+        checks["temperature = exp(log_temperature), off 1.0"] = (
+            abs(extra["temperature"] - temperature) <= 1e-6 * temperature and abs(temperature - 1.0) > 1e-3
+        )
+        checks["temperature's Adam counted the extra update"] = train.temperature_opt_state.count == updates + 1
+    returns, eval_s, truncations, terminations = _evaluate(runner, train, state.draws, *MUJOCO_EVAL)
+    checks["evaluation crossed one truncation per lane, no termination"] = (
+        truncations == MUJOCO_EVAL[0] and terminations == 0
+        and returns.shape == (MUJOCO_EVAL[0],) and bool(np.isfinite(returns).all())
+    )
+    _raise_on_failed(name, checks)
+    timed_s = t3 - t2
+    result = {
+        "steps": steps,
+        "t": state.t,
+        "n_updates": updates,
+        "adam_counts": counts,
+        "env_steps_per_s": MUJOCO_STEPS_TIMED * cfg.num_envs / timed_s,
+        "updates_per_s": timed_updates / timed_s,
+        "collect_only_env_steps_per_s": collect_steps * cfg.num_envs / (t1 - t0),
+        "collect_chunk_s": t1 - t0,
+        "warm_chunk_s": t2 - t1,
+        "timed_chunk_s": timed_s,
+        "timed_scan_steps": MUJOCO_STEPS_TIMED,
+        "eval_s": eval_s,
+        "eval_returns": [float(r) for r in returns],
+        "last_loss": float(loss[-1]),
+        "aux_of_one_more_update": extra,
+        "recent_return_mean": runner.recent_return_mean(state),
+    }
+    print(
+        f"{name}: env-steps/s {result['env_steps_per_s']:.1f} updates/s {result['updates_per_s']:.1f} over "
+        f"{MUJOCO_STEPS_TIMED} scan steps with updates; {result['collect_only_env_steps_per_s']:.1f} env-steps/s "
+        f"over the {collect_steps} before replay start; evaluation {eval_s:.1f} s, mean return "
+        f"{float(returns.mean()):.2f}; aux {json.dumps(extra)} (32 lanes, fp32, no TF32) on {card}"
+    )
+    return result
+
+
+def run_full_ddpg(card: str) -> dict:
+    """DDPG on the time-limited Pendulum with ``tools/record_curves.py``'s
+    every width and cadence, cut to 405 scan steps: 62 of burn-in and
+    collection, then 4 updates per scan step."""
+    import copy
+
+    from pfrl_tpu_torch.experiments import mujoco_actor_critic as mac
+    from pfrl_tpu_torch.ops.prefix_sample import prefix_sample
+
+    runner = mac.make_ddpg_runner()  # the CUDA device, full width
+    cfg, core = runner.config, runner.core
+    state = runner.init(0)
+    torch.cuda.synchronize()
+    train = state.train_state
+    initial = {k: copy.deepcopy(v) for k, v in _networks(train).items()}
+    collect_steps = (cfg.replay_start_size - 1) // cfg.num_envs  # the last step with t < 1,000
+    warm_end = collect_steps + DDPG_STEPS_WARM
+
+    prefix_sample.launches = 0
+    t0 = time.perf_counter()
+    state, collect = runner.run_chunk(state, collect_steps)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    state, warm = runner.run_chunk(state, DDPG_STEPS_WARM)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    state, timed = runner.run_chunk(state, DDPG_STEPS - warm_end)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+
+    updates = _updates_in(cfg, 1, DDPG_STEPS)
+    loss = torch.cat([warm["loss"], timed["loss"]])
+    done = torch.cat([collect["done_count"], warm["done_count"], timed["done_count"]])
+    window = min(int(state.recent_count), runner.return_window)
+    recent = state.recent_returns[:window]
+    stored = state.replay_state.storage
+    burnin_actions = stored["action"][: core.burnin_steps]
+    returns, eval_s, truncations, terminations = _evaluate(runner, train, state.draws, *DDPG_EVAL)
+    _raise_on_failed("ddpg", {
+        "t advanced": state.t == DDPG_STEPS * cfg.num_envs,
+        "no update before replay start": not bool(collect["loss"].any()),
+        "losses finite": bool(torch.isfinite(loss).all()) and bool((loss > 0).all()),
+        "n_updates and both Adam counts as expected": train.n_updates == updates
+        == train.policy_opt_state.count == train.q_opt_state.count > 0,
+        "every lane truncated at its steps 200 and 400, never terminated": int(state.recent_count) == 2 * cfg.num_envs
+        and done.nonzero().flatten().tolist() == [199, 399] and not bool(stored["terminated"].any()),
+        "finished returns finite and <= 0": window == 2 * cfg.num_envs
+        and bool(torch.isfinite(recent).all()) and bool((recent <= 0).all()),
+        "burn-in actions fill [-1, 1)": float(burnin_actions.min()) < -0.9 and float(burnin_actions.max()) > 0.9
+        and float(stored["action"][: state.t].abs().max()) <= 1.0,
+        "targets follow their online nets": _targets_follow(train, initial),
+        "evaluation: one truncation per lane, returns finite and <= 0": truncations == DDPG_EVAL[0]
+        and terminations == 0 and returns.shape == (DDPG_EVAL[0],)
+        and bool(np.isfinite(returns).all()) and bool((returns <= 0).all()),
+        "no kernel on this path": prefix_sample.launches == 0,
+    })
+    timed_steps, timed_s = DDPG_STEPS - warm_end, t3 - t2
+    result = {
+        "steps": DDPG_STEPS,
+        "t": state.t,
+        "n_updates": updates,
+        "env_steps_per_s": timed_steps * cfg.num_envs / timed_s,
+        "updates_per_s": _updates_in(cfg, warm_end + 1, DDPG_STEPS) / timed_s,
+        "collect_only_env_steps_per_s": collect_steps * cfg.num_envs / (t1 - t0),
+        "collect_chunk_s": t1 - t0,
+        "warm_chunk_s": t2 - t1,
+        "timed_chunk_s": timed_s,
+        "timed_scan_steps": timed_steps,
+        "eval_s": eval_s,
+        "eval_returns": [float(r) for r in returns],
+        "last_loss": float(loss[-1]),
+        "finished_episodes": int(state.recent_count),
+        "recent_return_mean": runner.recent_return_mean(state),
+    }
+    print(
+        f"ddpg: env-steps/s {result['env_steps_per_s']:.1f} updates/s {result['updates_per_s']:.1f} over "
+        f"{timed_steps} scan steps with updates; {result['collect_only_env_steps_per_s']:.1f} env-steps/s over the "
+        f"{collect_steps} before replay start; {result['finished_episodes']} episodes finished, mean return "
+        f"{result['recent_return_mean']:.1f}; evaluation {eval_s:.1f} s, mean return {float(returns.mean()):.1f} "
+        f"(16 lanes, fp32, no TF32) on {card}"
+    )
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -652,13 +971,20 @@ def main() -> int:
         name: phase(f"small {name}", check_small_slice, name, build, steps, launches, device)
         for name, (build, steps, launches) in _small_configs().items()
     }
+    for name, build in _small_actor_critic_configs().items():
+        record["small_slices"][name] = phase(f"small {name}", check_small_actor_critic, name, build, 30, device)
     record["full_slice"] = phase("full per-dqn", run_full_slice, card)
     record["full_rainbow"] = phase("full rainbow", run_full_rainbow, card)
     record["full_uniform"] = {
         name: phase(f"full {name}", run_full_uniform, card, double)
         for name, double in (("dqn", False), ("double-dqn", True))
     }
-    # Counted over each path that samples by priority, from 0 at its start.
+    record["full_actor_critic"] = {
+        name: phase(f"full {name}", run_full_mujoco, card, name) for name in ("sac", "td3")
+    }
+    record["full_actor_critic"]["ddpg"] = phase("full ddpg", run_full_ddpg, card)
+    # Counted over each path that samples by priority, from 0 at its start;
+    # every other path asserts a count of 0.
     kernel["launches_by_path"] = {
         "per-dqn": record["full_slice"]["kernel_launches"],
         "rainbow": record["full_rainbow"]["kernel_launches"],

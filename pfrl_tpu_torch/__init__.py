@@ -5,6 +5,15 @@ here mirror it, and ``tests/test_torch_*.py`` hold each module against its
 counterpart. This package imports ``torch`` and nothing of JAX or
 ``pfrl_tpu``.
 
+Ported so far: the DQN family's device path (Nature DQN over the uniform
+and the prioritized ring, Double DQN, Rainbow) and off-policy actor-critic
+for continuous control (SAC, TD3, DDPG), each through
+``experiments.OffPolicyRunner`` and ``experiments.EvalLoop``; see
+``experiments/atari_per_dqn.py``, ``atari_rainbow.py`` and
+``mujoco_actor_critic.py``. Not ported yet: the on-policy agents, IQN and
+the recurrent and episodic paths, the agents' host shells and the
+host-env training loops, bf16 compute (``compute_dtype``), device meshes.
+
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; without a card they raise (see :mod:`._device`). Kernels
 are built from ``csrc/`` at first use (see :mod:`.ops.cuda_build`).

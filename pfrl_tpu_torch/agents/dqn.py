@@ -11,6 +11,8 @@ layers draw from it on every forward, models without noise ignore it.
 
 Ported subclasses: ``double_dqn.DoubleDQNCore``,
 ``categorical_dqn.CategoricalDQNCore`` and ``CategoricalDoubleDQNCore``.
+The actor-critic cores for continuous actions are in :mod:`.ddpg`,
+:mod:`.td3` and :mod:`.soft_actor_critic`.
 Not ported yet: the host shell ``DQN`` (``batch_act`` / ``batch_observe``),
 ``compute_dtype`` (bf16 compute over fp32 masters), and the AL, PAL, DPP,
 IQN and recurrent cores.
@@ -25,6 +27,7 @@ from torch import nn
 
 from pfrl_tpu_torch.ops.value_loss import compute_weighted_value_loss
 from pfrl_tpu_torch.replay.transition import TransitionBatch
+from pfrl_tpu_torch.utils.copy_param import copy_param, soft_copy_param
 from pfrl_tpu_torch.utils.draws import Draws
 
 
@@ -70,9 +73,11 @@ class DQNCore:
         self.phi = phi
 
     # ----------------------------------------------------------------- setup
-    def init(self, generator: torch.Generator, example_obs: torch.Tensor) -> DQNState:
+    def init(self, generator: torch.Generator, example_obs: torch.Tensor, example_action=None) -> DQNState:
         """``generator`` (on the CPU) draws the initial weights;
-        ``example_obs`` is a batched observation on the target device."""
+        ``example_obs`` is a batched observation on the target device.
+        ``example_action`` is what the runner hands every core; only the
+        (state, action) Q-functions of the actor-critic cores need it."""
         model = copy.deepcopy(self.model)
         model.reset_parameters(generator)
         model.to(example_obs.device)
@@ -148,13 +153,10 @@ class DQNCore:
         state.n_updates += 1
         return state, {"loss": loss.detach(), "average_q": q_mean, "errors": errors}
 
-    @torch.no_grad()
     def sync_target(self, state: DQNState) -> DQNState:
         """Hard copy, or Polyak ``(1 - tau) * target + tau * online``."""
-        tau = self.soft_update_tau
-        for t, s in zip(state.target_model.parameters(), state.model.parameters()):
-            if self.target_update_method == "hard":
-                t.copy_(s)
-            else:
-                t.copy_((1.0 - tau) * t + tau * s)
+        if self.target_update_method == "hard":
+            copy_param(state.target_model, state.model)
+        else:
+            soft_copy_param(state.target_model, state.model, self.soft_update_tau)
         return state

@@ -5,7 +5,14 @@ and a noisy layer's ``w_mu``/``w_sigma`` from ``[in, out]`` to
 ``[out, in]``, biases (``b_mu``/``b_sigma``) are copied. The port's models
 flatten in flax's (H, W, C) order (see ``models/atari_cnn.py``), so no rows
 are permuted. A module names its flax scopes with ``flax_names()``:
-submodule name -> ``"Scope_0/Sub_1"`` path, nested scopes included.
+submodule name -> ``"Scope_0/Sub_1"`` path, nested scopes included
+(``MLP_0/Dense_1`` under a compact wrapper); a parameter that is neither
+``kernel`` nor ``bias`` (a head's ``log_std``) maps from its own name to
+its leaf and is copied as it is.
+
+The ``*_state_from_flax`` functions take a whole train state whose leaves
+are numpy arrays, as ``jax.tree.map(np.asarray, state)`` gives it; its
+fields are read by name.
 
 Takes nested dicts of numpy arrays (``jax.tree.map(np.asarray, tree)`` on
 the JAX side); imports nothing of JAX.
@@ -18,7 +25,10 @@ import numpy as np
 import torch
 from torch import nn
 
+from pfrl_tpu_torch.agents.ddpg import ActorCriticState, DDPGCore
 from pfrl_tpu_torch.agents.dqn import DQNCore, DQNState
+from pfrl_tpu_torch.agents.soft_actor_critic import SACCore, SACState
+from pfrl_tpu_torch.agents.td3 import TD3Core, TD3State
 
 
 def _to_torch_layout(kernel: np.ndarray) -> np.ndarray:
@@ -44,7 +54,9 @@ def torch_arrays(module: nn.Module, flax_tree: Mapping) -> Dict[str, np.ndarray]
     out = {}
     for sub, path in module.flax_names().items():
         node = _scope(_strip(flax_tree), path)
-        if "w_mu" in node:  # a factorized noisy layer's four leaves
+        if not isinstance(node, Mapping):  # a bare parameter leaf (``log_std``)
+            out[sub] = np.asarray(node)
+        elif "w_mu" in node:  # a factorized noisy layer's four leaves
             for leaf in ("w_mu", "w_sigma"):
                 out[f"{sub}.{leaf}"] = _to_torch_layout(np.asarray(node[leaf]))
             for leaf in ("b_mu", "b_sigma"):
@@ -91,5 +103,85 @@ def dqn_state_from_flax(
         state.opt_state,
         count=count,
         **{k: [torch_arrays(model, tree)[n] for n in names] for k, tree in moments.items()},
+    )
+    return state
+
+
+def _load_network(template: nn.Module, flax_state, params_field: str, device) -> nn.Module:
+    module = copy.deepcopy(template).to(device)
+    return load_flax_params(module, getattr(flax_state, params_field))
+
+
+def _load_adam(optimizer, opt_state, module: Optional[nn.Module], flax_opt_state) -> None:
+    """``optax.adam``'s state (``opt_state[0]``: ``mu``, ``nu``, ``count``)
+    into the port's, in the order of ``module``'s parameters; for a single
+    0-d parameter (``module`` None) the moments are the leaves themselves."""
+    adam = flax_opt_state[0]
+    moments = {}
+    for k in ("mu", "nu"):
+        tree = getattr(adam, k)
+        if module is None:
+            moments[k] = [np.asarray(tree)]
+        else:
+            arrays = torch_arrays(module, tree)
+            moments[k] = [arrays[name] for name, _ in module.named_parameters()]
+    optimizer.load_state(opt_state, count=int(np.asarray(adam.count)), **moments)
+
+
+def actor_critic_state_from_flax(core: DDPGCore, flax_state, device="cpu") -> ActorCriticState:
+    """A whole JAX ``ActorCriticState`` into the port's."""
+    policy = _load_network(core.policy, flax_state, "policy_params", device)
+    q_func = _load_network(core.q_func, flax_state, "q_params", device)
+    state = core.state_from_modules(policy, q_func)
+    load_flax_params(state.target_policy, flax_state.target_policy_params)
+    load_flax_params(state.target_q_func, flax_state.target_q_params)
+    _load_adam(core.policy_optimizer, state.policy_opt_state, policy, flax_state.policy_opt_state)
+    _load_adam(core.q_optimizer, state.q_opt_state, q_func, flax_state.q_opt_state)
+    state.n_updates = int(np.asarray(flax_state.n_updates))
+    return state
+
+
+def _load_twin(core, state, flax_state) -> None:
+    """What TD3's and SAC's states share: the target critics, the three
+    networks' Adam states and ``n_updates``."""
+    load_flax_params(state.target_q_func1, flax_state.target_q1_params)
+    load_flax_params(state.target_q_func2, flax_state.target_q2_params)
+    for optimizer, opt_state, module, name in (
+        (core.policy_optimizer, state.policy_opt_state, state.policy, "policy_opt_state"),
+        (core.q_func1_optimizer, state.q1_opt_state, state.q_func1, "q1_opt_state"),
+        (core.q_func2_optimizer, state.q2_opt_state, state.q_func2, "q2_opt_state"),
+    ):
+        _load_adam(optimizer, opt_state, module, getattr(flax_state, name))
+    state.n_updates = int(np.asarray(flax_state.n_updates))
+
+
+def td3_state_from_flax(core: TD3Core, flax_state, device="cpu") -> TD3State:
+    """A whole JAX ``TD3State`` into the port's."""
+    state = core.state_from_modules(
+        _load_network(core.policy, flax_state, "policy_params", device),
+        _load_network(core.q_func1, flax_state, "q1_params", device),
+        _load_network(core.q_func2, flax_state, "q2_params", device),
+    )
+    load_flax_params(state.target_policy, flax_state.target_policy_params)
+    _load_twin(core, state, flax_state)
+    return state
+
+
+def sac_state_from_flax(core: SACCore, flax_state, device="cpu") -> SACState:
+    """A whole JAX ``SACState`` into the port's, ``log_temperature`` and
+    its 0-d Adam state included."""
+    state = core.state_from_modules(
+        _load_network(core.policy, flax_state, "policy_params", device),
+        _load_network(core.q_func1, flax_state, "q1_params", device),
+        _load_network(core.q_func2, flax_state, "q2_params", device),
+    )
+    _load_twin(core, state, flax_state)
+    with torch.no_grad():
+        state.log_temperature.copy_(
+            torch.from_numpy(np.array(flax_state.log_temperature, np.float32))
+        )
+    _load_adam(
+        core.temperature_optimizer, state.temperature_opt_state, None,
+        flax_state.temperature_opt_state,
     )
     return state

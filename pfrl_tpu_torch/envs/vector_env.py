@@ -21,7 +21,16 @@ class VecStep:
     obs: torch.Tensor
 
 
-def _lane_where(done: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def _lane_where(done: torch.Tensor, a: Any, b: Any) -> Any:
+    """Per lane ``a`` where ``done`` else ``b``, over tensors and over
+    (nested) dataclasses of tensors, as a wrapped env's state is."""
+    if dataclasses.is_dataclass(a):
+        return type(a)(
+            **{
+                f.name: _lane_where(done, getattr(a, f.name), getattr(b, f.name))
+                for f in dataclasses.fields(a)
+            }
+        )
     return torch.where(done.view(-1, *([1] * (a.dim() - 1))), a, b)
 
 
@@ -42,13 +51,6 @@ class VectorTorchEnv:
         new_states, ts = self.env.step(states, actions)
         reset_states, reset_obs = self.env.reset(draws, self.num_envs)
         done = ts.done
-        out_states = type(new_states)(
-            **{
-                f.name: _lane_where(
-                    done, getattr(reset_states, f.name), getattr(new_states, f.name)
-                )
-                for f in dataclasses.fields(new_states)
-            }
-        )
+        out_states = _lane_where(done, reset_states, new_states)
         next_obs = _lane_where(done, reset_obs, ts.obs)
         return out_states, VecStep(ts=ts, obs=next_obs)

@@ -1,15 +1,19 @@
 """Where a full-width configuration's time goes on the card.
 
     python -m pfrl_tpu_torch.experiments.profile_slice
-        [--config per-dqn|dqn|rainbow] [--steps 8] [--out PATH]
+        [--config per-dqn|dqn|rainbow|sac|td3|ddpg] [--steps 8] [--out PATH]
 
-Runs one configuration at full width (64 lanes of 84x84x4 uint8 frames, 16
-batch-32 updates per scan step) on the CUDA device: ``per-dqn``
-(``make_per_dqn_runner()``, prioritized-replay Nature DQN), ``dqn``
-(``make_dqn_runner()``, the same over the uniform ring) or ``rainbow``
-(``make_rainbow_runner()``). The replay start is cut to 2,048 transitions
-where the recipe's is later (Rainbow: 20,000), which changes no phase's
-work: the ring's size and every shape stay. Past replay start it:
+Runs one configuration at full width on the CUDA device. On 64 lanes of
+84x84x4 uint8 AtariSim frames, 16 batch-32 updates per scan step:
+``per-dqn`` (``make_per_dqn_runner()``, prioritized-replay Nature DQN),
+``dqn`` (``make_dqn_runner()``, the same over the uniform ring) and
+``rainbow`` (``make_rainbow_runner()``). For continuous control: ``sac``
+and ``td3`` (``make_sac_runner()``, ``make_td3_runner()``: 32 lanes of
+MujocoSim, 32 batch-256 updates per scan step) and ``ddpg``
+(``make_ddpg_runner()``: 16 lanes of the time-limited Pendulum, 4 batch-128
+updates per scan step). The replay start is cut to 2,048 transitions where
+the recipe's is later (Rainbow: 20,000), which changes no phase's work: the
+ring's size and every shape stay. Past replay start it:
 
 1. times ``--steps`` scan steps as they run (host clock, synchronized);
 2. times the same number of steps again with each phase of the scan step
@@ -17,7 +21,11 @@ work: the ring's size and every shape stay. Past replay start it:
    per update the sample (prioritized: with the prefix-sample kernel and the
    row gather inside it; uniform: one id draw per scan step and a row
    gather per update), the gradient step and the priority feedback, and
-   the target sync;
+   the target sync. The gradient step is split: for the DQN family into its
+   forwards (the loss), the backward pass and the optimizer; for the
+   actor-critic cores into the critic step, the actor (and temperature)
+   step and the soft copies of the targets, which there include the
+   runner's own sync every 1,000 transitions;
 3. records ``--steps`` more steps with ``torch.profiler``: kernels
    launched per scan step, the device's busy time, and the kernels that
    take the most of it. The busy share is taken against the unprofiled
@@ -38,21 +46,39 @@ from torch.profiler import ProfilerActivity, profile
 
 from pfrl_tpu_torch.experiments.atari_per_dqn import make_dqn_runner, make_per_dqn_runner
 from pfrl_tpu_torch.experiments.atari_rainbow import make_rainbow_runner
+from pfrl_tpu_torch.experiments.mujoco_actor_critic import (
+    make_ddpg_runner,
+    make_sac_runner,
+    make_td3_runner,
+)
 
 CONFIGS = {
     "per-dqn": make_per_dqn_runner,
     "dqn": make_dqn_runner,
     "rainbow": lambda: make_rainbow_runner(replay_start_size=2_048),
+    "sac": make_sac_runner,
+    "td3": make_td3_runner,
+    "ddpg": make_ddpg_runner,
 }
 
+# Labels that start with two spaces are parts of the phase above them.
 COMMON_PHASES = (
     ("core", "select_action", "act"),
     ("env", "step", "env step"),
     ("buffer", "add", "replay add"),
     ("core", "update", "gradient step"),
+)
+DQN_PHASES = (
+    ("core", "loss_and_errors", "  of which forwards (loss)"),
+    ("autograd", "grad", "  of which backward"),
+    ("optimizer", "update", "  of which optimizer"),
     ("core", "sync_target", "target sync"),
 )
-# Labels that start with two spaces are parts of the phase above them.
+ACTOR_CRITIC_PHASES = (
+    ("core", "critic_step", "  of which critic step"),
+    ("core", "actor_step", "  of which actor (and temperature) step"),
+    ("core", "sync_target", "  of which soft copies"),
+)
 PRIORITIZED_PHASES = (
     ("buffer", "sample", "PER sample"),
     ("buffer", "_find_slots", "  of which prefix_sample + clamp"),
@@ -85,7 +111,12 @@ def _wrap(acc, label, fn):
 def profile_slice(config: str, steps: int) -> dict:
     runner = CONFIGS[config]()
     cfg = runner.config
-    phases = COMMON_PHASES + (UNIFORM_PHASES if runner.buffer.iid_samples else PRIORITIZED_PHASES)
+    actor_critic = hasattr(runner.core, "critic_step")
+    phases = (
+        COMMON_PHASES
+        + (ACTOR_CRITIC_PHASES if actor_critic else DQN_PHASES)
+        + (UNIFORM_PHASES if runner.buffer.iid_samples else PRIORITIZED_PHASES)
+    )
     state = runner.init(0)
     warm = -(-cfg.replay_start_size // cfg.num_envs) + 2  # past replay start
     state, _ = runner.run_chunk(state, warm)
@@ -93,15 +124,23 @@ def profile_slice(config: str, steps: int) -> dict:
     (state, _), plain_s = _synced(lambda: runner.run_chunk(state, steps))
 
     acc = collections.defaultdict(float)
-    owners = {"core": runner.core, "env": runner.env, "buffer": runner.buffer}
+    owners = {
+        "core": runner.core, "env": runner.env, "buffer": runner.buffer,
+        "autograd": torch.autograd, "optimizer": getattr(runner.core, "optimizer", None),
+    }
     originals = []
     for owner, attr, label in phases:
         obj = owners[owner]
-        originals.append((obj, attr))
+        originals.append((obj, attr, vars(obj).get(attr)))
         setattr(obj, attr, _wrap(acc, label, getattr(obj, attr)))
-    (state, _), phased_s = _synced(lambda: runner.run_chunk(state, steps))
-    for obj, attr in originals:
-        delattr(obj, attr)  # back to the class's method
+    try:
+        (state, _), phased_s = _synced(lambda: runner.run_chunk(state, steps))
+    finally:
+        for obj, attr, own in originals:
+            if own is None:
+                delattr(obj, attr)  # back to the class's method
+            else:
+                setattr(obj, attr, own)  # a module's function
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         (state, _), profiled_s = _synced(lambda: runner.run_chunk(state, steps))

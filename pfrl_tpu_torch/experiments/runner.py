@@ -9,7 +9,9 @@ no step waits for the device.
 
 :class:`RunnerState` is updated **in place**, the replay ring above all.
 
-Ported: the non-episodic, non-recurrent, single-device branches. Buffers
+Ported: the non-episodic, non-recurrent, single-device branches, for
+discrete and continuous actions (the example action that sizes the ring
+comes from the env's action space). Buffers
 with priority feedback (``iid_samples`` false) take the sequential
 sample -> update -> feedback loop; uniform buffers take the presample
 branch, one id draw per scan step and a row gather per update.
@@ -70,7 +72,12 @@ class RunnerState:
 
 
 class OffPolicyRunner:
-    """DQN-family off-policy training on one device."""
+    """DQN-family and actor-critic off-policy training on one device.
+
+    Draws per scan step, in order: the core's act noise (and its burn-in
+    actions while they last), the env's resets, the ids of all of the
+    step's minibatches (uniform ring) or each update's sample (prioritized),
+    then each update's own noise."""
 
     def __init__(
         self,
@@ -107,17 +114,20 @@ class OffPolicyRunner:
             gen.manual_seed(seed)
             draws = Draws(gen)
         env_states, obs = self.env.reset(draws)
-        train_state = self.core.init(torch.Generator().manual_seed(seed), obs)
+        example_action = self._example_action()
+        L = self.config.num_envs
+        train_state = self.core.init(
+            torch.Generator().manual_seed(seed), obs, torch.stack([example_action] * L)
+        )
         zeros = lambda dtype: torch.zeros((), dtype=dtype, device=self.device)  # noqa: E731
         example = Transition(
             obs=obs[0],
-            action=zeros(torch.int32),
+            action=example_action,
             reward=zeros(torch.float32),
             next_obs=obs[0],
             terminated=zeros(torch.bool),
             done=zeros(torch.bool),
         )
-        L = self.config.num_envs
         return RunnerState(
             env_states=env_states,
             obs=obs,
@@ -129,6 +139,13 @@ class OffPolicyRunner:
             recent_returns=torch.zeros(self.return_window, dtype=torch.float32, device=self.device),
             recent_count=zeros(torch.int32),
         )
+
+    def _example_action(self) -> torch.Tensor:
+        """int32 0-d for a discrete action space, else float32 of its shape."""
+        space = self.env.action_space
+        if hasattr(space, "n"):
+            return torch.zeros((), dtype=torch.int32, device=self.device)
+        return torch.zeros(space.shape, dtype=torch.float32, device=self.device)
 
     # ----------------------------------------------------------------- step
     def _one_step(self, state: RunnerState) -> Dict[str, torch.Tensor]:

@@ -1,3 +1,5 @@
+from pfrl_tpu_torch.explorers.additive_gaussian import AdditiveGaussian  # noqa: F401
+from pfrl_tpu_torch.explorers.additive_ou import AdditiveOU  # noqa: F401
 from pfrl_tpu_torch.explorers.epsilon_greedy import (  # noqa: F401
     LinearDecayEpsilonGreedy,
     epsilon_greedy,

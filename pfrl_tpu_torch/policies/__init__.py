@@ -1,0 +1,10 @@
+"""Policy heads (counterpart of ``pfrl_tpu/policies``): network output ->
+distribution. The softmax head is not ported yet."""
+
+from pfrl_tpu_torch.policies.deterministic_policy import DeterministicHead  # noqa: F401
+from pfrl_tpu_torch.policies.gaussian_policy import (  # noqa: F401
+    GaussianHeadWithDiagonalCovariance,
+    GaussianHeadWithFixedCovariance,
+    GaussianHeadWithStateIndependentCovariance,
+    SquashedGaussianHead,
+)

@@ -2,6 +2,11 @@ from pfrl_tpu_torch.q_functions.dueling_dqn import (  # noqa: F401
     DistributionalDuelingDQN,
     DuelingDQN,
 )
+from pfrl_tpu_torch.q_functions.state_action_q_functions import (  # noqa: F401
+    FCLateActionSAQFunction,
+    FCSAQFunction,
+    SingleModelStateActionQFunction,
+)
 from pfrl_tpu_torch.q_functions.state_q_functions import (  # noqa: F401
     DiscreteActionValueHead,
 )

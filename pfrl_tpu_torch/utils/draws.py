@@ -8,6 +8,7 @@ The parity tests pass a source of their own that hands the JAX package the
 very same numbers (the two frameworks' generators never agree).
 """
 
+import numpy as np
 import torch
 
 
@@ -44,3 +45,28 @@ class Draws:
             dtype=torch.int64,
         )
         return (bits % high).to(torch.int32)
+
+
+def normal(draws, shape) -> torch.Tensor:
+    """Standard normal float32 of ``shape``: one ``draws.normal`` of its
+    element count, reshaped (row-major, as ``jax.random.normal`` fills)."""
+    shape = tuple(shape)
+    n = 1
+    for s in shape:
+        n *= s
+    return draws.normal(n).reshape(shape)
+
+
+def uniform_between(draws, low: float, high: float, shape) -> torch.Tensor:
+    """float32 of ``shape`` in ``[low, high)`` from one ``draws.uniform``,
+    with the arithmetic of ``jax.random.uniform(key, shape, minval=low,
+    maxval=high)``: ``max(low, u * (high - low) + low)``, each op rounded
+    to float32 (where XLA fuses the product into the add, a value moves by
+    an ulp)."""
+    shape = tuple(shape)
+    n = 1
+    for s in shape:
+        n *= s
+    low32, high32 = np.float32(low), np.float32(high)
+    u = draws.uniform(n).reshape(shape)
+    return torch.clamp_min(u * float(high32 - low32) + float(low32), float(low32))
