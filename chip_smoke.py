@@ -41,7 +41,16 @@ result, without them. Its phases, each raising on failure:
    action-normalized Pendulum, 64 x 64 networks, batch-128 updates every 4
    transitions) through its 1,000 burn-in transitions and on to 405 scan
    steps, so that every lane crosses the 200-step time limit twice, then
-   its evaluation loop (10 lanes, 201 steps); no kernel either.
+   its evaluation loop (10 lanes, 201 steps); no kernel either;
+9. on-policy, through ``OnPolicyRunner.run_iterations``: small card-vs-CPU
+   runs of PPO, A2C and TRPO (4 lanes, 3 iterations, the same draws and
+   weights), then at full width PPO on MujocoSim as ``bench.py`` runs it (8
+   lanes, rollout 256, 320 batch-64 Adam steps per iteration, 10
+   iterations: every lane truncated at its steps 1,000 and 2,000), PPO and
+   TRPO on the time-limited Pendulum (16 lanes, rollout 128, 10 iterations:
+   six truncations per lane, then the evaluation loop, 10 lanes x 201
+   steps) and A2C on the time-limited CartPole (32 lanes, rollout 8, 200
+   iterations, then 10 lanes x 501 steps); no kernel on these paths.
 
 The kernels' launch counts are set to 0 just before each full-width path
 and read just after it; the kernels' JSON line gives their sum over the
@@ -84,6 +93,8 @@ MUJOCO_EVAL = (5, 1_000)   # lanes, steps: the truncation at step 1,000 is cross
 DDPG_STEPS_WARM = 2
 DDPG_STEPS = 405           # every lane is truncated at its steps 200 and 400
 DDPG_EVAL = (10, 201)
+ONPOLICY_ITERATIONS = {"ppo": 10, "ppo-pendulum": 10, "trpo": 10, "a2c": 200}
+ONPOLICY_EVAL = {"ppo-pendulum": (10, 201), "trpo": (10, 201), "a2c": (10, 501)}
 
 
 def card_line() -> str:
@@ -147,6 +158,9 @@ class SeededDraws:
         """``high`` is a 0-d tensor on the device and stays there."""
         bits = torch.from_numpy(self.rs.randint(0, 1 << 62, n, dtype=np.int64)).to(self.device)
         return (bits % high).to(torch.int32)
+
+    def permutation(self, n: int) -> torch.Tensor:
+        return torch.from_numpy(self.rs.permutation(n)).to(self.device)
 
 
 # --------------------------------------------------------------------- phase 1
@@ -936,6 +950,185 @@ def run_full_ddpg(card: str) -> dict:
     return result
 
 
+# --------------------------------------------------------------------- phase 9
+def _small_onpolicy_configs() -> dict:
+    """name -> function making a 4-lane runner on a device, the recipes'
+    networks: episodes cut to 12 steps (MujocoSim), 20 (CartPole) and 10
+    (Pendulum), so that lanes end and reset inside the 3 iterations."""
+    from pfrl_tpu_torch.envs import CartPole, MujocoSim, Pendulum, TimeLimit
+    from pfrl_tpu_torch.experiments import onpolicy as onp
+
+    return {
+        "ppo": lambda dev: onp.make_ppo_runner(
+            num_envs=4, rollout_len=16, epochs=2, minibatch_size=16, env=MujocoSim(episode_len=12, device=dev)),
+        "a2c": lambda dev: onp.make_a2c_cartpole_runner(
+            num_envs=4, rollout_len=8, env=TimeLimit(CartPole(device=dev), 20)),
+        "trpo": lambda dev: onp.make_trpo_pendulum_runner(
+            num_envs=4, rollout_len=16, vf_epochs=2, vf_batch_size=16, env=TimeLimit(Pendulum(device=dev), 10)),
+    }
+
+
+def check_small_onpolicy(name: str, build, device, iterations: int = 3) -> dict:
+    """A 4-lane run of PPO, A2C or TRPO on the card and on the CPU from the
+    same draws and weights: every metric of every update within rtol 1e-3
+    (floor 1e-5; TRPO's KL 1e-2), the networks within 2e-5, TRPO's policy
+    within 5e-4 (ten unconverged float32 CG iterations amplify rounding: on
+    the CPU the port and the JAX package differ by up to 2e-3 of the step)."""
+    from pfrl_tpu_torch.ops.prefix_sample import prefix_sample
+
+    def run(dev):
+        runner = build(dev)
+        state = runner.init(0, draws=SeededDraws(0, dev))
+        state, aux = runner.run_iterations(state, iterations)
+        return runner, state, aux
+
+    prefix_sample.launches = 0
+    runner, gpu, gpu_aux = run(device)
+    torch.cuda.synchronize()
+    launches = prefix_sample.launches
+    _, cpu, cpu_aux = run("cpu")
+    differences = _Differences(name)
+    close, diffs = differences.close, differences.largest
+    for key, value in gpu_aux.items():
+        close(key, value, cpu_aux[key], 1e-2 if key == "kl" else 1e-3, 1e-5)
+    close("obs", gpu.obs, cpu.obs, 1e-4, 1e-5)
+    close("recent_returns", gpu.recent_returns, cpu.recent_returns, 1e-4, 1e-4)
+    for which, module in _networks(gpu.train_state).items():
+        atol = 5e-4 if (name, which) == ("trpo", "policy") else 2e-5
+        for a, b in zip(module.parameters(), getattr(cpu.train_state, which).parameters()):
+            close(f"{which} parameters", a, b, 0.0, atol)
+    _raise_on_failed(f"small {name}", {
+        "no kernel on this path": launches == 0,
+        "n_updates agree": gpu.train_state.n_updates == cpu.train_state.n_updates > 0,
+        "t agrees": gpu.t == cpu.t == iterations * runner.rollout_len * runner.num_envs,
+        "episodes ended inside the run": int(gpu.recent_count) == int(cpu.recent_count) > 0,
+    })
+    print(f"small {name}: card vs CPU agree over {iterations} iterations, {gpu.train_state.n_updates} updates, "
+          f"{launches} kernel launches; largest differences {json.dumps(diffs)}")
+    return {"iterations": iterations, "updates": gpu.train_state.n_updates, "kernel_launches": launches,
+            "max_abs_diff": diffs}
+
+
+def _onpolicy_runner(name: str):
+    """The recipe's runner on the card, its env counting truncations and
+    terminations."""
+    from pfrl_tpu_torch.envs import MujocoSim
+    from pfrl_tpu_torch.experiments import onpolicy as onp
+
+    make, env = {
+        "ppo": (onp.make_ppo_runner, MujocoSim),
+        "ppo-pendulum": (onp.make_ppo_pendulum_runner, onp.time_limited_pendulum),
+        "trpo": (onp.make_trpo_pendulum_runner, onp.time_limited_pendulum),
+        "a2c": (onp.make_a2c_cartpole_runner, onp.time_limited_cartpole),
+    }[name]
+    watched = _WatchedEnv(env())
+    return make(env=watched), watched
+
+
+def run_full_onpolicy(card: str, name: str) -> dict:
+    """One on-policy recipe at full width for ``ONPOLICY_ITERATIONS[name]``
+    iterations (the first timed apart), then its evaluation loop."""
+    from pfrl_tpu_torch.experiments.runner import EvalLoop
+    from pfrl_tpu_torch.ops.prefix_sample import prefix_sample
+
+    runner, env = _onpolicy_runner(name)
+    core, lanes, T = runner.core, runner.num_envs, runner.rollout_len
+    iterations = ONPOLICY_ITERATIONS[name]
+    state = runner.init(0)
+    torch.cuda.synchronize()
+    train = state.train_state
+    head = (train.policy if name == "trpo" else train.model).head
+    log_std0 = float(head.log_std.detach()) if hasattr(head, "log_std") else None
+
+    prefix_sample.launches = 0
+    t0 = time.perf_counter()
+    state, first = runner.run_iterations(state, 1)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    updates_first = train.n_updates
+    vf_first = train.vf_opt_state.count if name == "trpo" else 0
+    state, rest = runner.run_iterations(state, iterations - 1)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = prefix_sample.launches
+    aux = {k: torch.cat([first[k], rest[k]]) for k in first}
+    train_truncations, train_terminations = int(env.truncations), int(env.terminations)
+
+    finished = int(state.recent_count)
+    recent = state.recent_returns[: min(finished, runner.return_window)]
+    per_iteration = {"ppo": 320, "ppo-pendulum": 320, "trpo": 1, "a2c": 1}[name]
+    scalars = [k for k in aux if k != "errors"]
+    checks = {
+        "t advanced": state.t == iterations * T * lanes,
+        "n_updates as expected": train.n_updates == iterations * per_iteration,
+        "every metric finite": all(bool(torch.isfinite(aux[k]).all()) for k in scalars),
+        "finished returns finite": bool(torch.isfinite(recent).all()),
+        "no kernel on this path": launches == 0,
+    }
+    result = {"iterations": iterations, "t": state.t, "n_updates": train.n_updates, "kernel_launches": launches}
+    if name in ("ppo", "ppo-pendulum"):
+        checks["Adam's count == n_updates == 3,200"] = train.opt_state.count == train.n_updates == 3_200
+        checks["log_std moved"] = abs(float(head.log_std.detach()) - log_std0) > 1e-4
+    if name == "ppo":  # MujocoSim truncates at 1,000 steps; 2,560 steps per lane
+        checks["every lane truncated at its steps 1,000 and 2,000, never terminated"] = (
+            finished == train_truncations == 2 * lanes and train_terminations == 0)
+    if name in ("ppo-pendulum", "trpo"):  # 1,280 steps per lane: 200, 400, ..., 1,200
+        checks["every lane truncated six times, never terminated"] = (
+            finished == train_truncations == 6 * lanes and train_terminations == 0)
+        checks["finished returns <= 0"] = bool((recent <= 0).all())
+    if name == "trpo":
+        accepted = aux["step_accepted"] > 0
+        kls = aux["kl"][accepted]
+        checks["value function's Adam count == 5 epochs x 32 per iteration"] = train.vf_opt_state.count == iterations * 160
+        checks["every accepted step's KL <= max_kl"] = bool((kls <= core.max_kl).all()) and bool((kls > 0).all())
+        result["accepted_steps"] = int(accepted.sum())
+        result["accepted_kl"] = [float(k) for k in kls]
+    if name == "a2c":
+        checks["episodes ended, by termination"] = finished == train_truncations + train_terminations > 0 and train_terminations > 0
+    result["train_truncations"], result["train_terminations"] = train_truncations, train_terminations
+    if name in ONPOLICY_EVAL:
+        eval_lanes, eval_steps = ONPOLICY_EVAL[name]
+        env.truncations.zero_()
+        env.terminations.zero_()
+        loop = EvalLoop(env, core, num_episodes=eval_lanes, max_steps=eval_steps)
+        t3 = time.perf_counter()
+        returns = loop.evaluate(train, state.draws)
+        result["eval_s"] = time.perf_counter() - t3
+        result["eval_returns"] = [float(r) for r in returns]
+        result["eval_truncations"], result["eval_terminations"] = int(env.truncations), int(env.terminations)
+        checks["evaluation returns finite"] = returns.shape == (eval_lanes,) and bool(np.isfinite(returns).all())
+        if name != "a2c":
+            checks["evaluation: one truncation per lane"] = (
+                result["eval_truncations"] == eval_lanes and result["eval_terminations"] == 0)
+    _raise_on_failed(name, checks)
+    timed_s = t2 - t1
+    timed_updates = train.n_updates - updates_first
+    result.update({
+        "env_steps_per_s": (iterations - 1) * T * lanes / timed_s,
+        "updates_per_s": timed_updates / timed_s,
+        "first_iteration_s": t1 - t0,
+        "timed_s": timed_s,
+        "iteration_ms": timed_s / (iterations - 1) * 1e3,
+        "last": {k: float(aux[k][-1]) for k in scalars},
+        "finished_episodes": finished,
+        "recent_return_mean": runner.recent_return_mean(state),
+    })
+    if name == "trpo":
+        result["vf_steps_per_s"] = (train.vf_opt_state.count - vf_first) / timed_s
+    print(
+        f"{name}: env-steps/s {result['env_steps_per_s']:.1f} gradient steps/s {result['updates_per_s']:.1f}"
+        + (f" (value-function steps/s {result['vf_steps_per_s']:.1f}; accepted steps {result['accepted_steps']}"
+           f" of {iterations}, KL {result['accepted_kl']})" if name == "trpo" else "")
+        + f" over {iterations - 1} iterations ({result['iteration_ms']:.1f} ms each; the first "
+        f"{result['first_iteration_s']:.2f} s); {finished} episodes finished, mean return "
+        f"{result['recent_return_mean']:.1f}; truncations {train_truncations}, terminations {train_terminations}"
+        + (f"; evaluation {result['eval_s']:.2f} s, returns {result['eval_returns']}, truncations "
+           f"{result['eval_truncations']}, terminations {result['eval_terminations']}" if "eval_s" in result else "")
+        + f"; last {json.dumps(result['last'])} ({lanes} lanes, fp32, no TF32) on {card}"
+    )
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -983,11 +1176,17 @@ def main() -> int:
         name: phase(f"full {name}", run_full_mujoco, card, name) for name in ("sac", "td3")
     }
     record["full_actor_critic"]["ddpg"] = phase("full ddpg", run_full_ddpg, card)
+    for name, build in _small_onpolicy_configs().items():
+        record["small_slices"][name] = phase(f"small {name}", check_small_onpolicy, name, build, device)
+    record["full_onpolicy"] = {
+        name: phase(f"full {name}", run_full_onpolicy, card, name) for name in ONPOLICY_ITERATIONS
+    }
     # Counted over each path that samples by priority, from 0 at its start;
     # every other path asserts a count of 0.
     kernel["launches_by_path"] = {
         "per-dqn": record["full_slice"]["kernel_launches"],
         "rainbow": record["full_rainbow"]["kernel_launches"],
+        **{name: r["kernel_launches"] for name, r in record["full_onpolicy"].items()},
     }
     kernel["launches"] = sum(kernel["launches_by_path"].values())
     record["kernels"] = [kernel]

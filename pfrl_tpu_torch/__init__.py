@@ -10,9 +10,11 @@ and the prioritized ring, Double DQN, Rainbow) and off-policy actor-critic
 for continuous control (SAC, TD3, DDPG), each through
 ``experiments.OffPolicyRunner`` and ``experiments.EvalLoop``; see
 ``experiments/atari_per_dqn.py``, ``atari_rainbow.py`` and
-``mujoco_actor_critic.py``. Not ported yet: the on-policy agents, IQN and
-the recurrent and episodic paths, the agents' host shells and the
-host-env training loops, bf16 compute (``compute_dtype``), device meshes.
+``mujoco_actor_critic.py``; on-policy training (PPO, A2C, TRPO) through
+``experiments.OnPolicyRunner``, see ``experiments/onpolicy.py``. Not ported
+yet: REINFORCE, IQN and the recurrent and episodic paths, the agents' host
+shells and the host-env training loops, bf16 compute (``compute_dtype``),
+device meshes.
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; without a card they raise (see :mod:`._device`). Kernels

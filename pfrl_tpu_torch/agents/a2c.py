@@ -1,0 +1,84 @@
+"""A2C, synchronous advantage actor-critic (counterpart of
+``pfrl_tpu/agents/a2c.py::A2CCore``).
+
+It shares PPO's model protocol and state (:class:`~.ppo.PPOState`) and takes
+one full-batch optimizer step per rollout. The value targets are n-step
+returns, bootstrapped from V at episode boundaries and at the rollout's end
+(``use_gae=False``), or GAE's (``use_gae=True``, with ``tau`` as lambda).
+``update`` draws nothing.
+
+Not ported yet: the host shell ``A2C`` and ``compute_dtype``.
+"""
+
+from typing import Any, Callable, Optional
+
+import torch
+
+from pfrl_tpu_torch.agents.ddpg import _identity
+from pfrl_tpu_torch.agents.ppo import PPOCore, PPOState, Rollout, flat
+from pfrl_tpu_torch.ops.returns import discounted_returns, gae_advantages
+
+
+class A2CCore(PPOCore):
+    def __init__(
+        self,
+        model,
+        optimizer,
+        gamma: float = 0.99,
+        use_gae: bool = False,
+        tau: float = 0.95,
+        entropy_coeff: float = 0.01,
+        v_loss_coef: float = 0.5,
+        max_grad_norm: Optional[float] = None,
+        phi: Callable = _identity,
+        compute_dtype: Optional[Any] = None,
+    ):
+        super().__init__(
+            model=model,
+            optimizer=optimizer,
+            gamma=gamma,
+            lambd=tau,
+            entropy_coef=entropy_coeff,
+            value_func_coef=v_loss_coef,
+            max_grad_norm=max_grad_norm,
+            phi=phi,
+            compute_dtype=compute_dtype,
+        )
+        self.use_gae = use_gae
+
+    @torch.no_grad()
+    def targets(self, model, rollout: Rollout):
+        """``(advantages, v_targets)``, ``[T, B]`` each."""
+        next_values = self.next_values(model, rollout)
+        if self.use_gae:
+            return gae_advantages(
+                rollout.reward, rollout.value, next_values,
+                rollout.terminated, rollout.done, self.gamma, self.lambd,
+            )
+        v_targets = discounted_returns(
+            rollout.reward, rollout.terminated, next_values, self.gamma, done=rollout.done
+        )
+        return v_targets - rollout.value, v_targets
+
+    def loss(self, model, rollout: Rollout, advs, v_targets):
+        dist, values = self.forward(model, flat(rollout.obs))
+        pg_loss = -torch.mean(dist.log_prob(flat(rollout.action)) * flat(advs))
+        v_loss = torch.mean((values - flat(v_targets)) ** 2)
+        entropy = torch.mean(dist.entropy())
+        loss = pg_loss + self.value_func_coef * v_loss - self.entropy_coef * entropy
+        return loss, (pg_loss, v_loss, entropy)
+
+    def update(self, state: PPOState, draws, rollout: Rollout):
+        advs, v_targets = self.targets(state.model, rollout)
+        params = list(state.model.parameters())
+        loss, (pg, vl, ent) = self.loss(state.model, rollout, advs, v_targets)
+        grads = torch.autograd.grad(loss, params)
+        self.optimizer.update(params, grads, state.opt_state)
+        state.n_updates += 1
+        return state, {
+            "loss": loss.detach(),
+            "policy_loss": pg.detach(),
+            "value_loss": vl.detach(),
+            "entropy": ent.detach(),
+            "errors": torch.zeros(1, device=loss.device),
+        }

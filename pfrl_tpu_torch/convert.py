@@ -12,7 +12,9 @@ its leaf and is copied as it is.
 
 The ``*_state_from_flax`` functions take a whole train state whose leaves
 are numpy arrays, as ``jax.tree.map(np.asarray, state)`` gives it; its
-fields are read by name.
+fields are read by name. An optimizer state converts by the port
+optimizer's kind: optax's Adam (``mu``, ``nu``, ``count``), RMSprop
+(``nu``), or the ``(clip_by_global_norm, inner)`` chain's inner state.
 
 Takes nested dicts of numpy arrays (``jax.tree.map(np.asarray, tree)`` on
 the JAX side); imports nothing of JAX.
@@ -27,8 +29,11 @@ from torch import nn
 
 from pfrl_tpu_torch.agents.ddpg import ActorCriticState, DDPGCore
 from pfrl_tpu_torch.agents.dqn import DQNCore, DQNState
+from pfrl_tpu_torch.agents.ppo import PPOCore, PPOState
 from pfrl_tpu_torch.agents.soft_actor_critic import SACCore, SACState
 from pfrl_tpu_torch.agents.td3 import TD3Core, TD3State
+from pfrl_tpu_torch.agents.trpo import TRPOCore, TRPOState
+from pfrl_tpu_torch.optimizers import Adam, ClipByGlobalNorm, RMSprop
 
 
 def _to_torch_layout(kernel: np.ndarray) -> np.ndarray:
@@ -184,4 +189,43 @@ def sac_state_from_flax(core: SACCore, flax_state, device="cpu") -> SACState:
         core.temperature_optimizer, state.temperature_opt_state, None,
         flax_state.temperature_opt_state,
     )
+    return state
+
+
+def _load_optimizer(optimizer, opt_state, module: nn.Module, flax_opt_state) -> None:
+    """An optax state into the port's optimizer state, by the port
+    optimizer's kind: ``optax.adam``'s, ``optax.rmsprop``'s (``nu`` of its
+    first element) or, for a :class:`ClipByGlobalNorm`, the chain
+    ``(EmptyState(), inner)``'s inner state."""
+    if isinstance(optimizer, ClipByGlobalNorm):
+        _load_optimizer(optimizer.inner, opt_state, module, flax_opt_state[1])
+    elif isinstance(optimizer, Adam):
+        _load_adam(optimizer, opt_state, module, flax_opt_state)
+    elif isinstance(optimizer, RMSprop):
+        arrays = torch_arrays(module, flax_opt_state[0].nu)
+        optimizer.load_state(opt_state, [arrays[name] for name, _ in module.named_parameters()])
+    else:
+        raise NotImplementedError(f"no conversion for {type(optimizer).__name__}")
+
+
+def ppo_state_from_flax(core: PPOCore, flax_state, device="cpu") -> PPOState:
+    """A whole JAX ``PPOState`` (A2C's too) into the port's: the model, the
+    optimizer's state (Adam, or the ``(clip_by_global_norm, rmsprop)``
+    chain's) and ``n_updates``."""
+    model = _load_network(core.model, flax_state, "params", device)
+    state = core.state_from_model(model)
+    _load_optimizer(core.optimizer, state.opt_state, model, flax_state.opt_state)
+    state.n_updates = int(np.asarray(flax_state.n_updates))
+    return state
+
+
+def trpo_state_from_flax(core: TRPOCore, flax_state, device="cpu") -> TRPOState:
+    """A whole JAX ``TRPOState`` into the port's: the policy, the value
+    function, its Adam state and ``n_updates``."""
+    state = core.state_from_modules(
+        _load_network(core.policy, flax_state, "policy_params", device),
+        _load_network(core.vf, flax_state, "vf_params", device),
+    )
+    _load_optimizer(core.vf_optimizer, state.vf_opt_state, state.vf, flax_state.vf_opt_state)
+    state.n_updates = int(np.asarray(flax_state.n_updates))
     return state

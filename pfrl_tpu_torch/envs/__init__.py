@@ -1,3 +1,4 @@
+from pfrl_tpu_torch.envs.cartpole import CartPole, CartPoleState  # noqa: F401
 from pfrl_tpu_torch.envs.atari_sim import AtariSim, AtariSimState  # noqa: F401
 from pfrl_tpu_torch.envs.mujoco_sim import MujocoSim, MujocoSimState  # noqa: F401
 from pfrl_tpu_torch.envs.pendulum import Pendulum, PendulumState  # noqa: F401

@@ -1,0 +1,146 @@
+"""On-policy training loop (counterpart of
+``pfrl_tpu/experiments/onpolicy_runner.py``) for the PPO, A2C and TRPO cores.
+
+The JAX runner compiles an iteration, a ``[T, L]`` rollout collected by
+``lax.scan`` (act, env step) and the core's update, into one program and
+scans ``n`` of them. Here an iteration is :meth:`OnPolicyRunner._iteration`:
+a Python loop over the ``T`` collect steps, which write each step into
+preallocated time-major ``[T, L, ...]`` rollout tensors in place, then the
+core's ``update`` on that rollout. The step counter ``t`` lives on the host;
+everything else stays on the device and no step waits for the device.
+:class:`OnPolicyRunnerState` is updated **in place**.
+
+Draws, in order, as the JAX runner splits its key: per collect step the
+core's act draw (the distribution's sample), then the env's resets (one for
+every lane, kept where the episode ended); after the ``T`` steps the
+update's draws (PPO: one ``permutation`` per epoch; TRPO: one per
+value-function epoch; A2C: none).
+
+Not ported yet, each raising ``NotImplementedError`` by name: recurrent
+cores (``core.recurrent``) and device meshes.
+"""
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from pfrl_tpu_torch._device import check_same_device, resolve_device, use_full_fp32
+from pfrl_tpu_torch.agents.ppo import Rollout
+from pfrl_tpu_torch.envs.vector_env import VectorTorchEnv
+from pfrl_tpu_torch.experiments.runner import record_returns, recent_return_mean
+from pfrl_tpu_torch.utils.draws import Draws
+
+
+@dataclasses.dataclass
+class OnPolicyRunnerState:
+    env_states: Any
+    obs: torch.Tensor
+    train_state: Any
+    draws: Any                     # the JAX state's rng
+    t: int                         # env transitions so far
+    episode_return: torch.Tensor   # [L] running returns
+    recent_returns: torch.Tensor   # [window] ring of completed returns
+    recent_count: torch.Tensor     # int32 0-d
+    rollout: Optional[Rollout] = None  # [T, L, ...], allocated at the first collect step
+
+
+def _reject_unported(core, mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError("the mesh (multi-device) branch is not ported")
+    if getattr(core, "recurrent", False):
+        raise NotImplementedError("the recurrent branch (core.recurrent) is not ported")
+
+
+class OnPolicyRunner:
+    def __init__(
+        self,
+        env,
+        core,
+        num_envs: int,
+        rollout_len: int,
+        return_window: int = 256,
+        device=None,
+        mesh=None,
+    ):
+        _reject_unported(core, mesh)
+        self.device = check_same_device(runner=resolve_device(device), env=env.device)
+        self.env = VectorTorchEnv(env, num_envs)
+        self.core = core
+        self.num_envs = num_envs
+        self.rollout_len = rollout_len
+        self.return_window = return_window
+        if self.device.type == "cuda":
+            use_full_fp32()
+
+    def init(self, seed: int, draws=None) -> OnPolicyRunnerState:
+        """``draws`` replaces the default source, one ``torch.Generator`` on
+        the device seeded with ``seed``. The env's resets are drawn first;
+        the weights come from a CPU generator seeded with ``seed``."""
+        if draws is None:
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(seed)
+            draws = Draws(gen)
+        env_states, obs = self.env.reset(draws)
+        train_state = self.core.init(torch.Generator().manual_seed(seed), obs)
+        return OnPolicyRunnerState(
+            env_states=env_states,
+            obs=obs,
+            train_state=train_state,
+            draws=draws,
+            t=0,
+            episode_return=torch.zeros(self.num_envs, dtype=torch.float32, device=self.device),
+            recent_returns=torch.zeros(self.return_window, dtype=torch.float32, device=self.device),
+            recent_count=torch.zeros((), dtype=torch.int32, device=self.device),
+        )
+
+    # ------------------------------------------------------------- iteration
+    def _allocate(self, state, action, aux) -> Rollout:
+        def empty(like):
+            return torch.empty((self.rollout_len,) + tuple(like.shape), dtype=like.dtype, device=self.device)
+
+        flags = torch.zeros(self.num_envs, dtype=torch.bool, device=self.device)
+        return Rollout(
+            obs=empty(state.obs),
+            action=empty(action),
+            log_prob=empty(aux["log_prob"]),
+            value=empty(aux["value"]),
+            reward=empty(state.episode_return),
+            terminated=empty(flags),
+            done=empty(flags),
+            next_obs=empty(state.obs),
+        )
+
+    def _store(self, rollout: Rollout, i: int, **step) -> None:
+        for name, value in step.items():
+            getattr(rollout, name)[i].copy_(value)
+
+    def _collect_step(self, state: OnPolicyRunnerState, i: int) -> None:
+        action, aux = self.core.act_with_aux(state.train_state, state.draws, state.obs, True)
+        env_states, vec = self.env.step(state.draws, state.env_states, action)
+        ts = vec.ts
+        if state.rollout is None:
+            state.rollout = self._allocate(state, action, aux)
+        self._store(
+            state.rollout, i, obs=state.obs, action=action, log_prob=aux["log_prob"], value=aux["value"],
+            reward=ts.reward, terminated=ts.terminated, done=ts.done, next_obs=ts.obs,
+        )
+        record_returns(state, ts.reward, ts.done, self.return_window)
+        state.env_states = env_states
+        state.obs = vec.obs
+
+    def _iteration(self, state: OnPolicyRunnerState) -> Dict[str, torch.Tensor]:
+        for i in range(self.rollout_len):
+            self._collect_step(state, i)
+        _, aux = self.core.update(state.train_state, state.draws, state.rollout)
+        state.t += self.rollout_len * self.num_envs
+        return aux
+
+    def run_iterations(self, state: OnPolicyRunnerState, n: int) -> Tuple[OnPolicyRunnerState, Dict[str, torch.Tensor]]:
+        """Run ``n`` collect + update iterations; the update's metrics come
+        back stacked, ``[n, ...]`` each, on the device."""
+        auxes = [self._iteration(state) for _ in range(n)]
+        return state, {k: torch.stack([a[k] for a in auxes]) for k in auxes[0]}
+
+    def recent_return_mean(self, state: OnPolicyRunnerState) -> float:
+        return recent_return_mean(state, self.return_window)

@@ -1,7 +1,8 @@
 """Where a full-width configuration's time goes on the card.
 
     python -m pfrl_tpu_torch.experiments.profile_slice
-        [--config per-dqn|dqn|rainbow|sac|td3|ddpg] [--steps 8] [--out PATH]
+        [--config per-dqn|dqn|rainbow|sac|td3|ddpg|ppo|ppo-pendulum|trpo|a2c]
+        [--steps 8] [--out PATH]
 
 Runs one configuration at full width on the CUDA device. On 64 lanes of
 84x84x4 uint8 AtariSim frames, 16 batch-32 updates per scan step:
@@ -31,11 +32,24 @@ ring's size and every shape stay. Past replay start it:
    take the most of it. The busy share is taken against the unprofiled
    time of step 1, since the profiler slows the host.
 
+The on-policy configurations run through ``OnPolicyRunner`` at their
+recipes' widths: ``ppo`` (``make_ppo_runner()``: 8 lanes of MujocoSim,
+rollout 256, 320 batch-64 Adam steps per iteration), ``ppo-pendulum``,
+``trpo`` (16 lanes of the time-limited Pendulum, rollout 128) and ``a2c``
+(32 lanes of the time-limited CartPole, rollout 8, one step per iteration).
+``--steps`` counts iterations there; after one warm iteration the same three
+measurements are taken per iteration, with the phases: the collect steps'
+act, env step and store into the rollout; the update, split for PPO and A2C
+into V on the next observations, GAE (PPO) or the n-step returns (A2C), the
+minibatch forwards, backward and optimizer, and for TRPO into GAE, the
+policy step (of which CG and the line search) and the value function's fit.
+
 Prints a summary and writes the record as JSON to ``--out``.
 """
 
 import argparse
 import collections
+import contextlib
 import json
 import time
 from pathlib import Path
@@ -44,6 +58,10 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from pfrl_tpu_torch.agents import a2c as a2c_module
+from pfrl_tpu_torch.agents import ppo as ppo_module
+from pfrl_tpu_torch.agents import trpo as trpo_module
+from pfrl_tpu_torch.experiments import onpolicy
 from pfrl_tpu_torch.experiments.atari_per_dqn import make_dqn_runner, make_per_dqn_runner
 from pfrl_tpu_torch.experiments.atari_rainbow import make_rainbow_runner
 from pfrl_tpu_torch.experiments.mujoco_actor_critic import (
@@ -59,6 +77,12 @@ CONFIGS = {
     "sac": make_sac_runner,
     "td3": make_td3_runner,
     "ddpg": make_ddpg_runner,
+}
+ONPOLICY_CONFIGS = {
+    "ppo": onpolicy.make_ppo_runner,
+    "ppo-pendulum": onpolicy.make_ppo_pendulum_runner,
+    "trpo": onpolicy.make_trpo_pendulum_runner,
+    "a2c": onpolicy.make_a2c_cartpole_runner,
 }
 
 # Labels that start with two spaces are parts of the phase above them.
@@ -89,6 +113,35 @@ UNIFORM_PHASES = (
     ("buffer", "sample_indices", "id draw"),
     ("buffer", "gather", "row gather"),
 )
+COLLECT_PHASES = (
+    ("core", "act_with_aux", "act"),
+    ("env", "step", "env step"),
+    ("runner", "_store", "store into the rollout"),
+    ("core", "update", "update"),
+)
+UPDATE_PHASES = {
+    "ppo": (
+        ("core", "next_values", "  of which V on next_obs"),
+        ("ppo", "gae_advantages", "  of which GAE"),
+        ("core", "_minibatch_loss", "  of which minibatch forwards (loss)"),
+        ("autograd", "grad", "  of which backward"),
+        ("optimizer", "update", "  of which optimizer"),
+    ),
+    "a2c": (
+        ("core", "next_values", "  of which V on next_obs"),
+        ("a2c", "discounted_returns", "  of which n-step returns"),
+        ("core", "loss", "  of which forwards (loss)"),
+        ("autograd", "grad", "  of which backward"),
+        ("optimizer", "update", "  of which optimizer"),
+    ),
+    "trpo": (
+        ("trpo", "gae_advantages", "  of which GAE"),
+        ("core", "_policy_step", "  of which policy step"),
+        ("trpo", "conjugate_gradient", "  of which CG (in the policy step)"),
+        ("core", "_line_search", "  of which line search (in the policy step)"),
+        ("core", "_vf_fit", "  of which value-function fit"),
+    ),
+}
 
 
 def _synced(fn):
@@ -123,38 +176,13 @@ def profile_slice(config: str, steps: int) -> dict:
 
     (state, _), plain_s = _synced(lambda: runner.run_chunk(state, steps))
 
-    acc = collections.defaultdict(float)
     owners = {
         "core": runner.core, "env": runner.env, "buffer": runner.buffer,
         "autograd": torch.autograd, "optimizer": getattr(runner.core, "optimizer", None),
     }
-    originals = []
-    for owner, attr, label in phases:
-        obj = owners[owner]
-        originals.append((obj, attr, vars(obj).get(attr)))
-        setattr(obj, attr, _wrap(acc, label, getattr(obj, attr)))
-    try:
+    with _phase_timers(phases, owners) as acc:
         (state, _), phased_s = _synced(lambda: runner.run_chunk(state, steps))
-    finally:
-        for obj, attr, own in originals:
-            if own is None:
-                delattr(obj, attr)  # back to the class's method
-            else:
-                setattr(obj, attr, own)  # a module's function
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        (state, _), profiled_s = _synced(lambda: runner.run_chunk(state, steps))
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    by_name = collections.defaultdict(lambda: [0.0, 0])
-    for e in kernels:
-        by_name[e.name][0] += e.time_range.elapsed_us()
-        by_name[e.name][1] += 1
-    busy_us = sum(v[0] for v in by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
-
-    accounted = sum(v for k, v in acc.items() if not k.startswith("  "))
-    per_step_ms = {k: v / steps * 1e3 for k, v in acc.items()}
-    per_step_ms["other (runner bookkeeping, timers)"] = (phased_s - accounted) / steps * 1e3
+    (state, _), profiled_s, kernels, busy_us, top = _profiled(lambda: runner.run_chunk(state, steps))
     return {
         "device": torch.cuda.get_device_name(0),
         "config": config,
@@ -162,28 +190,114 @@ def profile_slice(config: str, steps: int) -> dict:
         "updates_per_step": cfg.updates_per_step,
         "scan_step_ms": plain_s / steps * 1e3,
         "env_steps_per_s": steps * cfg.num_envs / plain_s,
-        "phase_ms_per_step_synchronized": per_step_ms,
+        "phase_ms_per_step_synchronized": _per_step_ms(acc, phased_s, steps),
         "phased_scan_step_ms": phased_s / steps * 1e3,
         "profiled_scan_step_ms": profiled_s / steps * 1e3,
-        "device_launches_per_step": len(kernels) / steps,
+        "device_launches_per_step": kernels / steps,
         "device_busy_ms_per_step": busy_us / steps / 1e3,
         "device_busy_share": busy_us / 1e6 / plain_s,
-        "top_device_ops": [
-            {"name": name, "ms_per_step": us / steps / 1e3, "launches_per_step": n / steps}
-            for name, (us, n) in top
-        ],
+        "top_device_ops": _top(top, steps),
     }
+
+
+def profile_onpolicy(config: str, iterations: int) -> dict:
+    """The on-policy counterpart of :func:`profile_slice`, per iteration."""
+    runner = ONPOLICY_CONFIGS[config]()
+    family = "trpo" if config == "trpo" else "a2c" if config == "a2c" else "ppo"
+    state = runner.init(0)
+    state, _ = runner.run_iterations(state, 1)  # warm: allocates the rollout
+
+    updates_before = state.train_state.n_updates
+    (state, _), plain_s = _synced(lambda: runner.run_iterations(state, iterations))
+    updates = state.train_state.n_updates - updates_before
+    owners = {
+        "core": runner.core, "env": runner.env, "runner": runner, "autograd": torch.autograd,
+        "optimizer": getattr(runner.core, "optimizer", None),
+        "ppo": ppo_module, "a2c": a2c_module, "trpo": trpo_module,
+    }
+    with _phase_timers(COLLECT_PHASES + UPDATE_PHASES[family], owners) as acc:
+        (state, _), phased_s = _synced(lambda: runner.run_iterations(state, iterations))
+    (state, _), profiled_s, kernels, busy_us, top = _profiled(lambda: runner.run_iterations(state, iterations))
+    transitions = runner.num_envs * runner.rollout_len
+    return {
+        "device": torch.cuda.get_device_name(0),
+        "config": config,
+        "iterations": iterations,
+        "transitions_per_iteration": transitions,
+        "gradient_steps_per_iteration": updates / iterations,
+        "iteration_ms": plain_s / iterations * 1e3,
+        "env_steps_per_s": iterations * transitions / plain_s,
+        "phase_ms_per_iteration_synchronized": _per_step_ms(acc, phased_s, iterations),
+        "phased_iteration_ms": phased_s / iterations * 1e3,
+        "profiled_iteration_ms": profiled_s / iterations * 1e3,
+        "device_launches_per_iteration": kernels / iterations,
+        "device_busy_ms_per_iteration": busy_us / iterations / 1e3,
+        "device_busy_share": busy_us / 1e6 / plain_s,
+        "top_device_ops": _top(top, iterations),
+    }
+
+
+@contextlib.contextmanager
+def _phase_timers(phases, owners):
+    """Wraps each ``(owner, attribute, label)`` in a synchronizing timer that
+    adds its seconds to ``acc[label]``; yields ``acc``; restores all."""
+    acc = collections.defaultdict(float)
+    originals = []
+    for owner, attr, label in phases:
+        obj = owners[owner]
+        originals.append((obj, attr, vars(obj).get(attr)))
+        setattr(obj, attr, _wrap(acc, label, getattr(obj, attr)))
+    try:
+        yield acc
+    finally:
+        for obj, attr, own in reversed(originals):
+            if own is None:
+                delattr(obj, attr)  # back to the class's method
+            else:
+                setattr(obj, attr, own)  # a module's function
+
+
+def _profiled(fn):
+    """``fn``'s result and host seconds under ``torch.profiler``, the
+    kernels it launched, their busy microseconds, and the top 15 by time."""
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out, seconds = _synced(fn)
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name = collections.defaultdict(lambda: [0.0, 0])
+    for e in kernels:
+        by_name[e.name][0] += e.time_range.elapsed_us()
+        by_name[e.name][1] += 1
+    busy_us = sum(v[0] for v in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
+    return out, seconds, len(kernels), busy_us, top
+
+
+def _per_step_ms(acc, phased_s: float, steps: int) -> dict:
+    accounted = sum(v for k, v in acc.items() if not k.startswith("  "))
+    per_step_ms = {k: v / steps * 1e3 for k, v in acc.items()}
+    per_step_ms["other (runner bookkeeping, timers)"] = (phased_s - accounted) / steps * 1e3
+    return per_step_ms
+
+
+def _top(top, steps: int) -> list:
+    return [
+        {"name": name, "ms_per_step": us / steps / 1e3, "launches_per_step": n / steps}
+        for name, (us, n) in top
+    ]
 
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--config", choices=sorted(CONFIGS), default="per-dqn")
-    parser.add_argument("--steps", type=int, default=8)
+    parser.add_argument("--config", choices=sorted(CONFIGS) + sorted(ONPOLICY_CONFIGS), default="per-dqn")
+    parser.add_argument("--steps", type=int, default=8, help="scan steps, or iterations of an on-policy config")
     parser.add_argument("--out", default=None, help="default: chiprun_out/profile_<config>.json")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice: needs a CUDA device")
-    record = profile_slice(args.config, args.steps)
+    if args.config in ONPOLICY_CONFIGS:
+        record = profile_onpolicy(args.config, args.steps)
+    else:
+        record = profile_slice(args.config, args.steps)
     out = Path(args.out or f"chiprun_out/profile_{args.config}.json")
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(record, indent=1))

@@ -166,17 +166,7 @@ class OffPolicyRunner:
             ),
         )
         t_prev, t = state.t, state.t + L
-
-        # Episode returns into the recent ring; unfinished lanes write into a
-        # spare last slot that is dropped.
-        ep_ret = state.episode_return + ts.reward
-        finished = ts.done
-        n_finished = torch.sum(finished, dtype=torch.int32)
-        lane_order = torch.argsort((~finished).to(torch.int8), stable=True)
-        pos = (state.recent_count + torch.arange(L, dtype=torch.int32, device=self.device)) % self.return_window
-        write_pos = torch.where(finished[lane_order], pos, self.return_window)
-        ring = torch.cat([state.recent_returns, state.recent_returns.new_zeros(1)])
-        ring[write_pos] = ep_ret[lane_order]
+        n_finished = record_returns(state, ts.reward, ts.done, self.return_window)
 
         loss = self._maybe_update(state, t)
 
@@ -187,9 +177,6 @@ class OffPolicyRunner:
         state.env_states = env_states
         state.obs = vec.obs
         state.t = t
-        state.episode_return = torch.where(finished, 0.0, ep_ret)
-        state.recent_returns = ring[: self.return_window]
-        state.recent_count = state.recent_count + n_finished
         return {"reward_mean": torch.mean(ts.reward), "loss": loss, "done_count": n_finished}
 
     def _maybe_update(self, state: RunnerState, t: int) -> torch.Tensor:
@@ -225,10 +212,37 @@ class OffPolicyRunner:
         return state, metrics
 
     def recent_return_mean(self, state: RunnerState) -> float:
-        n = min(int(state.recent_count), self.return_window)
-        if n == 0:
-            return float("nan")
-        return float(state.recent_returns[:n].mean())
+        return recent_return_mean(state, self.return_window)
+
+
+def record_returns(state, reward: torch.Tensor, done: torch.Tensor, window: int) -> torch.Tensor:
+    """Adds ``reward`` to each lane's running return and moves the returns of
+    the lanes that finished, in lane order, into the ring of the last
+    ``window`` finished episodes; unfinished lanes write into a spare last
+    slot that is dropped. Updates ``state``'s ``episode_return``,
+    ``recent_returns`` and ``recent_count`` (both runners' states have them)
+    and returns the number of lanes that finished, int32 0-d, on the device."""
+    lanes = reward.shape[0]
+    ep_ret = state.episode_return + reward
+    n_finished = torch.sum(done, dtype=torch.int32)
+    lane_order = torch.argsort((~done).to(torch.int8), stable=True)
+    pos = (state.recent_count + torch.arange(lanes, dtype=torch.int32, device=reward.device)) % window
+    write_pos = torch.where(done[lane_order], pos, window)
+    ring = torch.cat([state.recent_returns, state.recent_returns.new_zeros(1)])
+    ring[write_pos] = ep_ret[lane_order]
+    state.episode_return = torch.where(done, 0.0, ep_ret)
+    state.recent_returns = ring[:window]
+    state.recent_count = state.recent_count + n_finished
+    return n_finished
+
+
+def recent_return_mean(state, window: int) -> float:
+    """Mean of the finished returns in the ring (NaN before the first); reads
+    the device."""
+    n = min(int(state.recent_count), window)
+    if n == 0:
+        return float("nan")
+    return float(state.recent_returns[:n].mean())
 
 
 def _reject_unported(core, buffer=None, mesh=None) -> None:

@@ -1,2 +1,3 @@
 from pfrl_tpu_torch.optimizers.adam import Adam, AdamState  # noqa: F401
 from pfrl_tpu_torch.optimizers.rmsprop import RMSprop  # noqa: F401
+from pfrl_tpu_torch.optimizers.clip_by_global_norm import ClipByGlobalNorm  # noqa: F401

@@ -1,5 +1,5 @@
 """Policy heads (counterpart of ``pfrl_tpu/policies``): network output ->
-distribution. The softmax head is not ported yet."""
+distribution."""
 
 from pfrl_tpu_torch.policies.deterministic_policy import DeterministicHead  # noqa: F401
 from pfrl_tpu_torch.policies.gaussian_policy import (  # noqa: F401
@@ -8,3 +8,4 @@ from pfrl_tpu_torch.policies.gaussian_policy import (  # noqa: F401
     GaussianHeadWithStateIndependentCovariance,
     SquashedGaussianHead,
 )
+from pfrl_tpu_torch.policies.softmax_policy import SoftmaxCategoricalHead  # noqa: F401

@@ -2,11 +2,13 @@
 
 JAX threads a key through every random function; the port passes a draw
 source instead: any object with ``uniform(n)``, ``normal(n)``,
-``randint(high, n)`` and ``randint_below(high, n)``. :class:`Draws` takes
-every draw from one ``torch.Generator`` on the device.
+``randint(high, n)``, ``randint_below(high, n)`` and ``permutation(n)``.
+:class:`Draws` takes every draw from one ``torch.Generator`` on the device.
 The parity tests pass a source of their own that hands the JAX package the
 very same numbers (the two frameworks' generators never agree).
 """
+
+import math
 
 import numpy as np
 import torch
@@ -46,15 +48,17 @@ class Draws:
         )
         return (bits % high).to(torch.int32)
 
+    def permutation(self, n: int) -> torch.Tensor:
+        """int64 ``[n]``, a random order of ``0 .. n - 1``. It only indexes,
+        so it stays int64: an int32 index is widened at every indexing op."""
+        return torch.randperm(n, generator=self.generator, device=self.device)
+
 
 def normal(draws, shape) -> torch.Tensor:
     """Standard normal float32 of ``shape``: one ``draws.normal`` of its
     element count, reshaped (row-major, as ``jax.random.normal`` fills)."""
     shape = tuple(shape)
-    n = 1
-    for s in shape:
-        n *= s
-    return draws.normal(n).reshape(shape)
+    return draws.normal(math.prod(shape)).reshape(shape)
 
 
 def uniform_between(draws, low: float, high: float, shape) -> torch.Tensor:
@@ -64,9 +68,17 @@ def uniform_between(draws, low: float, high: float, shape) -> torch.Tensor:
     to float32 (where XLA fuses the product into the add, a value moves by
     an ulp)."""
     shape = tuple(shape)
-    n = 1
-    for s in shape:
-        n *= s
     low32, high32 = np.float32(low), np.float32(high)
-    u = draws.uniform(n).reshape(shape)
+    u = draws.uniform(math.prod(shape)).reshape(shape)
     return torch.clamp_min(u * float(high32 - low32) + float(low32), float(low32))
+
+
+def categorical(draws, logits: torch.Tensor) -> torch.Tensor:
+    """int64 indices ``[...]``, one sample per row of ``logits [..., n]`` by
+    the Gumbel-max trick, as ``jax.random.categorical`` samples: one
+    ``draws.uniform`` of the logits' element count, ``u`` clamped to
+    ``[tiny, 1)`` (JAX's ``gumbel`` at ``mode="low"`` draws over that range),
+    then ``argmax(logits - log(-log(u)))`` over the last axis."""
+    u = draws.uniform(math.prod(logits.shape)).reshape(logits.shape)
+    gumbel = -torch.log(-torch.log(torch.clamp_min(u, torch.finfo(u.dtype).tiny)))
+    return torch.argmax(logits + gumbel, dim=-1)
