@@ -13,7 +13,8 @@ result, without them. Its phases, each raising on failure:
    main path's shapes, and time the kernel, the plain version and a
    one-call PyTorch yardstick. The prefix sampler is timed at the main
    path's C = 131,072 leaves and at C = 1,048,576 (a 10**6-slot buffer),
-   B = 32, with the occupancy and shared memory of its one cluster;
+   B = 32, and at C = 131,072, B = 64 (Rainbow-CartPole's batch), with the
+   occupancy and shared memory of its one cluster;
 3. check each configuration on a small input: the same run on the card
    (through the kernel, where it samples by priority) and on the CPU
    (through the plain version), from the same draws and weights, must
@@ -50,7 +51,17 @@ result, without them. Its phases, each raising on failure:
    TRPO on the time-limited Pendulum (16 lanes, rollout 128, 10 iterations:
    six truncations per lane, then the evaluation loop, 10 lanes x 201
    steps) and A2C on the time-limited CartPole (32 lanes, rollout 8, 200
-   iterations, then 10 lanes x 501 steps); no kernel on these paths.
+   iterations, then 10 lanes x 501 steps); no kernel on these paths;
+10. the discrete value family on the time-limited CartPole
+   (``experiments/cartpole_value.py``): small card-vs-CPU runs of the six
+   recipes (DQN, C51, Rainbow-CartPole, AL, IQN and the example's DQN), of
+   PAL, DoublePAL, DPP and DoubleIQN cores on the AL and IQN recipes, of
+   Boltzmann and exponential-decay exploration, and one forward and one
+   update of the noisy ``NatureQ`` at 84x84x4; then each recipe at full
+   width through 96 scan steps (t = 3,072; the example: 24 steps of 128
+   lanes), holding the target to the online net right after each sync,
+   counting 520 kernel launches on Rainbow-CartPole's 3-step PER (B = 64)
+   and 0 elsewhere, then its evaluation loop.
 
 The kernels' launch counts are set to 0 just before each full-width path
 and read just after it; the kernels' JSON line gives their sum over the
@@ -95,6 +106,9 @@ DDPG_STEPS = 405           # every lane is truncated at its steps 200 and 400
 DDPG_EVAL = (10, 201)
 ONPOLICY_ITERATIONS = {"ppo": 10, "ppo-pendulum": 10, "trpo": 10, "a2c": 200}
 ONPOLICY_EVAL = {"ppo-pendulum": (10, 201), "trpo": (10, 201), "a2c": (10, 501)}
+CARTPOLE_STEPS = (32, 64)           # warm, timed: t = 1,024 (first updates), then 3,072
+CARTPOLE_EXAMPLE_STEPS = (8, 16)    # 128 lanes: t = 1,024 (first updates), then 3,072
+CARTPOLE_BATCH = 64                 # Rainbow-CartPole's minibatch: the kernel's B
 
 
 def card_line() -> str:
@@ -266,7 +280,8 @@ def check_prefix_sample(device, tree_leaves: int, batch: int, large_leaves: int)
     max_err = 0
     # (C, B, leading leaves cut off, so the view starts 4 bytes past 16).
     cases = ((tree_leaves, batch, 0), (large_leaves, batch, 0), (3 * 1024 + 517, 5, 0),
-             (200_001, 200, 0), (5, 8, 0), (tree_leaves, 1000, 0), (tree_leaves + 3, batch, 1))
+             (200_001, 200, 0), (5, 8, 0), (tree_leaves, 1000, 0), (tree_leaves + 3, batch, 1),
+             (tree_leaves, CARTPOLE_BATCH, 0))
     for c, b, cut in cases:
         p, t = _integer_case(rs, c, b, device)
         p = p[cut:]
@@ -275,24 +290,27 @@ def check_prefix_sample(device, tree_leaves: int, batch: int, large_leaves: int)
         if (c, b, cut) == (tree_leaves, batch, 0):
             max_err = err
 
-    # The main path's leaves: 100,000 live real-valued priorities, then zeros.
-    prio, targets = _real_case(rs, tree_leaves, 100_000, batch)
-    total = float(prio.astype(np.float64).sum())
-    p = torch.from_numpy(prio).to(device)
-    t = torch.from_numpy(targets).to(device)
-    got = ps.prefix_sample(p, t).cpu().numpy()
-    want = ps.prefix_sample_reference(p, t).cpu().numpy()
-    cs64 = np.cumsum(prio.astype(np.float64))
+    # The main path's leaves: 100,000 live real-valued priorities, then
+    # zeros, at both batches of the paths that sample by priority.
     real_mismatches = 0
-    for g, w, tb in zip(got, want, targets):
-        if g != w:
-            real_mismatches += 1
-            lo, hi = sorted((int(g), int(w)))
-            if np.max(np.abs(cs64[lo:hi] - tb)) > 1e-6 * total:
-                raise AssertionError(f"prefix_sample real-valued: {g} vs {w} at target {tb}")
+    for b in (batch, CARTPOLE_BATCH):
+        prio, targets = _real_case(rs, tree_leaves, 100_000, b)
+        total = float(prio.astype(np.float64).sum())
+        p = torch.from_numpy(prio).to(device)
+        t = torch.from_numpy(targets).to(device)
+        got = ps.prefix_sample(p, t).cpu().numpy()
+        want = ps.prefix_sample_reference(p, t).cpu().numpy()
+        cs64 = np.cumsum(prio.astype(np.float64))
+        for g, w, tb in zip(got, want, targets):
+            if g != w:
+                real_mismatches += 1
+                lo, hi = sorted((int(g), int(w)))
+                if np.max(np.abs(cs64[lo:hi] - tb)) > 1e-6 * total:
+                    raise AssertionError(f"prefix_sample real-valued B={b}: {g} vs {w} at target {tb}")
 
     main = time_shape(device, tree_leaves, 100_000, batch)
     large = time_shape(device, large_leaves, 1_000_000, batch)
+    b64 = time_shape(device, tree_leaves, 100_000, CARTPOLE_BATCH)
     return {
         "name": "prefix_sample",
         "route": "cuda",
@@ -303,6 +321,7 @@ def check_prefix_sample(device, tree_leaves: int, batch: int, large_leaves: int)
         "cluster": ps.CLUSTER,
         "real_valued_mismatches_within_rounding": real_mismatches,
         "large": large,
+        "b64": b64,
     }
 
 
@@ -344,17 +363,28 @@ class _Differences:
     per quantity, raising where one exceeds its tolerance."""
 
     def __init__(self, name: str):
-        self.name, self.largest = name, {}
+        self.name, self.largest, self.tolerance = name, {}, {}
 
     def close(self, what, a, b, rtol, atol) -> None:
         a, b = a.detach().cpu().double(), b.detach().cpu().double()
         self.largest[what] = max(self.largest.get(what, 0.0), float((a - b).abs().max()))
+        self.tolerance[what] = f"atol {atol:g} + rtol {rtol:g}"
         if not torch.allclose(a, b, rtol=rtol, atol=atol):
-            raise AssertionError(f"small {self.name}: {what} differs by {self.largest[what]}")
+            raise AssertionError(f"small {self.name}: {what} differs by {self.largest[what]} "
+                                 f"(tolerance {self.tolerance[what]})")
+
+    def summary(self) -> str:
+        """Each largest difference beside its tolerance."""
+        return "; ".join(f"{what} {d:.3g} ({self.tolerance[what]})" for what, d in self.largest.items())
 
 
-def check_small_slice(name: str, build, steps: int, expect_launches: int, device) -> dict:
-    """A 4-lane run of one configuration on the card and on the CPU."""
+def check_small_slice(name: str, build, steps: int, expect_launches: int, device, obs_atol: float = 0.0,
+                      param_atol: float = 1e-6) -> dict:
+    """A 4-lane run of one configuration on the card and on the CPU. The
+    observations in the ring are equal (AtariSim's integer frames) or, for
+    CartPole's float states, within ``obs_atol`` (``sin``/``cos`` round an
+    ulp apart); the actions are equal; the parameters within ``param_atol``
+    (and rtol 1e-4)."""
     from pfrl_tpu_torch.ops.prefix_sample import prefix_sample
 
     def run(dev):
@@ -385,9 +415,10 @@ def check_small_slice(name: str, build, steps: int, expect_launches: int, device
     ring = lambda s: getattr(s.replay_state, "base", s.replay_state)  # noqa: E731
     if gpu.t != cpu.t or int(ring(gpu).cursor) != int(ring(cpu).cursor):
         raise AssertionError(f"small {name}: step counters differ")
-    for leaf in ("obs", "action"):
-        if not torch.equal(ring(gpu).storage[leaf].cpu(), ring(cpu).storage[leaf]):
-            raise AssertionError(f"small {name}: replay rings differ in {leaf}")
+    if not torch.equal(ring(gpu).storage["action"].cpu(), ring(cpu).storage["action"]):
+        raise AssertionError(f"small {name}: replay rings differ in action")
+    if not torch.allclose(ring(gpu).storage["obs"].cpu(), ring(cpu).storage["obs"], rtol=0.0, atol=obs_atol):
+        raise AssertionError(f"small {name}: replay rings differ in obs")
     differences = _Differences(name)
     close, diffs = differences.close, differences.largest
     # fp32 on both sides (no TF32); convolutions reduce in other orders.
@@ -397,9 +428,9 @@ def check_small_slice(name: str, build, steps: int, expect_launches: int, device
     for which in ("model", "target_model"):
         pairs = zip(getattr(gpu.train_state, which).parameters(), getattr(cpu.train_state, which).parameters())
         for a, b in pairs:
-            close(f"{which} parameters", a, b, 1e-4, 1e-6)
+            close(f"{which} parameters", a, b, 1e-4, param_atol)
     print(f"small {name}: card vs CPU agree over {steps} scan steps, {updates} updates, "
-          f"{launches} kernel launches; largest differences {json.dumps(diffs)}")
+          f"{launches} kernel launches; largest differences {differences.summary()}")
     return {"steps": steps, "updates": updates, "kernel_launches": launches, "max_abs_diff": diffs}
 
 
@@ -721,7 +752,7 @@ def check_small_actor_critic(name: str, build, steps: int, device) -> dict:
         "losses positive once updates run": bool((gpu_m["loss"][-1] > 0)),
     })
     print(f"small {name}: card vs CPU agree over {steps} scan steps, {updates} updates, "
-          f"{launches} kernel launches; largest differences {json.dumps(diffs)}")
+          f"{launches} kernel launches; largest differences {differences.summary()}")
     return {"steps": steps, "updates": updates, "kernel_launches": launches, "max_abs_diff": diffs}
 
 
@@ -1004,7 +1035,7 @@ def check_small_onpolicy(name: str, build, device, iterations: int = 3) -> dict:
         "episodes ended inside the run": int(gpu.recent_count) == int(cpu.recent_count) > 0,
     })
     print(f"small {name}: card vs CPU agree over {iterations} iterations, {gpu.train_state.n_updates} updates, "
-          f"{launches} kernel launches; largest differences {json.dumps(diffs)}")
+          f"{launches} kernel launches; largest differences {differences.summary()}")
     return {"iterations": iterations, "updates": gpu.train_state.n_updates, "kernel_launches": launches,
             "max_abs_diff": diffs}
 
@@ -1129,6 +1160,189 @@ def run_full_onpolicy(card: str, name: str) -> dict:
     return result
 
 
+# -------------------------------------------------------------------- phase 10
+def _cartpole_recipes() -> dict:
+    """name -> the recipe's maker in ``experiments/cartpole_value.py``."""
+    from pfrl_tpu_torch.experiments.cartpole_value import RECIPES
+
+    return RECIPES
+
+
+def _with_core(runner, core_cls, **extra):
+    """``runner`` with its core rebuilt as ``core_cls`` around the same model,
+    optimizer, explorer and gamma."""
+    core = runner.core
+    runner.core = core_cls(model=core.model, optimizer=core.optimizer, explorer=core.explorer,
+                           gamma=core.gamma, **extra)
+    return runner
+
+
+def _with_explorer(runner, explorer):
+    runner.core.explorer = explorer
+    return runner
+
+
+def _small_cartpole_configs() -> dict:
+    """name -> (function making a 4-lane runner on a device at the recipe's
+    widths, kernel launches expected on the card, the parameters' absolute
+    tolerance). A 40-slot ring that wraps, 2 batch-8 updates per scan step
+    from 12 transitions, a target sync at 24, CartPole cut to 10 steps; 11
+    scan steps, 18 updates."""
+    from pfrl_tpu_torch.agents import DoubleIQNCore, DoublePALCore, DPPCore, PALCore
+    from pfrl_tpu_torch.envs import CartPole, TimeLimit
+    from pfrl_tpu_torch.explorers import Boltzmann, ExponentialDecayEpsilonGreedy
+
+    small = dict(num_envs=4, capacity=40, replay_start_size=12, update_interval=2, target_update_interval=24,
+                 minibatch_size=8)
+    recipes = _cartpole_recipes()
+
+    def make(name, **extra):
+        return lambda dev: recipes[name](env=TimeLimit(CartPole(device=dev), 10), **small, **extra)[0]
+
+    taus = lambda core: dict(quantile_thresholds_N=core.N, quantile_thresholds_N_prime=core.N_prime,  # noqa: E731
+                             quantile_thresholds_K=core.K)
+    configs = {name: (make(name), 18 if name == "rainbow-cartpole" else 0, 1e-6) for name in recipes}
+    # The example's 128-wide net is the sensitive one: on the CPU alone,
+    # scaling its initial weights by 1 +- 2**-23 moves its parameters by
+    # 3.0e-6 within the first 8 updates (the others': 2.4e-7 to 9.4e-7).
+    configs["dqn-cartpole-example"] = (make("dqn-cartpole-example"), 0, 1e-5)
+    al, iqn, dqn = make("al-cartpole"), make("iqn-cartpole"), make("dqn-cartpole")
+    configs.update({
+        "pal": (lambda dev: _with_core(al(dev), PALCore, alpha=0.9), 0, 1e-6),
+        "double-pal": (lambda dev: _with_core(al(dev), DoublePALCore, alpha=0.9), 0, 1e-6),
+        "dpp": (lambda dev: _with_core(al(dev), DPPCore, eta=1.0), 0, 1e-6),
+        "double-iqn": (lambda dev: (lambda r: _with_core(r, DoubleIQNCore, **taus(r.core)))(iqn(dev)), 0, 1e-6),
+        "boltzmann": (lambda dev: _with_explorer(dqn(dev), Boltzmann(T=1.0)), 0, 1e-6),
+        "exponential-decay": (lambda dev: _with_explorer(dqn(dev), ExponentialDecayEpsilonGreedy(1.0, 0.05, 0.99, 2)),
+                              0, 1e-6),
+    })
+    return configs
+
+
+def check_small_noisy_nature_q(device) -> dict:
+    """``train_dqn_ale.py --noisy-net-sigma 0.5``'s network (``NatureQ`` with
+    a factorized noisy head, ``Greedy``) at 84x84x4, 6 actions: one forward
+    and one update on the card and on the CPU, from the same weights and
+    draws. Q-values within rtol 1e-4 (floor 1e-5), the loss 1e-4, the
+    parameters 1e-6 (fp32 convolutions reduce in other orders)."""
+    from pfrl_tpu_torch.experiments.atari_per_dqn import make_dqn_runner
+    from pfrl_tpu_torch.replay import TransitionBatch
+
+    rs = np.random.RandomState(0)
+    frames = rs.randint(0, 256, (2, 32, 84, 84, 4)).astype(np.uint8)
+    batch = dict(obs=frames[0], action=rs.randint(0, 6, 32).astype(np.int32),
+                 reward=rs.normal(size=32).astype(np.float32), next_obs=frames[1],
+                 discount=np.full(32, 0.99, np.float32), is_terminal=rs.uniform(size=32) < 0.1,
+                 weight=np.ones(32, np.float32), indices=np.arange(32, dtype=np.int32))
+
+    def run(dev):
+        core = make_dqn_runner(num_envs=4, capacity=64, noisy_net_sigma=0.5, device=dev).core
+        obs = torch.from_numpy(frames[0]).to(dev)
+        state = core.init(torch.Generator().manual_seed(0), obs)
+        draws = SeededDraws(0, dev)
+        with torch.no_grad():
+            q = core.action_value(state.model, obs, draws).q_values
+        tb = TransitionBatch(**{k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+        _, aux = core.update(state, tb, draws)
+        return core, q, aux, state
+
+    core, gpu_q, gpu_aux, gpu = run(device)
+    _, cpu_q, cpu_aux, cpu = run("cpu")
+    differences = _Differences("noisy NatureQ")
+    close, diffs = differences.close, differences.largest
+    close("q_values", gpu_q, cpu_q, 1e-4, 1e-5)
+    close("loss", gpu_aux["loss"], cpu_aux["loss"], 1e-4, 1e-5)
+    for a, b in zip(gpu.model.parameters(), cpu.model.parameters()):
+        close("parameters", a, b, 0.0, 1e-6)
+    _raise_on_failed("small noisy NatureQ", {
+        "noisy head, Greedy": type(core.model.head).__name__ == "FactorizedNoisyLinear"
+        and type(core.explorer).__name__ == "Greedy",
+        "the head's sigmas moved": not torch.equal(gpu.model.head.w_sigma, gpu.target_model.head.w_sigma),
+    })
+    print(f"small noisy NatureQ: card vs CPU agree over one forward and one update; largest differences "
+          f"{differences.summary()}")
+    return {"max_abs_diff": diffs}
+
+
+def run_full_cartpole(card: str, name: str) -> dict:
+    """One recipe at full width: 96 scan steps of 32 lanes (the example: 24
+    of 128), so that t = 3,072. The timed chunks end on the target syncs,
+    where the target must equal the online net; then ``EvalLoop``."""
+    from pfrl_tpu_torch.ops.prefix_sample import prefix_sample
+
+    runner, evaluator = _cartpole_recipes()[name]()  # the CUDA device, the recipe's sizes
+    cfg = runner.config
+    example = name == "dqn-cartpole-example"
+    warm_steps, timed_steps = CARTPOLE_EXAMPLE_STEPS if example else CARTPOLE_STEPS
+    steps = warm_steps + timed_steps
+    state = runner.init(0)
+    torch.cuda.synchronize()
+    train = state.train_state
+
+    prefix_sample.launches = 0
+    t0 = time.perf_counter()
+    state, warm = runner.run_chunk(state, warm_steps)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    # Timed in chunks that end where t crosses a sync interval.
+    ends = sorted({k for k in range(warm_steps + 1, steps + 1)
+                   if (k * cfg.num_envs) // cfg.target_update_interval
+                   != ((k - 1) * cfg.num_envs) // cfg.target_update_interval} | {steps})
+    timed_s, losses, synced_equal, done = 0.0, [warm["loss"]], [], warm_steps
+    for end in ends:
+        t1 = time.perf_counter()
+        state, chunk = runner.run_chunk(state, end - done)
+        torch.cuda.synchronize()
+        timed_s += time.perf_counter() - t1
+        losses.append(chunk["loss"])
+        crossed = (end * cfg.num_envs) // cfg.target_update_interval != ((end - 1) * cfg.num_envs) // cfg.target_update_interval
+        if crossed:
+            synced_equal.append(all(torch.equal(a, b) for a, b in zip(train.model.parameters(),
+                                                                      train.target_model.parameters())))
+        done = end
+    launches = prefix_sample.launches
+    loss = torch.cat(losses)
+    updates = _updates_in(cfg, 1, steps)
+    timed_updates = _updates_in(cfg, warm_steps + 1, steps)
+    per_step = 4 if example else 8
+    expected_launches = updates if name == "rainbow-cartpole" else 0
+    t4 = time.perf_counter()
+    returns = evaluator.evaluate(train, state.draws)
+    eval_s = time.perf_counter() - t4
+    checks = {
+        "t advanced to 3,072": state.t == steps * cfg.num_envs == 3_072,
+        "n_updates == updates per scan step x steps with updates": cfg.updates_per_step == per_step
+        and train.n_updates == updates == per_step * sum(1 for k in range(1, steps + 1)
+                                                          if k * cfg.num_envs >= cfg.replay_start_size),
+        "losses finite, positive once updates run": bool(torch.isfinite(loss).all())
+        and bool((loss[warm_steps - 1:] > 0).all()),
+        "the target equals the online net right after each sync": len(synced_equal) == (1 if example else 2)
+        and all(synced_equal),
+        "prefix-sample launches as expected": launches == expected_launches,
+        "evaluation returns finite": bool(np.isfinite(returns).all()) and returns.shape == (evaluator.env.num_envs,),
+    }
+    if name == "rainbow-cartpole":
+        checks["520 launches, one per PER sample of B = 64"] = launches == 520 and cfg.minibatch_size == CARTPOLE_BATCH
+    _raise_on_failed(name, checks)
+    result = {
+        "steps": steps, "t": state.t, "n_updates": updates, "kernel_launches": launches,
+        "env_steps_per_s": timed_steps * cfg.num_envs / timed_s,
+        "updates_per_s": timed_updates / timed_s,
+        "scan_step_ms": timed_s / timed_steps * 1e3,
+        "warm_chunk_s": warm_s, "timed_chunk_s": timed_s, "timed_scan_steps": timed_steps,
+        "eval_s": eval_s, "eval_returns": [float(r) for r in returns],
+        "last_loss": float(loss[-1]), "syncs_checked": len(synced_equal),
+        "recent_return_mean": runner.recent_return_mean(state),
+    }
+    print(
+        f"{name}: env-steps/s {result['env_steps_per_s']:.1f} updates/s {result['updates_per_s']:.1f} over "
+        f"{timed_steps} scan steps ({result['scan_step_ms']:.2f} ms each); {launches} prefix-sample launches; "
+        f"evaluation {eval_s:.2f} s, mean return {float(returns.mean()):.1f}; last loss {result['last_loss']:.4f} "
+        f"({cfg.num_envs} lanes, fp32, no TF32) on {card}"
+    )
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1160,6 +1374,7 @@ def main() -> int:
     )
     print_shape(kernel, card)
     print_shape(kernel["large"], card)
+    print_shape(kernel["b64"], card)
     record["small_slices"] = {
         name: phase(f"small {name}", check_small_slice, name, build, steps, launches, device)
         for name, (build, steps, launches) in _small_configs().items()
@@ -1181,12 +1396,20 @@ def main() -> int:
     record["full_onpolicy"] = {
         name: phase(f"full {name}", run_full_onpolicy, card, name) for name in ONPOLICY_ITERATIONS
     }
+    for name, (build, launches, param_atol) in _small_cartpole_configs().items():
+        record["small_slices"][name] = phase(
+            f"small {name}", check_small_slice, name, build, 11, launches, device, 1e-5, param_atol)
+    record["small_slices"]["noisy-nature-q"] = phase("small noisy NatureQ", check_small_noisy_nature_q, device)
+    record["full_cartpole"] = {
+        name: phase(f"full {name}", run_full_cartpole, card, name) for name in _cartpole_recipes()
+    }
     # Counted over each path that samples by priority, from 0 at its start;
     # every other path asserts a count of 0.
     kernel["launches_by_path"] = {
         "per-dqn": record["full_slice"]["kernel_launches"],
         "rainbow": record["full_rainbow"]["kernel_launches"],
         **{name: r["kernel_launches"] for name, r in record["full_onpolicy"].items()},
+        **{name: r["kernel_launches"] for name, r in record["full_cartpole"].items()},
     }
     kernel["launches"] = sum(kernel["launches_by_path"].values())
     record["kernels"] = [kernel]

@@ -6,15 +6,16 @@ counterpart. This package imports ``torch`` and nothing of JAX or
 ``pfrl_tpu``.
 
 Ported so far: the DQN family's device path (Nature DQN over the uniform
-and the prioritized ring, Double DQN, Rainbow) and off-policy actor-critic
-for continuous control (SAC, TD3, DDPG), each through
-``experiments.OffPolicyRunner`` and ``experiments.EvalLoop``; see
-``experiments/atari_per_dqn.py``, ``atari_rainbow.py`` and
-``mujoco_actor_critic.py``; on-policy training (PPO, A2C, TRPO) through
-``experiments.OnPolicyRunner``, see ``experiments/onpolicy.py``. Not ported
-yet: REINFORCE, IQN and the recurrent and episodic paths, the agents' host
-shells and the host-env training loops, bf16 compute (``compute_dtype``),
-device meshes.
+and the prioritized ring, Double DQN, Rainbow; on CartPole DQN, C51, AL,
+Rainbow-CartPole and IQN, with the PAL, DPP and Double IQN cores) and
+off-policy actor-critic for continuous control (SAC, TD3, DDPG), each
+through ``experiments.OffPolicyRunner`` and ``experiments.EvalLoop``; see
+``experiments/atari_per_dqn.py``, ``atari_rainbow.py``,
+``cartpole_value.py`` and ``mujoco_actor_critic.py``; on-policy training
+(PPO, A2C, TRPO) through ``experiments.OnPolicyRunner``, see
+``experiments/onpolicy.py``. Not ported yet: REINFORCE, the recurrent and
+episodic paths, the agents' host shells and the host-env training loops,
+bf16 compute (``compute_dtype``), device meshes.
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; without a card they raise (see :mod:`._device`). Kernels

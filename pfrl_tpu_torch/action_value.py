@@ -1,6 +1,6 @@
 """Action values returned by Q-networks (counterpart of
-``pfrl_tpu/action_value.py``; the discrete and the categorical
-distributional variants so far)."""
+``pfrl_tpu/action_value.py``; the discrete, the categorical distributional
+and the quantile variants so far)."""
 
 import dataclasses
 
@@ -62,3 +62,29 @@ class DistributionalDiscreteActionValue:
 
     def evaluate_actions_as_distribution(self, actions: torch.Tensor) -> torch.Tensor:
         return _take_action(self.q_dist, actions)
+
+
+@dataclasses.dataclass
+class QuantileDiscreteActionValue:
+    """IQN's quantile estimates ``quantiles`` ``[B, n_taus, A]``; the
+    Q-values are their mean over the taus."""
+
+    quantiles: torch.Tensor
+
+    @property
+    def q_values(self) -> torch.Tensor:
+        return torch.mean(self.quantiles, dim=1)
+
+    def greedy_actions(self) -> torch.Tensor:
+        return torch.argmax(self.q_values, dim=-1).to(torch.int32)
+
+    def max(self) -> torch.Tensor:
+        return torch.amax(self.q_values, dim=-1)
+
+    def evaluate_actions(self, actions: torch.Tensor) -> torch.Tensor:
+        return _take_action(self.q_values, actions)
+
+    def evaluate_actions_as_quantiles(self, actions: torch.Tensor) -> torch.Tensor:
+        """The quantiles of the given actions, ``[B, n_taus]``."""
+        idx = actions.to(torch.int64).view(-1, 1, 1).expand(-1, self.quantiles.shape[1], 1)
+        return torch.gather(self.quantiles, 2, idx).squeeze(2)

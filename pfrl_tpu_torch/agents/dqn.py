@@ -10,12 +10,14 @@ hands the model a draw source (:mod:`pfrl_tpu_torch.utils.draws`): noisy
 layers draw from it on every forward, models without noise ignore it.
 
 Ported subclasses: ``double_dqn.DoubleDQNCore``,
-``categorical_dqn.CategoricalDQNCore`` and ``CategoricalDoubleDQNCore``.
-The actor-critic cores for continuous actions are in :mod:`.ddpg`,
-:mod:`.td3` and :mod:`.soft_actor_critic`.
+``categorical_dqn.CategoricalDQNCore`` and ``CategoricalDoubleDQNCore``,
+``al.ALCore``, ``pal.PALCore`` and ``DoublePALCore``, ``dpp.DPPCore``, and
+``iqn.IQNCore`` and ``DoubleIQNCore``. The actor-critic cores for
+continuous actions are in :mod:`.ddpg`, :mod:`.td3` and
+:mod:`.soft_actor_critic`.
 Not ported yet: the host shell ``DQN`` (``batch_act`` / ``batch_observe``),
-``compute_dtype`` (bf16 compute over fp32 masters), and the AL, PAL, DPP,
-IQN and recurrent cores.
+``compute_dtype`` (bf16 compute over fp32 masters), and the recurrent
+cores.
 """
 
 import copy

@@ -15,6 +15,8 @@ are numpy arrays, as ``jax.tree.map(np.asarray, state)`` gives it; its
 fields are read by name. An optimizer state converts by the port
 optimizer's kind: optax's Adam (``mu``, ``nu``, ``count``), RMSprop
 (``nu``), or the ``(clip_by_global_norm, inner)`` chain's inner state.
+Like every entry point of the port, they build on the CUDA device unless
+given ``device="cpu"`` (:func:`~pfrl_tpu_torch._device.resolve_device`).
 
 Takes nested dicts of numpy arrays (``jax.tree.map(np.asarray, tree)`` on
 the JAX side); imports nothing of JAX.
@@ -27,6 +29,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from pfrl_tpu_torch._device import resolve_device
 from pfrl_tpu_torch.agents.ddpg import ActorCriticState, DDPGCore
 from pfrl_tpu_torch.agents.dqn import DQNCore, DQNState
 from pfrl_tpu_torch.agents.ppo import PPOCore, PPOState
@@ -88,27 +91,20 @@ def dqn_state_from_flax(
     core: DQNCore,
     params: Mapping,
     target_params: Mapping,
-    nu: Mapping,
-    device="cpu",
-    mu: Optional[Mapping] = None,
-    count=None,
+    opt_state,
+    device=None,
+    n_updates: int = 0,
 ) -> DQNState:
-    """A whole JAX ``DQNState``, each part a numpy tree, into a port
-    :class:`DQNState`: ``params``, ``target_params`` and the optimizer's
-    state. For optax's rmsprop chain that is the second moments ``nu``
-    (``opt_state[0].nu``); for ``optax.adam`` ``mu``, ``nu`` and ``count``
-    (``opt_state[0]``'s fields)."""
-    model = copy.deepcopy(core.model).to(device)
+    """A JAX ``DQNState``, each part a numpy tree, into a port
+    :class:`DQNState`: ``params``, ``target_params``, the whole optax state
+    ``opt_state`` (read by the port optimizer's kind, see
+    :func:`_load_optimizer`) and ``n_updates``."""
+    model = copy.deepcopy(core.model).to(resolve_device(device))
     load_flax_params(model, params)
     state = core.state_from_model(model)
     load_flax_params(state.target_model, target_params)
-    moments = {"nu": nu} if mu is None else {"mu": mu, "nu": nu}
-    names = [name for name, _ in model.named_parameters()]
-    core.optimizer.load_state(
-        state.opt_state,
-        count=count,
-        **{k: [torch_arrays(model, tree)[n] for n in names] for k, tree in moments.items()},
-    )
+    _load_optimizer(core.optimizer, state.opt_state, model, opt_state)
+    state.n_updates = int(n_updates)
     return state
 
 
@@ -133,8 +129,9 @@ def _load_adam(optimizer, opt_state, module: Optional[nn.Module], flax_opt_state
     optimizer.load_state(opt_state, count=int(np.asarray(adam.count)), **moments)
 
 
-def actor_critic_state_from_flax(core: DDPGCore, flax_state, device="cpu") -> ActorCriticState:
+def actor_critic_state_from_flax(core: DDPGCore, flax_state, device=None) -> ActorCriticState:
     """A whole JAX ``ActorCriticState`` into the port's."""
+    device = resolve_device(device)
     policy = _load_network(core.policy, flax_state, "policy_params", device)
     q_func = _load_network(core.q_func, flax_state, "q_params", device)
     state = core.state_from_modules(policy, q_func)
@@ -160,8 +157,9 @@ def _load_twin(core, state, flax_state) -> None:
     state.n_updates = int(np.asarray(flax_state.n_updates))
 
 
-def td3_state_from_flax(core: TD3Core, flax_state, device="cpu") -> TD3State:
+def td3_state_from_flax(core: TD3Core, flax_state, device=None) -> TD3State:
     """A whole JAX ``TD3State`` into the port's."""
+    device = resolve_device(device)
     state = core.state_from_modules(
         _load_network(core.policy, flax_state, "policy_params", device),
         _load_network(core.q_func1, flax_state, "q1_params", device),
@@ -172,9 +170,10 @@ def td3_state_from_flax(core: TD3Core, flax_state, device="cpu") -> TD3State:
     return state
 
 
-def sac_state_from_flax(core: SACCore, flax_state, device="cpu") -> SACState:
+def sac_state_from_flax(core: SACCore, flax_state, device=None) -> SACState:
     """A whole JAX ``SACState`` into the port's, ``log_temperature`` and
     its 0-d Adam state included."""
+    device = resolve_device(device)
     state = core.state_from_modules(
         _load_network(core.policy, flax_state, "policy_params", device),
         _load_network(core.q_func1, flax_state, "q1_params", device),
@@ -196,7 +195,8 @@ def _load_optimizer(optimizer, opt_state, module: nn.Module, flax_opt_state) -> 
     """An optax state into the port's optimizer state, by the port
     optimizer's kind: ``optax.adam``'s, ``optax.rmsprop``'s (``nu`` of its
     first element) or, for a :class:`ClipByGlobalNorm`, the chain
-    ``(EmptyState(), inner)``'s inner state."""
+    ``(EmptyState(), inner)``'s inner state (Adam's moments then sit at
+    ``opt_state[1][0]``)."""
     if isinstance(optimizer, ClipByGlobalNorm):
         _load_optimizer(optimizer.inner, opt_state, module, flax_opt_state[1])
     elif isinstance(optimizer, Adam):
@@ -208,10 +208,11 @@ def _load_optimizer(optimizer, opt_state, module: nn.Module, flax_opt_state) -> 
         raise NotImplementedError(f"no conversion for {type(optimizer).__name__}")
 
 
-def ppo_state_from_flax(core: PPOCore, flax_state, device="cpu") -> PPOState:
+def ppo_state_from_flax(core: PPOCore, flax_state, device=None) -> PPOState:
     """A whole JAX ``PPOState`` (A2C's too) into the port's: the model, the
     optimizer's state (Adam, or the ``(clip_by_global_norm, rmsprop)``
     chain's) and ``n_updates``."""
+    device = resolve_device(device)
     model = _load_network(core.model, flax_state, "params", device)
     state = core.state_from_model(model)
     _load_optimizer(core.optimizer, state.opt_state, model, flax_state.opt_state)
@@ -219,9 +220,10 @@ def ppo_state_from_flax(core: PPOCore, flax_state, device="cpu") -> PPOState:
     return state
 
 
-def trpo_state_from_flax(core: TRPOCore, flax_state, device="cpu") -> TRPOState:
+def trpo_state_from_flax(core: TRPOCore, flax_state, device=None) -> TRPOState:
     """A whole JAX ``TRPOState`` into the port's: the policy, the value
     function, its Adam state and ``n_updates``."""
+    device = resolve_device(device)
     state = core.state_from_modules(
         _load_network(core.policy, flax_state, "policy_params", device),
         _load_network(core.vf, flax_state, "vf_params", device),

@@ -10,10 +10,12 @@ one batch-32 update per 4 transitions after 2,000. Its ``double`` and
 ``examples/atari/train_dqn_ale.py --sim [--double] [--prioritized]``: the
 Double-DQN target, and proportional prioritized replay (alpha 0.6, beta
 0.4) in place of the uniform ring. :func:`make_per_dqn_runner` is the
-prioritized one, the first slice that was ported.
+prioritized one, the first slice that was ported. ``noisy_net_sigma`` is
+``--noisy-net-sigma``: the Q head becomes a factorized noisy layer at that
+sigma scale (``to_factorized_noisy``) and the explorer ``Greedy``.
 """
 
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -24,7 +26,9 @@ from pfrl_tpu_torch.agents.dqn import DQNCore
 from pfrl_tpu_torch.envs.atari_sim import AtariSim
 from pfrl_tpu_torch.experiments.runner import OffPolicyRunner, RunnerConfig
 from pfrl_tpu_torch.explorers.epsilon_greedy import LinearDecayEpsilonGreedy
+from pfrl_tpu_torch.explorers.greedy import Greedy
 from pfrl_tpu_torch.models.atari_cnn import LargeAtariCNN
+from pfrl_tpu_torch.models.noisy_linear import to_factorized_noisy
 from pfrl_tpu_torch.optimizers.rmsprop import RMSprop
 from pfrl_tpu_torch.q_functions.state_q_functions import DiscreteActionValueHead
 from pfrl_tpu_torch.replay.prioritized import PrioritizedReplayBuffer
@@ -32,32 +36,51 @@ from pfrl_tpu_torch.replay.uniform import ReplayBuffer
 from pfrl_tpu_torch.utils.batch_states import atari_phi
 
 
-class NatureQ(nn.Module):
-    """LargeAtariCNN -> Linear(512, n_actions) -> DiscreteActionValueHead,
-    the ``NatureQ`` that ``bench.py`` defines in flax. The head keeps flax
-    ``nn.Dense``'s default init: truncated LeCun normal, zero bias."""
+class Dense(nn.Linear):
+    """flax ``nn.Dense`` with its default init (truncated LeCun normal, zero
+    bias); it takes and ignores the draw source."""
 
-    def __init__(self, n_actions: int = 6, frame_shape: Tuple[int, int, int] = (84, 84, 4)):
-        super().__init__()
-        h, w, c = frame_shape
-        self.torso = LargeAtariCNN(n_input_channels=c, input_hw=(h, w))
-        self.head = nn.Linear(self.torso.dense.out_features, n_actions)
-        self.q = DiscreteActionValueHead()
-        self.reset_parameters()
+    flax_scope = "Dense"
 
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        initializers.truncated_lecun_normal_(self.weight, generator)
+        self.bias.zero_()
+
+    def forward(self, x: torch.Tensor, draws=None) -> torch.Tensor:
+        return super().forward(x)
+
+
+class NatureQ(nn.Module):
+    """LargeAtariCNN -> Dense(512, n_actions) -> DiscreteActionValueHead,
+    the ``NatureQ`` that ``bench.py`` defines in flax and the ``ConvQ`` of
+    ``train_dqn_ale.py``. ``dense_cls`` ``(in, out) -> layer`` replaces the
+    head (``to_factorized_noisy``); the draw source reaches it."""
+
+    def __init__(
+        self,
+        n_actions: int = 6,
+        frame_shape: Tuple[int, int, int] = (84, 84, 4),
+        dense_cls: Optional[Callable[[int, int], nn.Module]] = None,
+    ):
+        super().__init__()
+        h, w, c = frame_shape
+        self.torso = LargeAtariCNN(n_input_channels=c, input_hw=(h, w))
+        self.head = (dense_cls or Dense)(self.torso.dense.out_features, n_actions)
+        self.q = DiscreteActionValueHead()
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         self.torso.reset_parameters(generator)
-        initializers.truncated_lecun_normal_(self.head.weight, generator)
-        self.head.bias.zero_()
+        self.head.reset_parameters(generator)
 
     def flax_names(self) -> Dict[str, str]:
         names = {f"torso.{k}": f"LargeAtariCNN_0/{v}" for k, v in self.torso.flax_names().items()}
-        names["head"] = "Dense_0"
+        names["head"] = f"{self.head.flax_scope}_0"
         return names
 
     def forward(self, x: torch.Tensor, draws=None):
-        return self.q(self.head(self.torso(x)))
+        return self.q(self.head(self.torso(x), draws))
 
 
 def make_dqn_runner(
@@ -71,15 +94,18 @@ def make_dqn_runner(
     frame_shape: Tuple[int, int, int] = (84, 84, 4),
     double: bool = False,
     prioritized: bool = False,
+    noisy_net_sigma: Optional[float] = None,
     device=None,
 ) -> OffPolicyRunner:
     """Nature DQN at the given sizes (defaults: the full configuration) on
     ``device`` (default: the CUDA device)."""
     env = AtariSim(n_actions=n_actions, frame_shape=frame_shape, device=device)
+    noisy = noisy_net_sigma is not None
+    dense_cls = to_factorized_noisy(nn.Linear, sigma_scale=noisy_net_sigma) if noisy else None
     core = (DoubleDQNCore if double else DQNCore)(
-        model=NatureQ(n_actions, frame_shape),
+        model=NatureQ(n_actions, frame_shape, dense_cls),
         optimizer=RMSprop(2.5e-4, decay=0.95, eps=1e-2),
-        explorer=LinearDecayEpsilonGreedy(1.0, 0.1, 1_000_000, n_actions),
+        explorer=Greedy() if noisy else LinearDecayEpsilonGreedy(1.0, 0.1, 1_000_000, n_actions),
         gamma=0.99,
         batch_accumulator="sum",
         phi=atari_phi,

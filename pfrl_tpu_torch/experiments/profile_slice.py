@@ -1,7 +1,9 @@
 """Where a full-width configuration's time goes on the card.
 
     python -m pfrl_tpu_torch.experiments.profile_slice
-        [--config per-dqn|dqn|rainbow|sac|td3|ddpg|ppo|ppo-pendulum|trpo|a2c]
+        [--config per-dqn|dqn|rainbow|sac|td3|ddpg|dqn-cartpole|c51-cartpole|
+                  rainbow-cartpole|al-cartpole|iqn-cartpole|dqn-cartpole-example|
+                  ppo|ppo-pendulum|trpo|a2c]
         [--steps 8] [--out PATH]
 
 Runs one configuration at full width on the CUDA device. On 64 lanes of
@@ -12,7 +14,12 @@ Runs one configuration at full width on the CUDA device. On 64 lanes of
 and ``td3`` (``make_sac_runner()``, ``make_td3_runner()``: 32 lanes of
 MujocoSim, 32 batch-256 updates per scan step) and ``ddpg``
 (``make_ddpg_runner()``: 16 lanes of the time-limited Pendulum, 4 batch-128
-updates per scan step). The replay start is cut to 2,048 transitions where
+updates per scan step). On the time-limited CartPole
+(``experiments/cartpole_value.py``): ``dqn-cartpole``, ``c51-cartpole``,
+``rainbow-cartpole`` (3-step prioritized replay through the kernel),
+``al-cartpole`` and ``iqn-cartpole`` (32 lanes, 8 batch-64 updates per scan
+step), and ``dqn-cartpole-example`` (128 lanes, 4 batch-128 updates per
+scan step). The replay start is cut to 2,048 transitions where
 the recipe's is later (Rainbow: 20,000), which changes no phase's work: the
 ring's size and every shape stay. Past replay start it:
 
@@ -61,7 +68,7 @@ from torch.profiler import ProfilerActivity, profile
 from pfrl_tpu_torch.agents import a2c as a2c_module
 from pfrl_tpu_torch.agents import ppo as ppo_module
 from pfrl_tpu_torch.agents import trpo as trpo_module
-from pfrl_tpu_torch.experiments import onpolicy
+from pfrl_tpu_torch.experiments import cartpole_value, onpolicy
 from pfrl_tpu_torch.experiments.atari_per_dqn import make_dqn_runner, make_per_dqn_runner
 from pfrl_tpu_torch.experiments.atari_rainbow import make_rainbow_runner
 from pfrl_tpu_torch.experiments.mujoco_actor_critic import (
@@ -77,6 +84,8 @@ CONFIGS = {
     "sac": make_sac_runner,
     "td3": make_td3_runner,
     "ddpg": make_ddpg_runner,
+    # The CartPole recipes return (runner, eval_loop).
+    **{name: (lambda make=make: make()[0]) for name, make in cartpole_value.RECIPES.items()},
 }
 ONPOLICY_CONFIGS = {
     "ppo": onpolicy.make_ppo_runner,

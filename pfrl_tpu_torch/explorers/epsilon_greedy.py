@@ -21,7 +21,28 @@ def epsilon_greedy(draws, epsilon: float, greedy_actions: torch.Tensor, n_action
     return torch.where(explore, random_actions, greedy_actions)
 
 
-class LinearDecayEpsilonGreedy:
+class _EpsilonSchedule:
+    """Acts by :func:`epsilon_greedy` at the subclass's ``epsilon_at(t)``."""
+
+    n_actions: int
+
+    def select_action(self, draws, t: int, greedy_actions, action_value=None):
+        return epsilon_greedy(draws, self.epsilon_at(t), greedy_actions, self.n_actions)
+
+
+class ConstantEpsilonGreedy(_EpsilonSchedule):
+    """A fixed epsilon. At 0 it still draws its uniforms and random
+    actions, as the JAX explorer does, so the draws stay in step."""
+
+    def __init__(self, epsilon: float, n_actions: int):
+        self.epsilon = epsilon
+        self.n_actions = n_actions
+
+    def epsilon_at(self, t: int) -> float:
+        return float(np.float32(self.epsilon))
+
+
+class LinearDecayEpsilonGreedy(_EpsilonSchedule):
     """Linear anneal start -> end over ``decay_steps`` transitions."""
 
     def __init__(self, start_epsilon: float, end_epsilon: float, decay_steps: int, n_actions: int):
@@ -38,5 +59,18 @@ class LinearDecayEpsilonGreedy:
         eps = f32(self.start_epsilon) + frac * f32(self.end_epsilon - self.start_epsilon)
         return float(eps)
 
-    def select_action(self, draws, t: int, greedy_actions, action_value=None):
-        return epsilon_greedy(draws, self.epsilon_at(t), greedy_actions, self.n_actions)
+
+class ExponentialDecayEpsilonGreedy(_EpsilonSchedule):
+    """``max(end, start * decay ** t)``, the power taken in float32 of a
+    float32 ``t`` (``t`` above 2**24 rounds, as in the JAX package)."""
+
+    def __init__(self, start_epsilon: float, end_epsilon: float, decay: float, n_actions: int):
+        self.start_epsilon = start_epsilon
+        self.end_epsilon = end_epsilon
+        self.decay = decay
+        self.n_actions = n_actions
+
+    def epsilon_at(self, t: int) -> float:
+        f32 = np.float32
+        eps = f32(self.start_epsilon) * np.power(f32(self.decay), f32(t))
+        return float(np.maximum(eps, f32(self.end_epsilon)))

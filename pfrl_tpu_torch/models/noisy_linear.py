@@ -7,7 +7,7 @@ call. Here the noise comes from the draw source handed down the forward
 fresh on every forward.
 """
 
-from typing import Optional
+from typing import Any, Callable, Optional
 
 import torch
 from torch import nn
@@ -57,3 +57,16 @@ class FactorizedNoisyLinear(nn.Module):
         w = self.w_mu + self.w_sigma * torch.outer(eps_out, eps_in)
         b = self.b_mu + self.b_sigma * eps_out
         return x @ w.T + b
+
+
+def to_factorized_noisy(module_cls: Any = None, sigma_scale: float = 0.4) -> Callable[[int, int], FactorizedNoisyLinear]:
+    """A ``dense_cls`` factory ``(in_features, out_features) ->``
+    :class:`FactorizedNoisyLinear` at ``sigma_scale``, for the models that
+    take one (``NatureQ``, the dueling heads). ``module_cls``, the layer
+    class being replaced, is accepted for the JAX signature and unused."""
+    del module_cls
+
+    def factory(in_features: int, out_features: int) -> FactorizedNoisyLinear:
+        return FactorizedNoisyLinear(in_features, out_features, sigma_scale=sigma_scale)
+
+    return factory

@@ -87,7 +87,7 @@ def test_a2c_update_matches_jax(use_gae, max_grad_norm):
     jstate = jcore.init(jax.random.PRNGKey(0), jnp.zeros((1, OBS)))
     warm = jax.jit(jcore.update)
     jstate, _ = warm(jstate, None, both_rollouts(numpy_rollout(100, jcore, jstate.params, discrete=True))[0])
-    tstate = convert.ppo_state_from_flax(tcore, np_tree(jstate))
+    tstate = convert.ppo_state_from_flax(tcore, np_tree(jstate), device="cpu")
     assert tstate.n_updates == 1
     assert_rmsprop_chain(tstate, jstate, "a2c converted")
     jr, tr = both_rollouts(numpy_rollout(1, jcore, jstate.params, discrete=True))
@@ -161,7 +161,7 @@ def warm_trpo(jcore, tcore):
     jstate = jcore.init(jax.random.PRNGKey(0), jnp.zeros((1, OBS)))
     jr, _ = both_rollouts(trpo_rollout(100, jcore, jstate))
     jstate, _ = jax_update(jcore, jstate, permutations(100, 2, 64), jr)
-    return jstate, convert.trpo_state_from_flax(tcore, np_tree(jstate))
+    return jstate, convert.trpo_state_from_flax(tcore, np_tree(jstate), device="cpu")
 
 
 def _capture_line_search(tcore, monkeypatch):

@@ -194,7 +194,7 @@ def trained():
             jtrain = jcore.init(jax.random.PRNGKey(1), jnp.zeros((LANES, obs_dim)), jnp.zeros((LANES, act_dim)))
             draws = LoggedDraws(0)
             state = runner.init(0, draws=draws)
-            state.train_state = from_flax(runner.core, np_tree(jtrain))
+            state.train_state = from_flax(runner.core, np_tree(jtrain), device="cpu")
             state, metrics = runner.run_chunk(state, STEPS)
             kinds = [k for k, _ in draws.log]
             jax_run = _run_jax(

@@ -113,10 +113,8 @@ def _batch(seed, b=4):
 
 
 def _port_state(tcore, js):
-    opt = js.opt_state[0]
-    adam = {} if not hasattr(opt, "mu") else dict(mu=np_tree(opt.mu), count=np.asarray(opt.count))
     return convert.dqn_state_from_flax(
-        tcore, np_tree(js.params), np_tree(js.target_params), np_tree(opt.nu), **adam
+        tcore, np_tree(js.params), np_tree(js.target_params), np_tree(js.opt_state), device="cpu"
     )
 
 

@@ -197,7 +197,7 @@ def test_dqn_update_matches_jax_from_converted_state():
     js = js.replace(target_params=jcore.init(jax.random.PRNGKey(1), obs0).params)
     js, _ = jcore.update(js, jax.random.PRNGKey(2), JaxBatch(**_batch(0)))
     ts = convert.dqn_state_from_flax(
-        tcore, _np_tree(js.params), _np_tree(js.target_params), _np_tree(js.opt_state[0].nu)
+        tcore, _np_tree(js.params), _np_tree(js.target_params), _np_tree(js.opt_state), device="cpu"
     )
 
     b = _batch(1)
@@ -233,7 +233,7 @@ def test_sync_target_matches_jax(method):
     js = jcore.init(jax.random.PRNGKey(0), obs0)
     js = js.replace(target_params=jcore.init(jax.random.PRNGKey(1), obs0).params)
     ts = convert.dqn_state_from_flax(
-        tcore, _np_tree(js.params), _np_tree(js.target_params), _np_tree(js.opt_state[0].nu)
+        tcore, _np_tree(js.params), _np_tree(js.target_params), _np_tree(js.opt_state), device="cpu"
     )
     js = jcore.sync_target(js)
     assert tcore.sync_target(ts) is ts

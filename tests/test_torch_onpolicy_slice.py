@@ -168,7 +168,7 @@ def trained():
             jtrain = jcore.init(jax.random.PRNGKey(1), jnp.zeros((LANES, obs_dim)))
             draws = PermutingDraws(0)
             state = runner.init(0, draws=draws)
-            state.train_state = from_flax(runner.core, np_tree(jtrain))
+            state.train_state = from_flax(runner.core, np_tree(jtrain), device="cpu")
             state, aux = runner.run_iterations(state, ITERATIONS)
             kinds = [k for k, _ in draws.log]
             jax_run = _run_jax(monkeypatch, jenv, jcore, jtrain, draws, resets, act, n_update, runner.rollout_len)

@@ -199,7 +199,7 @@ def warm_pair(jcore, tcore, discrete=False):
     jstate = jcore.init(jax.random.PRNGKey(0), jnp.zeros((1, OBS)))
     d = numpy_rollout(100, jcore, jstate.params, discrete=discrete)
     jstate, _ = jax_update(jcore, jstate, permutations(100, jcore.epochs, T * B), both_rollouts(d)[0])
-    return jstate, convert.ppo_state_from_flax(tcore, np_tree(jstate))
+    return jstate, convert.ppo_state_from_flax(tcore, np_tree(jstate), device="cpu")
 
 
 def assert_ppo_states(tstate, jstate, atol, what):

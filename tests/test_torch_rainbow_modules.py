@@ -348,8 +348,7 @@ def test_converter_round_trip_for_noisy_params_and_adam_state():
     adam = opt_state[0]
     target = jax.tree.map(lambda p: p + 1.0, params)
     state = convert.dqn_state_from_flax(
-        core, np_tree(params), np_tree(target), np_tree(adam.nu),
-        mu=np_tree(adam.mu), count=np.asarray(adam.count),
+        core, np_tree(params), np_tree(target), np_tree(opt_state), device="cpu"
     )
     assert state.opt_state.count == 2 and state.n_updates == 0
 

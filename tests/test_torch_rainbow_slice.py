@@ -69,8 +69,7 @@ def _initial_states(port_core):
     jcore, _ = _cores("categorical_double")
     train = jcore.init(jax.random.PRNGKey(1), jnp.zeros((1, 84, 84, 4), jnp.uint8))
     params = _np_tree(train.params)
-    zeros = jax.tree.map(np.zeros_like, params)
-    return jcore, train, convert.dqn_state_from_flax(port_core, params, params, zeros, mu=zeros, count=0)
+    return jcore, train, convert.dqn_state_from_flax(port_core, params, params, _np_tree(train.opt_state), device="cpu")
 
 
 class _Replay:

@@ -172,7 +172,7 @@ def _assert_states(tstate, jstate, atol, tag):
 def test_sac_updates_match_jax_from_a_converted_state(monkeypatch, n_updates, atol):
     jcore, tcore = _cores()
     jstate = _warm_state(monkeypatch, jcore)
-    tstate = convert.sac_state_from_flax(tcore, np_tree(jstate))
+    tstate = convert.sac_state_from_flax(tcore, np_tree(jstate), device="cpu")
     _assert_states(tstate, jstate, 0.0, "converted")  # the converter is exact
     assert tstate.n_updates == 2 and tstate.policy_opt_state.count == 2
     assert not torch.equal(tstate.target_q_func1.mlp.layers[0].weight, tstate.q_func1.mlp.layers[0].weight)
@@ -205,7 +205,7 @@ def test_sac_gradients_reach_only_what_each_loss_differentiates(monkeypatch):
     jcore, tcore = _cores(entropy_target=None)
     assert not tcore.learn_temperature
     jstate = _warm_state(monkeypatch, jcore)
-    tstate = convert.sac_state_from_flax(tcore, np_tree(jstate))
+    tstate = convert.sac_state_from_flax(tcore, np_tree(jstate), device="cpu")
     jb, tb = both_batches(numpy_batch(3))
     noise = _noise(4, 1)
     give_jax(monkeypatch, *noise)
@@ -224,7 +224,7 @@ def test_sac_gradients_reach_only_what_each_loss_differentiates(monkeypatch):
 def test_sac_select_action_training_evaluating_and_burn_in_match_jax(monkeypatch):
     jcore, tcore = _cores(burnin=True)
     jstate = _warm_state(monkeypatch, jcore)
-    tstate = convert.sac_state_from_flax(tcore, np_tree(jstate))
+    tstate = convert.sac_state_from_flax(tcore, np_tree(jstate), device="cpu")
     rs = np.random.RandomState(5)
     obs = rs.normal(size=(6, OBS)).astype(np.float32)
     eps = rs.normal(size=(6, ACT)).astype(np.float32)

@@ -232,8 +232,8 @@ def test_slice_matches_jax_module_loop():
     draws = KeyedDraws(0)
     state = runner.init(0, draws=draws)
     flax_params = _np_tree(JaxNatureQ().init(jax.random.PRNGKey(1), jnp.zeros((1, 84, 84, 4))))
-    zeros = jax.tree.map(np.zeros_like, flax_params)
-    state.train_state = convert.dqn_state_from_flax(runner.core, flax_params, flax_params, zeros)
+    fresh = _np_tree(optax.rmsprop(2.5e-4, decay=0.95, eps=1e-2).init(flax_params))
+    state.train_state = convert.dqn_state_from_flax(runner.core, flax_params, flax_params, fresh, device="cpu")
 
     state, metrics = runner.run_chunk(state, STEPS)
     assert runner.config.updates_per_step == 1

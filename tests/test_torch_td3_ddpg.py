@@ -116,7 +116,7 @@ def _snapshot(tstate, attrs):
 def test_td3_updates_match_jax_at_both_parities(monkeypatch, n_warm, n_updates, atol):
     jcore, tcore = _td3_cores()
     jstate = _td3_warm_state(monkeypatch, jcore, n_warm)
-    tstate = convert.td3_state_from_flax(tcore, np_tree(jstate))
+    tstate = convert.td3_state_from_flax(tcore, np_tree(jstate), device="cpu")
     _assert_td3_states(tstate, jstate, 0.0, "converted")
     assert tstate.n_updates == n_warm and tstate.q1_opt_state.count == n_warm
     assert tstate.policy_opt_state.count == (n_warm + 1) // 2  # updates 0 and 2 stepped the actor
@@ -170,11 +170,11 @@ def test_deterministic_select_action_training_evaluating_and_burn_in_match_jax(m
     if core_kind == "td3":
         jcore, tcore = _td3_cores(burnin=True)
         jstate = _td3_warm_state(monkeypatch, jcore, 1)
-        tstate = convert.td3_state_from_flax(tcore, np_tree(jstate))
+        tstate = convert.td3_state_from_flax(tcore, np_tree(jstate), device="cpu")
     else:
         jcore, tcore = _ddpg_cores("soft", True, burnin=True)
         jstate = _ddpg_warm_state(jcore)
-        tstate = convert.actor_critic_state_from_flax(tcore, np_tree(jstate))
+        tstate = convert.actor_critic_state_from_flax(tcore, np_tree(jstate), device="cpu")
     rs = np.random.RandomState(10)
     obs = rs.normal(size=(6, OBS)).astype(np.float32)
     eps = (rs.normal(size=(6, ACT)) * 10.0).astype(np.float32)  # scale 0.1: many cross +-1
@@ -243,7 +243,7 @@ def _assert_ddpg_states(tstate, jstate, atol, tag):
 def test_ddpg_updates_and_sync_match_jax(method, clip_delta, n_updates, atol):
     jcore, tcore = _ddpg_cores(method, clip_delta)
     jstate = _ddpg_warm_state(jcore)
-    tstate = convert.actor_critic_state_from_flax(tcore, np_tree(jstate))
+    tstate = convert.actor_critic_state_from_flax(tcore, np_tree(jstate), device="cpu")
     _assert_ddpg_states(tstate, jstate, 0.0, "converted")
     d = numpy_batch(11)
     d["reward"] = d["reward"] * 5.0  # TD errors on both sides of the Huber knee
@@ -279,7 +279,7 @@ def test_ddpg_clip_delta_changes_the_loss_as_in_jax():
     for clip in (True, False):
         jcore, tcore = _ddpg_cores("soft", clip)
         jstate = _ddpg_warm_state(jcore)
-        tstate = convert.actor_critic_state_from_flax(tcore, np_tree(jstate))
+        tstate = convert.actor_critic_state_from_flax(tcore, np_tree(jstate), device="cpu")
         _, jaux = jcore.update(jstate, KEY, jb)
         _, taux = tcore.update(tstate, tb)
         assert_close(taux["loss"], jaux["loss"], 1e-5, f"clip_delta={clip}")

@@ -71,12 +71,12 @@ def _port(kind, jstate):
     sizes = dict(num_envs=16, update_interval=4, minibatch_size=128, device="cpu")
     if kind == "sac":
         runner = mac.make_sac_runner(hidden=256, env=mac.pendulum_env("cpu"), **sizes)
-        return runner, convert.sac_state_from_flax(runner.core, np_tree(jstate))
+        return runner, convert.sac_state_from_flax(runner.core, np_tree(jstate), device="cpu")
     if kind == "td3":
         runner = mac.make_td3_runner(hidden=64, env=mac.pendulum_env("cpu"), **sizes)
-        return runner, convert.td3_state_from_flax(runner.core, np_tree(jstate))
+        return runner, convert.td3_state_from_flax(runner.core, np_tree(jstate), device="cpu")
     runner = mac.make_ddpg_runner(**sizes)
-    return runner, convert.actor_critic_state_from_flax(runner.core, np_tree(jstate))
+    return runner, convert.actor_critic_state_from_flax(runner.core, np_tree(jstate), device="cpu")
 
 
 @pytest.fixture(scope="module", params=["sac", "td3", "ddpg"])

@@ -74,11 +74,11 @@ def _port(kind, jstate):
     if kind == "hopper":
         core = PPOCore(onp.GaussianPiV(11, 3, 64, mean_scale=1e-4), Adam(3e-4), gamma=0.995, lambd=0.97, epochs=10,
                        minibatch_size=64, entropy_coef=0.0)
-        return None, convert.ppo_state_from_flax(core, np_tree(jstate)), core
+        return None, convert.ppo_state_from_flax(core, np_tree(jstate), device="cpu"), core
     runner = {"ppo": onp.make_ppo_pendulum_runner, "trpo": onp.make_trpo_pendulum_runner,
               "a2c": onp.make_a2c_cartpole_runner}[kind](device="cpu")
     from_flax = convert.trpo_state_from_flax if kind == "trpo" else convert.ppo_state_from_flax
-    return runner, from_flax(runner.core, np_tree(jstate)), runner.core
+    return runner, from_flax(runner.core, np_tree(jstate), device="cpu"), runner.core
 
 
 @functools.lru_cache(maxsize=None)
