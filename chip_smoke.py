@@ -61,7 +61,22 @@ result, without them. Its phases, each raising on failure:
    width through 96 scan steps (t = 3,072; the example: 24 steps of 128
    lanes), holding the target to the online net right after each sync,
    counting 520 kernel launches on Rainbow-CartPole's 3-step PER (B = 64)
-   and 0 elsewhere, then its evaluation loop.
+   and 0 elsewhere, then its evaluation loop;
+11. bf16 compute over float32 masters (``compute_dtype=torch.bfloat16``):
+   small card-vs-CPU runs at bf16 of Nature DQN and PER DQN on AtariSim
+   (the kernel also held against its plain version on the run's
+   priorities), C51 and IQN on CartPole, SAC on Pendulum at the recipe's
+   widths and PPO, and one forward and update of the noisy ``NatureQ``
+   (its head computes in float32), each difference printed in bf16 ulps
+   beside its tolerance and every master and moment held to float32 after
+   every update; then at full width ``bench.py``'s ``bench_dqn`` A/B (fp32
+   and bf16 uniform-ring Nature DQN, 64 lanes, interleaved rounds: both
+   env-steps/s, their ratio, the spread and the achieved TFLOP/s by
+   ``bench.py``'s 18.67 MFLOP per forward), PER DQN at bf16 (64 scan steps,
+   its kernel launches counted), SAC on Pendulum at bf16
+   (``run_sac_pendulum_bf16``: 160 scan steps through burn-in and replay
+   start, then 10 lanes x 201 steps of evaluation) and PPO on MujocoSim at
+   bf16 (``bench_ppo``'s widths, 10 iterations).
 
 The kernels' launch counts are set to 0 just before each full-width path
 and read just after it; the kernels' JSON line gives their sum over the
@@ -109,6 +124,13 @@ ONPOLICY_EVAL = {"ppo-pendulum": (10, 201), "trpo": (10, 201), "a2c": (10, 501)}
 CARTPOLE_STEPS = (32, 64)           # warm, timed: t = 1,024 (first updates), then 3,072
 CARTPOLE_EXAMPLE_STEPS = (8, 16)    # 128 lanes: t = 1,024 (first updates), then 3,072
 CARTPOLE_BATCH = 64                 # Rainbow-CartPole's minibatch: the kernel's B
+BF16_ULP = 2.0 ** -8                # bf16 keeps 8 significant bits
+BF16_LOSS_ULPS = 8                  # small bf16 runs, card vs CPU: losses and outputs
+BF16_CHANGE_ULPS = 16               # ... each network's change over the run (L2)
+BF16_SENSITIVITY = 4                # ... or this many times what a 1-ulp nudge of the weights moves on the CPU
+BENCH_CHUNK, BENCH_REPS, BENCH_ROUNDS = 16, 2, 3  # bench.py: 200, 2, 3
+BF16_PER_DQN_STEPS_TIMED = 32       # after FULL_STEPS_WARM
+SAC_PENDULUM_STEPS = (64, 96)       # warm (t = 1,024: burn-in done, first updates), timed
 
 
 def card_line() -> str:
@@ -457,11 +479,17 @@ def _raise_on_failed(path: str, checks: dict) -> None:
         raise AssertionError(f"{path}: failed checks {failed}")
 
 
-def run_full_slice(card: str) -> dict:
+def _precision(compute_dtype) -> str:
+    return "fp32, no TF32" if compute_dtype is None else "bf16 over fp32 masters"
+
+
+def run_full_slice(card: str, compute_dtype=None, timed_steps: int = FULL_STEPS_TIMED) -> dict:
     from pfrl_tpu_torch.experiments.atari_per_dqn import make_per_dqn_runner
     from pfrl_tpu_torch.ops.prefix_sample import prefix_sample
 
-    runner = make_per_dqn_runner()  # the CUDA device, at full width
+    runner = make_per_dqn_runner(compute_dtype=compute_dtype)  # the CUDA device, at full width
+    if compute_dtype is not None:
+        checked = _float32_after_updates(runner.core)
     cfg = runner.config
     state = runner.init(0)
     torch.cuda.synchronize()
@@ -473,12 +501,12 @@ def run_full_slice(card: str) -> dict:
     state, warm = runner.run_chunk(state, FULL_STEPS_WARM)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    state, timed = runner.run_chunk(state, FULL_STEPS_TIMED)
+    state, timed = runner.run_chunk(state, timed_steps)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     launches = prefix_sample.launches
 
-    steps = FULL_STEPS_WARM + FULL_STEPS_TIMED
+    steps = FULL_STEPS_WARM + timed_steps
     samples = _updates_in(cfg, 1, steps)
     timed_updates = _updates_in(cfg, FULL_STEPS_WARM + 1, steps)
     loss = torch.cat([warm["loss"], timed["loss"]])
@@ -488,7 +516,12 @@ def run_full_slice(card: str) -> dict:
     synced = any(not torch.equal(a, b) for a, b in zip(target0, state.train_state.target_model.parameters()))
     crossed = state.t // cfg.target_update_interval > 0
 
-    _raise_on_failed("full slice", {
+    bf16 = {} if compute_dtype is None else {
+        "masters and moments float32 after every update": checked[0] == state.train_state.n_updates,
+        "the network computes in bf16": _computes_in(runner.core, state, compute_dtype),
+    }
+    _raise_on_failed("full slice" if compute_dtype is None else "full per-dqn bf16", {
+        **bf16,
         "t advanced": state.t == steps * cfg.num_envs,
         "loss finite": bool(torch.isfinite(loss).all()) and float(loss[-1]) > 0,
         "kernel launches == PER samples": launches == samples == state.train_state.n_updates,
@@ -500,12 +533,13 @@ def run_full_slice(card: str) -> dict:
     })
     timed_s = t2 - t1
     result = {
+        "compute_dtype": str(compute_dtype),
         "steps": steps,
         "t": state.t,
         "kernel_launches": launches,
         "per_samples": samples,
         "launches_per_scan_step": cfg.updates_per_step,
-        "env_steps_per_s": FULL_STEPS_TIMED * cfg.num_envs / timed_s,
+        "env_steps_per_s": timed_steps * cfg.num_envs / timed_s,
         "updates_per_s": timed_updates / timed_s,
         "warm_chunk_s": t1 - t0,
         "timed_chunk_s": timed_s,
@@ -516,9 +550,9 @@ def run_full_slice(card: str) -> dict:
         "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
     }
     print(
-        f"slice: env-steps/s {result['env_steps_per_s']:.1f} updates/s "
-        f"{result['updates_per_s']:.1f} over {FULL_STEPS_TIMED} scan steps "
-        f"(64 lanes, fp32, no TF32) on {card}"
+        f"{'slice' if compute_dtype is None else 'per-dqn bf16'}: env-steps/s {result['env_steps_per_s']:.1f} "
+        f"updates/s {result['updates_per_s']:.1f} over {timed_steps} scan steps; {launches} prefix-sample "
+        f"launches (64 lanes, {_precision(compute_dtype)}) on {card}"
     )
     return result
 
@@ -1040,7 +1074,7 @@ def check_small_onpolicy(name: str, build, device, iterations: int = 3) -> dict:
             "max_abs_diff": diffs}
 
 
-def _onpolicy_runner(name: str):
+def _onpolicy_runner(name: str, compute_dtype=None):
     """The recipe's runner on the card, its env counting truncations and
     terminations."""
     from pfrl_tpu_torch.envs import MujocoSim
@@ -1053,16 +1087,18 @@ def _onpolicy_runner(name: str):
         "a2c": (onp.make_a2c_cartpole_runner, onp.time_limited_cartpole),
     }[name]
     watched = _WatchedEnv(env())
-    return make(env=watched), watched
+    return make(env=watched, compute_dtype=compute_dtype), watched
 
 
-def run_full_onpolicy(card: str, name: str) -> dict:
+def run_full_onpolicy(card: str, name: str, compute_dtype=None) -> dict:
     """One on-policy recipe at full width for ``ONPOLICY_ITERATIONS[name]``
     iterations (the first timed apart), then its evaluation loop."""
     from pfrl_tpu_torch.experiments.runner import EvalLoop
     from pfrl_tpu_torch.ops.prefix_sample import prefix_sample
 
-    runner, env = _onpolicy_runner(name)
+    runner, env = _onpolicy_runner(name, compute_dtype)
+    if compute_dtype is not None:
+        checked = _float32_after_updates(runner.core)
     core, lanes, T = runner.core, runner.num_envs, runner.rollout_len
     iterations = ONPOLICY_ITERATIONS[name]
     state = runner.init(0)
@@ -1096,7 +1132,11 @@ def run_full_onpolicy(card: str, name: str) -> dict:
         "finished returns finite": bool(torch.isfinite(recent).all()),
         "no kernel on this path": launches == 0,
     }
-    result = {"iterations": iterations, "t": state.t, "n_updates": train.n_updates, "kernel_launches": launches}
+    if compute_dtype is not None:
+        checks["masters and moments float32 after every update"] = checked[0] == iterations
+        checks["the network computes in bf16"] = _computes_in(core, state, compute_dtype)
+    result = {"compute_dtype": str(compute_dtype), "iterations": iterations, "t": state.t,
+              "n_updates": train.n_updates, "kernel_launches": launches}
     if name in ("ppo", "ppo-pendulum"):
         checks["Adam's count == n_updates == 3,200"] = train.opt_state.count == train.n_updates == 3_200
         checks["log_std moved"] = abs(float(head.log_std.detach()) - log_std0) > 1e-4
@@ -1155,7 +1195,7 @@ def run_full_onpolicy(card: str, name: str) -> dict:
         f"{result['recent_return_mean']:.1f}; truncations {train_truncations}, terminations {train_terminations}"
         + (f"; evaluation {result['eval_s']:.2f} s, returns {result['eval_returns']}, truncations "
            f"{result['eval_truncations']}, terminations {result['eval_terminations']}" if "eval_s" in result else "")
-        + f"; last {json.dumps(result['last'])} ({lanes} lanes, fp32, no TF32) on {card}"
+        + f"; last {json.dumps(result['last'])} ({lanes} lanes, {_precision(compute_dtype)}) on {card}"
     )
     return result
 
@@ -1219,6 +1259,18 @@ def _small_cartpole_configs() -> dict:
     return configs
 
 
+def _noisy_nature_q_batch():
+    """Two 32-frame batches of 84x84x4 uint8 observations and a transition
+    batch over them, from a seeded numpy stream."""
+    rs = np.random.RandomState(0)
+    frames = rs.randint(0, 256, (2, 32, 84, 84, 4)).astype(np.uint8)
+    batch = dict(obs=frames[0], action=rs.randint(0, 6, 32).astype(np.int32),
+                 reward=rs.normal(size=32).astype(np.float32), next_obs=frames[1],
+                 discount=np.full(32, 0.99, np.float32), is_terminal=rs.uniform(size=32) < 0.1,
+                 weight=np.ones(32, np.float32), indices=np.arange(32, dtype=np.int32))
+    return frames, batch
+
+
 def check_small_noisy_nature_q(device) -> dict:
     """``train_dqn_ale.py --noisy-net-sigma 0.5``'s network (``NatureQ`` with
     a factorized noisy head, ``Greedy``) at 84x84x4, 6 actions: one forward
@@ -1228,12 +1280,7 @@ def check_small_noisy_nature_q(device) -> dict:
     from pfrl_tpu_torch.experiments.atari_per_dqn import make_dqn_runner
     from pfrl_tpu_torch.replay import TransitionBatch
 
-    rs = np.random.RandomState(0)
-    frames = rs.randint(0, 256, (2, 32, 84, 84, 4)).astype(np.uint8)
-    batch = dict(obs=frames[0], action=rs.randint(0, 6, 32).astype(np.int32),
-                 reward=rs.normal(size=32).astype(np.float32), next_obs=frames[1],
-                 discount=np.full(32, 0.99, np.float32), is_terminal=rs.uniform(size=32) < 0.1,
-                 weight=np.ones(32, np.float32), indices=np.arange(32, dtype=np.int32))
+    frames, batch = _noisy_nature_q_batch()
 
     def run(dev):
         core = make_dqn_runner(num_envs=4, capacity=64, noisy_net_sigma=0.5, device=dev).core
@@ -1343,6 +1390,401 @@ def run_full_cartpole(card: str, name: str) -> dict:
     return result
 
 
+# -------------------------------------------------------------------- phase 11
+def _float32_after_updates(core) -> list:
+    """Wraps ``core.update`` so that after every call each master parameter
+    and every floating tensor of the optimizers' states is held to float32;
+    the returned one-element list counts the calls checked."""
+    from pfrl_tpu_torch.utils.precision import map_floating
+
+    checked, update = [0], core.update
+
+    def checked_update(*args, **kwargs):
+        out = update(*args, **kwargs)
+        dtypes = set()
+        for value in vars(out[0]).values():
+            if isinstance(value, torch.nn.Module):
+                dtypes |= {p.dtype for p in value.parameters()}
+            else:
+                map_floating(lambda x: dtypes.add(x.dtype) or x, value)
+        if dtypes != {torch.float32}:
+            raise AssertionError(f"a master or a moment is not float32 after an update: {dtypes}")
+        checked[0] += 1
+        return out
+
+    core.update = checked_update
+    return checked
+
+
+def _computes_in(core, state, dtype) -> bool:
+    """One forward of the acting network on the runner's observations: its
+    first layer sees ``dtype`` inputs and weights, and the output is
+    float32 (the network ran at the compute dtype, not in float32)."""
+    train = state.train_state
+    net = train.model if hasattr(train, "model") else train.policy
+    layer = next(m for m in net.modules() if isinstance(m, (torch.nn.Linear, torch.nn.Conv2d)))
+    seen = []
+    hook = layer.register_forward_pre_hook(lambda m, args: seen.append((args[0].dtype, m.weight.dtype)))
+    with torch.no_grad():
+        if hasattr(core, "action_value"):
+            outputs = [core.action_value(net, state.obs, state.draws).q_values]
+        elif hasattr(core, "policy_dist"):
+            outputs = [core.policy_dist(net, state.obs).loc]
+        else:
+            outputs = list(core.forward(net, state.obs)[1:])
+    hook.remove()
+    return bool(seen) and all(s == (dtype, dtype) for s in seen) and all(o.dtype == torch.float32 for o in outputs)
+
+
+def _small_bf16_configs() -> dict:
+    """name -> (function making a small runner on a device at bf16, scan steps
+    or iterations, prefix-sample launches expected on the card). AtariSim:
+    4 lanes, 8 scan steps, the updates of the last only (from 32
+    transitions): PER's first sample draws from equal priorities on both
+    sides, where a later one would draw from priorities a bf16 ulp apart
+    and may pick another slot; CartPole: the small CartPole runs' sizes;
+    Pendulum: 4 lanes cut to 10 steps, the recipe's 256 x 256 networks,
+    burn-in 24; PPO: 4 lanes of MujocoSim cut to 12 steps."""
+    from pfrl_tpu_torch.envs import CartPole, MujocoSim, NormalizeActionSpace, Pendulum, TimeLimit
+    from pfrl_tpu_torch.experiments import mujoco_actor_critic as mac
+    from pfrl_tpu_torch.experiments import onpolicy as onp
+    from pfrl_tpu_torch.experiments.atari_per_dqn import make_dqn_runner
+    from pfrl_tpu_torch.experiments.cartpole_value import make_c51_cartpole_runner, make_iqn_cartpole_runner
+
+    bf16 = torch.bfloat16
+    atari = dict(num_envs=4, replay_start_size=32, target_update_interval=48, minibatch_size=8, compute_dtype=bf16)
+    cartpole = dict(num_envs=4, capacity=40, replay_start_size=12, update_interval=2, target_update_interval=24,
+                    minibatch_size=8, compute_dtype=bf16)
+    return {
+        "dqn-bf16": (lambda dev: make_dqn_runner(capacity=48, update_interval=2, device=dev, **atari), 8, 0),
+        "per-dqn-bf16": (lambda dev: make_dqn_runner(prioritized=True, capacity=8196, device=dev, **atari), 8, 1),
+        "c51-cartpole-bf16": (lambda dev: make_c51_cartpole_runner(
+            env=TimeLimit(CartPole(device=dev), 10), **cartpole)[0], 6, 0),
+        "iqn-cartpole-bf16": (lambda dev: make_iqn_cartpole_runner(
+            env=TimeLimit(CartPole(device=dev), 10), **cartpole)[0], 6, 0),
+        "sac-pendulum-bf16": (lambda dev: mac.make_sac_pendulum_bf16_runner(
+            num_envs=4, capacity=96, replay_start_size=32, minibatch_size=16, burnin_steps=24,
+            env=NormalizeActionSpace(TimeLimit(Pendulum(device=dev), 10))), 12, 0),
+        "ppo-bf16": (lambda dev: onp.make_ppo_runner(
+            num_envs=4, rollout_len=16, epochs=2, minibatch_size=16, compute_dtype=bf16,
+            env=MujocoSim(episode_len=12, device=dev)), 2, 0),
+    }
+
+
+def _ulps(got, want) -> float:
+    """The largest difference relative to ``want``'s largest magnitude, in
+    bf16 ulps (2**-8)."""
+    got, want = got.detach().cpu().double(), want.detach().cpu().double()
+    return float((got - want).abs().max()) / (float(want.abs().max()) * BF16_ULP + 1e-30)
+
+
+def _change_ulps(got, start_got, want, start_want) -> float:
+    """How far a network's change over a run on one side lies from its
+    change on the other (``want``): the L2 norm of the difference over the
+    norm of ``want``'s change, all its tensors together, in bf16 ulps."""
+    a = torch.cat([(g.detach().cpu().double() - s.cpu().double()).flatten() for g, s in zip(got, start_got)])
+    b = torch.cat([(w.detach().cpu().double() - s.cpu().double()).flatten() for w, s in zip(want, start_want)])
+    return float((a - b).norm()) / (float(b.norm()) * BF16_ULP + 1e-30)
+
+
+def _bf16_differences(name, a, b, onpolicy: bool) -> dict:
+    """``what -> bf16 ulps`` between two small runs ``(state, metrics,
+    start)``: every floating metric (but ``errors``), the continuous actions
+    in the ring, and each network's change over the run."""
+    (sa, ma, starta), (sb, mb, startb) = a, b
+    out = {k: _ulps(v, mb[k]) for k, v in ma.items() if k != "errors" and v.is_floating_point()}
+    if not onpolicy:
+        ring = lambda s: getattr(s.replay_state, "base", s.replay_state)  # noqa: E731
+        actions = ring(sa).storage["action"].cpu(), ring(sb).storage["action"].cpu()
+        if actions[0].is_floating_point():  # actions in [-1, 1]
+            out["ring actions"] = float((actions[0] - actions[1]).abs().max()) / BF16_ULP
+    nets_b = _networks(sb.train_state)
+    for which, module in _networks(sa.train_state).items():
+        if any(not torch.equal(p, p0) for p, p0 in zip(nets_b[which].parameters(), startb[which])):
+            out[f"{which} change"] = _change_ulps(list(module.parameters()), starta[which],
+                                                  list(nets_b[which].parameters()), startb[which])
+    return out
+
+
+def check_small_bf16(name: str, build, steps: int, expect_launches: int, device) -> dict:
+    """A small run at ``compute_dtype=torch.bfloat16`` on the card and on the
+    CPU from the same draws and weights. cuBLAS/cuDNN and the CPU's kernels
+    each round a bf16 product once from a float32 sum, in their own order,
+    so outputs differ by single ulps here and there, and the updates carry
+    that on, more or less, as the run is more or less chaotic (bf16
+    Q-values tie, and the target's max then switches actions). So each
+    difference is held to ``BF16_SENSITIVITY`` times the difference the CPU
+    run itself shows when its initial weights are scaled by 1 + 2**-23 (one
+    float32 ulp), and never less than ``BF16_LOSS_ULPS`` (every metric but
+    the errors; the continuous actions stored in the ring, of their range
+    of 1) or ``BF16_CHANGE_ULPS`` (each network's change over the run, L2).
+    Discrete actions and the step counters are exact; after every update
+    every master and moment is float32. On the prioritized path the kernel
+    is also held against its plain version on the run's own priorities."""
+    from pfrl_tpu_torch.ops import prefix_sample as ps
+
+    onpolicy = name == "ppo-bf16"
+
+    def run(dev, scale=1.0):
+        runner = build(dev)
+        checked = _float32_after_updates(runner.core)
+        state = runner.init(0, draws=SeededDraws(0, dev))
+        with torch.no_grad():
+            for module in _networks(state.train_state).values():
+                for p in module.parameters():
+                    p.mul_(scale)
+        start = {k: [p.detach().clone() for p in m.parameters()] for k, m in _networks(state.train_state).items()}
+        state, metrics = (runner.run_iterations if onpolicy else runner.run_chunk)(state, steps)
+        return runner, (state, metrics, start), checked
+
+    ps.prefix_sample.launches = 0
+    runner, gpu, gpu_checked = run(device)
+    torch.cuda.synchronize()
+    launches = ps.prefix_sample.launches
+    _, cpu, cpu_checked = run("cpu")
+    _, nudged, _ = run("cpu", 1.0 + 2.0**-23)
+    worst = _bf16_differences(name, gpu, cpu, onpolicy)
+    sensitivity = _bf16_differences(name, nudged, cpu, onpolicy)
+    # PPO's policy loss and explained variance sit near 0 by construction
+    # (standardized advantages, ratios near 1): they are printed, not held.
+    unheld = {"policy_loss", "explained_variance"} if onpolicy else set()
+    tolerance = {k: max(BF16_CHANGE_ULPS if k.endswith("change") else BF16_LOSS_ULPS,
+                        BF16_SENSITIVITY * sensitivity.get(k, 0.0)) for k in worst if k not in unheld}
+    (gs, _, g0), (cs, _, c0) = gpu, cpu
+    checks = {
+        "the runs started from the same weights": all(
+            torch.equal(p.cpu(), q) for k in g0 for p, q in zip(g0[k], c0[k])),
+        "kernel launches as expected": launches == expect_launches,
+        "n_updates agree": gs.train_state.n_updates == cs.train_state.n_updates > 0,
+        "masters and moments float32 after every update": gpu_checked[0] == cpu_checked[0] > 0,
+        "step counters agree": gs.t == cs.t,
+        "the network computes in bf16 on the card": _computes_in(runner.core, gs, torch.bfloat16),
+    }
+    if not onpolicy:
+        ring = lambda s: getattr(s.replay_state, "base", s.replay_state)  # noqa: E731
+        if not ring(gs).storage["action"].is_floating_point():
+            checks["ring actions equal"] = torch.equal(ring(gs).storage["action"].cpu(), ring(cs).storage["action"])
+    if not onpolicy and not runner.buffer.iid_samples:
+        leaves = gs.replay_state.tree[runner.buffer.tree_capacity:]
+        targets = torch.rand(64, device=device, generator=torch.Generator(device).manual_seed(0)) * leaves.sum()
+        got, want = ps.prefix_sample(leaves, targets), ps.prefix_sample_reference(leaves, targets)
+        cs64 = np.cumsum(leaves.double().cpu().numpy())
+        total = float(cs64[-1])
+        checks["the kernel agrees with its plain version on the run's priorities"] = all(
+            g == w or np.max(np.abs(cs64[min(g, w):max(g, w)] - float(t))) <= 1e-6 * total
+            for g, w, t in zip(got.tolist(), want.tolist(), targets.tolist()))
+    checks.update({f"{k} within {tolerance[k]:.2f} bf16 ulps": worst[k] <= tolerance[k] for k in tolerance})
+    print(f"small {name}: card vs CPU at bf16 over {steps} {'iterations' if onpolicy else 'scan steps'}, "
+          f"{gs.train_state.n_updates} updates, {launches} kernel launches; worst, in bf16 ulps: "
+          + "; ".join(f"{k} {v:.2f} (held to {tolerance[k]:.2f}; a 1-ulp nudge of the weights: "
+                      f"{sensitivity.get(k, 0.0):.2f})" if k in tolerance else f"{k} {v:.2f} (not held)"
+                      for k, v in worst.items()))
+    _raise_on_failed(f"small {name}", checks)
+    return {"steps": steps, "updates": gs.train_state.n_updates, "kernel_launches": launches, "worst_ulps": worst,
+            "tolerance_ulps": tolerance, "nudged_ulps": sensitivity}
+
+
+def check_small_noisy_nature_q_bf16(device) -> dict:
+    """The noisy ``NatureQ`` at bf16, one forward and one update on the card
+    and on the CPU: the torso computes in bf16, the noisy head in float32
+    (its noise is float32, so promotion lifts it, as in JAX). Q-values and
+    the loss within ``BF16_LOSS_ULPS`` of their largest, the network's
+    change within ``BF16_CHANGE_ULPS`` (L2)."""
+    from pfrl_tpu_torch.experiments.atari_per_dqn import make_dqn_runner
+    from pfrl_tpu_torch.replay import TransitionBatch
+
+    frames, batch = _noisy_nature_q_batch()
+
+    def run(dev):
+        core = make_dqn_runner(num_envs=4, capacity=64, noisy_net_sigma=0.5, compute_dtype=torch.bfloat16,
+                               device=dev).core
+        obs = torch.from_numpy(frames[0]).to(dev)
+        state = core.init(torch.Generator().manual_seed(0), obs)
+        start = [p.detach().clone() for p in state.model.parameters()]
+        seen = []
+        hooks = [m.register_forward_hook(lambda m, a, out, tag=tag: seen.append((tag, a[0].dtype, out.dtype)))
+                 for tag, m in (("conv", state.model.torso.convs[0]), ("head", state.model.head))]
+        draws = SeededDraws(0, dev)
+        with torch.no_grad():
+            q = core.action_value(state.model, obs, draws).q_values
+        for h in hooks:
+            h.remove()
+        tb = TransitionBatch(**{k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+        _, aux = core.update(state, tb, draws)
+        return q, aux, state, start, seen
+
+    gpu_q, gpu_aux, gpu, gpu_start, seen = run(device)
+    cpu_q, cpu_aux, cpu, cpu_start, _ = run("cpu")
+    worst = {"q_values": _ulps(gpu_q, cpu_q), "loss": _ulps(gpu_aux["loss"], cpu_aux["loss"])}
+    worst["parameters change"] = _change_ulps(list(gpu.model.parameters()), gpu_start,
+                                              list(cpu.model.parameters()), cpu_start)
+    bf16, f32 = torch.bfloat16, torch.float32
+    checks = {
+        "the torso's first layer computes in bf16": ("conv", bf16, bf16) in seen,
+        "the noisy head takes bf16 features and gives float32": ("head", bf16, f32) in seen,
+        "Q-values come back float32": gpu_q.dtype == f32,
+        "masters float32": all(p.dtype == f32 for p in gpu.model.parameters()),
+        "the head's sigmas moved": not torch.equal(gpu.model.head.w_sigma, gpu.target_model.head.w_sigma),
+        f"Q-values and loss within {BF16_LOSS_ULPS} bf16 ulps": max(worst["q_values"], worst["loss"]) <= BF16_LOSS_ULPS,
+        f"parameters' change within {BF16_CHANGE_ULPS} bf16 ulps": worst["parameters change"] <= BF16_CHANGE_ULPS,
+    }
+    print("small noisy NatureQ bf16: card vs CPU over one forward and one update; worst, in bf16 ulps: "
+          + "; ".join(f"{k} {v:.2f}" for k, v in worst.items())
+          + f" (held to {BF16_LOSS_ULPS}, and {BF16_CHANGE_ULPS} for the change)")
+    _raise_on_failed("small noisy NatureQ bf16", checks)
+    return {"worst_ulps": worst}
+
+
+def _nature_flops_per_scan_step(num_envs: int, n_actions: int = 6) -> float:
+    """``bench.py:232-253``'s count: the Nature CNN forward, 18.67 MFLOP per
+    sample, times (lanes + lanes / 4 updates x 4 forward-equivalents x 32)."""
+    fwd = 2 * (20 * 20 * 32 * 8 * 8 * 4 + 9 * 9 * 64 * 4 * 4 * 32 + 7 * 7 * 64 * 3 * 3 * 64
+               + 3136 * 512 + 512 * n_actions)
+    return num_envs * fwd + (num_envs // 4) * 4 * 32 * fwd
+
+
+def run_bench_dqn_ab(card: str) -> dict:
+    """``bench.py``'s ``bench_dqn`` A/B at full width: an fp32 and a bf16
+    runner of the uniform-ring Nature DQN, each warmed by two chunks (past
+    replay start), then ``BENCH_ROUNDS`` rounds interleaved, each of
+    ``BENCH_REPS`` chunks of ``BENCH_CHUNK`` scan steps per variant
+    (``bench.py:211-224``; its chunks are 200 scan steps). Reports each
+    variant's best round, the spread (worst / best), the bf16/fp32 ratio
+    and the achieved TFLOP/s by ``bench.py``'s count."""
+    from pfrl_tpu_torch.experiments.atari_per_dqn import make_dqn_runner
+    from pfrl_tpu_torch.ops.prefix_sample import prefix_sample
+
+    variants = {}
+    for label, dtype in (("fp32", None), ("bf16", torch.bfloat16)):
+        runner = make_dqn_runner(compute_dtype=dtype)  # the CUDA device, full width
+        variants[label] = [runner, runner.init(0), []]
+
+    def run(label):
+        runner, state, losses = variants[label]
+        state, metrics = runner.run_chunk(state, BENCH_CHUNK)
+        variants[label][1] = state
+        losses.append(metrics["loss"])
+        return metrics
+
+    prefix_sample.launches = 0
+    for label in variants:
+        for _ in range(2):
+            run(label)
+            torch.cuda.synchronize()
+    times = {label: [] for label in variants}
+    for _ in range(BENCH_ROUNDS):
+        for label in variants:
+            t0 = time.perf_counter()
+            for _ in range(BENCH_REPS):
+                run(label)
+            torch.cuda.synchronize()
+            times[label].append(time.perf_counter() - t0)
+    launches = prefix_sample.launches
+    num_envs = variants["fp32"][0].config.num_envs
+    steps = BENCH_CHUNK * (2 + BENCH_REPS * BENCH_ROUNDS)
+    sps = {k: BENCH_REPS * BENCH_CHUNK * num_envs / min(v) for k, v in times.items()}
+    flops = _nature_flops_per_scan_step(num_envs)
+    result = {
+        "chunk_scan_steps": BENCH_CHUNK, "reps": BENCH_REPS, "rounds": BENCH_ROUNDS,
+        "round_seconds": times,
+        "env_steps_per_s": sps,
+        "updates_per_s": {k: v / 4 for k, v in sps.items()},
+        "spread": {k: max(v) / min(v) for k, v in times.items()},
+        "bf16_over_fp32": sps["bf16"] / sps["fp32"],
+        "flop_per_scan_step": flops,
+        "achieved_tflops": {k: flops * (v / num_envs) / 1e12 for k, v in sps.items()},
+        "kernel_launches": launches,
+    }
+    checks = {"no kernel on this path": launches == 0}
+    for label, (runner, state, losses) in variants.items():
+        loss = torch.cat(losses)
+        checks[f"{label}: t advanced"] = state.t == steps * num_envs
+        checks[f"{label}: losses finite, positive once updates run"] = bool(torch.isfinite(loss).all()) and bool(
+            (loss[2 * BENCH_CHUNK - 1:] > 0).all())
+        checks[f"{label}: masters float32"] = all(p.dtype == torch.float32 for p in state.train_state.model.parameters())
+    bf16_runner, bf16_state, _ = variants["bf16"]
+    checks["bf16: the network computes in bf16"] = _computes_in(bf16_runner.core, bf16_state, torch.bfloat16)
+    checks["fp32: the network computes in float32"] = _computes_in(variants["fp32"][0].core, variants["fp32"][1],
+                                                                   torch.float32)
+    checks["bf16 GEMMs reduce in float32"] = not torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    _raise_on_failed("dqn-atarisim-64 A/B", checks)
+    print(
+        f"dqn-atarisim-64 A/B (bench_dqn, {BENCH_ROUNDS} interleaved rounds of {BENCH_REPS} x {BENCH_CHUNK} scan "
+        f"steps): env-steps/s fp32 {sps['fp32']:.1f} (spread {result['spread']['fp32']:.3f}), bf16 "
+        f"{sps['bf16']:.1f} (spread {result['spread']['bf16']:.3f}); bf16/fp32 {result['bf16_over_fp32']:.3f}; "
+        f"achieved TFLOP/s fp32 {result['achieved_tflops']['fp32']:.3f}, bf16 {result['achieved_tflops']['bf16']:.3f} "
+        f"(18.67 MFLOP per forward, bench.py's count) on {card}"
+    )
+    return result
+
+
+def run_full_sac_pendulum_bf16(card: str) -> dict:
+    """``run_sac_pendulum_bf16`` with the recipe's every width and cadence (16
+    lanes, 256 x 256 networks, 1,000 burn-in transitions, batch-128 updates
+    every 4 from 1,000 on), cut to ``SAC_PENDULUM_STEPS`` scan steps, then
+    its evaluation loop (10 lanes, 201 steps)."""
+    import copy
+
+    from pfrl_tpu_torch.experiments import mujoco_actor_critic as mac
+    from pfrl_tpu_torch.ops.prefix_sample import prefix_sample
+
+    runner = mac.make_sac_pendulum_bf16_runner()  # the CUDA device, the recipe's sizes
+    checked = _float32_after_updates(runner.core)
+    cfg, core = runner.config, runner.core
+    state = runner.init(0)
+    torch.cuda.synchronize()
+    train = state.train_state
+    initial = {k: copy.deepcopy(v) for k, v in _networks(train).items()}
+    warm, timed_steps = SAC_PENDULUM_STEPS
+    prefix_sample.launches = 0
+    t0 = time.perf_counter()
+    state, first = runner.run_chunk(state, warm)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    state, timed = runner.run_chunk(state, timed_steps)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    steps = warm + timed_steps
+    updates = _updates_in(cfg, 1, steps)
+    loss = torch.cat([first["loss"], timed["loss"]])
+    stored = state.replay_state.storage
+    returns, eval_s, truncations, terminations = _evaluate(runner, train, state.draws, *DDPG_EVAL)
+    temperature = float(train.log_temperature.detach().exp())
+    _raise_on_failed("sac-pendulum-16-bf16", {
+        "t advanced": state.t == steps * cfg.num_envs,
+        "n_updates and every Adam count as expected": train.n_updates == updates == train.policy_opt_state.count
+        == train.q1_opt_state.count == train.temperature_opt_state.count > 0,
+        "masters and moments float32 after every update": checked[0] == updates,
+        "the policy computes in bf16": _computes_in(core, state, torch.bfloat16),
+        "losses finite, positive once updates run": bool(torch.isfinite(loss).all())
+        and bool((loss[(cfg.replay_start_size - 1) // cfg.num_envs:] > 0).all()),
+        "burn-in actions fill [-1, 1)": float(stored["action"][: core.burnin_steps].min()) < -0.9
+        and float(stored["action"][: state.t].abs().max()) <= 1.0,
+        "temperature learned": abs(temperature - 1.0) > 1e-3,
+        "targets follow their online nets": _targets_follow(train, initial),
+        "evaluation: one truncation per lane, returns finite and <= 0": truncations == DDPG_EVAL[0]
+        and terminations == 0 and bool(np.isfinite(returns).all()) and bool((returns <= 0).all()),
+        "no kernel on this path": prefix_sample.launches == 0,
+    })
+    timed_s = t2 - t1
+    result = {
+        "steps": steps, "t": state.t, "n_updates": updates, "kernel_launches": 0,
+        "env_steps_per_s": timed_steps * cfg.num_envs / timed_s,
+        "updates_per_s": _updates_in(cfg, warm + 1, steps) / timed_s,
+        "scan_step_ms": timed_s / timed_steps * 1e3,
+        "warm_chunk_s": t1 - t0, "timed_chunk_s": timed_s,
+        "eval_s": eval_s, "eval_returns": [float(r) for r in returns],
+        "temperature": temperature, "last_loss": float(loss[-1]),
+    }
+    print(
+        f"sac-pendulum-16-bf16: env-steps/s {result['env_steps_per_s']:.1f} updates/s {result['updates_per_s']:.1f} "
+        f"over {timed_steps} scan steps ({result['scan_step_ms']:.2f} ms each); temperature {temperature:.4f}; "
+        f"evaluation {eval_s:.1f} s, mean return {float(returns.mean()):.1f} (16 lanes, bf16 over fp32 masters) "
+        f"on {card}"
+    )
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1403,6 +1845,17 @@ def main() -> int:
     record["full_cartpole"] = {
         name: phase(f"full {name}", run_full_cartpole, card, name) for name in _cartpole_recipes()
     }
+    bf16 = torch.bfloat16
+    for name, (build, steps, launches) in _small_bf16_configs().items():
+        record["small_slices"][name] = phase(f"small {name}", check_small_bf16, name, build, steps, launches, device)
+    record["small_slices"]["noisy-nature-q-bf16"] = phase(
+        "small noisy NatureQ bf16", check_small_noisy_nature_q_bf16, device)
+    record["bench_dqn_ab"] = phase("full dqn-atarisim-64 fp32/bf16 A/B", run_bench_dqn_ab, card)
+    record["full_bf16"] = {
+        "per-dqn-atarisim-64-bf16": phase("full per-dqn bf16", run_full_slice, card, bf16, BF16_PER_DQN_STEPS_TIMED),
+        "sac-pendulum-16-bf16": phase("full sac-pendulum bf16", run_full_sac_pendulum_bf16, card),
+        "ppo-mujocosim-8-bf16": phase("full ppo bf16", run_full_onpolicy, card, "ppo", bf16),
+    }
     # Counted over each path that samples by priority, from 0 at its start;
     # every other path asserts a count of 0.
     kernel["launches_by_path"] = {
@@ -1410,6 +1863,8 @@ def main() -> int:
         "rainbow": record["full_rainbow"]["kernel_launches"],
         **{name: r["kernel_launches"] for name, r in record["full_onpolicy"].items()},
         **{name: r["kernel_launches"] for name, r in record["full_cartpole"].items()},
+        "dqn-atarisim-64 fp32/bf16 A/B": record["bench_dqn_ab"]["kernel_launches"],
+        **{name: r["kernel_launches"] for name, r in record["full_bf16"].items()},
     }
     kernel["launches"] = sum(kernel["launches_by_path"].values())
     record["kernels"] = [kernel]

@@ -13,9 +13,11 @@ through ``experiments.OffPolicyRunner`` and ``experiments.EvalLoop``; see
 ``experiments/atari_per_dqn.py``, ``atari_rainbow.py``,
 ``cartpole_value.py`` and ``mujoco_actor_critic.py``; on-policy training
 (PPO, A2C, TRPO) through ``experiments.OnPolicyRunner``, see
-``experiments/onpolicy.py``. Not ported yet: REINFORCE, the recurrent and
-episodic paths, the agents' host shells and the host-env training loops,
-bf16 compute (``compute_dtype``), device meshes.
+``experiments/onpolicy.py``. Every first-order core takes
+``compute_dtype`` (bf16 compute over float32 masters, see
+:mod:`.utils.precision`); TRPO refuses it, as in JAX. Not ported yet:
+REINFORCE, the recurrent and episodic paths, the agents' host shells and
+the host-env training loops, device meshes.
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; without a card they raise (see :mod:`._device`). Kernels

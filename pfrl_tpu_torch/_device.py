@@ -32,13 +32,19 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
 
 
 def use_full_fp32() -> None:
-    """Run float32 matmuls and convolutions in full float32, not TF32.
+    """Run float32 matmuls and convolutions in full float32, not TF32, and
+    reduce bf16 GEMMs in float32.
 
-    The slice runs in fp32 like the JAX reference at ``compute_dtype=None``;
-    cuDNN would otherwise take TF32 for convolutions by default.
+    At ``compute_dtype=None`` the port runs float32 like the JAX reference;
+    cuDNN would otherwise take TF32 for convolutions by default. At
+    ``compute_dtype=torch.bfloat16`` XLA accumulates products in float32
+    and rounds once; cuBLAS may reduce a bf16 GEMM in bf16 unless
+    ``allow_bf16_reduced_precision_reduction`` is off. cuDNN's bf16
+    convolutions accumulate in float32 already.
     """
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def check_same_device(**named: torch.device) -> torch.device:

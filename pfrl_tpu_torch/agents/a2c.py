@@ -5,12 +5,12 @@ It shares PPO's model protocol and state (:class:`~.ppo.PPOState`) and takes
 one full-batch optimizer step per rollout. The value targets are n-step
 returns, bootstrapped from V at episode boundaries and at the rollout's end
 (``use_gae=False``), or GAE's (``use_gae=True``, with ``tau`` as lambda).
-``update`` draws nothing.
+``update`` draws nothing. ``compute_dtype`` as in :mod:`.ppo`.
 
-Not ported yet: the host shell ``A2C`` and ``compute_dtype``.
+Not ported yet: the host shell ``A2C``.
 """
 
-from typing import Any, Callable, Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -31,7 +31,7 @@ class A2CCore(PPOCore):
         v_loss_coef: float = 0.5,
         max_grad_norm: Optional[float] = None,
         phi: Callable = _identity,
-        compute_dtype: Optional[Any] = None,
+        compute_dtype: Optional[torch.dtype] = None,
     ):
         super().__init__(
             model=model,

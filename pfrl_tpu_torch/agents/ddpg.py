@@ -14,8 +14,14 @@ Draws, in order: ``select_action`` while training takes the explorer's
 noise, then, only while ``t < burnin_steps`` (a host comparison), the
 burn-in actions, which replace the explorer's; ``update`` draws nothing.
 
+``compute_dtype`` (e.g. ``torch.bfloat16``) runs every apply of the policy
+and of the critics in that dtype over the float32 parameters
+(:class:`CastApplies`): each floating input, the action included, is cast
+at the apply boundary and the distribution or value comes back float32.
+The targets, losses and optimizers stay float32.
+
 Not ported yet: the host shell ``DDPG`` / ``ActorCriticShellAgent``
-(``batch_act`` / ``batch_observe``) and ``compute_dtype``.
+(``batch_act`` / ``batch_observe``).
 """
 
 import copy
@@ -28,6 +34,7 @@ from torch import nn
 from pfrl_tpu_torch.ops.value_loss import compute_value_loss
 from pfrl_tpu_torch.replay.transition import TransitionBatch
 from pfrl_tpu_torch.utils.copy_param import copy_param, soft_copy_param
+from pfrl_tpu_torch.utils.precision import apply_cast, check_compute_dtype
 
 
 @dataclasses.dataclass
@@ -63,6 +70,29 @@ def bootstrap_target(batch: TransitionBatch, next_q: torch.Tensor) -> torch.Tens
     return batch.reward + batch.discount * (1.0 - batch.is_terminal.to(torch.float32)) * next_q
 
 
+class CastApplies:
+    """The networks' applies of the actor-critic cores, under the core's
+    ``compute_dtype`` and feature map ``phi``."""
+
+    compute_dtype: Optional[torch.dtype] = None
+
+    def policy_dist(self, policy: nn.Module, obs: torch.Tensor):
+        return apply_cast(policy, self.compute_dtype, self.phi(obs))
+
+    def q_value(self, q_func: nn.Module, x: torch.Tensor, action: torch.Tensor) -> torch.Tensor:
+        """``x`` is the feature map's output already."""
+        return apply_cast(q_func, self.compute_dtype, x, action)
+
+    def twin_critic_loss(self, q_func1, q_func2, x, action, t):
+        """Sum of the two critics' mean squared TD errors against one
+        target; also the first critic's absolute errors. The twins are
+        applied one after the other: the JAX core's stacked apply of both
+        gives the same numbers."""
+        y1, y2 = self.q_value(q_func1, x, action), self.q_value(q_func2, x, action)
+        loss = compute_value_loss(y1, t, clip_delta=False) + compute_value_loss(y2, t, clip_delta=False)
+        return loss, torch.abs(y1 - t).detach()
+
+
 def explore_or_burn_in(core, draws, obs: torch.Tensor, t: int, greedy: torch.Tensor) -> torch.Tensor:
     """The training action of the deterministic cores: the explorer's noise
     on the greedy action, replaced by burn-in actions while
@@ -73,7 +103,7 @@ def explore_or_burn_in(core, draws, obs: torch.Tensor, t: int, greedy: torch.Ten
     return a
 
 
-class DDPGCore:
+class DDPGCore(CastApplies):
     """``policy`` (obs -> distribution) and ``q_func`` ((obs, action) -> Q)
     are templates: ``init`` copies them and draws the copies' weights.
     ``burnin_action_func(draws, batch) -> actions``."""
@@ -92,6 +122,7 @@ class DDPGCore:
         phi: Callable = _identity,
         burnin_action_func: Optional[Callable] = None,
         burnin_steps: int = 0,
+        compute_dtype: Optional[torch.dtype] = None,
     ):
         if target_update_method not in ("hard", "soft"):
             raise ValueError(f"target_update_method: {target_update_method!r}")
@@ -107,6 +138,7 @@ class DDPGCore:
         self.phi = phi
         self.burnin_action_func = burnin_action_func
         self.burnin_steps = burnin_steps
+        self.compute_dtype = check_compute_dtype(compute_dtype)
 
     # ----------------------------------------------------------------- setup
     def init(self, generator: torch.Generator, example_obs, example_action) -> ActorCriticState:
@@ -116,9 +148,8 @@ class DDPGCore:
         policy = fresh_module(self.policy, generator, device)
         q_func = fresh_module(self.q_func, generator, device)
         with torch.no_grad():  # shape check
-            x = self.phi(example_obs)
-            policy(x)
-            q_func(x, example_action)
+            self.policy_dist(policy, example_obs)
+            self.q_value(q_func, self.phi(example_obs), example_action)
         return self.state_from_modules(policy, q_func)
 
     def state_from_modules(self, policy: nn.Module, q_func: nn.Module) -> ActorCriticState:
@@ -135,7 +166,7 @@ class DDPGCore:
     # ------------------------------------------------------------------- act
     @torch.no_grad()
     def select_action(self, state: ActorCriticState, draws, obs, t: int, training: bool):
-        greedy = state.policy(self.phi(obs)).mode()
+        greedy = self.policy_dist(state.policy, obs).mode()
         if not training:
             return greedy
         return explore_or_burn_in(self, draws, obs, t, greedy)
@@ -143,15 +174,15 @@ class DDPGCore:
     # ---------------------------------------------------------------- update
     def critic_loss(self, state: ActorCriticState, batch: TransitionBatch):
         with torch.no_grad():
-            nx = self.phi(batch.next_obs)
-            next_q = state.target_q_func(nx, state.target_policy(nx).mode())
+            next_a = self.policy_dist(state.target_policy, batch.next_obs).mode()
+            next_q = self.q_value(state.target_q_func, self.phi(batch.next_obs), next_a)
             t = bootstrap_target(batch, next_q)
-        y = state.q_func(self.phi(batch.obs), batch.action)
+        y = self.q_value(state.q_func, self.phi(batch.obs), batch.action)
         return compute_value_loss(y, t, clip_delta=self.clip_delta), torch.abs(y - t).detach()
 
     def actor_loss(self, state: ActorCriticState, batch: TransitionBatch) -> torch.Tensor:
-        x = self.phi(batch.obs)
-        return -torch.mean(state.q_func(x, state.policy(x).mode()))
+        a = self.policy_dist(state.policy, batch.obs).mode()
+        return -torch.mean(self.q_value(state.q_func, self.phi(batch.obs), a))
 
     def critic_step(self, state: ActorCriticState, batch: TransitionBatch):
         """The critic's loss, gradient and optimizer step."""

@@ -15,14 +15,21 @@ Ported subclasses: ``double_dqn.DoubleDQNCore``,
 ``iqn.IQNCore`` and ``DoubleIQNCore``. The actor-critic cores for
 continuous actions are in :mod:`.ddpg`, :mod:`.td3` and
 :mod:`.soft_actor_critic`.
-Not ported yet: the host shell ``DQN`` (``batch_act`` / ``batch_observe``),
-``compute_dtype`` (bf16 compute over fp32 masters), and the recurrent
-cores.
+
+``compute_dtype`` (e.g. ``torch.bfloat16``) runs every forward of the
+network, and so its backward, in that dtype over the float32 parameters
+(:func:`~pfrl_tpu_torch.utils.precision.apply_cast`): the observation
+features and the parameters are cast at the apply boundary and the action
+value comes back float32, so the targets, losses and the optimizer stay
+float32. ``None`` is plain float32.
+
+Not ported yet: the host shell ``DQN`` (``batch_act`` / ``batch_observe``)
+and the recurrent cores.
 """
 
 import copy
 import dataclasses
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 import torch
 from torch import nn
@@ -31,6 +38,7 @@ from pfrl_tpu_torch.ops.value_loss import compute_weighted_value_loss
 from pfrl_tpu_torch.replay.transition import TransitionBatch
 from pfrl_tpu_torch.utils.copy_param import copy_param, soft_copy_param
 from pfrl_tpu_torch.utils.draws import Draws
+from pfrl_tpu_torch.utils.precision import apply_cast, check_compute_dtype
 
 
 @dataclasses.dataclass
@@ -61,6 +69,7 @@ class DQNCore:
         target_update_method: str = "hard",
         soft_update_tau: float = 1e-2,
         phi: Callable = _identity,
+        compute_dtype: Optional[torch.dtype] = None,
     ):
         if target_update_method not in ("hard", "soft"):
             raise ValueError(f"target_update_method: {target_update_method!r}")
@@ -73,6 +82,7 @@ class DQNCore:
         self.target_update_method = target_update_method
         self.soft_update_tau = soft_update_tau
         self.phi = phi
+        self.compute_dtype = check_compute_dtype(compute_dtype)
 
     # ----------------------------------------------------------------- setup
     def init(self, generator: torch.Generator, example_obs: torch.Tensor, example_action=None) -> DQNState:
@@ -103,7 +113,7 @@ class DQNCore:
 
     # ------------------------------------------------------------------- act
     def action_value(self, model: nn.Module, obs: torch.Tensor, draws=None):
-        return model(self.phi(obs), draws)
+        return apply_cast(model, self.compute_dtype, self.phi(obs), draws)
 
     @torch.no_grad()
     def select_action(self, state: DQNState, draws, obs, t: int, training: bool):

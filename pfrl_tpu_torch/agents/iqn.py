@@ -9,6 +9,11 @@ acting, the taus, then the model's noise (none for an MLP ``psi``), then
 the explorer's; an update, ``N`` taus, ``N'`` taus, the online forward's
 noise, the target forward's, then the selection's (Double: ``K`` taus, then
 the online forward's noise).
+
+Under ``compute_dtype`` the taus are not cast, as in the JAX core: the
+cosine branch of the model sees float32 taus, so it and every layer after
+the product ``psi(x) * phi(tau)`` compute in float32 by promotion; only
+``psi`` computes in ``compute_dtype``.
 """
 
 import torch
@@ -16,6 +21,7 @@ import torch
 from pfrl_tpu_torch.agents.dqn import DQNCore
 from pfrl_tpu_torch.ops.quantile import eltwise_huber_quantile_loss
 from pfrl_tpu_torch.replay.transition import TransitionBatch
+from pfrl_tpu_torch.utils.precision import apply_cast
 
 
 def _taus(draws, batch: int, n: int) -> torch.Tensor:
@@ -43,7 +49,7 @@ class IQNCore(DQNCore):
         if taus is None:
             grid = (torch.arange(self.K, dtype=torch.float32, device=x.device) + 0.5) / self.K
             taus = grid.expand(x.shape[0], self.K)
-        return model(x, taus, draws)
+        return apply_cast(model, self.compute_dtype, x, taus, draws, uncast_argnums=(1,))
 
     @torch.no_grad()
     def select_action(self, state, draws, obs, t: int, training: bool):

@@ -23,8 +23,13 @@ optimizer (:class:`~pfrl_tpu_torch.optimizers.ClipByGlobalNorm`).
 Draws, in order: ``act_with_aux`` / ``select_action`` while training take
 the distribution's sample; ``update`` takes one ``permutation(n)`` per epoch.
 
-Not ported yet: ``compute_dtype`` (bf16 compute; anything but ``None``
-raises) and the host shells ``OnPolicyShellAgent`` and ``PPO``.
+``compute_dtype`` (e.g. ``torch.bfloat16``) runs the model's forward, and
+so its backward, in that dtype over the float32 parameters
+(:func:`~pfrl_tpu_torch.utils.precision.apply_cast`): ``(distribution,
+value)`` comes back float32, so the log-probability ratios, GAE and the
+losses stay float32.
+
+Not ported yet: the host shells ``OnPolicyShellAgent`` and ``PPO``.
 """
 
 import dataclasses
@@ -36,6 +41,7 @@ from torch import nn
 from pfrl_tpu_torch.agents.ddpg import _identity, fresh_module
 from pfrl_tpu_torch.ops.returns import gae_advantages
 from pfrl_tpu_torch.optimizers.clip_by_global_norm import ClipByGlobalNorm
+from pfrl_tpu_torch.utils.precision import apply_cast, check_compute_dtype
 
 
 @dataclasses.dataclass
@@ -89,10 +95,8 @@ class PPOCore:
         standardize_advantages: bool = True,
         max_grad_norm: Optional[float] = None,
         phi: Callable = _identity,
-        compute_dtype: Optional[Any] = None,
+        compute_dtype: Optional[torch.dtype] = None,
     ):
-        if compute_dtype is not None:
-            raise NotImplementedError("compute_dtype (bf16 compute over fp32 masters) is not ported")
         self.model = model
         self.optimizer = optimizer if max_grad_norm is None else ClipByGlobalNorm(max_grad_norm, optimizer)
         self.gamma = gamma
@@ -105,6 +109,7 @@ class PPOCore:
         self.minibatch_size = minibatch_size
         self.standardize_advantages = standardize_advantages
         self.phi = phi
+        self.compute_dtype = check_compute_dtype(compute_dtype)
 
     # ----------------------------------------------------------------- setup
     def init(self, generator: torch.Generator, example_obs: torch.Tensor, example_action=None) -> PPOState:
@@ -121,7 +126,7 @@ class PPOCore:
     # ------------------------------------------------------------------- act
     def forward(self, model: nn.Module, obs: torch.Tensor):
         """``(distribution, value [B])``."""
-        dist, value = model(self.phi(obs))
+        dist, value = apply_cast(model, self.compute_dtype, self.phi(obs))
         return dist, value[..., 0] if value.dim() > 1 else value
 
     @torch.no_grad()

@@ -13,14 +13,15 @@ without gradient).
 
 ``log_temperature`` is a 0-d tensor with an Adam state of its own (lists of
 one). The twin critics are two modules applied one after the other (see
-:mod:`.td3`).
+:mod:`.td3`). ``compute_dtype`` as in :mod:`.ddpg`: the temperature and
+the log-probabilities stay float32.
 
 Draws, in order: ``select_action`` while training takes the policy's
 sample noise, then, only while ``t < burnin_steps``, the burn-in actions,
 which replace the sample; ``update`` takes the critic's noise (the sample
 at ``next_obs``), then the actor's.
 
-Not ported yet: the host shell ``SoftActorCritic`` and ``compute_dtype``.
+Not ported yet: the host shell ``SoftActorCritic``.
 """
 
 import dataclasses
@@ -30,11 +31,11 @@ from typing import Any, Callable, Optional
 import torch
 from torch import nn
 
-from pfrl_tpu_torch.agents.ddpg import _identity, bootstrap_target, fresh_module, frozen_copy
-from pfrl_tpu_torch.agents.td3 import twin_critic_loss
+from pfrl_tpu_torch.agents.ddpg import CastApplies, _identity, bootstrap_target, fresh_module, frozen_copy
 from pfrl_tpu_torch.optimizers.adam import Adam
 from pfrl_tpu_torch.replay.transition import TransitionBatch
 from pfrl_tpu_torch.utils.copy_param import soft_copy_param
+from pfrl_tpu_torch.utils.precision import check_compute_dtype
 
 
 @dataclasses.dataclass
@@ -52,7 +53,7 @@ class SACState:
     n_updates: int = 0
 
 
-class SACCore:
+class SACCore(CastApplies):
     """``policy`` maps observations to a distribution with
     ``sample_and_log_prob``; ``entropy_target=None`` keeps the temperature
     fixed at ``initial_temperature``."""
@@ -73,6 +74,7 @@ class SACCore:
         phi: Callable = _identity,
         burnin_action_func: Optional[Callable] = None,
         burnin_steps: int = 0,
+        compute_dtype: Optional[torch.dtype] = None,
     ):
         self.policy = policy
         self.q_func1 = q_func1
@@ -91,6 +93,7 @@ class SACCore:
         self.burnin_steps = burnin_steps
         self.target_update_method = "soft"
         self.explorer = None
+        self.compute_dtype = check_compute_dtype(compute_dtype)
 
     def init(self, generator: torch.Generator, example_obs, example_action) -> SACState:
         """``generator`` (on the CPU) draws the policy's weights, then each
@@ -100,10 +103,9 @@ class SACCore:
         q1 = fresh_module(self.q_func1, generator, device)
         q2 = fresh_module(self.q_func2, generator, device)
         with torch.no_grad():  # shape check
-            x = self.phi(example_obs)
-            policy(x)
-            q1(x, example_action)
-            q2(x, example_action)
+            self.policy_dist(policy, example_obs)
+            for q in (q1, q2):
+                self.q_value(q, self.phi(example_obs), example_action)
         return self.state_from_modules(policy, q1, q2)
 
     def state_from_modules(self, policy, q_func1, q_func2) -> SACState:
@@ -127,7 +129,7 @@ class SACCore:
 
     @torch.no_grad()
     def select_action(self, state: SACState, draws, obs, t: int, training: bool):
-        dist = state.policy(self.phi(obs))
+        dist = self.policy_dist(state.policy, obs)
         if not training:
             return dist.mode()
         a = dist.sample(draws)
@@ -139,17 +141,19 @@ class SACCore:
     def critic_losses(self, state: SACState, batch: TransitionBatch, draws):
         """Soft Bellman targets."""
         with torch.no_grad():
+            next_a, next_log_pi = self.policy_dist(state.policy, batch.next_obs).sample_and_log_prob(draws)
             nx = self.phi(batch.next_obs)
-            next_a, next_log_pi = state.policy(nx).sample_and_log_prob(draws)
-            next_q = torch.minimum(state.target_q_func1(nx, next_a), state.target_q_func2(nx, next_a))
+            next_q = torch.minimum(
+                self.q_value(state.target_q_func1, nx, next_a), self.q_value(state.target_q_func2, nx, next_a)
+            )
             entropy_term = torch.exp(state.log_temperature) * next_log_pi
             t = bootstrap_target(batch, next_q - entropy_term)
-        return twin_critic_loss(state.q_func1, state.q_func2, self.phi(batch.obs), batch.action, t)
+        return self.twin_critic_loss(state.q_func1, state.q_func2, self.phi(batch.obs), batch.action, t)
 
     def actor_and_temp_loss(self, state: SACState, batch: TransitionBatch, draws):
+        a, log_pi = self.policy_dist(state.policy, batch.obs).sample_and_log_prob(draws)
         x = self.phi(batch.obs)
-        a, log_pi = state.policy(x).sample_and_log_prob(draws)
-        q = torch.minimum(state.q_func1(x, a), state.q_func2(x, a))
+        q = torch.minimum(self.q_value(state.q_func1, x, a), self.q_value(state.q_func2, x, a))
         temp = torch.exp(state.log_temperature).detach()
         actor_loss = torch.mean(temp * log_pi - q)
         if self.learn_temperature:

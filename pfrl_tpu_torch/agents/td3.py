@@ -13,12 +13,14 @@ all three targets untouched off-cycle, as there. ``aux`` carries
 
 The twin critics are two modules applied one after the other: stacking
 their weights for one batched product, as the JAX core does under XLA,
-costs as many eager ops as it saves.
+costs as many eager ops as it saves. ``compute_dtype`` as in :mod:`.ddpg`;
+the actor's loss casts the first critic's apply on its own, as the JAX
+core's ``actor_loss`` does.
 
 Draws, in order: ``select_action`` as in :mod:`.ddpg`; ``update`` takes one
 ``draws.normal`` for the smoothing noise.
 
-Not ported yet: the host shell ``TD3`` and ``compute_dtype``.
+Not ported yet: the host shell ``TD3``.
 """
 
 import dataclasses
@@ -28,16 +30,17 @@ import torch
 from torch import nn
 
 from pfrl_tpu_torch.agents.ddpg import (
+    CastApplies,
     _identity,
     bootstrap_target,
     explore_or_burn_in,
     fresh_module,
     frozen_copy,
 )
-from pfrl_tpu_torch.ops.value_loss import compute_value_loss
 from pfrl_tpu_torch.replay.transition import TransitionBatch
 from pfrl_tpu_torch.utils import draws as draw_fns
 from pfrl_tpu_torch.utils.copy_param import soft_copy_param
+from pfrl_tpu_torch.utils.precision import check_compute_dtype
 
 
 @dataclasses.dataclass
@@ -61,15 +64,7 @@ def default_target_policy_smoothing_func(draws, batch_action: torch.Tensor) -> t
     return torch.clamp(batch_action + noise, -1.0, 1.0)
 
 
-def twin_critic_loss(q_func1, q_func2, x, action, t):
-    """Sum of the two critics' mean squared TD errors against one target;
-    also the first critic's absolute errors."""
-    y1, y2 = q_func1(x, action), q_func2(x, action)
-    loss = compute_value_loss(y1, t, clip_delta=False) + compute_value_loss(y2, t, clip_delta=False)
-    return loss, torch.abs(y1 - t).detach()
-
-
-class TD3Core:
+class TD3Core(CastApplies):
     def __init__(
         self,
         policy: nn.Module,
@@ -86,6 +81,7 @@ class TD3Core:
         phi: Callable = _identity,
         burnin_action_func: Optional[Callable] = None,
         burnin_steps: int = 0,
+        compute_dtype: Optional[torch.dtype] = None,
     ):
         self.policy = policy
         self.q_func1 = q_func1
@@ -102,6 +98,7 @@ class TD3Core:
         self.burnin_action_func = burnin_action_func
         self.burnin_steps = burnin_steps
         self.target_update_method = "soft"
+        self.compute_dtype = check_compute_dtype(compute_dtype)
 
     def init(self, generator: torch.Generator, example_obs, example_action) -> TD3State:
         """``generator`` (on the CPU) draws the policy's weights, then each
@@ -111,10 +108,9 @@ class TD3Core:
         q1 = fresh_module(self.q_func1, generator, device)
         q2 = fresh_module(self.q_func2, generator, device)
         with torch.no_grad():  # shape check
-            x = self.phi(example_obs)
-            policy(x)
-            q1(x, example_action)
-            q2(x, example_action)
+            self.policy_dist(policy, example_obs)
+            for q in (q1, q2):
+                self.q_value(q, self.phi(example_obs), example_action)
         return self.state_from_modules(policy, q1, q2)
 
     def state_from_modules(self, policy, q_func1, q_func2) -> TD3State:
@@ -132,7 +128,7 @@ class TD3Core:
 
     @torch.no_grad()
     def select_action(self, state: TD3State, draws, obs, t: int, training: bool):
-        greedy = state.policy(self.phi(obs)).mode()
+        greedy = self.policy_dist(state.policy, obs).mode()
         if not training:
             return greedy
         return explore_or_burn_in(self, draws, obs, t, greedy)
@@ -140,15 +136,17 @@ class TD3Core:
     # ---------------------------------------------------------------- update
     def critic_losses(self, state: TD3State, batch: TransitionBatch, draws):
         with torch.no_grad():
+            next_a = self.smoothing(draws, self.policy_dist(state.target_policy, batch.next_obs).mode())
             nx = self.phi(batch.next_obs)
-            next_a = self.smoothing(draws, state.target_policy(nx).mode())
-            next_q = torch.minimum(state.target_q_func1(nx, next_a), state.target_q_func2(nx, next_a))
+            next_q = torch.minimum(
+                self.q_value(state.target_q_func1, nx, next_a), self.q_value(state.target_q_func2, nx, next_a)
+            )
             t = bootstrap_target(batch, next_q)
-        return twin_critic_loss(state.q_func1, state.q_func2, self.phi(batch.obs), batch.action, t)
+        return self.twin_critic_loss(state.q_func1, state.q_func2, self.phi(batch.obs), batch.action, t)
 
     def actor_loss(self, state: TD3State, batch: TransitionBatch) -> torch.Tensor:
-        x = self.phi(batch.obs)
-        return -torch.mean(state.q_func1(x, state.policy(x).mode()))
+        a = self.policy_dist(state.policy, batch.obs).mode()
+        return -torch.mean(self.q_value(state.q_func1, self.phi(batch.obs), a))
 
     def critic_step(self, state: TD3State, batch: TransitionBatch, draws):
         """Both critics' loss, gradients and optimizer steps."""

@@ -13,6 +13,8 @@ Double-DQN target, and proportional prioritized replay (alpha 0.6, beta
 prioritized one, the first slice that was ported. ``noisy_net_sigma`` is
 ``--noisy-net-sigma``: the Q head becomes a factorized noisy layer at that
 sigma scale (``to_factorized_noisy``) and the explorer ``Greedy``.
+``compute_dtype`` is ``--bf16`` and ``bench_dqn``'s A/B: ``torch.bfloat16``
+runs the network in bf16 over float32 masters.
 """
 
 from typing import Callable, Dict, Optional, Tuple
@@ -28,6 +30,7 @@ from pfrl_tpu_torch.experiments.runner import OffPolicyRunner, RunnerConfig
 from pfrl_tpu_torch.explorers.epsilon_greedy import LinearDecayEpsilonGreedy
 from pfrl_tpu_torch.explorers.greedy import Greedy
 from pfrl_tpu_torch.models.atari_cnn import LargeAtariCNN
+from pfrl_tpu_torch.models.layers import Linear
 from pfrl_tpu_torch.models.noisy_linear import to_factorized_noisy
 from pfrl_tpu_torch.optimizers.rmsprop import RMSprop
 from pfrl_tpu_torch.q_functions.state_q_functions import DiscreteActionValueHead
@@ -36,7 +39,7 @@ from pfrl_tpu_torch.replay.uniform import ReplayBuffer
 from pfrl_tpu_torch.utils.batch_states import atari_phi
 
 
-class Dense(nn.Linear):
+class Dense(Linear):
     """flax ``nn.Dense`` with its default init (truncated LeCun normal, zero
     bias); it takes and ignores the draw source."""
 
@@ -95,6 +98,7 @@ def make_dqn_runner(
     double: bool = False,
     prioritized: bool = False,
     noisy_net_sigma: Optional[float] = None,
+    compute_dtype: Optional[torch.dtype] = None,
     device=None,
 ) -> OffPolicyRunner:
     """Nature DQN at the given sizes (defaults: the full configuration) on
@@ -109,6 +113,7 @@ def make_dqn_runner(
         gamma=0.99,
         batch_accumulator="sum",
         phi=atari_phi,
+        compute_dtype=compute_dtype,
     )
     ring = dict(
         gamma=0.99,

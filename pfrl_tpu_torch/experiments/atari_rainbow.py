@@ -10,10 +10,12 @@ Adam(6.25e-5, eps 1.5e-4); no explorer beyond the noisy layers; a
 1.25e7 samples) read by adjacency with 3-step returns; one batch-32 update
 per 4 transitions after 20,000; hard target syncs every 32,000. Frames are
 scaled by ``phi`` on the act path and after the gather alike
-(``x / 255``; the ring does not dequantize).
+(``x / 255``; the ring does not dequantize). ``compute_dtype`` is
+``--bf16``: the torso and the softmax compute in bf16; the noisy streams
+compute in float32 by promotion (their noise is float32), as in JAX.
 """
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -36,7 +38,9 @@ def noisy_dense(in_features: int, out_features: int) -> FactorizedNoisyLinear:
 
 
 def make_rainbow_core(
-    n_actions: int = 6, frame_shape: Tuple[int, int, int] = (84, 84, 4)
+    n_actions: int = 6,
+    frame_shape: Tuple[int, int, int] = (84, 84, 4),
+    compute_dtype: Optional[torch.dtype] = None,
 ) -> CategoricalDoubleDQNCore:
     model = DistributionalDuelingDQN(
         n_actions, n_atoms=51, v_min=-10.0, v_max=10.0,
@@ -48,6 +52,7 @@ def make_rainbow_core(
         explorer=Greedy(),  # the noisy layers explore
         gamma=0.99,
         phi=phi,
+        compute_dtype=compute_dtype,
     )
 
 
@@ -61,6 +66,7 @@ def make_rainbow_runner(
     steps: float = 5e7,
     n_actions: int = 6,
     frame_shape: Tuple[int, int, int] = (84, 84, 4),
+    compute_dtype: Optional[torch.dtype] = None,
     device=None,
 ) -> OffPolicyRunner:
     """Rainbow at the given sizes (defaults: the recipe's) on ``device``
@@ -85,6 +91,6 @@ def make_rainbow_runner(
         target_update_interval=target_update_interval,
         minibatch_size=minibatch_size,
     )
-    core = make_rainbow_core(n_actions, frame_shape)
+    core = make_rainbow_core(n_actions, frame_shape, compute_dtype)
     return OffPolicyRunner(env, core, buffer, config, device=env.device)
 

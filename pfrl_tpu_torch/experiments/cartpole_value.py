@@ -30,9 +30,15 @@ with ``EvalLoop`` 10 x 501:
 lanes of ``TimeLimit(CartPole())``, FC 4 -> 128 -> 128 -> 2, Adam(1e-3),
 epsilon 1 -> 0.05 over half of 200,000 transitions, one batch-128 update
 per 32 transitions (4 per scan step) from 1,000 on, syncs every 2,000, and
-``EvalLoop`` 16 x 500.
+``EvalLoop`` 16 x 500. Its ``compute_dtype`` is the example's ``--bf16``.
 
-Widths are arguments (``hidden``; IQN's ``feature_size`` and ``n_taus``)
+:func:`make_dqn_cartpole_bf16_runner` is ``run_dqn_cartpole_bf16``, the
+recipe of the ``zoo/dqn_bf16/cartpole`` checkpoint: the DQN recipe with
+``compute_dtype=torch.bfloat16``; ``record_curves.py`` seeds it with 3
+(``runner.init(DQN_BF16_SEED)``).
+
+Every recipe takes ``compute_dtype`` (``None``: float32). Widths are
+arguments (``hidden``; IQN's ``feature_size`` and ``n_taus``)
 and so are the ring and cadence (``**sizes``: any key of
 :data:`CURVE_SIZES` or :data:`EXAMPLE_SIZES`), so that tests run them
 small; the recipes' values are the defaults. ``TimeLimit(CartPole())`` is
@@ -64,6 +70,7 @@ from pfrl_tpu_torch.q_functions.state_q_functions import (
 )
 from pfrl_tpu_torch.replay.prioritized import PrioritizedReplayBuffer
 from pfrl_tpu_torch.replay.uniform import ReplayBuffer
+from pfrl_tpu_torch.utils.precision import softmax
 
 OBS, ACTIONS = 4, 2
 Recipe = Tuple[OffPolicyRunner, EvalLoop]
@@ -102,7 +109,7 @@ class RainbowCartPoleHead(nn.Module):
         a = self.advantage(h_a, draws).reshape(-1, ACTIONS, self.n_atoms)
         a = a - torch.mean(a, dim=1, keepdim=True)
         v = self.value(h_v, draws)[:, None, :]
-        return DistributionalDiscreteActionValue(q_dist=torch.softmax(a + v, dim=-1), z_values=self.z_values)
+        return DistributionalDiscreteActionValue(q_dist=softmax(a + v, dim=-1), z_values=self.z_values)
 
 
 class ReLUMLP(nn.Module):
@@ -149,51 +156,62 @@ def _fc(hidden: int) -> FCStateQFunctionWithDiscreteAction:
 
 
 def make_dqn_cartpole_runner(hidden: int = 100, decay_steps: int = 50_000, env: Optional[TorchEnv] = None,
-                             device=None, **sizes) -> Recipe:
+                             device=None, compute_dtype: Optional[torch.dtype] = None, **sizes) -> Recipe:
     core = DQNCore(model=_fc(hidden), optimizer=ClipByGlobalNorm(10.0, Adam(1e-3)),
-                   explorer=_epsilon(decay_steps), gamma=0.99)
+                   explorer=_epsilon(decay_steps), gamma=0.99, compute_dtype=compute_dtype)
     return _recipe(core, env, device, {**CURVE_SIZES, **sizes})
 
 
+DQN_BF16_SEED = 3  # ``run_dqn_cartpole_bf16``'s seed
+
+
+def make_dqn_cartpole_bf16_runner(**kwargs) -> Recipe:
+    """:func:`make_dqn_cartpole_runner` at ``compute_dtype=torch.bfloat16``."""
+    return make_dqn_cartpole_runner(compute_dtype=torch.bfloat16, **kwargs)
+
+
 def make_c51_cartpole_runner(hidden: int = 100, decay_steps: int = 50_000, env: Optional[TorchEnv] = None,
-                             device=None, **sizes) -> Recipe:
+                             device=None, compute_dtype: Optional[torch.dtype] = None, **sizes) -> Recipe:
     model = DistributionalFCStateQFunctionWithDiscreteAction(
         OBS, ACTIONS, n_atoms=51, v_min=0.0, v_max=500.0, n_hidden_layers=2, n_hidden_channels=hidden)
-    core = CategoricalDQNCore(model=model, optimizer=Adam(1e-3), explorer=_epsilon(decay_steps), gamma=0.99)
+    core = CategoricalDQNCore(model=model, optimizer=Adam(1e-3), explorer=_epsilon(decay_steps), gamma=0.99,
+                              compute_dtype=compute_dtype)
     return _recipe(core, env, device, {**CURVE_SIZES, **sizes})
 
 
 def make_rainbow_cartpole_runner(hidden: int = 128, betasteps: float = 300_000, env: Optional[TorchEnv] = None,
-                                 device=None, **sizes) -> Recipe:
+                                 device=None, compute_dtype: Optional[torch.dtype] = None, **sizes) -> Recipe:
     core = CategoricalDoubleDQNCore(
         model=RainbowCartPoleHead(hidden), optimizer=Adam(1e-3, eps=1.5e-4),
         explorer=ConstantEpsilonGreedy(0.0, ACTIONS), gamma=0.99,  # the noisy layers explore
+        compute_dtype=compute_dtype,
     )
     return _recipe(core, env, device, {**CURVE_SIZES, **sizes}, buffer_cls=PrioritizedReplayBuffer,
                    alpha=0.5, beta0=0.4, betasteps=betasteps, num_steps=3)
 
 
 def make_al_cartpole_runner(hidden: int = 100, decay_steps: int = 50_000, env: Optional[TorchEnv] = None,
-                            device=None, **sizes) -> Recipe:
+                            device=None, compute_dtype: Optional[torch.dtype] = None, **sizes) -> Recipe:
     core = ALCore(model=_fc(hidden), optimizer=ClipByGlobalNorm(10.0, Adam(1e-3)),
-                  explorer=_epsilon(decay_steps), gamma=0.99, alpha=0.9)
+                  explorer=_epsilon(decay_steps), gamma=0.99, alpha=0.9, compute_dtype=compute_dtype)
     return _recipe(core, env, device, {**CURVE_SIZES, **sizes})
 
 
 def make_iqn_cartpole_runner(hidden: int = 100, feature_size: int = 64, n_taus: int = 32,
                              decay_steps: int = 50_000, env: Optional[TorchEnv] = None, device=None,
-                             **sizes) -> Recipe:
+                             compute_dtype: Optional[torch.dtype] = None, **sizes) -> Recipe:
     model = ImplicitQuantileQFunction(ReLUMLP(OBS, feature_size, hidden), feature_size, ACTIONS,
                                       n_basis_functions=64)
     core = IQNCore(model=model, optimizer=Adam(1e-3), explorer=_epsilon(decay_steps), gamma=0.99,
-                   quantile_thresholds_N=n_taus, quantile_thresholds_N_prime=n_taus, quantile_thresholds_K=n_taus)
+                   compute_dtype=compute_dtype, quantile_thresholds_N=n_taus, quantile_thresholds_N_prime=n_taus, quantile_thresholds_K=n_taus)
     return _recipe(core, env, device, {**CURVE_SIZES, **sizes})
 
 
 def make_dqn_cartpole_example_runner(hidden: int = 128, steps: int = 200_000, env: Optional[TorchEnv] = None,
-                                     device=None, **sizes) -> Recipe:
+                                     device=None, compute_dtype: Optional[torch.dtype] = None, **sizes) -> Recipe:
     """``steps`` is the run's length (``--steps``): epsilon decays over half."""
-    core = DQNCore(model=_fc(hidden), optimizer=Adam(1e-3), explorer=_epsilon(steps // 2), gamma=0.99)
+    core = DQNCore(model=_fc(hidden), optimizer=Adam(1e-3), explorer=_epsilon(steps // 2), gamma=0.99,
+                   compute_dtype=compute_dtype)
     return _recipe(core, env, device, {**EXAMPLE_SIZES, **sizes}, eval_loop=(16, 500))
 
 

@@ -1,14 +1,21 @@
-"""Aten ops per scan step of a CartPole value recipe, counted on the host.
+"""Aten ops per scan step (or on-policy iteration) of a configuration,
+counted on the host.
 
-    python -m pfrl_tpu_torch.experiments.count_ops [--config dqn-cartpole] [--steps 4] [--device cpu]
+    python -m pfrl_tpu_torch.experiments.count_ops [--config dqn-cartpole] [--steps 4]
+        [--bf16] [--capacity N] [--device cpu]
 
-Runs the recipe of ``experiments/cartpole_value.py`` at full width past
+Runs a configuration of ``experiments/profile_slice.py`` (default: each
+CartPole recipe of ``experiments/cartpole_value.py``) at full width past
 replay start, then counts, under a ``TorchDispatchMode``, every aten op
 the next ``--steps`` scan steps dispatch (views, which launch nothing, are
 left out). The count is a property of the program, not of a device: it is
 what a prediction of kernels per scan step starts from. It times nothing.
-Configs: ``dqn-cartpole``, ``c51-cartpole``, ``rainbow-cartpole``,
-``al-cartpole``, ``iqn-cartpole``, ``dqn-cartpole-example``.
+The on-policy configurations (``ppo``, ``ppo-pendulum``, ``trpo``,
+``a2c``) count per iteration, after one warm iteration; ``--steps`` counts
+iterations there.
+``--bf16`` builds the configuration at ``compute_dtype=torch.bfloat16``.
+``--capacity`` shrinks the replay ring, which changes no op of a scan step
+(the AtariSim configurations' 100,000 frame slots need 2.8 GB otherwise).
 """
 
 import argparse
@@ -16,9 +23,11 @@ import collections
 import json
 import math
 
+import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from pfrl_tpu_torch.experiments.cartpole_value import RECIPES
+from pfrl_tpu_torch.experiments.profile_slice import CONFIGS, ONPOLICY_CONFIGS
 
 
 class OpCounter(TorchDispatchMode):
@@ -32,31 +41,44 @@ class OpCounter(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
-def count_ops(config: str, steps: int, device=None) -> dict:
-    runner, _ = RECIPES[config](device=device)
-    cfg = runner.config
-    state = runner.init(0)
-    state, _ = runner.run_chunk(state, math.ceil(cfg.replay_start_size / cfg.num_envs) + 1)
-    with OpCounter() as counter:
-        runner.run_chunk(state, steps)
-    total = sum(counter.counts.values())
+def count_ops(config: str, steps: int, device=None, compute_dtype=None, capacity=None) -> dict:
+    if config in ONPOLICY_CONFIGS:
+        runner = ONPOLICY_CONFIGS[config](device=device, compute_dtype=compute_dtype)
+        state, _ = runner.run_iterations(runner.init(0), 1)
+        with OpCounter() as counter:
+            runner.run_iterations(state, steps)
+        lanes, unit, per = runner.num_envs, "iteration", {}
+    else:
+        sizes = {} if capacity is None else {"capacity": capacity}
+        runner = CONFIGS[config](device=device, compute_dtype=compute_dtype, **sizes)
+        cfg = runner.config
+        state = runner.init(0)
+        state, _ = runner.run_chunk(state, math.ceil(cfg.replay_start_size / cfg.num_envs) + 1)
+        with OpCounter() as counter:
+            runner.run_chunk(state, steps)
+        lanes, unit, per = cfg.num_envs, "scan_step", {"updates_per_step": cfg.updates_per_step}
     return {
         "config": config,
-        "lanes": cfg.num_envs,
-        "updates_per_step": cfg.updates_per_step,
-        "ops_per_scan_step": total / steps,
-        "top_ops_per_scan_step": {k: v / steps for k, v in counter.counts.most_common(10)},
+        "compute_dtype": str(compute_dtype),
+        "lanes": lanes,
+        **per,
+        f"ops_per_{unit}": sum(counter.counts.values()) / steps,
+        f"top_ops_per_{unit}": {k: v / steps for k, v in counter.counts.most_common(10)},
     }
 
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--config", choices=sorted(RECIPES), default=None, help="default: all")
+    parser.add_argument("--config", choices=sorted(CONFIGS) + sorted(ONPOLICY_CONFIGS), default=None,
+                        help="default: each CartPole recipe")
     parser.add_argument("--steps", type=int, default=4)
+    parser.add_argument("--bf16", action="store_true", help="bf16 compute over float32 masters")
+    parser.add_argument("--capacity", type=int, default=None, help="replay slots (default: the recipe's)")
     parser.add_argument("--device", default=None, help="default: the CUDA device (cpu counts the same ops)")
     args = parser.parse_args()
+    dtype = torch.bfloat16 if args.bf16 else None
     for config in [args.config] if args.config else list(RECIPES):
-        print(json.dumps(count_ops(config, args.steps, args.device)))
+        print(json.dumps(count_ops(config, args.steps, args.device, dtype, args.capacity)))
 
 
 if __name__ == "__main__":

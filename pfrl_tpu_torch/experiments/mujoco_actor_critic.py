@@ -19,6 +19,16 @@ steps its actor every 2nd update.
 twice, additive Gaussian noise 0.1, uniform burn-in actions for the first
 1,000 transitions, batch-128 updates every 4 transitions from 1,000 on;
 its evaluation is ``EvalLoop(pendulum_env(), runner.core, 10, 201)``.
+
+:func:`make_sac_pendulum_runner` is ``run_sac_pendulum``: the same 16
+lanes, policy ``MLP(3 -> 256 -> 256 -> 2)`` + squashed-Gaussian head, twin
+``FCSAQFunction(2 x 256)``, Adam(3e-4) for each network and the
+temperature (entropy target -1), uniform burn-in actions for the first
+1,000 transitions, batch-128 updates every 4 transitions from 1,000 on;
+:func:`make_sac_pendulum_bf16_runner` is ``run_sac_pendulum_bf16``, its
+``compute_dtype=torch.bfloat16`` twin, the recipe of
+``zoo/sac_bf16/pendulum``. Every recipe takes ``compute_dtype`` (the
+examples' ``--bf16``; ``None``: float32).
 """
 
 from typing import Callable, Dict, Optional, Sequence
@@ -108,7 +118,9 @@ def make_sac_runner(
     update_interval: int = 1,
     minibatch_size: int = 256,
     hidden: int = 256,
+    burnin_steps: int = 0,
     env: Optional[TorchEnv] = None,
+    compute_dtype: Optional[torch.dtype] = None,
     device=None,
 ) -> OffPolicyRunner:
     """SAC at the given sizes (defaults: ``bench_sac``'s) on ``device``
@@ -125,6 +137,9 @@ def make_sac_runner(
         q_func2_optimizer=Adam(3e-4),
         gamma=0.99,
         entropy_target=-float(action_size),
+        burnin_action_func=uniform_burnin(action_size) if burnin_steps else None,
+        burnin_steps=burnin_steps,
+        compute_dtype=compute_dtype,
     )
     return _runner(env, core, num_envs, capacity, replay_start_size, update_interval, minibatch_size)
 
@@ -137,6 +152,7 @@ def make_td3_runner(
     minibatch_size: int = 256,
     hidden: int = 256,
     env: Optional[TorchEnv] = None,
+    compute_dtype: Optional[torch.dtype] = None,
     device=None,
 ) -> OffPolicyRunner:
     """TD3 at the given sizes (defaults: ``bench_td3``'s)."""
@@ -153,6 +169,7 @@ def make_td3_runner(
         explorer=AdditiveGaussian(0.1, low=-1.0, high=1.0),
         gamma=0.99,
         policy_update_delay=2,
+        compute_dtype=compute_dtype,
     )
     return _runner(env, core, num_envs, capacity, replay_start_size, update_interval, minibatch_size)
 
@@ -170,6 +187,7 @@ def make_ddpg_runner(
     hidden: int = 64,
     burnin_steps: int = 1_000,
     env: Optional[TorchEnv] = None,
+    compute_dtype: Optional[torch.dtype] = None,
     device=None,
 ) -> OffPolicyRunner:
     """DDPG at the given sizes (defaults: ``run_ddpg_pendulum``'s);
@@ -185,5 +203,33 @@ def make_ddpg_runner(
         gamma=0.99,
         burnin_action_func=uniform_burnin(action_size),
         burnin_steps=burnin_steps,
+        compute_dtype=compute_dtype,
     )
     return _runner(env, core, num_envs, capacity, replay_start_size, update_interval, minibatch_size)
+
+
+def make_sac_pendulum_runner(
+    num_envs: int = 16,
+    capacity: int = 100_000,
+    replay_start_size: int = 1_000,
+    update_interval: int = 4,
+    minibatch_size: int = 128,
+    hidden: int = 256,
+    burnin_steps: int = 1_000,
+    env: Optional[TorchEnv] = None,
+    compute_dtype: Optional[torch.dtype] = None,
+    device=None,
+) -> OffPolicyRunner:
+    """SAC at the given sizes (defaults: ``run_sac_pendulum``'s); ``env``
+    defaults to the time-limited, action-normalized Pendulum."""
+    env = pendulum_env(device) if env is None else env
+    return make_sac_runner(
+        num_envs=num_envs, capacity=capacity, replay_start_size=replay_start_size,
+        update_interval=update_interval, minibatch_size=minibatch_size, hidden=hidden,
+        burnin_steps=burnin_steps, env=env, compute_dtype=compute_dtype,
+    )
+
+
+def make_sac_pendulum_bf16_runner(**sizes) -> OffPolicyRunner:
+    """:func:`make_sac_pendulum_runner` at ``compute_dtype=torch.bfloat16``."""
+    return make_sac_pendulum_runner(compute_dtype=torch.bfloat16, **sizes)

@@ -26,6 +26,11 @@ Their evaluation is ``EvalLoop(env, runner.core, 10, 201)`` (Pendulum) or
 value-function MLP has flax ``nn.Dense``'s default init (truncated LeCun
 normal, zero bias), and each module names its flax scopes
 (``flax_names``) so that ``convert.py`` loads the JAX package's parameters.
+
+The PPO and A2C recipes take ``compute_dtype`` (the examples' ``--bf16``;
+``None``: float32). The TRPO recipe refuses any but ``None`` by name, as
+``train_trpo.py --bf16`` does: its Fisher-vector products, conjugate
+gradient and KL line search are float32 by design.
 """
 
 from typing import Dict, Optional
@@ -43,6 +48,7 @@ from pfrl_tpu_torch.envs.mujoco_sim import MujocoSim
 from pfrl_tpu_torch.envs.pendulum import Pendulum
 from pfrl_tpu_torch.envs.wrappers import TimeLimit
 from pfrl_tpu_torch.experiments.onpolicy_runner import OnPolicyRunner
+from pfrl_tpu_torch.models.layers import Linear
 from pfrl_tpu_torch.models.mlp import MLP
 from pfrl_tpu_torch.optimizers import Adam, RMSprop
 from pfrl_tpu_torch.policies import GaussianHeadWithStateIndependentCovariance, SoftmaxCategoricalHead
@@ -50,7 +56,7 @@ from pfrl_tpu_torch.policies import GaussianHeadWithStateIndependentCovariance, 
 _GAUSSIAN_HEAD = "GaussianHeadWithStateIndependentCovariance_0"
 
 
-class Dense(nn.Linear):
+class Dense(Linear):
     """flax ``nn.Dense``: a truncated LeCun-normal kernel, or, given
     ``scale``, ``variance_scaling(scale, "fan_in", "normal")`` (untruncated);
     a zero bias."""
@@ -158,10 +164,10 @@ def time_limited_cartpole(device=None) -> TorchEnv:
     return TimeLimit(CartPole(device=device), 500)
 
 
-def _ppo_core(model: nn.Module, epochs: int, minibatch_size: int) -> PPOCore:
+def _ppo_core(model: nn.Module, epochs: int, minibatch_size: int, compute_dtype) -> PPOCore:
     return PPOCore(
         model, Adam(3e-4), epochs=epochs, minibatch_size=minibatch_size,
-        entropy_coef=0.0, standardize_advantages=True,
+        entropy_coef=0.0, standardize_advantages=True, compute_dtype=compute_dtype,
     )
 
 
@@ -172,13 +178,14 @@ def make_ppo_runner(
     minibatch_size: int = 64,
     hidden: int = 64,
     env: Optional[TorchEnv] = None,
+    compute_dtype: Optional[torch.dtype] = None,
     device=None,
 ) -> OnPolicyRunner:
     """PPO at the given sizes (defaults: ``bench_ppo``'s) on ``device``
     (default: the CUDA device); ``env`` defaults to ``MujocoSim()``."""
     env = MujocoSim(device=device) if env is None else env
     obs_size, action_size = env.observation_space.shape[0], env.action_space.shape[0]
-    core = _ppo_core(GaussianPiV(obs_size, action_size, hidden), epochs, minibatch_size)
+    core = _ppo_core(GaussianPiV(obs_size, action_size, hidden), epochs, minibatch_size, compute_dtype)
     return OnPolicyRunner(env, core, num_envs, rollout_len, device=env.device)
 
 
@@ -189,12 +196,13 @@ def make_ppo_pendulum_runner(
     minibatch_size: int = 64,
     hidden: int = 64,
     env: Optional[TorchEnv] = None,
+    compute_dtype: Optional[torch.dtype] = None,
     device=None,
 ) -> OnPolicyRunner:
     """PPO at the given sizes (defaults: ``run_ppo_pendulum``'s); ``env``
     defaults to :func:`time_limited_pendulum`."""
     env = time_limited_pendulum(device) if env is None else env
-    core = _ppo_core(GaussianPiV(3, 1, hidden, mean_scale=1e-4), epochs, minibatch_size)
+    core = _ppo_core(GaussianPiV(3, 1, hidden, mean_scale=1e-4), epochs, minibatch_size, compute_dtype)
     return OnPolicyRunner(env, core, num_envs, rollout_len, device=env.device)
 
 
@@ -205,9 +213,16 @@ def make_trpo_pendulum_runner(
     vf_batch_size: int = 64,
     hidden: int = 64,
     env: Optional[TorchEnv] = None,
+    compute_dtype: Optional[torch.dtype] = None,
     device=None,
 ) -> OnPolicyRunner:
-    """TRPO at the given sizes (defaults: ``run_trpo_pendulum``'s)."""
+    """TRPO at the given sizes (defaults: ``run_trpo_pendulum``'s).
+    ``compute_dtype`` other than ``None`` raises."""
+    if compute_dtype is not None:
+        raise ValueError(
+            f"TRPO runs float32 by design, not compute_dtype={compute_dtype}: its Fisher-vector products, "
+            "conjugate gradient and KL line search are delicate second-order quantities"
+        )
     env = time_limited_pendulum(device) if env is None else env
     core = TRPOCore(
         policy=GaussianPolicy(3, 1, hidden, mean_scale=1e-4),
@@ -228,6 +243,7 @@ def make_a2c_cartpole_runner(
     rollout_len: int = 8,
     hidden: int = 64,
     env: Optional[TorchEnv] = None,
+    compute_dtype: Optional[torch.dtype] = None,
     device=None,
 ) -> OnPolicyRunner:
     """A2C at the given sizes (defaults: ``run_a2c_cartpole``'s); ``env``
@@ -240,5 +256,6 @@ def make_a2c_cartpole_runner(
         entropy_coeff=0.01,
         v_loss_coef=0.5,
         max_grad_norm=40.0,
+        compute_dtype=compute_dtype,
     )
     return OnPolicyRunner(env, core, num_envs, rollout_len, device=env.device)

@@ -1,10 +1,10 @@
 """Where a full-width configuration's time goes on the card.
 
     python -m pfrl_tpu_torch.experiments.profile_slice
-        [--config per-dqn|dqn|rainbow|sac|td3|ddpg|dqn-cartpole|c51-cartpole|
+        [--config per-dqn|dqn|rainbow|sac|td3|ddpg|sac-pendulum|dqn-cartpole|c51-cartpole|
                   rainbow-cartpole|al-cartpole|iqn-cartpole|dqn-cartpole-example|
                   ppo|ppo-pendulum|trpo|a2c]
-        [--steps 8] [--out PATH]
+        [--steps 8] [--bf16] [--out PATH]
 
 Runs one configuration at full width on the CUDA device. On 64 lanes of
 84x84x4 uint8 AtariSim frames, 16 batch-32 updates per scan step:
@@ -14,7 +14,8 @@ Runs one configuration at full width on the CUDA device. On 64 lanes of
 and ``td3`` (``make_sac_runner()``, ``make_td3_runner()``: 32 lanes of
 MujocoSim, 32 batch-256 updates per scan step) and ``ddpg``
 (``make_ddpg_runner()``: 16 lanes of the time-limited Pendulum, 4 batch-128
-updates per scan step). On the time-limited CartPole
+updates per scan step) and ``sac-pendulum`` (``make_sac_pendulum_runner()``,
+the same lanes and cadence with 256 x 256 networks). On the time-limited CartPole
 (``experiments/cartpole_value.py``): ``dqn-cartpole``, ``c51-cartpole``,
 ``rainbow-cartpole`` (3-step prioritized replay through the kernel),
 ``al-cartpole`` and ``iqn-cartpole`` (32 lanes, 8 batch-64 updates per scan
@@ -51,6 +52,10 @@ into V on the next observations, GAE (PPO) or the n-step returns (A2C), the
 minibatch forwards, backward and optimizer, and for TRPO into GAE, the
 policy step (of which CG and the line search) and the value function's fit.
 
+``--bf16`` builds the configuration at ``compute_dtype=torch.bfloat16``
+(bf16 compute over float32 masters, as the examples' ``--bf16``); TRPO
+refuses it by name.
+
 Prints a summary and writes the record as JSON to ``--out``.
 """
 
@@ -73,19 +78,23 @@ from pfrl_tpu_torch.experiments.atari_per_dqn import make_dqn_runner, make_per_d
 from pfrl_tpu_torch.experiments.atari_rainbow import make_rainbow_runner
 from pfrl_tpu_torch.experiments.mujoco_actor_critic import (
     make_ddpg_runner,
+    make_sac_pendulum_runner,
     make_sac_runner,
     make_td3_runner,
 )
 
+# Each maker takes the recipe's keyword arguments (``compute_dtype``, and
+# ``device`` and the ring's ``capacity`` for ``count_ops``).
 CONFIGS = {
     "per-dqn": make_per_dqn_runner,
     "dqn": make_dqn_runner,
-    "rainbow": lambda: make_rainbow_runner(replay_start_size=2_048),
+    "rainbow": lambda **kw: make_rainbow_runner(replay_start_size=2_048, **kw),
     "sac": make_sac_runner,
     "td3": make_td3_runner,
     "ddpg": make_ddpg_runner,
+    "sac-pendulum": make_sac_pendulum_runner,
     # The CartPole recipes return (runner, eval_loop).
-    **{name: (lambda make=make: make()[0]) for name, make in cartpole_value.RECIPES.items()},
+    **{name: (lambda make=make, **kw: make(**kw)[0]) for name, make in cartpole_value.RECIPES.items()},
 }
 ONPOLICY_CONFIGS = {
     "ppo": onpolicy.make_ppo_runner,
@@ -170,8 +179,8 @@ def _wrap(acc, label, fn):
     return timed
 
 
-def profile_slice(config: str, steps: int) -> dict:
-    runner = CONFIGS[config]()
+def profile_slice(config: str, steps: int, compute_dtype=None) -> dict:
+    runner = CONFIGS[config](compute_dtype=compute_dtype)
     cfg = runner.config
     actor_critic = hasattr(runner.core, "critic_step")
     phases = (
@@ -195,6 +204,7 @@ def profile_slice(config: str, steps: int) -> dict:
     return {
         "device": torch.cuda.get_device_name(0),
         "config": config,
+        "compute_dtype": str(compute_dtype),
         "steps": steps,
         "updates_per_step": cfg.updates_per_step,
         "scan_step_ms": plain_s / steps * 1e3,
@@ -209,9 +219,9 @@ def profile_slice(config: str, steps: int) -> dict:
     }
 
 
-def profile_onpolicy(config: str, iterations: int) -> dict:
+def profile_onpolicy(config: str, iterations: int, compute_dtype=None) -> dict:
     """The on-policy counterpart of :func:`profile_slice`, per iteration."""
-    runner = ONPOLICY_CONFIGS[config]()
+    runner = ONPOLICY_CONFIGS[config](compute_dtype=compute_dtype)
     family = "trpo" if config == "trpo" else "a2c" if config == "a2c" else "ppo"
     state = runner.init(0)
     state, _ = runner.run_iterations(state, 1)  # warm: allocates the rollout
@@ -231,6 +241,7 @@ def profile_onpolicy(config: str, iterations: int) -> dict:
     return {
         "device": torch.cuda.get_device_name(0),
         "config": config,
+        "compute_dtype": str(compute_dtype),
         "iterations": iterations,
         "transitions_per_iteration": transitions,
         "gradient_steps_per_iteration": updates / iterations,
@@ -299,15 +310,17 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--config", choices=sorted(CONFIGS) + sorted(ONPOLICY_CONFIGS), default="per-dqn")
     parser.add_argument("--steps", type=int, default=8, help="scan steps, or iterations of an on-policy config")
-    parser.add_argument("--out", default=None, help="default: chiprun_out/profile_<config>.json")
+    parser.add_argument("--bf16", action="store_true", help="bf16 compute over float32 masters")
+    parser.add_argument("--out", default=None, help="default: chiprun_out/profile_<config>[_bf16].json")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice: needs a CUDA device")
+    dtype = torch.bfloat16 if args.bf16 else None
     if args.config in ONPOLICY_CONFIGS:
-        record = profile_onpolicy(args.config, args.steps)
+        record = profile_onpolicy(args.config, args.steps, dtype)
     else:
-        record = profile_slice(args.config, args.steps)
-    out = Path(args.out or f"chiprun_out/profile_{args.config}.json")
+        record = profile_slice(args.config, args.steps, dtype)
+    out = Path(args.out or f"chiprun_out/profile_{args.config}{'_bf16' if args.bf16 else ''}.json")
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(record, indent=1))
     print(json.dumps({k: v for k, v in record.items() if k != "top_device_ops"}, indent=1))

@@ -4,7 +4,9 @@ The public layout is the JAX package's NHWC: inputs are ``[B, 84, 84, 4]``
 floats in [0, 1]. The module permutes to NCHW for the convolutions (the
 permuted view is channels-last in memory, which cuDNN takes as it is) and
 back to NHWC before the flatten, so the first Linear sees flax's (H, W, C)
-feature order and the weight converter only transposes kernels.
+feature order and the weight converter only transposes kernels. Each layer
+computes in the promoted dtype of its input and weights, as flax's do
+(:mod:`~pfrl_tpu_torch.models.layers`).
 """
 
 from typing import Dict, Optional
@@ -13,6 +15,7 @@ import torch
 from torch import nn
 
 from pfrl_tpu_torch import initializers
+from pfrl_tpu_torch.models.layers import Conv2d, Linear
 
 
 class LargeAtariCNN(nn.Module):
@@ -30,10 +33,10 @@ class LargeAtariCNN(nn.Module):
         layers = [(32, 8, 4), (64, 4, 2), (64, 3, 1)]
         convs, c, (h, w) = [], n_input_channels, input_hw
         for features, k, s in layers:
-            convs.append(nn.Conv2d(c, features, k, stride=s))
+            convs.append(Conv2d(c, features, k, stride=s))
             c, h, w = features, (h - k) // s + 1, (w - k) // s + 1
         self.convs = nn.ModuleList(convs)
-        self.dense = nn.Linear(h * w * c, n_output_channels)
+        self.dense = Linear(h * w * c, n_output_channels)
         self.reset_parameters()
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:

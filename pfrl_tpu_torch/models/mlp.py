@@ -13,6 +13,7 @@ import torch
 from torch import nn
 
 from pfrl_tpu_torch import initializers
+from pfrl_tpu_torch.models.layers import Linear
 
 
 class MLP(nn.Module):
@@ -27,7 +28,7 @@ class MLP(nn.Module):
     ):
         super().__init__()
         sizes = [in_size, *hidden_sizes, out_size]
-        self.layers = nn.ModuleList(nn.Linear(a, b) for a, b in zip(sizes[:-1], sizes[1:]))
+        self.layers = nn.ModuleList(Linear(a, b) for a, b in zip(sizes[:-1], sizes[1:]))
         self.nonlinearity = nonlinearity
         self.last_wscale = last_wscale
         self.last_bias_init = last_bias_init

@@ -5,12 +5,20 @@ The flax layer draws its noise from the ``'noise'`` rng stream on every
 call. Here the noise comes from the draw source handed down the forward
 (:mod:`pfrl_tpu_torch.utils.draws`): ``eps_in`` first, then ``eps_out``,
 fresh on every forward.
+
+The noise is float32, as the JAX layer draws it. Under bf16 parameters
+``w_mu + w_sigma * outer(...)`` therefore promotes to float32, and so does
+the product with the input: a noisy layer computes in float32 whatever the
+compute dtype, as the flax layer does. Only the deterministic branch
+computes in the parameters' dtype.
 """
 
 from typing import Any, Callable, Optional
 
 import torch
 from torch import nn
+
+from pfrl_tpu_torch.models.layers import promoted
 
 
 def _f(x: torch.Tensor) -> torch.Tensor:
@@ -49,13 +57,15 @@ class FactorizedNoisyLinear(nn.Module):
 
     def forward(self, x: torch.Tensor, draws=None, deterministic: bool = False) -> torch.Tensor:
         if deterministic:
-            return x @ self.w_mu.T + self.b_mu
+            x, w_mu, b_mu = promoted(x, self.w_mu, self.b_mu)
+            return x @ w_mu.T + b_mu
         if draws is None:
             raise ValueError("a noisy layer needs a draw source unless deterministic=True")
         eps_in = _f(draws.normal(self.in_features))
         eps_out = _f(draws.normal(self.out_features))
         w = self.w_mu + self.w_sigma * torch.outer(eps_out, eps_in)
         b = self.b_mu + self.b_sigma * eps_out
+        x, w, b = promoted(x, w, b)
         return x @ w.T + b
 
 

@@ -3,10 +3,10 @@
 from typing import Callable, Dict
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from pfrl_tpu_torch.distributions import Normal, SquashedNormal
+from pfrl_tpu_torch.utils.precision import softplus
 
 
 class GaussianHeadWithStateIndependentCovariance(nn.Module):
@@ -36,9 +36,10 @@ class GaussianHeadWithStateIndependentCovariance(nn.Module):
 
 class GaussianHeadWithDiagonalCovariance(nn.Module):
     """The input is (mean, pre-scale) concatenated; the variance is
-    ``var_func(pre-scale) + 1e-8``."""
+    ``var_func(pre-scale) + 1e-8``; the default is ``jax.nn.softplus``'s
+    arithmetic in every dtype (:func:`~pfrl_tpu_torch.utils.precision.softplus`)."""
 
-    def __init__(self, var_func: Callable = F.softplus):
+    def __init__(self, var_func: Callable = softplus):
         super().__init__()
         self.var_func = var_func
 

@@ -21,9 +21,11 @@ from pfrl_tpu_torch.action_value import (
     DistributionalDiscreteActionValue,
 )
 from pfrl_tpu_torch.models.atari_cnn import LargeAtariCNN
+from pfrl_tpu_torch.models.layers import Linear
+from pfrl_tpu_torch.utils.precision import softmax
 
 
-class Dense(nn.Linear):
+class Dense(Linear):
     """The default stream layer: Chainer-default weights, zero bias. It
     takes and ignores the draw source, like any layer without noise."""
 
@@ -124,5 +126,5 @@ class DistributionalDuelingDQN(_Dueling):
         a = a.reshape(-1, self.n_actions, self.n_atoms)
         logits = v[:, None, :] + (a - a.mean(dim=1, keepdim=True))
         return DistributionalDiscreteActionValue(
-            q_dist=torch.softmax(logits, dim=-1), z_values=self.z_values
+            q_dist=softmax(logits, dim=-1), z_values=self.z_values
         )

@@ -14,6 +14,7 @@ from torch import nn
 
 from pfrl_tpu_torch import initializers
 from pfrl_tpu_torch.action_value import QuantileDiscreteActionValue
+from pfrl_tpu_torch.models.layers import Linear
 from pfrl_tpu_torch.models.mlp import scoped_names
 from pfrl_tpu_torch.ops.quantile import cosine_basis_functions
 
@@ -26,8 +27,8 @@ class ImplicitQuantileQFunction(nn.Module):
         super().__init__()
         self.psi = psi
         self.n_basis_functions = n_basis_functions
-        self.phi = nn.Linear(n_basis_functions, feature_size)
-        self.head = nn.Linear(feature_size, n_actions)
+        self.phi = Linear(n_basis_functions, feature_size)
+        self.head = Linear(feature_size, n_actions)
         self.reset_parameters()
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:

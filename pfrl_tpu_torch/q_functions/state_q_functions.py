@@ -14,6 +14,7 @@ from torch import nn
 from pfrl_tpu_torch.action_value import DiscreteActionValue, DistributionalDiscreteActionValue
 from pfrl_tpu_torch.models.mlp import MLP, scoped_names
 from pfrl_tpu_torch.q_functions.dueling_dqn import support
+from pfrl_tpu_torch.utils.precision import softmax
 
 
 class DiscreteActionValueHead(nn.Module):
@@ -87,7 +88,7 @@ class DistributionalFCStateQFunctionWithDiscreteAction(nn.Module):
 
     def forward(self, x: torch.Tensor, draws=None) -> DistributionalDiscreteActionValue:
         logits = self.mlp(x).reshape(x.shape[0], self.n_actions, self.n_atoms)
-        return DistributionalDiscreteActionValue(q_dist=torch.softmax(logits, dim=-1), z_values=self.z_values)
+        return DistributionalDiscreteActionValue(q_dist=softmax(logits, dim=-1), z_values=self.z_values)
 
 
 class SingleModelStateQFunctionWithDiscreteAction(nn.Module):

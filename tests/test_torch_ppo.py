@@ -359,5 +359,5 @@ def test_init_draws_flax_default_weights_and_compute_dtype_is_refused():
         assert float(w.abs().max()) <= 2.0 * std / 0.87962566103423978 + 1e-6  # truncated at 2 std
         assert not layer.bias.any()
     assert float(model.head.log_std.detach()) == 0.0
-    with pytest.raises(NotImplementedError, match="compute_dtype"):
-        PPOCore(GaussianPiV(OBS, ACT), Adam(LR), compute_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="compute_dtype"):  # not a floating dtype
+        PPOCore(GaussianPiV(OBS, ACT), Adam(LR), compute_dtype=torch.int32)
