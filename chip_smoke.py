@@ -76,7 +76,21 @@ result, without them. Its phases, each raising on failure:
    its kernel launches counted), SAC on Pendulum at bf16
    (``run_sac_pendulum_bf16``: 160 scan steps through burn-in and replay
    start, then 10 lanes x 201 steps of evaluation) and PPO on MujocoSim at
-   bf16 (``bench_ppo``'s widths, 10 iterations).
+   bf16 (``bench_ppo``'s widths, 10 iterations);
+12. the recurrent family (``experiments/recurrent.py``): small card-vs-CPU
+   runs of DRQN on PO-ABC and DelayedCue, recurrent IQN, DRQN-AtariSim
+   (Nature CNN, LSTM 16, burn-in 2), recurrent PPO and TRPO, and
+   DRQN-AtariSim at bf16, each difference printed in float32 (bf16) ulps
+   beside its tolerance, as phase 11 holds them; then DRQN-AtariSim at full
+   width (``train_drqn_ale.py --sim``: 32 lanes of 84x84x1 frames, Nature
+   CNN -> LSTM 512 -> 6, the 2,048 x 128 episodic buffer with the carries,
+   about 5.9 GB on the card, its bytes printed; 8 batch-32 updates of
+   32-step windows per scan step) through replay start (cut to 4,160) and
+   the target sync at 10,000, printing env-steps/s, updates/s and the
+   device's busy share over profiled scan steps, then 5 x 500 steps of
+   evaluation; then the five ``tools/record_curves.py`` recipes at their
+   widths (16 lanes, LSTM 32) with their evaluation loops. No path of this
+   phase launches the prefix-sample kernel, and each asserts 0.
 
 The kernels' launch counts are set to 0 just before each full-width path
 and read just after it; the kernels' JSON line gives their sum over the
@@ -131,6 +145,20 @@ BF16_SENSITIVITY = 4                # ... or this many times what a 1-ulp nudge 
 BENCH_CHUNK, BENCH_REPS, BENCH_ROUNDS = 16, 2, 3  # bench.py: 200, 2, 3
 BF16_PER_DQN_STEPS_TIMED = 32       # after FULL_STEPS_WARM
 SAC_PENDULUM_STEPS = (64, 96)       # warm (t = 1,024: burn-in done, first updates), timed
+FP32_ULP = 2.0 ** -23               # float32 keeps 24 significant bits
+FP32_LOSS_ULPS = 128                # small recurrent runs, card vs CPU: each metric (1.5e-5 of its largest)
+FP32_CHANGE_ULPS = 128              # ... each network's change over the run (L2); the largest difference read
+                                    # so far is 38.22 ulps (drqn-delayedcue's carry; a 1-ulp nudge moves it 7.00)
+# DRQN-AtariSim at full width: the replay start is cut from 10,000 to
+# recurrent.DRQN_ATARISIM_CUT_REPLAY_START, 4,160 transitions (130 scan steps
+# of 32 lanes), just past the first rows sealed by filling at 128 steps
+# (AtariSim's episodes average 1,000 steps); the timed chunk runs to
+# t = 10,016, the scan step of the target sync at 10,000, where the target
+# must equal the online net.
+DRQN_ATARI_STEPS = (130, 183)       # warm (through replay start), timed
+DRQN_ATARI_PROFILED = 4             # scan steps under torch.profiler: the device's busy time
+RECURRENT_FULL_STEPS = {"drqn-po-abc-16": (10, 54), "drqn-delayedcue-16": (18, 46), "riqn-delayedcue-16": (18, 46),
+                        "rppo-delayedcue-16": (1, 9), "rtrpo-delayedcue-16": (1, 9)}  # warm, timed
 
 
 def card_line() -> str:
@@ -1392,12 +1420,14 @@ def run_full_cartpole(card: str, name: str) -> dict:
 
 # -------------------------------------------------------------------- phase 11
 def _float32_after_updates(core) -> list:
-    """Wraps ``core.update`` so that after every call each master parameter
-    and every floating tensor of the optimizers' states is held to float32;
-    the returned one-element list counts the calls checked."""
+    """Wraps ``core.update`` (``update_episodic`` of a recurrent
+    off-policy core) so that after every call each master parameter and
+    every floating tensor of the optimizers' states is held to float32; the
+    returned one-element list counts the calls checked."""
     from pfrl_tpu_torch.utils.precision import map_floating
 
-    checked, update = [0], core.update
+    method = "update_episodic" if hasattr(core, "update_episodic") else "update"
+    checked, update = [0], getattr(core, method)
 
     def checked_update(*args, **kwargs):
         out = update(*args, **kwargs)
@@ -1412,7 +1442,7 @@ def _float32_after_updates(core) -> list:
         checked[0] += 1
         return out
 
-    core.update = checked_update
+    setattr(core, method, checked_update)
     return checked
 
 
@@ -1471,38 +1501,39 @@ def _small_bf16_configs() -> dict:
     }
 
 
-def _ulps(got, want) -> float:
+def _ulps(got, want, ulp=BF16_ULP) -> float:
     """The largest difference relative to ``want``'s largest magnitude, in
-    bf16 ulps (2**-8)."""
+    ulps of ``ulp`` (bf16: 2**-8)."""
     got, want = got.detach().cpu().double(), want.detach().cpu().double()
-    return float((got - want).abs().max()) / (float(want.abs().max()) * BF16_ULP + 1e-30)
+    return float((got - want).abs().max()) / (float(want.abs().max()) * ulp + 1e-30)
 
 
-def _change_ulps(got, start_got, want, start_want) -> float:
+def _change_ulps(got, start_got, want, start_want, ulp=BF16_ULP) -> float:
     """How far a network's change over a run on one side lies from its
     change on the other (``want``): the L2 norm of the difference over the
-    norm of ``want``'s change, all its tensors together, in bf16 ulps."""
+    norm of ``want``'s change, all its tensors together, in ulps."""
     a = torch.cat([(g.detach().cpu().double() - s.cpu().double()).flatten() for g, s in zip(got, start_got)])
     b = torch.cat([(w.detach().cpu().double() - s.cpu().double()).flatten() for w, s in zip(want, start_want)])
-    return float((a - b).norm()) / (float(b.norm()) * BF16_ULP + 1e-30)
+    return float((a - b).norm()) / (float(b.norm()) * ulp + 1e-30)
 
 
-def _bf16_differences(name, a, b, onpolicy: bool) -> dict:
-    """``what -> bf16 ulps`` between two small runs ``(state, metrics,
-    start)``: every floating metric (but ``errors``), the continuous actions
-    in the ring, and each network's change over the run."""
+def _bf16_differences(name, a, b, onpolicy: bool, ulp=BF16_ULP) -> dict:
+    """``what -> ulps`` (bf16 unless ``ulp`` says otherwise) between two
+    small runs ``(state, metrics, start)``: every floating metric (but
+    ``errors``), the continuous actions in the ring, and each network's
+    change over the run."""
     (sa, ma, starta), (sb, mb, startb) = a, b
-    out = {k: _ulps(v, mb[k]) for k, v in ma.items() if k != "errors" and v.is_floating_point()}
+    out = {k: _ulps(v, mb[k], ulp) for k, v in ma.items() if k != "errors" and v.is_floating_point()}
     if not onpolicy:
         ring = lambda s: getattr(s.replay_state, "base", s.replay_state)  # noqa: E731
         actions = ring(sa).storage["action"].cpu(), ring(sb).storage["action"].cpu()
         if actions[0].is_floating_point():  # actions in [-1, 1]
-            out["ring actions"] = float((actions[0] - actions[1]).abs().max()) / BF16_ULP
+            out["ring actions"] = float((actions[0] - actions[1]).abs().max()) / ulp
     nets_b = _networks(sb.train_state)
     for which, module in _networks(sa.train_state).items():
         if any(not torch.equal(p, p0) for p, p0 in zip(nets_b[which].parameters(), startb[which])):
             out[f"{which} change"] = _change_ulps(list(module.parameters()), starta[which],
-                                                  list(nets_b[which].parameters()), startb[which])
+                                                  list(nets_b[which].parameters()), startb[which], ulp)
     return out
 
 
@@ -1785,6 +1816,284 @@ def run_full_sac_pendulum_bf16(card: str) -> dict:
     return result
 
 
+# -------------------------------------------------------------------- phase 12
+def _small_recurrent_configs() -> dict:
+    """name -> (function making a small runner on a device, scan steps or
+    iterations, on-policy?, ulp, metric floor, change floor). 4 lanes,
+    LSTM 16 (IQN: 4 taus): DelayedCue rows of 12 (2 per lane, so each
+    lane's ring wraps) and windows of 4, PO-ABC rows of 5, AtariSim rows of
+    8 sealed by filling, windows of 4 with a burn-in of 2, one batch-4
+    update per scan step from replay start on, target syncs every 32; on
+    policy rollout 12 in chunks of 4, 3 iterations. The bf16 AtariSim run
+    stops after its first two updates (the float32 runs are not chaotic at
+    these sizes, bf16 Q-values tie)."""
+    from pfrl_tpu_torch.experiments import recurrent as rec
+
+    cue = dict(num_envs=4, max_episodes=9, max_episode_len=12, subseq_len=4, replay_start_size=52,
+               update_interval=4, target_update_interval=32, minibatch_size=4)
+    abc = dict(cue, max_episodes=12, max_episode_len=5, subseq_len=None, replay_start_size=16)
+    atari = dict(cue, max_episode_len=8, replay_start_size=40, lstm_size=16, final_exploration_frames=100,
+                 burn_in=2)
+    fp32 = (FP32_ULP, FP32_LOSS_ULPS, FP32_CHANGE_ULPS)
+    return {
+        "drqn-po-abc": (lambda dev: rec.make_drqn_po_abc_runner(hidden=16, device=dev, **abc)[0], 14, False, *fp32),
+        "drqn-delayedcue": (lambda dev: rec.make_drqn_delayed_cue_runner(hidden=16, device=dev, **cue)[0], 26,
+                            False, *fp32),
+        "riqn-delayedcue": (lambda dev: rec.make_riqn_delayed_cue_runner(hidden=16, n_taus=4, device=dev, **cue)[0],
+                            26, False, *fp32),
+        "drqn-atarisim": (lambda dev: rec.make_drqn_atarisim_runner(device=dev, **atari)[0], 17, False, *fp32),
+        "rppo-delayedcue": (lambda dev: rec.make_rppo_delayed_cue_runner(
+            hidden=16, num_envs=4, rollout=12, epochs=2, minibatch_size=4, device=dev)[0], 3, True, *fp32),
+        "rtrpo-delayedcue": (lambda dev: rec.make_rtrpo_delayed_cue_runner(
+            hidden=16, num_envs=4, rollout=12, vf_epochs=2, vf_batch_size=4, device=dev)[0], 3, True, *fp32),
+        "drqn-atarisim-bf16": (lambda dev: rec.make_drqn_atarisim_runner(
+            device=dev, compute_dtype=torch.bfloat16, **atari)[0], 11, False,
+            BF16_ULP, BF16_LOSS_ULPS, BF16_CHANGE_ULPS),
+    }
+
+
+def _recurrent_sides(core, state, dtype) -> bool:
+    """One act step of DRQN-AtariSim's network: the CNN and the LSTM's input
+    side see ``dtype``, its hidden side the float32 carry (promoted), and
+    the Q-values and the carry come back float32."""
+    model = state.train_state.model
+    seen = {}
+    hooks = [m.register_forward_hook(lambda mod, args, out, name=name: seen.__setitem__(name, (args[0].dtype, out.dtype)))
+             for name, m in (("conv", model.torso.convs[0]), ("ih", model.lstm.ih), ("hh", model.lstm.hh))]
+    with torch.no_grad():
+        av, carry = core.step(model, state.obs, state.act_state)
+    for h in hooks:
+        h.remove()
+    f32 = torch.float32
+    return (seen == {"conv": (dtype, dtype), "ih": (dtype, dtype), "hh": (f32, f32)}
+            and av.q_values.dtype == f32 and all(c.dtype == f32 for c in carry[0]))
+
+
+def check_small_recurrent(name: str, build, steps: int, onpolicy: bool, ulp: float, loss_floor: float,
+                          change_floor: float, device) -> dict:
+    """A small run of one recurrent configuration on the card and on the CPU
+    from the same draws and weights, as ``check_small_bf16`` holds the bf16
+    runs: every metric and each network's change over the run in ulps
+    (float32, or bf16 at bf16), each held to ``BF16_SENSITIVITY`` times what
+    scaling the CPU run's initial weights by 1 + 2**-23 moves, and never
+    less than its floor, and so is the act-time carry; the actions stored,
+    the episodic buffer's rows and lengths and the step counters exact; after every update every master
+    and moment float32; no prefix-sample launch."""
+    from pfrl_tpu_torch.ops import prefix_sample as ps
+
+    def run(dev, scale=1.0):
+        runner = build(dev)
+        checked = _float32_after_updates(runner.core)
+        state = runner.init(0, draws=SeededDraws(0, dev))
+        with torch.no_grad():
+            for module in _networks(state.train_state).values():
+                for p in module.parameters():
+                    p.mul_(scale)
+        start = {k: [p.detach().clone() for p in m.parameters()] for k, m in _networks(state.train_state).items()}
+        state, metrics = (runner.run_iterations if onpolicy else runner.run_chunk)(state, steps)
+        return runner, (state, metrics, start), checked
+
+    ps.prefix_sample.launches = 0
+    runner, gpu, gpu_checked = run(device)
+    torch.cuda.synchronize()
+    launches = ps.prefix_sample.launches
+    _, cpu, cpu_checked = run("cpu")
+    _, nudged, _ = run("cpu", 1.0 + 2.0**-23)
+    worst = _bf16_differences(name, gpu, cpu, onpolicy, ulp)
+    sensitivity = _bf16_differences(name, nudged, cpu, onpolicy, ulp)
+    for diffs, (side, _, _) in ((worst, gpu), (sensitivity, nudged)):
+        diffs["carry"] = max(_ulps(a, b, ulp) for a, b in zip(_leaves(side.act_state), _leaves(cpu[0].act_state)))
+    # Standardized advantages put the policy losses (TRPO's loss too) and the
+    # explained variance near 0 by construction: printed, not held.
+    unheld = {"policy_loss", "explained_variance"} | ({"loss"} if "trpo" in name else set()) if onpolicy else set()
+    tolerance = {k: max(change_floor if k.endswith("change") else loss_floor, BF16_SENSITIVITY * sensitivity.get(k, 0.0))
+                 for k in worst if k not in unheld}
+    (gs, gm, _), (cs, cm, _) = gpu, cpu
+    checks = {
+        "no prefix-sample launch": launches == 0,
+        "n_updates agree": gs.train_state.n_updates == cs.train_state.n_updates > 0,
+        "masters and moments float32 after every update": gpu_checked[0] == cpu_checked[0] > 0,
+        "step counters agree": gs.t == cs.t,
+    }
+    if onpolicy:
+        checks["episodes ended inside the run"] = int(gs.recent_count) == int(cs.recent_count) > 0
+    else:
+        g, c = gs.replay_state, cs.replay_state
+        checks["actions stored equal"] = torch.equal(g.storage["action"].cpu(), c.storage["action"])
+        checks["rows, lengths and seals equal"] = all(
+            torch.equal(getattr(g, k).cpu(), getattr(c, k)) for k in ("ep_len", "finished", "lane_row", "n_started"))
+        if not name.endswith("bf16"):
+            checks["every lane's ring wrapped"] = int(g.n_started) - 4 >= runner.buffer.max_episodes // 4 * 4
+        checks["windows were sampled"] = int(gs.train_state.n_updates) >= 2
+    if name.endswith("bf16"):
+        checks["the CNN and the LSTM's input side compute in bf16, its hidden side in float32"] = _recurrent_sides(
+            runner.core, gs, torch.bfloat16)
+    checks.update({f"{k} within {tolerance[k]:.2f} ulps": worst[k] <= tolerance[k] for k in tolerance})
+    unit = "bf16" if ulp == BF16_ULP else "float32"
+    print(f"small {name}: card vs CPU over {steps} {'iterations' if onpolicy else 'scan steps'}, "
+          f"{gs.train_state.n_updates} updates, {launches} prefix-sample launches; worst, in {unit} ulps: "
+          + "; ".join(f"{k} {v:.2f} (held to {tolerance[k]:.2f}; a 1-ulp nudge of the weights: "
+                      f"{sensitivity.get(k, 0.0):.2f})" if k in tolerance else f"{k} {v:.2f} (not held)"
+                      for k, v in worst.items()))
+    _raise_on_failed(f"small {name}", checks)
+    return {"steps": steps, "updates": gs.train_state.n_updates, "kernel_launches": launches, "unit": unit,
+            "worst_ulps": worst, "tolerance_ulps": tolerance, "nudged_ulps": sensitivity}
+
+
+def _leaves(carry) -> list:
+    from pfrl_tpu_torch.utils.recurrent import tree_leaves
+
+    return tree_leaves(carry)
+
+
+def _episodic_bytes(replay) -> dict:
+    """Bytes of the episodic buffer on the card: frames, carries, the rest."""
+    storage = replay.storage
+    frames = sum(storage[k].numel() * storage[k].element_size() for k in ("obs", "next_obs"))
+    carries = sum(x.numel() * x.element_size() for v in storage["extras"].values() for x in _leaves(v))
+    rest = sum(storage[k].numel() * storage[k].element_size() for k in storage if k not in ("obs", "next_obs", "extras"))
+    return {"frames": frames, "carries": carries, "rest": rest, "total": frames + carries + rest}
+
+
+def run_full_drqn_atarisim(card: str) -> dict:
+    """``train_drqn_ale.py --sim`` at full width on the card: 32 lanes of
+    84x84x1 frames, Nature CNN -> LSTM 512 -> 6, the 2,048 x 128 episodic
+    buffer with the carries stored, 8 batch-32 updates per scan step over
+    windows of 32. The replay start is cut to
+    ``DRQN_ATARISIM_CUT_REPLAY_START``; the timed chunk runs through the
+    target sync at 10,000 transitions; then ``DRQN_ATARI_PROFILED`` scan
+    steps under ``torch.profiler``, whose busy time is taken over those same
+    steps' wall time (the profiler slows the host, so this share is lower
+    than the unprofiled one), and the evaluation loop (5 lanes x 500
+    steps)."""
+    from pfrl_tpu_torch.experiments.profile_slice import _profiled
+    from pfrl_tpu_torch.experiments.recurrent import DRQN_ATARISIM_CUT_REPLAY_START, make_drqn_atarisim_runner
+    from pfrl_tpu_torch.ops.prefix_sample import prefix_sample
+
+    runner, evaluator = make_drqn_atarisim_runner(replay_start_size=DRQN_ATARISIM_CUT_REPLAY_START)
+    cfg, buf = runner.config, runner.buffer
+    state = runner.init(0)
+    torch.cuda.synchronize()
+    nbytes = _episodic_bytes(state.replay_state)
+    print(f"drqn-atarisim-32: episodic buffer of {buf.max_episodes} rows x {buf.max_episode_len} steps on the card: "
+          f"{nbytes['total'] / 1e9:.3f} GB (frames, obs and next_obs: {nbytes['frames'] / 1e9:.3f} GB; carries "
+          f"before and after each step: {nbytes['carries'] / 1e9:.3f} GB; the rest {nbytes['rest'] / 1e6:.1f} MB); "
+          f"{torch.cuda.memory_allocated() / 1e9:.3f} GB allocated")
+    train = state.train_state
+    warm_steps, timed_steps = DRQN_ATARI_STEPS
+    prefix_sample.launches = 0
+    t0 = time.perf_counter()
+    state, warm = runner.run_chunk(state, warm_steps)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    sealed = int(state.replay_state.n_finished)
+    t1 = time.perf_counter()
+    state, timed = runner.run_chunk(state, timed_steps)
+    torch.cuda.synchronize()
+    timed_s = time.perf_counter() - t1
+    synced = all(torch.equal(a, b) for a, b in zip(train.model.parameters(), train.target_model.parameters()))
+    (state, _), profiled_s, kernels, busy_us, top = _profiled(lambda: runner.run_chunk(state, DRQN_ATARI_PROFILED))
+    launches = prefix_sample.launches
+    steps = warm_steps + timed_steps + DRQN_ATARI_PROFILED
+    updates = _updates_in(cfg, 1, steps)
+    timed_updates = _updates_in(cfg, warm_steps + 1, warm_steps + timed_steps)
+    scan_step_ms = timed_s / timed_steps * 1e3
+    busy_ms = busy_us / DRQN_ATARI_PROFILED / 1e3
+    profiled_ms = profiled_s / DRQN_ATARI_PROFILED * 1e3
+    t2 = time.perf_counter()
+    returns = evaluator.evaluate(train, state.draws)
+    eval_s = time.perf_counter() - t2
+    loss = torch.cat([warm["loss"], timed["loss"]])
+    stored = state.replay_state.storage["extras"]["carry"][0][1]  # h before each step
+    checks = {
+        "the buffer holds 2,048 x 128 frames and carries, 5.9 GB": buf.max_episodes == 2_048
+        and buf.max_episode_len == 128 and 5.5e9 < nbytes["total"] < 6.5e9,
+        "rows sealed by the end of the warm chunk": sealed >= cfg.num_envs,
+        "n_updates as expected": train.n_updates == updates == cfg.updates_per_step * (steps - warm_steps + 1),
+        "losses finite, positive once updates run": bool(torch.isfinite(loss).all())
+        and bool((timed["loss"] > 0).all()),
+        "the target equals the online net right after the sync at 10,000": synced
+        and (warm_steps + timed_steps) * cfg.num_envs // cfg.target_update_interval == 1,
+        "carries stored": bool(stored.abs().amax() > 0),
+        "no prefix-sample launch": launches == 0,
+        "evaluation returns finite": bool(np.isfinite(returns).all()) and returns.shape == (5,),
+    }
+    _raise_on_failed("drqn-atarisim-32", checks)
+    result = {
+        "steps": steps, "t": state.t, "n_updates": updates, "kernel_launches": launches,
+        "buffer_bytes": nbytes, "sealed_rows_at_replay_start": sealed,
+        "env_steps_per_s": timed_steps * cfg.num_envs / timed_s,
+        "updates_per_s": timed_updates / timed_s,
+        "scan_step_ms": scan_step_ms,
+        "profiled_scan_step_ms": profiled_ms,
+        "device_launches_per_step": kernels / DRQN_ATARI_PROFILED,
+        "device_busy_ms_per_step": busy_ms,
+        "device_busy_share": busy_ms / profiled_ms,  # over the profiled steps' own wall time
+        "top_device_ops": [{"name": n, "ms_per_step": us / DRQN_ATARI_PROFILED / 1e3,
+                            "launches_per_step": k / DRQN_ATARI_PROFILED} for n, (us, k) in top[:8]],
+        "warm_chunk_s": warm_s, "timed_chunk_s": timed_s, "timed_scan_steps": timed_steps,
+        "eval_s": eval_s, "eval_returns": [float(r) for r in returns], "last_loss": float(loss[-1]),
+    }
+    print(
+        f"drqn-atarisim-32: env-steps/s {result['env_steps_per_s']:.1f} updates/s {result['updates_per_s']:.1f} over "
+        f"{timed_steps} scan steps ({scan_step_ms:.2f} ms each, {cfg.updates_per_step} batch-32 window updates per "
+        f"scan step); over {DRQN_ATARI_PROFILED} profiled scan steps of {profiled_ms:.2f} ms each, "
+        f"device busy {busy_ms:.2f} ms per scan step ({result['device_busy_share'] * 100:.1f}% of those steps' own "
+        f"time; {busy_ms / scan_step_ms * 100:.1f}% of the unprofiled timed step, a ratio across the two windows), "
+        f"{result['device_launches_per_step']:.1f} kernels per scan step; {launches} prefix-sample launches; "
+        f"evaluation {eval_s:.2f} s; last loss {result['last_loss']:.5f} (fp32, no TF32) on {card}"
+    )
+    return result
+
+
+def run_full_recurrent(card: str, name: str) -> dict:
+    """One of the five ``tools/record_curves.py`` recurrent recipes at its
+    widths (16 lanes, LSTM 32): off-policy through replay start and
+    ``RECURRENT_FULL_STEPS`` scan steps (several target syncs), on-policy
+    through its iterations, then its evaluation loop."""
+    from pfrl_tpu_torch.experiments.recurrent import RECIPES
+    from pfrl_tpu_torch.ops.prefix_sample import prefix_sample
+
+    runner, evaluator = RECIPES[name]()
+    onpolicy = hasattr(runner, "run_iterations")
+    run = runner.run_iterations if onpolicy else runner.run_chunk
+    warm_n, timed_n = RECURRENT_FULL_STEPS[name]
+    state = runner.init(0)
+    train = state.train_state
+    prefix_sample.launches = 0
+    state, warm = run(state, warm_n)
+    torch.cuda.synchronize()
+    updates0 = train.n_updates
+    t0 = time.perf_counter()
+    state, timed = run(state, timed_n)
+    torch.cuda.synchronize()
+    timed_s = time.perf_counter() - t0
+    launches = prefix_sample.launches
+    lanes = runner.num_envs if onpolicy else runner.config.num_envs
+    transitions = timed_n * lanes * (runner.rollout_len if onpolicy else 1)
+    returns = evaluator.evaluate(train, state.draws)
+    loss = timed["loss"]
+    checks = {
+        "no prefix-sample launch": launches == 0,
+        "updates ran": train.n_updates > updates0 > (0 if onpolicy else -1),
+        "losses finite": bool(torch.isfinite(loss).all()),
+        "episodes ended": int(state.recent_count) > 0,
+        "evaluation returns finite": bool(np.isfinite(returns).all()),
+    }
+    _raise_on_failed(name, checks)
+    result = {
+        "t": state.t, "n_updates": train.n_updates, "kernel_launches": launches,
+        "env_steps_per_s": transitions / timed_s, "updates_per_s": (train.n_updates - updates0) / timed_s,
+        "timed_s": timed_s, "timed": timed_n, "eval_returns": [float(r) for r in returns],
+        "recent_return_mean": runner.recent_return_mean(state),
+    }
+    unit = "iterations" if onpolicy else "scan steps"
+    print(f"{name}: env-steps/s {result['env_steps_per_s']:.1f} updates/s {result['updates_per_s']:.1f} over "
+          f"{timed_n} {unit}; {launches} prefix-sample launches; evaluation mean return {float(returns.mean()):.3f}, "
+          f"recent training returns {result['recent_return_mean']:.3f} ({lanes} lanes, fp32, no TF32) on {card}")
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1856,6 +2165,12 @@ def main() -> int:
         "sac-pendulum-16-bf16": phase("full sac-pendulum bf16", run_full_sac_pendulum_bf16, card),
         "ppo-mujocosim-8-bf16": phase("full ppo bf16", run_full_onpolicy, card, "ppo", bf16),
     }
+    for name, (build, steps, onpolicy, ulp, floor, change_floor) in _small_recurrent_configs().items():
+        record["small_slices"][name] = phase(f"small {name}", check_small_recurrent, name, build, steps, onpolicy,
+                                             ulp, floor, change_floor, device)
+    record["full_recurrent"] = {"drqn-atarisim-32": phase("full drqn-atarisim-32", run_full_drqn_atarisim, card)}
+    for name in RECURRENT_FULL_STEPS:
+        record["full_recurrent"][name] = phase(f"full {name}", run_full_recurrent, card, name)
     # Counted over each path that samples by priority, from 0 at its start;
     # every other path asserts a count of 0.
     kernel["launches_by_path"] = {
@@ -1865,6 +2180,7 @@ def main() -> int:
         **{name: r["kernel_launches"] for name, r in record["full_cartpole"].items()},
         "dqn-atarisim-64 fp32/bf16 A/B": record["bench_dqn_ab"]["kernel_launches"],
         **{name: r["kernel_launches"] for name, r in record["full_bf16"].items()},
+        **{name: r["kernel_launches"] for name, r in record["full_recurrent"].items()},
     }
     kernel["launches"] = sum(kernel["launches_by_path"].values())
     record["kernels"] = [kernel]

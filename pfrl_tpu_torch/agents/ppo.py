@@ -54,7 +54,9 @@ class PPOState:
 @dataclasses.dataclass
 class Rollout:
     """A time-major on-policy rollout, ``[T, B, ...]`` each: ``obs`` the
-    agent acted on, ``next_obs`` the true next observation (pre-reset)."""
+    agent acted on, ``next_obs`` the true next observation (pre-reset).
+    A recurrent core's rollout also has ``carry``, the carry before acting
+    at each step, and ``next_value``, V(s_{t+1}) with the carry after it."""
 
     obs: torch.Tensor
     action: torch.Tensor
@@ -64,6 +66,8 @@ class Rollout:
     terminated: torch.Tensor
     done: torch.Tensor
     next_obs: torch.Tensor
+    carry: Any = None
+    next_value: Optional[torch.Tensor] = None
 
 
 def flat(x: torch.Tensor) -> torch.Tensor:
@@ -157,7 +161,13 @@ class PPOCore:
 
     def _minibatch_loss(self, model, obs, action, old_lp, old_v, adv, v_target):
         dist, value = self.forward(model, obs)
-        ratio = torch.exp(dist.log_prob(action) - old_lp)
+        return self.losses(dist.log_prob(action), dist.entropy(), value, old_lp, old_v, adv, v_target)
+
+    def losses(self, log_prob, entropy, value, old_lp, old_v, adv, v_target):
+        """The clipped surrogate, the (clipped) value loss and the entropy
+        bonus, each a mean over the minibatch: ``(loss, (policy_loss,
+        value_loss, entropy))``."""
+        ratio = torch.exp(log_prob - old_lp)
         surr1 = ratio * adv
         surr2 = torch.clamp(ratio, 1 - self.clip_eps, 1 + self.clip_eps) * adv
         policy_loss = -torch.mean(torch.minimum(surr1, surr2))
@@ -166,7 +176,7 @@ class PPOCore:
         else:
             clipped_v = old_v + torch.clamp(value - old_v, -self.clip_eps_vf, self.clip_eps_vf)
             value_loss = torch.mean(torch.maximum((value - v_target) ** 2, (clipped_v - v_target) ** 2))
-        entropy = torch.mean(dist.entropy())
+        entropy = torch.mean(entropy)
         loss = policy_loss + self.value_func_coef * value_loss - self.entropy_coef * entropy
         return loss, (policy_loss, value_loss, entropy)
 

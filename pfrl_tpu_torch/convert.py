@@ -8,7 +8,11 @@ are permuted. A module names its flax scopes with ``flax_names()``:
 submodule name -> ``"Scope_0/Sub_1"`` path, nested scopes included
 (``MLP_0/Dense_1`` under a compact wrapper); a parameter that is neither
 ``kernel`` nor ``bias`` (a head's ``log_std``) maps from its own name to
-its leaf and is copied as it is.
+its leaf and is copied as it is. A list of paths is one fused layer: the
+Dense kernels are concatenated along their output axis, and the biases if
+every scope has one, as flax's ``OptimizedLSTMCell`` concatenates its
+gates' kernels before its one matmul. A Dense without a bias
+(``use_bias=False``) maps to a layer without one.
 
 The ``*_state_from_flax`` functions take a whole train state whose leaves
 are numpy arrays, as ``jax.tree.map(np.asarray, state)`` gives it; its
@@ -61,6 +65,13 @@ def torch_arrays(module: nn.Module, flax_tree: Mapping) -> Dict[str, np.ndarray]
     """Parameter name -> array in the port's layout, for every parameter."""
     out = {}
     for sub, path in module.flax_names().items():
+        if isinstance(path, (list, tuple)):  # one fused layer of several Dense scopes
+            nodes = [_scope(_strip(flax_tree), p) for p in path]
+            kernel = np.concatenate([np.asarray(n["kernel"]) for n in nodes], axis=-1)
+            out[f"{sub}.weight"] = _to_torch_layout(kernel)
+            if all("bias" in n for n in nodes):
+                out[f"{sub}.bias"] = np.concatenate([np.asarray(n["bias"]) for n in nodes])
+            continue
         node = _scope(_strip(flax_tree), path)
         if not isinstance(node, Mapping):  # a bare parameter leaf (``log_std``)
             out[sub] = np.asarray(node)
@@ -71,7 +82,8 @@ def torch_arrays(module: nn.Module, flax_tree: Mapping) -> Dict[str, np.ndarray]
                 out[f"{sub}.{leaf}"] = np.asarray(node[leaf])
         else:
             out[f"{sub}.weight"] = _to_torch_layout(np.asarray(node["kernel"]))
-            out[f"{sub}.bias"] = np.asarray(node["bias"])
+            if "bias" in node:  # flax's ``use_bias=False`` stores none
+                out[f"{sub}.bias"] = np.asarray(node["bias"])
     missing = set(dict(module.named_parameters())) - set(out)
     if missing:
         raise ValueError(f"no flax scope for parameters {sorted(missing)}")

@@ -13,9 +13,14 @@ what a prediction of kernels per scan step starts from. It times nothing.
 The on-policy configurations (``ppo``, ``ppo-pendulum``, ``trpo``,
 ``a2c``) count per iteration, after one warm iteration; ``--steps`` counts
 iterations there.
+The recurrent family's configurations count the same way
+(``rppo-delayedcue-16`` and ``rtrpo-delayedcue-16`` per iteration).
 ``--bf16`` builds the configuration at ``compute_dtype=torch.bfloat16``.
 ``--capacity`` shrinks the replay ring, which changes no op of a scan step
-(the AtariSim configurations' 100,000 frame slots need 2.8 GB otherwise).
+(the AtariSim configurations' 100,000 frame slots need 2.8 GB otherwise);
+for the episodic buffers it is the number of rows (``drqn-atarisim-32``'s
+2,048 rows of 128 frames and carries need 5.9 GB); the on-policy
+configurations keep no replay, and it does not apply to them.
 """
 
 import argparse
@@ -27,7 +32,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from pfrl_tpu_torch.experiments.cartpole_value import RECIPES
-from pfrl_tpu_torch.experiments.profile_slice import CONFIGS, ONPOLICY_CONFIGS
+from pfrl_tpu_torch.experiments.profile_slice import CONFIGS
 
 
 class OpCounter(TorchDispatchMode):
@@ -42,15 +47,13 @@ class OpCounter(TorchDispatchMode):
 
 
 def count_ops(config: str, steps: int, device=None, compute_dtype=None, capacity=None) -> dict:
-    if config in ONPOLICY_CONFIGS:
-        runner = ONPOLICY_CONFIGS[config](device=device, compute_dtype=compute_dtype)
+    runner = CONFIGS[config](device=device, compute_dtype=compute_dtype, capacity=capacity)
+    if hasattr(runner, "run_iterations"):
         state, _ = runner.run_iterations(runner.init(0), 1)
         with OpCounter() as counter:
             runner.run_iterations(state, steps)
         lanes, unit, per = runner.num_envs, "iteration", {}
     else:
-        sizes = {} if capacity is None else {"capacity": capacity}
-        runner = CONFIGS[config](device=device, compute_dtype=compute_dtype, **sizes)
         cfg = runner.config
         state = runner.init(0)
         state, _ = runner.run_chunk(state, math.ceil(cfg.replay_start_size / cfg.num_envs) + 1)
@@ -69,11 +72,11 @@ def count_ops(config: str, steps: int, device=None, compute_dtype=None, capacity
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--config", choices=sorted(CONFIGS) + sorted(ONPOLICY_CONFIGS), default=None,
+    parser.add_argument("--config", choices=sorted(CONFIGS), default=None,
                         help="default: each CartPole recipe")
     parser.add_argument("--steps", type=int, default=4)
     parser.add_argument("--bf16", action="store_true", help="bf16 compute over float32 masters")
-    parser.add_argument("--capacity", type=int, default=None, help="replay slots (default: the recipe's)")
+    parser.add_argument("--capacity", type=int, default=None, help="replay slots, or an episodic buffer's rows (default: the recipe's)")
     parser.add_argument("--device", default=None, help="default: the CUDA device (cpu counts the same ops)")
     args = parser.parse_args()
     dtype = torch.bfloat16 if args.bf16 else None

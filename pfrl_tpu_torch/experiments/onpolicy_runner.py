@@ -16,8 +16,13 @@ every lane, kept where the episode ended); after the ``T`` steps the
 update's draws (PPO: one ``permutation`` per epoch; TRPO: one per
 value-function epoch; A2C: none).
 
-Not ported yet, each raising ``NotImplementedError`` by name: recurrent
-cores (``core.recurrent``) and device meshes.
+A recurrent core (``core.recurrent``) acts from the carry in
+``act_state``; each step stores the carry before acting
+(``Rollout.carry``) and V(s_{t+1}) on the pre-reset next observation with
+the carry after the step (``Rollout.next_value``), then resets the carry's
+rows where the episode ended.
+
+Not ported yet, raising ``NotImplementedError`` by name: device meshes.
 """
 
 import dataclasses
@@ -30,6 +35,7 @@ from pfrl_tpu_torch.agents.ppo import Rollout
 from pfrl_tpu_torch.envs.vector_env import VectorTorchEnv
 from pfrl_tpu_torch.experiments.runner import record_returns, recent_return_mean
 from pfrl_tpu_torch.utils.draws import Draws
+from pfrl_tpu_torch.utils.recurrent import tree_map
 
 
 @dataclasses.dataclass
@@ -43,13 +49,7 @@ class OnPolicyRunnerState:
     recent_returns: torch.Tensor   # [window] ring of completed returns
     recent_count: torch.Tensor     # int32 0-d
     rollout: Optional[Rollout] = None  # [T, L, ...], allocated at the first collect step
-
-
-def _reject_unported(core, mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError("the mesh (multi-device) branch is not ported")
-    if getattr(core, "recurrent", False):
-        raise NotImplementedError("the recurrent branch (core.recurrent) is not ported")
+    act_state: Any = ()                # a recurrent core's carry
 
 
 class OnPolicyRunner:
@@ -63,13 +63,15 @@ class OnPolicyRunner:
         device=None,
         mesh=None,
     ):
-        _reject_unported(core, mesh)
+        if mesh is not None:
+            raise NotImplementedError("the mesh (multi-device) branch is not ported")
         self.device = check_same_device(runner=resolve_device(device), env=env.device)
         self.env = VectorTorchEnv(env, num_envs)
         self.core = core
         self.num_envs = num_envs
         self.rollout_len = rollout_len
         self.return_window = return_window
+        self.recurrent = getattr(core, "recurrent", False)
         if self.device.type == "cuda":
             use_full_fp32()
 
@@ -92,6 +94,7 @@ class OnPolicyRunner:
             episode_return=torch.zeros(self.num_envs, dtype=torch.float32, device=self.device),
             recent_returns=torch.zeros(self.return_window, dtype=torch.float32, device=self.device),
             recent_count=torch.zeros((), dtype=torch.int32, device=self.device),
+            act_state=self.core.init_act_state(self.num_envs, self.device) if self.recurrent else (),
         )
 
     # ------------------------------------------------------------- iteration
@@ -100,7 +103,12 @@ class OnPolicyRunner:
             return torch.empty((self.rollout_len,) + tuple(like.shape), dtype=like.dtype, device=self.device)
 
         flags = torch.zeros(self.num_envs, dtype=torch.bool, device=self.device)
+        if self.recurrent:
+            recurrent = dict(carry=tree_map(empty, state.act_state), next_value=empty(aux["value"]))
+        else:
+            recurrent = {}
         return Rollout(
+            **recurrent,
             obs=empty(state.obs),
             action=empty(action),
             log_prob=empty(aux["log_prob"]),
@@ -113,17 +121,27 @@ class OnPolicyRunner:
 
     def _store(self, rollout: Rollout, i: int, **step) -> None:
         for name, value in step.items():
-            getattr(rollout, name)[i].copy_(value)
+            tree_map(lambda dst, src: dst[i].copy_(src), getattr(rollout, name), value)
 
     def _collect_step(self, state: OnPolicyRunnerState, i: int) -> None:
-        action, aux = self.core.act_with_aux(state.train_state, state.draws, state.obs, True)
+        if self.recurrent:
+            pre_act_carry = state.act_state
+            action, aux, act_state = self.core.act_with_aux_recurrent(
+                state.train_state, state.draws, state.obs, True, state.act_state)
+        else:
+            action, aux = self.core.act_with_aux(state.train_state, state.draws, state.obs, True)
         env_states, vec = self.env.step(state.draws, state.env_states, action)
         ts = vec.ts
         if state.rollout is None:
             state.rollout = self._allocate(state, action, aux)
+        recurrent = {}
+        if self.recurrent:
+            recurrent = dict(
+                carry=pre_act_carry, next_value=self.core.value_recurrent(state.train_state, ts.obs, act_state))
+            state.act_state = self.core.reset_act_state(act_state, ts.done)
         self._store(
             state.rollout, i, obs=state.obs, action=action, log_prob=aux["log_prob"], value=aux["value"],
-            reward=ts.reward, terminated=ts.terminated, done=ts.done, next_obs=ts.obs,
+            reward=ts.reward, terminated=ts.terminated, done=ts.done, next_obs=ts.obs, **recurrent,
         )
         record_returns(state, ts.reward, ts.done, self.return_window)
         state.env_states = env_states

@@ -3,7 +3,9 @@
     python -m pfrl_tpu_torch.experiments.profile_slice
         [--config per-dqn|dqn|rainbow|sac|td3|ddpg|sac-pendulum|dqn-cartpole|c51-cartpole|
                   rainbow-cartpole|al-cartpole|iqn-cartpole|dqn-cartpole-example|
-                  ppo|ppo-pendulum|trpo|a2c]
+                  ppo|ppo-pendulum|trpo|a2c|drqn-atarisim-32|drqn-po-abc-16|
+                  drqn-delayedcue-16|riqn-delayedcue-16|rppo-delayedcue-16|
+                  rtrpo-delayedcue-16]
         [--steps 8] [--bf16] [--out PATH]
 
 Runs one configuration at full width on the CUDA device. On 64 lanes of
@@ -52,6 +54,21 @@ into V on the next observations, GAE (PPO) or the n-step returns (A2C), the
 minibatch forwards, backward and optimizer, and for TRPO into GAE, the
 policy step (of which CG and the line search) and the value function's fit.
 
+The recurrent family (``experiments/recurrent.py``): ``drqn-atarisim-32``
+(``make_drqn_atarisim_runner()``: 32 lanes of 84x84x1 frames, the Nature
+CNN and an LSTM of 512, 8 batch-32 window updates per scan step over the
+2,048 x 128 episodic buffer on the card; its replay start is cut to
+``recurrent.DRQN_ATARISIM_CUT_REPLAY_START``, 4,160 transitions, past the
+first rows sealed by filling at 128 steps),
+``drqn-po-abc-16``, ``drqn-delayedcue-16`` and ``riqn-delayedcue-16`` take
+the episodic phases: act, env step, replay add, the window sample, the
+gradient step (of which the unrolls, the backward and the optimizer) and
+the target sync; ``rppo-delayedcue-16`` and ``rtrpo-delayedcue-16`` the
+recurrent collect (act, V on the next observations with the carry after
+the step, env step, store) and the update, split into GAE and the chunk
+unrolls with backward and optimizer (PPO), or the policy step (of which CG
+and the line search) and the value function's fit over chunks (TRPO).
+
 ``--bf16`` builds the configuration at ``compute_dtype=torch.bfloat16``
 (bf16 compute over float32 masters, as the examples' ``--bf16``); TRPO
 refuses it by name.
@@ -72,8 +89,15 @@ from torch.profiler import ProfilerActivity, profile
 
 from pfrl_tpu_torch.agents import a2c as a2c_module
 from pfrl_tpu_torch.agents import ppo as ppo_module
+from pfrl_tpu_torch.agents import recurrent_ppo as rppo_module
+from pfrl_tpu_torch.agents import recurrent_trpo as rtrpo_module
 from pfrl_tpu_torch.agents import trpo as trpo_module
-from pfrl_tpu_torch.experiments import cartpole_value, onpolicy
+from pfrl_tpu_torch.agents.a2c import A2CCore
+from pfrl_tpu_torch.agents.ppo import PPOCore
+from pfrl_tpu_torch.agents.recurrent_ppo import RecurrentPPOCore
+from pfrl_tpu_torch.agents.recurrent_trpo import RecurrentTRPOCore
+from pfrl_tpu_torch.agents.trpo import TRPOCore
+from pfrl_tpu_torch.experiments import cartpole_value, onpolicy, recurrent
 from pfrl_tpu_torch.experiments.atari_per_dqn import make_dqn_runner, make_per_dqn_runner
 from pfrl_tpu_torch.experiments.atari_rainbow import make_rainbow_runner
 from pfrl_tpu_torch.experiments.mujoco_actor_critic import (
@@ -83,24 +107,43 @@ from pfrl_tpu_torch.experiments.mujoco_actor_critic import (
     make_td3_runner,
 )
 
-# Each maker takes the recipe's keyword arguments (``compute_dtype``, and
-# ``device`` and the ring's ``capacity`` for ``count_ops``).
+def _maker(make, replay_arg="capacity", **fixed):
+    """A recipe as ``build(device=None, compute_dtype=None, capacity=None)
+    -> runner``: ``capacity`` sizes the replay through the recipe's
+    ``replay_arg`` (a ring's slots, an episodic buffer's rows; None keeps
+    the recipe's; ``replay_arg=None`` for an on-policy recipe, which keeps
+    no replay); a recipe's ``(runner, eval_loop)`` gives its runner."""
+
+    def build(capacity=None, **kw):
+        if capacity is not None and replay_arg is not None:
+            kw[replay_arg] = capacity
+        out = make(**{**fixed, **kw})
+        return out[0] if isinstance(out, tuple) else out
+
+    return build
+
+
+# ``--config`` name -> ``build(device=None, compute_dtype=None, capacity=None)``.
 CONFIGS = {
-    "per-dqn": make_per_dqn_runner,
-    "dqn": make_dqn_runner,
-    "rainbow": lambda **kw: make_rainbow_runner(replay_start_size=2_048, **kw),
-    "sac": make_sac_runner,
-    "td3": make_td3_runner,
-    "ddpg": make_ddpg_runner,
-    "sac-pendulum": make_sac_pendulum_runner,
-    # The CartPole recipes return (runner, eval_loop).
-    **{name: (lambda make=make, **kw: make(**kw)[0]) for name, make in cartpole_value.RECIPES.items()},
-}
-ONPOLICY_CONFIGS = {
-    "ppo": onpolicy.make_ppo_runner,
-    "ppo-pendulum": onpolicy.make_ppo_pendulum_runner,
-    "trpo": onpolicy.make_trpo_pendulum_runner,
-    "a2c": onpolicy.make_a2c_cartpole_runner,
+    "per-dqn": _maker(make_per_dqn_runner),
+    "dqn": _maker(make_dqn_runner),
+    "rainbow": _maker(make_rainbow_runner, replay_start_size=2_048),
+    "sac": _maker(make_sac_runner),
+    "td3": _maker(make_td3_runner),
+    "ddpg": _maker(make_ddpg_runner),
+    "sac-pendulum": _maker(make_sac_pendulum_runner),
+    **{name: _maker(make) for name, make in cartpole_value.RECIPES.items()},
+    "ppo": _maker(onpolicy.make_ppo_runner, None),
+    "ppo-pendulum": _maker(onpolicy.make_ppo_pendulum_runner, None),
+    "trpo": _maker(onpolicy.make_trpo_pendulum_runner, None),
+    "a2c": _maker(onpolicy.make_a2c_cartpole_runner, None),
+    "drqn-atarisim-32": _maker(recurrent.make_drqn_atarisim_runner, "max_episodes",
+                               replay_start_size=recurrent.DRQN_ATARISIM_CUT_REPLAY_START),
+    "drqn-po-abc-16": _maker(recurrent.make_drqn_po_abc_runner, "max_episodes"),
+    "drqn-delayedcue-16": _maker(recurrent.make_drqn_delayed_cue_runner, "max_episodes"),
+    "riqn-delayedcue-16": _maker(recurrent.make_riqn_delayed_cue_runner, "max_episodes"),
+    "rppo-delayedcue-16": _maker(recurrent.make_rppo_delayed_cue_runner, None),
+    "rtrpo-delayedcue-16": _maker(recurrent.make_rtrpo_delayed_cue_runner, None),
 }
 
 # Labels that start with two spaces are parts of the phase above them.
@@ -131,28 +174,61 @@ UNIFORM_PHASES = (
     ("buffer", "sample_indices", "id draw"),
     ("buffer", "gather", "row gather"),
 )
+EPISODIC_PHASES = (
+    ("core", "select_action_recurrent", "act"),
+    ("env", "step", "env step"),
+    ("buffer", "add", "replay add"),
+    ("buffer", "sample_episodes", "window sample"),
+    ("core", "update_episodic", "gradient step"),
+    ("core", "unroll", "  of which unrolls (forwards, burn-in too)"),
+    ("core", "unroll_quantiles", "  of which unrolls (forwards)"),
+    ("autograd", "grad", "  of which backward"),
+    ("optimizer", "update", "  of which optimizer"),
+    ("core", "sync_target", "target sync"),
+)
 COLLECT_PHASES = (
     ("core", "act_with_aux", "act"),
     ("env", "step", "env step"),
     ("runner", "_store", "store into the rollout"),
     ("core", "update", "update"),
 )
+RECURRENT_COLLECT_PHASES = (
+    ("core", "act_with_aux_recurrent", "act"),
+    ("core", "value_recurrent", "V on the next obs (carry after the step)"),
+    ("env", "step", "env step"),
+    ("runner", "_store", "store into the rollout"),
+    ("core", "update", "update"),
+)
+# Keyed by the on-policy core's class.
 UPDATE_PHASES = {
-    "ppo": (
+    PPOCore: (
         ("core", "next_values", "  of which V on next_obs"),
         ("ppo", "gae_advantages", "  of which GAE"),
         ("core", "_minibatch_loss", "  of which minibatch forwards (loss)"),
         ("autograd", "grad", "  of which backward"),
         ("optimizer", "update", "  of which optimizer"),
     ),
-    "a2c": (
+    A2CCore: (
         ("core", "next_values", "  of which V on next_obs"),
         ("a2c", "discounted_returns", "  of which n-step returns"),
         ("core", "loss", "  of which forwards (loss)"),
         ("autograd", "grad", "  of which backward"),
         ("optimizer", "update", "  of which optimizer"),
     ),
-    "trpo": (
+    RecurrentPPOCore: (
+        ("rppo", "gae_advantages", "  of which GAE"),
+        ("core", "_chunk_loss", "  of which chunk unrolls (loss)"),
+        ("autograd", "grad", "  of which backward"),
+        ("optimizer", "update", "  of which optimizer"),
+    ),
+    RecurrentTRPOCore: (
+        ("rtrpo", "gae_advantages", "  of which GAE"),
+        ("core", "_recurrent_policy_step", "  of which policy step"),
+        ("rtrpo", "conjugate_gradient", "  of which CG (in the policy step)"),
+        ("core", "_line_search", "  of which line search (in the policy step)"),
+        ("core", "_vf_fit_chunks", "  of which value-function fit"),
+    ),
+    TRPOCore: (
         ("trpo", "gae_advantages", "  of which GAE"),
         ("core", "_policy_step", "  of which policy step"),
         ("trpo", "conjugate_gradient", "  of which CG (in the policy step)"),
@@ -179,15 +255,25 @@ def _wrap(acc, label, fn):
     return timed
 
 
-def profile_slice(config: str, steps: int, compute_dtype=None) -> dict:
+def profile_config(config: str, steps: int, compute_dtype=None) -> dict:
+    """Builds ``config`` on the card and profiles it: per scan step through
+    an off-policy runner, per iteration through an on-policy one."""
     runner = CONFIGS[config](compute_dtype=compute_dtype)
+    measure = profile_onpolicy if hasattr(runner, "run_iterations") else profile_slice
+    return measure(runner, config, steps, compute_dtype)
+
+
+def profile_slice(runner, config: str, steps: int, compute_dtype=None) -> dict:
     cfg = runner.config
     actor_critic = hasattr(runner.core, "critic_step")
-    phases = (
-        COMMON_PHASES
-        + (ACTOR_CRITIC_PHASES if actor_critic else DQN_PHASES)
-        + (UNIFORM_PHASES if runner.buffer.iid_samples else PRIORITIZED_PHASES)
-    )
+    if hasattr(runner.buffer, "sample_episodes"):
+        phases = tuple(p for p in EPISODIC_PHASES if p[0] != "core" or hasattr(runner.core, p[1]))
+    else:
+        phases = (
+            COMMON_PHASES
+            + (ACTOR_CRITIC_PHASES if actor_critic else DQN_PHASES)
+            + (UNIFORM_PHASES if runner.buffer.iid_samples else PRIORITIZED_PHASES)
+        )
     state = runner.init(0)
     warm = -(-cfg.replay_start_size // cfg.num_envs) + 2  # past replay start
     state, _ = runner.run_chunk(state, warm)
@@ -219,10 +305,8 @@ def profile_slice(config: str, steps: int, compute_dtype=None) -> dict:
     }
 
 
-def profile_onpolicy(config: str, iterations: int, compute_dtype=None) -> dict:
+def profile_onpolicy(runner, config: str, iterations: int, compute_dtype=None) -> dict:
     """The on-policy counterpart of :func:`profile_slice`, per iteration."""
-    runner = ONPOLICY_CONFIGS[config](compute_dtype=compute_dtype)
-    family = "trpo" if config == "trpo" else "a2c" if config == "a2c" else "ppo"
     state = runner.init(0)
     state, _ = runner.run_iterations(state, 1)  # warm: allocates the rollout
 
@@ -232,9 +316,10 @@ def profile_onpolicy(config: str, iterations: int, compute_dtype=None) -> dict:
     owners = {
         "core": runner.core, "env": runner.env, "runner": runner, "autograd": torch.autograd,
         "optimizer": getattr(runner.core, "optimizer", None),
-        "ppo": ppo_module, "a2c": a2c_module, "trpo": trpo_module,
+        "ppo": ppo_module, "a2c": a2c_module, "trpo": trpo_module, "rppo": rppo_module, "rtrpo": rtrpo_module,
     }
-    with _phase_timers(COLLECT_PHASES + UPDATE_PHASES[family], owners) as acc:
+    collect = RECURRENT_COLLECT_PHASES if runner.recurrent else COLLECT_PHASES
+    with _phase_timers(collect + UPDATE_PHASES[type(runner.core)], owners) as acc:
         (state, _), phased_s = _synced(lambda: runner.run_iterations(state, iterations))
     (state, _), profiled_s, kernels, busy_us, top = _profiled(lambda: runner.run_iterations(state, iterations))
     transitions = runner.num_envs * runner.rollout_len
@@ -308,7 +393,7 @@ def _top(top, steps: int) -> list:
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--config", choices=sorted(CONFIGS) + sorted(ONPOLICY_CONFIGS), default="per-dqn")
+    parser.add_argument("--config", choices=sorted(CONFIGS), default="per-dqn")
     parser.add_argument("--steps", type=int, default=8, help="scan steps, or iterations of an on-policy config")
     parser.add_argument("--bf16", action="store_true", help="bf16 compute over float32 masters")
     parser.add_argument("--out", default=None, help="default: chiprun_out/profile_<config>[_bf16].json")
@@ -316,10 +401,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice: needs a CUDA device")
     dtype = torch.bfloat16 if args.bf16 else None
-    if args.config in ONPOLICY_CONFIGS:
-        record = profile_onpolicy(args.config, args.steps, dtype)
-    else:
-        record = profile_slice(args.config, args.steps, dtype)
+    record = profile_config(args.config, args.steps, dtype)
     out = Path(args.out or f"chiprun_out/profile_{args.config}{'_bf16' if args.bf16 else ''}.json")
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(record, indent=1))

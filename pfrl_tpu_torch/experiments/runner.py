@@ -9,17 +9,22 @@ no step waits for the device.
 
 :class:`RunnerState` is updated **in place**, the replay ring above all.
 
-Ported: the non-episodic, non-recurrent, single-device branches, for
-discrete and continuous actions (the example action that sizes the ring
-comes from the env's action space). Buffers
-with priority feedback (``iid_samples`` false) take the sequential
-sample -> update -> feedback loop; uniform buffers take the presample
-branch, one id draw per scan step and a row gather per update.
+Ported: the single-device branches, for discrete and continuous actions
+(the example action that sizes the ring comes from the env's action
+space). Buffers with priority feedback (``iid_samples`` false) take the
+sequential sample -> update -> feedback loop; uniform buffers take the
+presample branch, one id draw per scan step and a row gather per update;
+episodic buffers (``sample_episodes``) take the window loop, sample ->
+``core.update_episodic`` -> per-window priority feedback where the buffer
+has ``update_episode_priorities`` and the core ``reports_window_errors``.
+A recurrent core (``select_action_recurrent``) acts from the carry in
+``act_state``; the carries before and after the step go into the
+transition's ``extras`` (where the buffer ``stores_carries``), taken
+before the carry's rows of ended episodes are reset.
 :class:`EvalLoop` is the counterpart of ``JaxEvalLoop``.
-Not ported yet, each raising ``NotImplementedError`` by name: episodic
-replay (``sample_episodes`` / ``update_episodic``), recurrent cores
-(``select_action_recurrent``, carried act state), cores that store extras
-with each transition (``select_action_with_extras``), and device meshes.
+Not ported yet, each raising ``NotImplementedError`` by name: cores that
+store extras with each transition (``select_action_with_extras``), and
+device meshes.
 """
 
 import dataclasses
@@ -32,6 +37,7 @@ from pfrl_tpu_torch._device import check_same_device, resolve_device, use_full_f
 from pfrl_tpu_torch.envs.vector_env import VectorTorchEnv
 from pfrl_tpu_torch.replay.transition import Transition
 from pfrl_tpu_torch.utils.draws import Draws
+from pfrl_tpu_torch.utils.recurrent import tree_map
 
 
 @dataclasses.dataclass
@@ -69,6 +75,7 @@ class RunnerState:
     episode_return: torch.Tensor   # [L] running returns
     recent_returns: torch.Tensor   # [window] ring of completed returns
     recent_count: torch.Tensor     # int32 0-d
+    act_state: Any = ()            # a recurrent core's carry
 
 
 class OffPolicyRunner:
@@ -76,8 +83,8 @@ class OffPolicyRunner:
 
     Draws per scan step, in order: the core's act noise (and its burn-in
     actions while they last), the env's resets, the ids of all of the
-    step's minibatches (uniform ring) or each update's sample (prioritized),
-    then each update's own noise."""
+    step's minibatches (uniform ring) or each update's sample (prioritized,
+    episodic), then each update's own noise (and taus)."""
 
     def __init__(
         self,
@@ -101,6 +108,8 @@ class OffPolicyRunner:
         self.buffer = buffer
         self.config = config
         self.return_window = return_window
+        self.recurrent = hasattr(core, "select_action_recurrent")
+        self.store_carries = self.recurrent and getattr(buffer, "stores_carries", False)
         if self.device.type == "cuda":
             use_full_fp32()
 
@@ -120,6 +129,11 @@ class OffPolicyRunner:
             torch.Generator().manual_seed(seed), obs, torch.stack([example_action] * L)
         )
         zeros = lambda dtype: torch.zeros((), dtype=dtype, device=self.device)  # noqa: E731
+        act_state = self.core.init_act_state(L, self.device) if self.recurrent else ()
+        extras = None
+        if self.store_carries:
+            one = tree_map(lambda x: x[0], act_state)
+            extras = {"carry": one, "next_carry": one}
         example = Transition(
             obs=obs[0],
             action=example_action,
@@ -127,6 +141,7 @@ class OffPolicyRunner:
             next_obs=obs[0],
             terminated=zeros(torch.bool),
             done=zeros(torch.bool),
+            extras=extras,
         )
         return RunnerState(
             env_states=env_states,
@@ -138,6 +153,7 @@ class OffPolicyRunner:
             episode_return=torch.zeros(L, dtype=torch.float32, device=self.device),
             recent_returns=torch.zeros(self.return_window, dtype=torch.float32, device=self.device),
             recent_count=zeros(torch.int32),
+            act_state=act_state,
         )
 
     def _example_action(self) -> torch.Tensor:
@@ -151,9 +167,21 @@ class OffPolicyRunner:
     def _one_step(self, state: RunnerState) -> Dict[str, torch.Tensor]:
         cfg = self.config
         L = cfg.num_envs
-        actions = self.core.select_action(state.train_state, state.draws, state.obs, state.t, True)
+        extras = None
+        if self.recurrent:
+            actions, act_state = self.core.select_action_recurrent(
+                state.train_state, state.draws, state.obs, state.t, True, state.act_state)
+        else:
+            actions = self.core.select_action(state.train_state, state.draws, state.obs, state.t, True)
         env_states, vec = self.env.step(state.draws, state.env_states, actions)
         ts = vec.ts
+        if self.recurrent:
+            if self.store_carries:
+                # Before the reset at the episode boundary: the carry before
+                # the step seeds a window's online unroll, the one after it
+                # the target's.
+                extras = {"carry": state.act_state, "next_carry": act_state}
+            state.act_state = self.core.reset_act_state(act_state, ts.done)
         self.buffer.add(
             state.replay_state,
             Transition(
@@ -163,6 +191,7 @@ class OffPolicyRunner:
                 next_obs=ts.obs,
                 terminated=ts.terminated,
                 done=ts.done,
+                extras=extras,
             ),
         )
         t_prev, t = state.t, state.t + L
@@ -187,6 +216,15 @@ class OffPolicyRunner:
         if t < cfg.replay_start_size:
             return loss
         draws, train, replay = state.draws, state.train_state, state.replay_state
+        if hasattr(self.buffer, "sample_episodes"):
+            feedback = hasattr(self.buffer, "update_episode_priorities") and getattr(
+                self.core, "reports_window_errors", False)
+            for _ in range(cfg.updates_per_step):
+                batch = self.buffer.sample_episodes(replay, draws, cfg.minibatch_size)
+                _, aux = self.core.update_episodic(train, batch, draws)
+                if feedback:
+                    self.buffer.update_episode_priorities(replay, batch.rows, aux["errors"])
+            return aux["loss"]
         if self.buffer.iid_samples:
             # The ids of every minibatch of this scan step in one draw; each
             # update gathers only its own rows. Ids first, then each update's
@@ -250,10 +288,6 @@ def _reject_unported(core, buffer=None, mesh=None) -> None:
     ported, naming the branch."""
     if mesh is not None:
         raise NotImplementedError("the mesh (multi-device) branch is not ported")
-    if hasattr(buffer, "sample_episodes"):
-        raise NotImplementedError("the episodic replay branch (sample_episodes) is not ported")
-    if hasattr(core, "select_action_recurrent"):
-        raise NotImplementedError("the recurrent branch (select_action_recurrent) is not ported")
     if hasattr(core, "select_action_with_extras"):
         raise NotImplementedError("the extras branch (select_action_with_extras) is not ported")
 
@@ -263,7 +297,9 @@ class EvalLoop:
 
     Acts without the explorer (``training=False``) for ``max_steps`` steps
     and scores the first finished episode of each lane; a lane that never
-    finished gives its partial return. A noisy model still draws noise.
+    finished gives its partial return. A noisy model still draws noise. A
+    recurrent core acts from a carry that starts at zero and whose rows are
+    reset where an episode ends.
     """
 
     def __init__(self, env, core, num_episodes: int, max_steps: int, device=None):
@@ -284,9 +320,16 @@ class EvalLoop:
         ep_ret = torch.zeros(L, dtype=torch.float32, device=self.device)
         final_ret = torch.zeros_like(ep_ret)
         finished = torch.zeros(L, dtype=torch.bool, device=self.device)
+        recurrent = hasattr(self.core, "select_action_recurrent")
+        carry = self.core.init_act_state(L, self.device) if recurrent else ()
         for _ in range(self.max_steps):
-            actions = self.core.select_action(train_state, draws, obs, 0, False)
+            if recurrent:
+                actions, carry = self.core.select_action_recurrent(train_state, draws, obs, 0, False, carry)
+            else:
+                actions = self.core.select_action(train_state, draws, obs, 0, False)
             env_states, vec = self.env.step(draws, env_states, actions)
+            if recurrent:
+                carry = self.core.reset_act_state(carry, vec.ts.done)
             ep_ret = ep_ret + vec.ts.reward * (~finished)
             newly = vec.ts.done & ~finished
             final_ret = torch.where(newly, ep_ret, final_ret)

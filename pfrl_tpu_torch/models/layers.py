@@ -13,6 +13,8 @@ float32 input through bfloat16 parameters computes in float32). These
 layers promote first, as jnp does.
 """
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -29,8 +31,12 @@ def promoted(*tensors: torch.Tensor):
     return tuple(t.to(dtype) for t in tensors)
 
 
-def linear(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-    """``x @ weight.T + bias`` in the promoted dtype; ``weight`` is ``[out, in]``."""
+def linear(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """``x @ weight.T + bias`` in the promoted dtype; ``weight`` is ``[out, in]``;
+    ``bias`` None: no bias (flax's ``use_bias=False``)."""
+    if bias is None:
+        x, weight = promoted(x, weight)
+        return F.linear(x, weight) if x.dtype == torch.float32 else x @ weight.T
     x, weight, bias = promoted(x, weight, bias)
     if x.dtype == torch.float32:
         return F.linear(x, weight, bias)

@@ -55,4 +55,7 @@ class MLP(nn.Module):
 def scoped_names(prefix: str, scope: str, module: nn.Module) -> Dict[str, str]:
     """``module.flax_names()`` one level down: the submodule named ``prefix``
     here is the flax scope ``scope`` there."""
-    return {f"{prefix}.{k}": f"{scope}/{v}" for k, v in module.flax_names().items()}
+    def under(v):
+        return [f"{scope}/{p}" for p in v] if isinstance(v, (list, tuple)) else f"{scope}/{v}"
+
+    return {f"{prefix}.{k}": under(v) for k, v in module.flax_names().items()}

@@ -2,7 +2,10 @@ from pfrl_tpu_torch.q_functions.dueling_dqn import (  # noqa: F401
     DistributionalDuelingDQN,
     DuelingDQN,
 )
-from pfrl_tpu_torch.q_functions.quantile_q_functions import ImplicitQuantileQFunction  # noqa: F401
+from pfrl_tpu_torch.q_functions.quantile_q_functions import (  # noqa: F401
+    ImplicitQuantileQFunction,
+    RecurrentImplicitQuantileQFunction,
+)
 from pfrl_tpu_torch.q_functions.state_action_q_functions import (  # noqa: F401
     FCLateActionSAQFunction,
     FCSAQFunction,

@@ -96,3 +96,10 @@ def stratified_targets(total_mass: torch.Tensor, u: torch.Tensor) -> torch.Tenso
     targets = (bounds[:-1] + u * (bounds[1:] - bounds[:-1])) * total_mass
     # Guard the open upper end (u == 1 would fall off the last leaf).
     return torch.minimum(targets, total_mass * (1.0 - 1e-7))
+
+
+def stratified_sample(tree: torch.Tensor, draws, batch_size: int) -> torch.Tensor:
+    """int32 leaves by stratified prefix-sum sampling: one target per
+    equal-mass segment from one ``draws.uniform(batch_size)``, then the
+    tree descent (``pfrl_tpu/replay/sum_tree.py::stratified_sample``)."""
+    return sample_from_prefix(tree, stratified_targets(total(tree), draws.uniform(batch_size)))

@@ -1,8 +1,10 @@
 """Transitions (counterpart of ``pfrl_tpu/replay/transition.py``).
 
 Every field is one tensor with a leading batch dimension; the JAX package's
-pytree observations and ``extras`` leaves are not needed on the ported
-path and are left out.
+pytree observations are not needed on the ported path and are left out.
+``extras`` is a dict of carries (tensors or nested tuples of tensors with
+the same leading dimension): the episodic buffer stores the recurrent
+carries there (``"carry"``, ``"next_carry"``); other buffers ignore it.
 """
 
 import dataclasses
@@ -21,6 +23,7 @@ class Transition:
     next_obs: Optional[torch.Tensor]
     terminated: torch.Tensor  # true episode end: no bootstrap
     done: torch.Tensor        # terminated | truncated: episode boundary
+    extras: Optional[dict] = None
 
 
 @dataclasses.dataclass
@@ -37,3 +40,4 @@ class TransitionBatch:
     is_terminal: torch.Tensor
     weight: torch.Tensor
     indices: torch.Tensor
+    extras: Optional[dict] = None

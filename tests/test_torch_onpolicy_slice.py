@@ -311,5 +311,5 @@ def test_unported_branches_raise_by_name():
     class Recurrent:
         recurrent = True
 
-    with pytest.raises(NotImplementedError, match="recurrent"):
-        OnPolicyRunner(env, Recurrent(), 4, 8, device="cpu")
+    # The recurrent branch is ported: the runner takes a recurrent core.
+    assert OnPolicyRunner(env, Recurrent(), 4, 8, device="cpu").recurrent

@@ -518,17 +518,28 @@ def test_use_full_fp32_turns_the_reduced_precision_reduction_off(monkeypatch):
 
 # ------------------------------------------------------------- the tools
 def test_every_profiled_config_builds_at_bf16_and_trpo_refuses():
-    from pfrl_tpu_torch.experiments.profile_slice import CONFIGS, ONPOLICY_CONFIGS
+    from pfrl_tpu_torch.experiments import recurrent
+    from pfrl_tpu_torch.experiments.profile_slice import CONFIGS
 
     for name, make in CONFIGS.items():
-        runner = make(device="cpu", compute_dtype=BF16, capacity=1_024)
-        assert runner.core.compute_dtype is BF16, name
-    for name, make in ONPOLICY_CONFIGS.items():
-        if name == "trpo":
+        if name in ("trpo", "rtrpo-delayedcue-16"):
             with pytest.raises(ValueError, match="TRPO"):
                 make(device="cpu", compute_dtype=BF16)
-        else:
-            assert make(device="cpu", compute_dtype=BF16).core.compute_dtype is BF16, name
+            continue
+        # A small replay: ring slots, or (episodic, above 2 x lanes) rows.
+        runner = make(device="cpu", compute_dtype=BF16, capacity=96 if name in recurrent.RECIPES else 1_024)
+        assert runner.core.compute_dtype is BF16, name
+
+
+def test_profile_slice_times_under_the_torch_profiler(monkeypatch):
+    """``_profiled`` (also used by ``chip_smoke.py``) runs a function under
+    ``torch.profiler``; on the CPU it counts no kernels."""
+    from pfrl_tpu_torch.experiments import profile_slice
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    out, seconds, kernels, busy_us, top = profile_slice._profiled(lambda: torch.ones(8).sum())
+    assert float(out) == 8.0 and seconds >= 0.0
+    assert (kernels, busy_us, top) == (0, 0, [])
 
 
 def test_count_ops_counts_the_casts_that_bf16_adds():
