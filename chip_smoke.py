@@ -90,7 +90,23 @@ result, without them. Its phases, each raising on failure:
    device's busy share over profiled scan steps, then 5 x 500 steps of
    evaluation; then the five ``tools/record_curves.py`` recipes at their
    widths (16 lanes, LSTM 32) with their evaluation loops. No path of this
-   phase launches the prefix-sample kernel, and each asserts 0.
+   phase launches the prefix-sample kernel, and each asserts 0;
+13. ACER (``experiments/acer.py``) and the Atari on-policy examples on
+   ``SmallAtariCNN``: small card-vs-CPU runs of ACER on ABC, on the
+   continuous ABC (the SDN head) and on AtariSim at the recipes' network
+   widths (4 lanes, 12 rows), in float32 ulps, and of ACER-AtariSim at
+   bf16 in bf16 ulps, each held to 4x the larger of what 1 + 2**-23 and
+   1 - 2**-23 nudges of the weights move, at least 128 float32 or 8/16
+   bf16 ulps; then ACER-AtariSim at full width (``train_acer_ale.py
+   --sim``: 16 lanes of 84x84x4 frames, the 2,048 x 50 episodic buffer,
+   5.78 GB, with the behaviour's log-probs, its bytes printed; the
+   example's replay start of 10,000, then 100 timed scan steps of one
+   batch-16 update each; env-steps/s, updates/s, kernels per scan step and
+   the device's busy share over 4 profiled scan steps; evaluation 5 x 500),
+   and A2C (16 lanes, rollout 5, 40 iterations) and PPO (8 lanes, rollout
+   128, 4 iterations) on AtariSim at the examples' widths, each with its
+   kernels per iteration and evaluation 5 x 500. No path of this phase
+   launches the prefix-sample kernel, and each asserts 0.
 
 The kernels' launch counts are set to 0 just before each full-width path
 and read just after it; the kernels' JSON line gives their sum over the
@@ -100,6 +116,7 @@ kernels' JSON line, the card's name and power limit, and
 ``chiprun_out/chip_smoke.json``.
 """
 
+import copy
 import json
 import math
 import statistics
@@ -159,6 +176,13 @@ DRQN_ATARI_STEPS = (130, 183)       # warm (through replay start), timed
 DRQN_ATARI_PROFILED = 4             # scan steps under torch.profiler: the device's busy time
 RECURRENT_FULL_STEPS = {"drqn-po-abc-16": (10, 54), "drqn-delayedcue-16": (18, 46), "riqn-delayedcue-16": (18, 46),
                         "rppo-delayedcue-16": (1, 9), "rtrpo-delayedcue-16": (1, 9)}  # warm, timed
+# ACER-AtariSim at full width, the example's replay start of 10,000 uncut:
+# 625 scan steps of 16 lanes, acting only but for the first update on the
+# last of them, then timed scan steps of one batch-16 update each.
+ACER_ATARI_STEPS = (625, 100)       # warm (through replay start), timed
+ACER_ATARI_PROFILED = 4             # scan steps under torch.profiler: the device's busy time
+ACER_NUDGES = (1.0 + 2.0**-23, 1.0 - 2.0**-23)  # the small ACER runs' tolerance: the larger of both nudges
+ATARI_ONPOLICY_ITERATIONS = {"a2c-atarisim-16": 40, "ppo-atarisim-8": 4}  # timed, after one warm iteration
 
 
 def card_line() -> str:
@@ -772,8 +796,15 @@ def _small_actor_critic_configs() -> dict:
 
 
 def _networks(train_state) -> dict:
-    """name -> module, for every network of an actor-critic train state."""
-    return {k: v for k, v in vars(train_state).items() if isinstance(v, torch.nn.Module)}
+    """name -> module, for every network of a train state; ACER's SDN model
+    by its three parts (``model.pi``, ``model.vf``, ``model.adv``), which
+    are conditioned apart (ROADMAP C48)."""
+    nets = {}
+    for k, v in vars(train_state).items():
+        if isinstance(v, torch.nn.Module):
+            parts = ("pi", "vf", "adv") if all(hasattr(v, p) for p in ("pi", "vf", "adv")) else ()
+            nets.update({f"{k}.{p}": getattr(v, p) for p in parts} if parts else {k: v})
+    return nets
 
 
 def check_small_actor_critic(name: str, build, steps: int, device) -> dict:
@@ -1450,6 +1481,8 @@ def _computes_in(core, state, dtype) -> bool:
     """One forward of the acting network on the runner's observations: its
     first layer sees ``dtype`` inputs and weights, and the output is
     float32 (the network ran at the compute dtype, not in float32)."""
+    from pfrl_tpu_torch.utils.precision import map_floating
+
     train = state.train_state
     net = train.model if hasattr(train, "model") else train.policy
     layer = next(m for m in net.modules() if isinstance(m, (torch.nn.Linear, torch.nn.Conv2d)))
@@ -1461,7 +1494,8 @@ def _computes_in(core, state, dtype) -> bool:
         elif hasattr(core, "policy_dist"):
             outputs = [core.policy_dist(net, state.obs).loc]
         else:
-            outputs = list(core.forward(net, state.obs)[1:])
+            outputs = []
+            map_floating(lambda x: outputs.append(x) or x, core.forward(net, state.obs))
     hook.remove()
     return bool(seen) and all(s == (dtype, dtype) for s in seen) and all(o.dtype == torch.float32 for o in outputs)
 
@@ -1529,6 +1563,9 @@ def _bf16_differences(name, a, b, onpolicy: bool, ulp=BF16_ULP) -> dict:
         actions = ring(sa).storage["action"].cpu(), ring(sb).storage["action"].cpu()
         if actions[0].is_floating_point():  # actions in [-1, 1]
             out["ring actions"] = float((actions[0] - actions[1]).abs().max()) / ulp
+        for k, v in ring(sa).storage.get("extras", {}).items():
+            if isinstance(v, torch.Tensor):  # a behaviour distribution stored with each step (ACER)
+                out[f"stored {k}"] = _ulps(v, ring(sb).storage["extras"][k], ulp)
     nets_b = _networks(sb.train_state)
     for which, module in _networks(sa.train_state).items():
         if any(not torch.equal(p, p0) for p, p0 in zip(nets_b[which].parameters(), startb[which])):
@@ -1869,16 +1906,18 @@ def _recurrent_sides(core, state, dtype) -> bool:
             and av.q_values.dtype == f32 and all(c.dtype == f32 for c in carry[0]))
 
 
-def check_small_recurrent(name: str, build, steps: int, onpolicy: bool, ulp: float, loss_floor: float,
-                          change_floor: float, device) -> dict:
-    """A small run of one recurrent configuration on the card and on the CPU
-    from the same draws and weights, as ``check_small_bf16`` holds the bf16
-    runs: every metric and each network's change over the run in ulps
-    (float32, or bf16 at bf16), each held to ``BF16_SENSITIVITY`` times what
-    scaling the CPU run's initial weights by 1 + 2**-23 moves, and never
-    less than its floor, and so is the act-time carry; the actions stored,
-    the episodic buffer's rows and lengths and the step counters exact; after every update every master
-    and moment float32; no prefix-sample launch."""
+def check_small_in_ulps(name: str, build, steps: int, onpolicy: bool, ulp: float, loss_floor: float,
+                        change_floor: float, device, nudges=(1.0 + 2.0**-23,)) -> dict:
+    """A small run of one recurrent (or ACER) configuration on the card and
+    on the CPU from the same draws and weights, as ``check_small_bf16``
+    holds the bf16 runs: every metric and each network's change over the
+    run in ulps (float32, or bf16 at bf16), each held to
+    ``BF16_SENSITIVITY`` times what scaling the CPU run's initial weights by
+    each of ``nudges`` moves (the largest), and never less than its floor,
+    and so are the act-time carry and the behaviour statistics stored; the
+    discrete actions stored, the episodic buffer's rows and lengths and the
+    step counters exact; after every update every master and moment
+    float32; no prefix-sample launch."""
     from pfrl_tpu_torch.ops import prefix_sample as ps
 
     def run(dev, scale=1.0):
@@ -1898,11 +1937,17 @@ def check_small_recurrent(name: str, build, steps: int, onpolicy: bool, ulp: flo
     torch.cuda.synchronize()
     launches = ps.prefix_sample.launches
     _, cpu, cpu_checked = run("cpu")
-    _, nudged, _ = run("cpu", 1.0 + 2.0**-23)
     worst = _bf16_differences(name, gpu, cpu, onpolicy, ulp)
-    sensitivity = _bf16_differences(name, nudged, cpu, onpolicy, ulp)
-    for diffs, (side, _, _) in ((worst, gpu), (sensitivity, nudged)):
-        diffs["carry"] = max(_ulps(a, b, ulp) for a, b in zip(_leaves(side.act_state), _leaves(cpu[0].act_state)))
+    sensitivity = {}
+    for scale in nudges:
+        _, nudged, _ = run("cpu", scale)
+        for k, v in _bf16_differences(name, nudged, cpu, onpolicy, ulp).items():
+            sensitivity[k] = max(v, sensitivity.get(k, 0.0))
+        if _leaves(cpu[0].act_state):  # a recurrent core's carry
+            carry = max(_ulps(a, b, ulp) for a, b in zip(_leaves(nudged[0].act_state), _leaves(cpu[0].act_state)))
+            sensitivity["carry"] = max(carry, sensitivity.get("carry", 0.0))
+    if _leaves(cpu[0].act_state):
+        worst["carry"] = max(_ulps(a, b, ulp) for a, b in zip(_leaves(gpu[0].act_state), _leaves(cpu[0].act_state)))
     # Standardized advantages put the policy losses (TRPO's loss too) and the
     # explained variance near 0 by construction: printed, not held.
     unheld = {"policy_loss", "explained_variance"} | ({"loss"} if "trpo" in name else set()) if onpolicy else set()
@@ -1919,15 +1964,18 @@ def check_small_recurrent(name: str, build, steps: int, onpolicy: bool, ulp: flo
         checks["episodes ended inside the run"] = int(gs.recent_count) == int(cs.recent_count) > 0
     else:
         g, c = gs.replay_state, cs.replay_state
-        checks["actions stored equal"] = torch.equal(g.storage["action"].cpu(), c.storage["action"])
+        if not c.storage["action"].is_floating_point():  # continuous actions are held in ulps
+            checks["actions stored equal"] = torch.equal(g.storage["action"].cpu(), c.storage["action"])
         checks["rows, lengths and seals equal"] = all(
             torch.equal(getattr(g, k).cpu(), getattr(c, k)) for k in ("ep_len", "finished", "lane_row", "n_started"))
         if not name.endswith("bf16"):
             checks["every lane's ring wrapped"] = int(g.n_started) - 4 >= runner.buffer.max_episodes // 4 * 4
         checks["windows were sampled"] = int(gs.train_state.n_updates) >= 2
-    if name.endswith("bf16"):
+    if name.endswith("bf16") and name.startswith("drqn"):
         checks["the CNN and the LSTM's input side compute in bf16, its hidden side in float32"] = _recurrent_sides(
             runner.core, gs, torch.bfloat16)
+    elif name.endswith("bf16"):
+        checks["the network computes in bf16 on the card"] = _computes_in(runner.core, gs, torch.bfloat16)
     checks.update({f"{k} within {tolerance[k]:.2f} ulps": worst[k] <= tolerance[k] for k in tolerance})
     unit = "bf16" if ulp == BF16_ULP else "float32"
     print(f"small {name}: card vs CPU over {steps} {'iterations' if onpolicy else 'scan steps'}, "
@@ -2094,6 +2142,194 @@ def run_full_recurrent(card: str, name: str) -> dict:
     return result
 
 
+# -------------------------------------------------------------------- phase 13
+def _small_acer_configs() -> dict:
+    """name -> (function making a small runner on a device, scan steps, ulp,
+    metric floor, change floor). The recipes' networks at full width
+    (ABC: Dense 64; continuous ABC: the SDN at 32; AtariSim: the example's
+    ``SmallAtariCNN`` PiQ) over 4 lanes and 12 rows (3 per lane, every
+    lane's ring wraps), one batch-4 update of whole rows per scan step from
+    16 transitions on (AtariSim: rows of 8 sealed by filling, from 32 on);
+    the bf16 AtariSim run stops after its first three updates."""
+    from pfrl_tpu_torch.experiments import acer
+
+    abc = dict(num_envs=4, max_episodes=12, replay_start_size=16, update_interval=4, minibatch_size=4)
+    atari = dict(abc, max_episode_len=8, replay_start_size=32)
+    fp32 = (FP32_ULP, FP32_LOSS_ULPS, FP32_CHANGE_ULPS)
+    return {
+        "acer-abc": (lambda dev: acer.make_acer_abc_runner(device=dev, **abc)[0], 14, *fp32),
+        "acer-continuous-abc": (lambda dev: acer.make_acer_continuous_abc_runner(device=dev, **abc)[0], 14, *fp32),
+        "acer-atarisim": (lambda dev: acer.make_acer_atarisim_runner(device=dev, **atari)[0], 25, *fp32),
+        "acer-atarisim-bf16": (lambda dev: acer.make_acer_atarisim_runner(
+            device=dev, compute_dtype=torch.bfloat16, **atari)[0], 10, BF16_ULP, BF16_LOSS_ULPS, BF16_CHANGE_ULPS),
+    }
+
+
+def _acer_bytes(replay) -> dict:
+    """Bytes of ACER's episodic buffer on the card: frames, the behaviour's
+    log-probs, the rest."""
+    storage = replay.storage
+    size = lambda x: x.numel() * x.element_size()  # noqa: E731
+    frames = sum(size(storage[k]) for k in ("obs", "next_obs"))
+    mu = sum(size(v) for v in storage["extras"].values())
+    rest = sum(size(storage[k]) for k in storage if k not in ("obs", "next_obs", "extras"))
+    return {"frames": frames, "mu_logits": mu, "rest": rest, "total": frames + mu + rest}
+
+
+def run_full_acer_atarisim(card: str) -> dict:
+    """``train_acer_ale.py --sim`` at full width on the card: 16 lanes of
+    84x84x4 frames (episodes of mean length 50), ``SmallAtariCNN`` PiQ,
+    RMSprop, the trust region, the 2,048 x 50 episodic buffer (obs,
+    next_obs and the behaviour's log-probs), one batch-16 update of whole
+    rows per scan step from the example's replay start of 10,000 on:
+    ``ACER_ATARI_STEPS`` scan steps through replay start and on, then
+    ``ACER_ATARI_PROFILED`` under ``torch.profiler`` (busy time over those
+    steps' own wall time), then the evaluation loop (5 lanes x 500 steps)."""
+    from pfrl_tpu_torch.experiments.acer import make_acer_atarisim_runner
+    from pfrl_tpu_torch.experiments.profile_slice import _profiled
+    from pfrl_tpu_torch.ops.prefix_sample import prefix_sample
+
+    runner, evaluator = make_acer_atarisim_runner()
+    cfg, buf = runner.config, runner.buffer
+    state = runner.init(0)
+    torch.cuda.synchronize()
+    nbytes = _acer_bytes(state.replay_state)
+    print(f"acer-atarisim-16: episodic buffer of {buf.max_episodes} rows x {buf.max_episode_len} steps on the card: "
+          f"{nbytes['total'] / 1e9:.3f} GB (frames, obs and next_obs: {nbytes['frames'] / 1e9:.3f} GB; mu_logits "
+          f"{nbytes['mu_logits'] / 1e6:.3f} MB; the rest {nbytes['rest'] / 1e6:.3f} MB); "
+          f"{torch.cuda.memory_allocated() / 1e9:.3f} GB allocated")
+    train = state.train_state
+    initial = copy.deepcopy(train.model)
+    warm_steps, timed_steps = ACER_ATARI_STEPS
+    prefix_sample.launches = 0
+    t0 = time.perf_counter()
+    state, warm = runner.run_chunk(state, warm_steps)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    sealed = int(state.replay_state.n_finished)
+    t1 = time.perf_counter()
+    state, timed = runner.run_chunk(state, timed_steps)
+    torch.cuda.synchronize()
+    timed_s = time.perf_counter() - t1
+    (state, _), profiled_s, kernels, busy_us, top = _profiled(lambda: runner.run_chunk(state, ACER_ATARI_PROFILED))
+    launches = prefix_sample.launches
+    steps = warm_steps + timed_steps + ACER_ATARI_PROFILED
+    updates = _updates_in(cfg, 1, steps)
+    timed_updates = _updates_in(cfg, warm_steps + 1, warm_steps + timed_steps)
+    scan_step_ms = timed_s / timed_steps * 1e3
+    busy_ms = busy_us / ACER_ATARI_PROFILED / 1e3
+    profiled_ms = profiled_s / ACER_ATARI_PROFILED * 1e3
+    t2 = time.perf_counter()
+    returns = evaluator.evaluate(train, state.draws)
+    eval_s = time.perf_counter() - t2
+    loss = torch.cat([warm["loss"], timed["loss"]])
+    lags, moved = _distance(train.avg_model, train.model), _distance(initial, train.model)
+    mu = state.replay_state.storage["extras"]["mu_logits"][state.replay_state.finished]
+    checks = {
+        "the buffer holds 2,048 x 50 frame pairs, 5.78 GB, and the behaviour's log-probs": buf.max_episodes == 2_048
+        and buf.max_episode_len == 50 and 5.7e9 < nbytes["frames"] < 5.9e9
+        and nbytes["mu_logits"] == 2_048 * 50 * 6 * 4,
+        "rows sealed by replay start": sealed >= cfg.num_envs,
+        "the first update on the last warm step, then one per scan step": warm_steps * cfg.num_envs
+        == cfg.replay_start_size and train.n_updates == updates == steps - warm_steps + 1,
+        "losses finite": bool(torch.isfinite(loss).all()),
+        "the average model lags the model": 0.0 < lags < moved,
+        "stored behaviour log-probs normalised": bool(torch.allclose(mu[:, 0].exp().sum(-1),
+                                                                     torch.ones((), device=mu.device), atol=1e-5)),
+        "no prefix-sample launch": launches == 0,
+        "evaluation returns finite": bool(np.isfinite(returns).all()) and returns.shape == (5,),
+    }
+    _raise_on_failed("acer-atarisim-16", checks)
+    result = {
+        "steps": steps, "t": state.t, "n_updates": updates, "kernel_launches": launches, "buffer_bytes": nbytes,
+        "sealed_rows_at_replay_start": sealed,
+        "acting_env_steps_per_s": warm_steps * cfg.num_envs / warm_s,
+        "env_steps_per_s": timed_steps * cfg.num_envs / timed_s,
+        "updates_per_s": timed_updates / timed_s,
+        "scan_step_ms": scan_step_ms,
+        "profiled_scan_step_ms": profiled_ms,
+        "device_launches_per_step": kernels / ACER_ATARI_PROFILED,
+        "device_busy_ms_per_step": busy_ms,
+        "device_busy_share": busy_ms / profiled_ms,  # over the profiled steps' own wall time
+        "top_device_ops": [{"name": n, "ms_per_step": us / ACER_ATARI_PROFILED / 1e3,
+                            "launches_per_step": k / ACER_ATARI_PROFILED} for n, (us, k) in top[:8]],
+        "warm_chunk_s": warm_s, "timed_chunk_s": timed_s, "timed_scan_steps": timed_steps,
+        "eval_s": eval_s, "eval_returns": [float(r) for r in returns], "last_loss": float(loss[-1]),
+    }
+    print(
+        f"acer-atarisim-16: env-steps/s {result['env_steps_per_s']:.1f} updates/s {result['updates_per_s']:.1f} over "
+        f"{timed_steps} scan steps with updates ({scan_step_ms:.2f} ms each, one batch-16 update of whole 50-step "
+        f"rows per scan step); through replay start, acting only but for the last step: "
+        f"{result['acting_env_steps_per_s']:.1f} env-steps/s over {warm_steps} scan steps; over "
+        f"{ACER_ATARI_PROFILED} profiled scan steps of {profiled_ms:.2f} ms each, device busy {busy_ms:.2f} ms per "
+        f"scan step ({result['device_busy_share'] * 100:.1f}% of those steps' own time), "
+        f"{result['device_launches_per_step']:.1f} kernels per scan step; {launches} prefix-sample launches; "
+        f"evaluation {eval_s:.2f} s, returns {result['eval_returns']}; last loss {result['last_loss']:.5f} "
+        f"(fp32, no TF32) on {card}"
+    )
+    return result
+
+
+def run_full_atari_onpolicy(card: str, name: str) -> dict:
+    """``train_a2c_ale.py --sim`` or ``train_ppo_ale.py --sim`` at full width
+    (``SmallAtariCNN`` PiV on 84x84x4 AtariSim frames): one warm iteration,
+    ``ATARI_ONPOLICY_ITERATIONS[name]`` timed, one under ``torch.profiler``
+    (kernels per iteration, busy time over its own wall time), then the
+    examples' evaluation loop (5 lanes x 500 steps)."""
+    from pfrl_tpu_torch.experiments import onpolicy as onp
+    from pfrl_tpu_torch.experiments.profile_slice import _profiled
+    from pfrl_tpu_torch.experiments.runner import EvalLoop
+    from pfrl_tpu_torch.ops.prefix_sample import prefix_sample
+
+    make = {"a2c-atarisim-16": onp.make_a2c_atarisim_runner, "ppo-atarisim-8": onp.make_ppo_atarisim_runner}[name]
+    runner = make()
+    core, lanes, T = runner.core, runner.num_envs, runner.rollout_len
+    per_iteration = 1 if name.startswith("a2c") else core.epochs * core.minibatch_shape(lanes * T)[0]
+    iterations = ATARI_ONPOLICY_ITERATIONS[name]
+    state = runner.init(0)
+    train = state.train_state
+    prefix_sample.launches = 0
+    state, _ = runner.run_iterations(state, 1)  # warm: allocates the rollout
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, aux = runner.run_iterations(state, iterations)
+    torch.cuda.synchronize()
+    timed_s = time.perf_counter() - t0
+    (state, _), profiled_s, kernels, busy_us, _ = _profiled(lambda: runner.run_iterations(state, 1))
+    launches = prefix_sample.launches
+    t1 = time.perf_counter()
+    returns = EvalLoop(runner.env.env, core, 5, 500, device=runner.device).evaluate(train, state.draws)
+    eval_s = time.perf_counter() - t1
+    scalars = [k for k in aux if k != "errors"]
+    checks = {
+        "t advanced": state.t == (iterations + 2) * T * lanes,
+        "n_updates as expected": train.n_updates == (iterations + 2) * per_iteration,
+        "every metric finite": all(bool(torch.isfinite(aux[k]).all()) for k in scalars),
+        "no prefix-sample launch": launches == 0,
+        "evaluation returns finite": bool(np.isfinite(returns).all()) and returns.shape == (5,),
+    }
+    _raise_on_failed(name, checks)
+    result = {
+        "iterations": iterations, "t": state.t, "n_updates": train.n_updates, "kernel_launches": launches,
+        "env_steps_per_s": iterations * T * lanes / timed_s,
+        "updates_per_s": iterations * per_iteration / timed_s,
+        "iteration_ms": timed_s / iterations * 1e3,
+        "profiled_iteration_ms": profiled_s * 1e3,
+        "device_launches_per_iteration": kernels,
+        "device_busy_ms_per_iteration": busy_us / 1e3,
+        "device_busy_share": busy_us / 1e6 / profiled_s,  # over the profiled iteration's own wall time
+        "finished_episodes": int(state.recent_count), "eval_s": eval_s, "eval_returns": [float(r) for r in returns],
+        "last": {k: float(aux[k][-1]) for k in scalars},
+    }
+    print(f"{name}: env-steps/s {result['env_steps_per_s']:.1f} updates/s {result['updates_per_s']:.1f} over "
+          f"{iterations} iterations ({result['iteration_ms']:.1f} ms each: {lanes} lanes x rollout {T}, "
+          f"{per_iteration} gradient steps); {kernels} kernels in one profiled iteration of "
+          f"{result['profiled_iteration_ms']:.1f} ms, device busy {result['device_busy_ms_per_iteration']:.2f} ms "
+          f"({result['device_busy_share'] * 100:.1f}%); {launches} prefix-sample launches; evaluation {eval_s:.2f} s; "
+          f"last {json.dumps(result['last'])} (fp32, no TF32) on {card}")
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2166,11 +2402,17 @@ def main() -> int:
         "ppo-mujocosim-8-bf16": phase("full ppo bf16", run_full_onpolicy, card, "ppo", bf16),
     }
     for name, (build, steps, onpolicy, ulp, floor, change_floor) in _small_recurrent_configs().items():
-        record["small_slices"][name] = phase(f"small {name}", check_small_recurrent, name, build, steps, onpolicy,
+        record["small_slices"][name] = phase(f"small {name}", check_small_in_ulps, name, build, steps, onpolicy,
                                              ulp, floor, change_floor, device)
     record["full_recurrent"] = {"drqn-atarisim-32": phase("full drqn-atarisim-32", run_full_drqn_atarisim, card)}
     for name in RECURRENT_FULL_STEPS:
         record["full_recurrent"][name] = phase(f"full {name}", run_full_recurrent, card, name)
+    for name, (build, steps, ulp, floor, change_floor) in _small_acer_configs().items():
+        record["small_slices"][name] = phase(f"small {name}", check_small_in_ulps, name, build, steps, False,
+                                             ulp, floor, change_floor, device, ACER_NUDGES)
+    record["full_acer"] = {"acer-atarisim-16": phase("full acer-atarisim-16", run_full_acer_atarisim, card)}
+    for name in ATARI_ONPOLICY_ITERATIONS:
+        record["full_acer"][name] = phase(f"full {name}", run_full_atari_onpolicy, card, name)
     # Counted over each path that samples by priority, from 0 at its start;
     # every other path asserts a count of 0.
     kernel["launches_by_path"] = {
@@ -2181,6 +2423,7 @@ def main() -> int:
         "dqn-atarisim-64 fp32/bf16 A/B": record["bench_dqn_ab"]["kernel_launches"],
         **{name: r["kernel_launches"] for name, r in record["full_bf16"].items()},
         **{name: r["kernel_launches"] for name, r in record["full_recurrent"].items()},
+        **{name: r["kernel_launches"] for name, r in record["full_acer"].items()},
     }
     kernel["launches"] = sum(kernel["launches_by_path"].values())
     record["kernels"] = [kernel]

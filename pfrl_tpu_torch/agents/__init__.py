@@ -1,4 +1,5 @@
 from pfrl_tpu_torch.agents.a2c import A2CCore  # noqa: F401
+from pfrl_tpu_torch.agents.acer import ACERContinuousCore, ACERCore, ACERSDNModel, ACERState  # noqa: F401
 from pfrl_tpu_torch.agents.al import ALCore  # noqa: F401
 from pfrl_tpu_torch.agents.categorical_dqn import (  # noqa: F401
     CategoricalDoubleDQNCore,

@@ -34,6 +34,7 @@ import torch
 from torch import nn
 
 from pfrl_tpu_torch._device import resolve_device
+from pfrl_tpu_torch.agents.acer import ACERState
 from pfrl_tpu_torch.agents.ddpg import ActorCriticState, DDPGCore
 from pfrl_tpu_torch.agents.dqn import DQNCore, DQNState
 from pfrl_tpu_torch.agents.ppo import PPOCore, PPOState
@@ -241,5 +242,18 @@ def trpo_state_from_flax(core: TRPOCore, flax_state, device=None) -> TRPOState:
         _load_network(core.vf, flax_state, "vf_params", device),
     )
     _load_optimizer(core.vf_optimizer, state.vf_opt_state, state.vf, flax_state.vf_opt_state)
+    state.n_updates = int(np.asarray(flax_state.n_updates))
+    return state
+
+
+def acer_state_from_flax(core, flax_state, device=None) -> ACERState:
+    """A whole JAX ``ACERState`` (or ``ACERContinuousState``) into the
+    port's: the model (``params``), the average model (``avg_params``), the
+    optimizer's state (Adam's or RMSprop's moments) and ``n_updates``."""
+    device = resolve_device(device)
+    model = _load_network(core.model, flax_state, "params", device)
+    state = core.state_from_model(model)
+    load_flax_params(state.avg_model, flax_state.avg_params)
+    _load_optimizer(core.optimizer, state.opt_state, model, flax_state.opt_state)
     state.n_updates = int(np.asarray(flax_state.n_updates))
     return state

@@ -8,8 +8,13 @@ episode (state ``size``); continuing: the goal returns to state 0.
 offset: with ``deterministic`` it is ``episode % 2`` of an episode counter
 that every reset sets to 1, as the JAX env's does (so the offset is always
 1); otherwise one ``draws.randint(2, L)`` per reset. Continuous actions are
-``size`` logits clipped to [-1, 1]; only their deterministic (argmax) form
-is ported, the stochastic one (a categorical draw per step) is not yet.
+``size`` logits clipped to [-1, 1]: ``deterministic`` takes their argmax,
+otherwise each lane draws its inner action by ``categorical`` over them, one
+uniform of ``[L, size]`` per step (the JAX env's ``categorical(rng_a,
+clip(a, -1, 1))``). That form asks for a draw source on ``step``
+(``draws_on_step``), which :class:`~pfrl_tpu_torch.envs.vector_env.
+VectorTorchEnv` passes before it draws the lanes' resets, as the JAX vector
+env splits its step keys before its reset keys.
 """
 
 import dataclasses
@@ -22,6 +27,7 @@ import torch.nn.functional as F
 from pfrl_tpu_torch import spaces
 from pfrl_tpu_torch._device import resolve_device
 from pfrl_tpu_torch.env import TimeStep, TorchEnv
+from pfrl_tpu_torch.utils.draws import categorical
 
 
 @dataclasses.dataclass
@@ -41,8 +47,6 @@ class ABC(TorchEnv):
         deterministic: bool = False,
         device=None,
     ):
-        if not discrete and not deterministic:
-            raise NotImplementedError("the stochastic continuous ABC (a categorical draw per step) is not ported")
         self.size = size
         self.discrete = discrete
         self.partially_observable = partially_observable
@@ -53,6 +57,11 @@ class ABC(TorchEnv):
         self.observation_space = spaces.box(-math.inf, math.inf, (self.n_dim_obs,))
         self.action_space = spaces.Discrete(size) if discrete else spaces.box(-1.0, 1.0, (size,))
         self.device = resolve_device(device)
+
+    @property
+    def draws_on_step(self) -> bool:
+        """The stochastic continuous form draws its inner action each step."""
+        return not self.discrete and not self.deterministic
 
     def _observe(self, s: torch.Tensor, offset: torch.Tensor) -> torch.Tensor:
         return F.one_hot((s + offset).to(torch.int64), self.n_dim_obs).to(torch.float32)
@@ -69,11 +78,16 @@ class ABC(TorchEnv):
         state = ABCState(s=zeros, offset=offset, episode=episode)
         return state, self._observe(state.s, offset)
 
-    def step(self, state: ABCState, actions: torch.Tensor) -> Tuple[ABCState, TimeStep]:
+    def step(self, state: ABCState, actions: torch.Tensor, draws=None) -> Tuple[ABCState, TimeStep]:
+        """``draws`` is needed by the stochastic continuous form only."""
         if self.discrete:
             inner = actions.to(torch.int32)
-        else:
+        elif self.deterministic:
             inner = torch.argmax(torch.clamp(actions, -1.0, 1.0), dim=-1).to(torch.int32)
+        else:
+            if draws is None:
+                raise ValueError("the stochastic continuous ABC draws its action on each step: pass draws")
+            inner = categorical(draws, torch.clamp(actions, -1.0, 1.0)).to(torch.int32)
         correct = inner == state.s
         at_goal = correct & (state.s == self.size - 1)
         reward = torch.where(at_goal, 1.0, 0.0)

@@ -47,8 +47,13 @@ class VectorTorchEnv:
 
     def step(self, draws, states: Any, actions: torch.Tensor) -> Tuple[Any, VecStep]:
         """Steps every lane, and draws a reset for every lane as the JAX env
-        does, keeping it only where the episode ended."""
-        new_states, ts = self.env.step(states, actions)
+        does, keeping it only where the episode ended. An env that draws on
+        its step (``draws_on_step``) is handed ``draws`` first: the JAX env
+        splits its step keys before its reset keys."""
+        if getattr(self.env, "draws_on_step", False):
+            new_states, ts = self.env.step(states, actions, draws)
+        else:
+            new_states, ts = self.env.step(states, actions)
         reset_states, reset_obs = self.env.reset(draws, self.num_envs)
         done = ts.done
         out_states = _lane_where(done, reset_states, new_states)

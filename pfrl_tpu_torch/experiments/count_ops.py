@@ -14,12 +14,16 @@ The on-policy configurations (``ppo``, ``ppo-pendulum``, ``trpo``,
 ``a2c``) count per iteration, after one warm iteration; ``--steps`` counts
 iterations there.
 The recurrent family's configurations count the same way
-(``rppo-delayedcue-16`` and ``rtrpo-delayedcue-16`` per iteration).
+(``rppo-delayedcue-16`` and ``rtrpo-delayedcue-16`` per iteration), and so
+do ACER's (``acer-atarisim-16``, ``acer-abc-16``,
+``acer-continuous-abc-16``) and the Atari on-policy examples'
+(``a2c-atarisim-16``, ``ppo-atarisim-8``, per iteration).
 ``--bf16`` builds the configuration at ``compute_dtype=torch.bfloat16``.
 ``--capacity`` shrinks the replay ring, which changes no op of a scan step
 (the AtariSim configurations' 100,000 frame slots need 2.8 GB otherwise);
 for the episodic buffers it is the number of rows (``drqn-atarisim-32``'s
-2,048 rows of 128 frames and carries need 5.9 GB); the on-policy
+2,048 rows of 128 frames and carries need 5.9 GB, ``acer-atarisim-16``'s
+2,048 rows of 50 frame pairs 5.8 GB); the on-policy
 configurations keep no replay, and it does not apply to them.
 """
 

@@ -1,5 +1,6 @@
-"""On-policy recipes through ``OnPolicyRunner``: PPO on MujocoSim and on
-Pendulum, TRPO on Pendulum and A2C on CartPole.
+"""On-policy recipes through ``OnPolicyRunner``: PPO on MujocoSim, on
+Pendulum and on AtariSim, TRPO on Pendulum, and A2C on CartPole and on
+AtariSim.
 
 - :func:`make_ppo_runner` is ``bench.py``'s ``bench_ppo``: 8 lanes of
   ``MujocoSim()`` (obs 17, action 6, truncation at 1,000), rollout 256 (2,048
@@ -20,9 +21,22 @@ Pendulum, TRPO on Pendulum and A2C on CartPole.
   with a softmax head over ``Dense(2)`` and a ``Dense(1)`` value,
   RMSprop(7e-4, decay 0.99, eps 1e-5) after clipping the gradients' global
   norm at 40, entropy bonus 0.01, value loss weight 0.5.
+- :func:`make_a2c_atarisim_runner` is ``examples/atari/train_a2c_ale.py
+  --sim``: 16 lanes of AtariSim (84x84x4 uint8 frames, 6 actions), rollout
+  5, :class:`AtariPiV` (``SmallAtariCNN`` -> 256, a softmax head over
+  ``Dense(6)`` and a ``Dense(1)`` value), RMSprop(7e-4, decay 0.99, eps
+  1e-5) after clipping the gradients' global norm at 40, entropy bonus
+  0.01, value loss weight 0.5, n-step returns or, with ``use_gae``, GAE
+  with tau 0.95.
+- :func:`make_ppo_atarisim_runner` is ``examples/atari/train_ppo_ale.py
+  --sim``: 8 lanes of AtariSim, rollout 128 (1,024 transitions per
+  iteration), the same :class:`AtariPiV`, Adam(2.5e-4, eps 1e-5), 4 epochs
+  of batch-256 minibatches, clip 0.1, entropy bonus 0.01, standardized
+  advantages.
 
-Their evaluation is ``EvalLoop(env, runner.core, 10, 201)`` (Pendulum) or
-``EvalLoop(env, runner.core, 10, 501)`` (CartPole). Every layer outside the
+Their evaluation is ``EvalLoop(env, runner.core, 10, 201)`` (Pendulum),
+``EvalLoop(env, runner.core, 10, 501)`` (CartPole) or
+``EvalLoop(env, runner.core, 5, 500)`` (AtariSim, the examples'). Every layer outside the
 value-function MLP has flax ``nn.Dense``'s default init (truncated LeCun
 normal, zero bias), and each module names its flax scopes
 (``flax_names``) so that ``convert.py`` loads the JAX package's parameters.
@@ -43,15 +57,18 @@ from pfrl_tpu_torch.agents.a2c import A2CCore
 from pfrl_tpu_torch.agents.ppo import PPOCore
 from pfrl_tpu_torch.agents.trpo import TRPOCore
 from pfrl_tpu_torch.env import TorchEnv
+from pfrl_tpu_torch.envs.atari_sim import AtariSim
 from pfrl_tpu_torch.envs.cartpole import CartPole
 from pfrl_tpu_torch.envs.mujoco_sim import MujocoSim
 from pfrl_tpu_torch.envs.pendulum import Pendulum
 from pfrl_tpu_torch.envs.wrappers import TimeLimit
 from pfrl_tpu_torch.experiments.onpolicy_runner import OnPolicyRunner
+from pfrl_tpu_torch.models.atari_cnn import SmallAtariCNN
 from pfrl_tpu_torch.models.layers import Linear
-from pfrl_tpu_torch.models.mlp import MLP
+from pfrl_tpu_torch.models.mlp import MLP, scoped_names
 from pfrl_tpu_torch.optimizers import Adam, RMSprop
 from pfrl_tpu_torch.policies import GaussianHeadWithStateIndependentCovariance, SoftmaxCategoricalHead
+from pfrl_tpu_torch.utils.batch_states import atari_phi
 
 _GAUSSIAN_HEAD = "GaussianHeadWithStateIndependentCovariance_0"
 
@@ -156,6 +173,29 @@ class SoftmaxPiV(_FlaxCompact):
         return self.head(self.out[0](h)), self.out[1](h)
 
 
+class AtariPiV(nn.Module):
+    """The Atari examples' ``PiV``: ``SmallAtariCNN_0``, then the logits
+    ``Dense_0`` under a softmax head and the value ``Dense_1``."""
+
+    def __init__(self, n_actions: int = 6, n_input_channels: int = 4):
+        super().__init__()
+        self.torso = SmallAtariCNN(n_input_channels=n_input_channels)
+        self.logits = Dense(256, n_actions)
+        self.v = Dense(256, 1)
+        self.head = SoftmaxCategoricalHead()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        for module in (self.torso, self.logits, self.v):
+            module.reset_parameters(generator)
+
+    def flax_names(self) -> Dict[str, str]:
+        return {**scoped_names("torso", "SmallAtariCNN_0", self.torso), "logits": "Dense_0", "v": "Dense_1"}
+
+    def forward(self, x: torch.Tensor):
+        h = self.torso(x)
+        return self.head(self.logits(h)), self.v(h)
+
+
 def time_limited_pendulum(device=None) -> TorchEnv:
     return TimeLimit(Pendulum(device=device), 200)
 
@@ -256,6 +296,62 @@ def make_a2c_cartpole_runner(
         entropy_coeff=0.01,
         v_loss_coef=0.5,
         max_grad_norm=40.0,
+        compute_dtype=compute_dtype,
+    )
+    return OnPolicyRunner(env, core, num_envs, rollout_len, device=env.device)
+
+
+def make_a2c_atarisim_runner(
+    num_envs: int = 16,
+    rollout_len: int = 5,
+    n_actions: int = 6,
+    use_gae: bool = False,
+    env: Optional[TorchEnv] = None,
+    compute_dtype: Optional[torch.dtype] = None,
+    device=None,
+) -> OnPolicyRunner:
+    """A2C at the given sizes (defaults: ``train_a2c_ale.py --sim``'s);
+    ``env`` defaults to ``AtariSim(n_actions)``."""
+    env = AtariSim(n_actions=n_actions, device=device) if env is None else env
+    core = A2CCore(
+        AtariPiV(n_actions),
+        RMSprop(7e-4, decay=0.99, eps=1e-5),
+        gamma=0.99,
+        use_gae=use_gae,
+        tau=0.95,
+        entropy_coeff=0.01,
+        v_loss_coef=0.5,
+        max_grad_norm=40.0,
+        phi=atari_phi,
+        compute_dtype=compute_dtype,
+    )
+    return OnPolicyRunner(env, core, num_envs, rollout_len, device=env.device)
+
+
+def make_ppo_atarisim_runner(
+    num_envs: int = 8,
+    rollout_len: int = 128,
+    epochs: int = 4,
+    minibatch_size: int = 256,
+    n_actions: int = 6,
+    env: Optional[TorchEnv] = None,
+    compute_dtype: Optional[torch.dtype] = None,
+    device=None,
+) -> OnPolicyRunner:
+    """PPO at the given sizes (defaults: ``train_ppo_ale.py --sim``'s);
+    ``env`` defaults to ``AtariSim(n_actions)``."""
+    env = AtariSim(n_actions=n_actions, device=device) if env is None else env
+    core = PPOCore(
+        AtariPiV(n_actions),
+        Adam(2.5e-4, eps=1e-5),
+        gamma=0.99,
+        lambd=0.95,
+        clip_eps=0.1,
+        entropy_coef=0.01,
+        epochs=epochs,
+        minibatch_size=minibatch_size,
+        standardize_advantages=True,
+        phi=atari_phi,
         compute_dtype=compute_dtype,
     )
     return OnPolicyRunner(env, core, num_envs, rollout_len, device=env.device)

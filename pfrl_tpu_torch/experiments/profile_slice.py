@@ -5,7 +5,8 @@
                   rainbow-cartpole|al-cartpole|iqn-cartpole|dqn-cartpole-example|
                   ppo|ppo-pendulum|trpo|a2c|drqn-atarisim-32|drqn-po-abc-16|
                   drqn-delayedcue-16|riqn-delayedcue-16|rppo-delayedcue-16|
-                  rtrpo-delayedcue-16]
+                  rtrpo-delayedcue-16|acer-atarisim-16|acer-abc-16|
+                  acer-continuous-abc-16|a2c-atarisim-16|ppo-atarisim-8]
         [--steps 8] [--bf16] [--out PATH]
 
 Runs one configuration at full width on the CUDA device. On 64 lanes of
@@ -69,6 +70,17 @@ the step, env step, store) and the update, split into GAE and the chunk
 unrolls with backward and optimizer (PPO), or the policy step (of which CG
 and the line search) and the value function's fit over chunks (TRPO).
 
+ACER (``experiments/acer.py``): ``acer-atarisim-16``
+(``make_acer_atarisim_runner()``: 16 lanes of 84x84x4 AtariSim frames,
+``SmallAtariCNN``, one batch-16 update of whole 50-step rows per scan
+step over the 2,048 x 50 episodic buffer on the card, from 10,000
+transitions on), ``acer-abc-16`` and ``acer-continuous-abc-16`` take the
+episodic phases with the act that stores the behaviour distribution, and
+the update's Retrace recursion apart. The Atari on-policy examples,
+``a2c-atarisim-16`` (16 lanes, rollout 5, one step per iteration) and
+``ppo-atarisim-8`` (8 lanes, rollout 128, 16 batch-256 Adam steps per
+iteration), take the on-policy phases of A2C and PPO.
+
 ``--bf16`` builds the configuration at ``compute_dtype=torch.bfloat16``
 (bf16 compute over float32 masters, as the examples' ``--bf16``); TRPO
 refuses it by name.
@@ -88,6 +100,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from pfrl_tpu_torch.agents import a2c as a2c_module
+from pfrl_tpu_torch.agents import acer as acer_module
 from pfrl_tpu_torch.agents import ppo as ppo_module
 from pfrl_tpu_torch.agents import recurrent_ppo as rppo_module
 from pfrl_tpu_torch.agents import recurrent_trpo as rtrpo_module
@@ -97,7 +110,7 @@ from pfrl_tpu_torch.agents.ppo import PPOCore
 from pfrl_tpu_torch.agents.recurrent_ppo import RecurrentPPOCore
 from pfrl_tpu_torch.agents.recurrent_trpo import RecurrentTRPOCore
 from pfrl_tpu_torch.agents.trpo import TRPOCore
-from pfrl_tpu_torch.experiments import cartpole_value, onpolicy, recurrent
+from pfrl_tpu_torch.experiments import acer, cartpole_value, onpolicy, recurrent
 from pfrl_tpu_torch.experiments.atari_per_dqn import make_dqn_runner, make_per_dqn_runner
 from pfrl_tpu_torch.experiments.atari_rainbow import make_rainbow_runner
 from pfrl_tpu_torch.experiments.mujoco_actor_critic import (
@@ -144,6 +157,9 @@ CONFIGS = {
     "riqn-delayedcue-16": _maker(recurrent.make_riqn_delayed_cue_runner, "max_episodes"),
     "rppo-delayedcue-16": _maker(recurrent.make_rppo_delayed_cue_runner, None),
     "rtrpo-delayedcue-16": _maker(recurrent.make_rtrpo_delayed_cue_runner, None),
+    **{name: _maker(make, "max_episodes") for name, make in acer.RECIPES.items()},
+    "a2c-atarisim-16": _maker(onpolicy.make_a2c_atarisim_runner, None),
+    "ppo-atarisim-8": _maker(onpolicy.make_ppo_atarisim_runner, None),
 }
 
 # Labels that start with two spaces are parts of the phase above them.
@@ -176,6 +192,7 @@ UNIFORM_PHASES = (
 )
 EPISODIC_PHASES = (
     ("core", "select_action_recurrent", "act"),
+    ("core", "select_action_with_extras", "act"),
     ("env", "step", "env step"),
     ("buffer", "add", "replay add"),
     ("buffer", "sample_episodes", "window sample"),
@@ -186,6 +203,8 @@ EPISODIC_PHASES = (
     ("optimizer", "update", "  of which optimizer"),
     ("core", "sync_target", "target sync"),
 )
+# ACER's part of its gradient step, after the episodic phases' own.
+ACER_PHASES = (("acer", "retrace", "  of which Retrace (the reverse loop over T)"),)
 COLLECT_PHASES = (
     ("core", "act_with_aux", "act"),
     ("env", "step", "env step"),
@@ -268,6 +287,8 @@ def profile_slice(runner, config: str, steps: int, compute_dtype=None) -> dict:
     actor_critic = hasattr(runner.core, "critic_step")
     if hasattr(runner.buffer, "sample_episodes"):
         phases = tuple(p for p in EPISODIC_PHASES if p[0] != "core" or hasattr(runner.core, p[1]))
+        if isinstance(runner.core, (acer_module.ACERCore, acer_module.ACERContinuousCore)):
+            phases += ACER_PHASES
     else:
         phases = (
             COMMON_PHASES
@@ -282,7 +303,7 @@ def profile_slice(runner, config: str, steps: int, compute_dtype=None) -> dict:
 
     owners = {
         "core": runner.core, "env": runner.env, "buffer": runner.buffer,
-        "autograd": torch.autograd, "optimizer": getattr(runner.core, "optimizer", None),
+        "autograd": torch.autograd, "optimizer": getattr(runner.core, "optimizer", None), "acer": acer_module,
     }
     with _phase_timers(phases, owners) as acc:
         (state, _), phased_s = _synced(lambda: runner.run_chunk(state, steps))

@@ -20,11 +20,12 @@ has ``update_episode_priorities`` and the core ``reports_window_errors``.
 A recurrent core (``select_action_recurrent``) acts from the carry in
 ``act_state``; the carries before and after the step go into the
 transition's ``extras`` (where the buffer ``stores_carries``), taken
-before the carry's rows of ended episodes are reset.
-:class:`EvalLoop` is the counterpart of ``JaxEvalLoop``.
-Not ported yet, each raising ``NotImplementedError`` by name: cores that
-store extras with each transition (``select_action_with_extras``), and
-device meshes.
+before the carry's rows of ended episodes are reset. A core that acts
+with extras (``select_action_with_extras``, ACER's behaviour
+distribution) stores them with each transition; ``init`` sizes the
+buffer's extras from one call of it. A core without ``sync_target`` (ACER)
+is never synced. :class:`EvalLoop` is the counterpart of ``JaxEvalLoop``.
+Not ported yet, raising ``NotImplementedError`` by name: device meshes.
 """
 
 import dataclasses
@@ -96,7 +97,8 @@ class OffPolicyRunner:
         device=None,
         mesh=None,
     ):
-        _reject_unported(core, buffer, mesh)
+        if mesh is not None:
+            raise NotImplementedError("the mesh (multi-device) branch is not ported")
         self.device = check_same_device(
             runner=resolve_device(device), env=env.device, buffer=buffer.device
         )
@@ -110,6 +112,7 @@ class OffPolicyRunner:
         self.return_window = return_window
         self.recurrent = hasattr(core, "select_action_recurrent")
         self.store_carries = self.recurrent and getattr(buffer, "stores_carries", False)
+        self.acts_with_extras = not self.recurrent and hasattr(core, "select_action_with_extras")
         if self.device.type == "cuda":
             use_full_fp32()
 
@@ -134,6 +137,12 @@ class OffPolicyRunner:
         if self.store_carries:
             one = tree_map(lambda x: x[0], act_state)
             extras = {"carry": one, "next_carry": one}
+        elif self.acts_with_extras:
+            # The shapes of one call, from a draw source of its own: the
+            # JAX runner takes them by ``eval_shape``, which draws nothing.
+            own = Draws(torch.Generator(device=self.device).manual_seed(seed))
+            _, ex = self.core.select_action_with_extras(train_state, own, obs, 0, True)
+            extras = {k: torch.zeros_like(v[0]) for k, v in ex.items()}
         example = Transition(
             obs=obs[0],
             action=example_action,
@@ -171,6 +180,9 @@ class OffPolicyRunner:
         if self.recurrent:
             actions, act_state = self.core.select_action_recurrent(
                 state.train_state, state.draws, state.obs, state.t, True, state.act_state)
+        elif self.acts_with_extras:
+            actions, extras = self.core.select_action_with_extras(
+                state.train_state, state.draws, state.obs, state.t, True)
         else:
             actions = self.core.select_action(state.train_state, state.draws, state.obs, state.t, True)
         env_states, vec = self.env.step(state.draws, state.env_states, actions)
@@ -199,8 +211,10 @@ class OffPolicyRunner:
 
         loss = self._maybe_update(state, t)
 
-        # Target sync on interval crossing (in env transitions).
-        if t // cfg.target_update_interval != t_prev // cfg.target_update_interval:
+        # Target sync on interval crossing (in env transitions), for a core
+        # that has a target.
+        crossed = t // cfg.target_update_interval != t_prev // cfg.target_update_interval
+        if crossed and hasattr(self.core, "sync_target"):
             self.core.sync_target(state.train_state)
 
         state.env_states = env_states
@@ -283,15 +297,6 @@ def recent_return_mean(state, window: int) -> float:
     return float(state.recent_returns[:n].mean())
 
 
-def _reject_unported(core, buffer=None, mesh=None) -> None:
-    """Raise for a configuration whose branch of the JAX runner is not
-    ported, naming the branch."""
-    if mesh is not None:
-        raise NotImplementedError("the mesh (multi-device) branch is not ported")
-    if hasattr(core, "select_action_with_extras"):
-        raise NotImplementedError("the extras branch (select_action_with_extras) is not ported")
-
-
 class EvalLoop:
     """Evaluation over ``num_episodes`` lanes (counterpart of ``JaxEvalLoop``).
 
@@ -299,11 +304,12 @@ class EvalLoop:
     and scores the first finished episode of each lane; a lane that never
     finished gives its partial return. A noisy model still draws noise. A
     recurrent core acts from a carry that starts at zero and whose rows are
-    reset where an episode ends.
+    reset where an episode ends. A core that acts with extras acts through
+    ``select_action`` here, as ``JaxEvalLoop`` does (ACER: the policy's
+    mode).
     """
 
     def __init__(self, env, core, num_episodes: int, max_steps: int, device=None):
-        _reject_unported(core)
         self.device = check_same_device(runner=resolve_device(device), env=env.device)
         self.env = VectorTorchEnv(env, num_episodes)
         self.core = core

@@ -1,15 +1,16 @@
-"""Nature-DQN torso (counterpart of ``pfrl_tpu/models/atari_cnn.py``).
+"""Atari CNN torsos (counterpart of ``pfrl_tpu/models/atari_cnn.py``).
 
-The public layout is the JAX package's NHWC: inputs are ``[B, 84, 84, 4]``
+The public layout is the JAX package's NHWC: inputs are ``[B, 84, 84, C]``
 floats in [0, 1]. The module permutes to NCHW for the convolutions (the
 permuted view is channels-last in memory, which cuDNN takes as it is) and
 back to NHWC before the flatten, so the first Linear sees flax's (H, W, C)
 feature order and the weight converter only transposes kernels. Each layer
 computes in the promoted dtype of its input and weights, as flax's do
-(:mod:`~pfrl_tpu_torch.models.layers`).
+(:mod:`~pfrl_tpu_torch.models.layers`). Every layer has Chainer's default
+weights and a constant bias, VALID padding and a ReLU after it.
 """
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -18,21 +19,17 @@ from pfrl_tpu_torch import initializers
 from pfrl_tpu_torch.models.layers import Conv2d, Linear
 
 
-class LargeAtariCNN(nn.Module):
-    """32x8x8/4, 64x4x4/2, 64x3x3/1, dense 512, ReLU after each."""
+class _AtariCNN(nn.Module):
+    """Convolutions ``(features, kernel, stride)``, then one dense layer;
+    the flax scopes are ``Conv_<i>`` and ``Dense_0``."""
 
-    def __init__(
-        self,
-        n_input_channels: int = 4,
-        n_output_channels: int = 512,
-        bias: float = 0.1,
-        input_hw=(84, 84),
-    ):
+    convs_spec: Sequence[Tuple[int, int, int]] = ()
+
+    def __init__(self, n_input_channels: int, n_output_channels: int, bias: float, input_hw):
         super().__init__()
         self.bias = bias
-        layers = [(32, 8, 4), (64, 4, 2), (64, 3, 1)]
         convs, c, (h, w) = [], n_input_channels, input_hw
-        for features, k, s in layers:
+        for features, k, s in self.convs_spec:
             convs.append(Conv2d(c, features, k, stride=s))
             c, h, w = features, (h - k) // s + 1, (w - k) // s + 1
         self.convs = nn.ModuleList(convs)
@@ -55,3 +52,23 @@ class LargeAtariCNN(nn.Module):
             x = torch.relu(conv(x))
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)  # flax's HWC order
         return torch.relu(self.dense(x))
+
+
+class LargeAtariCNN(_AtariCNN):
+    """The Nature-DQN torso: 32x8x8/4, 64x4x4/2, 64x3x3/1, dense 512."""
+
+    convs_spec = ((32, 8, 4), (64, 4, 2), (64, 3, 1))
+
+    def __init__(self, n_input_channels: int = 4, n_output_channels: int = 512, bias: float = 0.1,
+                 input_hw=(84, 84)):
+        super().__init__(n_input_channels, n_output_channels, bias, input_hw)
+
+
+class SmallAtariCNN(_AtariCNN):
+    """The NIPS'13 DQN torso: 16x8x8/4, 32x4x4/2, dense 256."""
+
+    convs_spec = ((16, 8, 4), (32, 4, 2))
+
+    def __init__(self, n_input_channels: int = 4, n_output_channels: int = 256, bias: float = 0.1,
+                 input_hw=(84, 84)):
+        super().__init__(n_input_channels, n_output_channels, bias, input_hw)

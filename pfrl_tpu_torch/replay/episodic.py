@@ -8,7 +8,9 @@ sealed. Each of the ``num_lanes`` lanes writes into a private ring of
 when its episode ends **or** when it fills; the episode then goes on in the
 lane's next row, whose length and seal are reset. The runner stores each
 step's recurrent carries in ``extras`` (``"carry"`` before the step,
-``"next_carry"`` after it) so that a window warm-starts mid-episode.
+``"next_carry"`` after it) so that a window warm-starts mid-episode, or
+ACER's behaviour distribution (``"mu_logits"``, or ``"mu_mean"`` and
+``"mu_std"``).
 
 As in :mod:`~pfrl_tpu_torch.replay.uniform`, the state is written **in
 place** (``storage[rows, pos] = x``): at the DRQN-Atari size the storage is
@@ -127,7 +129,7 @@ class EpisodicReplayBuffer:
         safe_pos = torch.clamp_max(pos, self.max_episode_len - 1)  # rows rotate on fill
 
         def write(s, x):
-            s[rows, safe_pos] = x
+            s[rows, safe_pos] = x.to(s.dtype)  # a sampled action may come as int64
 
         for name in _LEAVES:
             write(state.storage[name], getattr(batch, name))

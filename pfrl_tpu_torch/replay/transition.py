@@ -4,7 +4,8 @@ Every field is one tensor with a leading batch dimension; the JAX package's
 pytree observations are not needed on the ported path and are left out.
 ``extras`` is a dict of carries (tensors or nested tuples of tensors with
 the same leading dimension): the episodic buffer stores the recurrent
-carries there (``"carry"``, ``"next_carry"``); other buffers ignore it.
+carries there (``"carry"``, ``"next_carry"``), or ACER's behaviour
+distribution; other buffers ignore it.
 """
 
 import dataclasses

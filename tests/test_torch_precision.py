@@ -518,7 +518,7 @@ def test_use_full_fp32_turns_the_reduced_precision_reduction_off(monkeypatch):
 
 # ------------------------------------------------------------- the tools
 def test_every_profiled_config_builds_at_bf16_and_trpo_refuses():
-    from pfrl_tpu_torch.experiments import recurrent
+    from pfrl_tpu_torch.experiments import acer, recurrent
     from pfrl_tpu_torch.experiments.profile_slice import CONFIGS
 
     for name, make in CONFIGS.items():
@@ -527,7 +527,8 @@ def test_every_profiled_config_builds_at_bf16_and_trpo_refuses():
                 make(device="cpu", compute_dtype=BF16)
             continue
         # A small replay: ring slots, or (episodic, above 2 x lanes) rows.
-        runner = make(device="cpu", compute_dtype=BF16, capacity=96 if name in recurrent.RECIPES else 1_024)
+        episodic = name in recurrent.RECIPES or name in acer.RECIPES
+        runner = make(device="cpu", compute_dtype=BF16, capacity=96 if episodic else 1_024)
         assert runner.core.compute_dtype is BF16, name
 
 

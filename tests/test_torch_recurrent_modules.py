@@ -185,8 +185,14 @@ def test_abc_matches_jax_per_step(monkeypatch, kind):
 
 
 def test_abc_refuses_the_stochastic_continuous_form():
-    with pytest.raises(NotImplementedError, match="stochastic continuous"):
-        tenvs.ABC(discrete=False, device="cpu")
+    """The stochastic continuous form is ported (``test_torch_acer_modules.py``
+    holds it against JAX); it draws its action on each step, so a step
+    without a draw source is refused."""
+    env = tenvs.ABC(discrete=False, device="cpu")
+    state, _ = env.reset(Tape(0), 2)
+    with pytest.raises(ValueError, match="stochastic continuous ABC draws"):
+        env.step(state, torch.zeros(2, 2))
+    assert env.step(state, torch.zeros(2, 2), Tape(0))[1].reward.shape == (2,)
 
 
 # ------------------------------------------------------------------- cells

@@ -275,13 +275,14 @@ class _Extras:
     ],
 )
 def test_runner_names_the_branch_it_has_not_ported(branch, core, buffer_cls, mesh):
-    """The mesh and extras branches raise by name; the episodic and
-    recurrent branches are ported, and the runner takes them."""
+    """The mesh branch raises by name; the episodic, recurrent and extras
+    branches are ported, and the runner takes them."""
     env = AtariSim(N_ACTIONS, device="cpu")
     buffer = buffer_cls(64, num_lanes=4, device="cpu")
-    if branch in ("episodic", "recurrent"):
+    if branch in ("episodic", "recurrent", "extras"):
         runner = OffPolicyRunner(env, core, buffer, RunnerConfig(num_envs=4), device="cpu", mesh=mesh)
         assert runner.recurrent == (branch == "recurrent")
+        assert runner.acts_with_extras == (branch == "extras")
         return
     with pytest.raises(NotImplementedError, match=branch):
         OffPolicyRunner(env, core, buffer, RunnerConfig(num_envs=4), device="cpu", mesh=mesh)
