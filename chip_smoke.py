@@ -106,7 +106,31 @@ result, without them. Its phases, each raising on failure:
    and A2C (16 lanes, rollout 5, 40 iterations) and PPO (8 lanes, rollout
    128, 4 iterations) on AtariSim at the examples' widths, each with its
    kernels per iteration and evaluation 5 x 500. No path of this phase
-   launches the prefix-sample kernel, and each asserts 0.
+   launches the prefix-sample kernel, and each asserts 0;
+14. the Atari examples at their own settings and the actor-learner
+   pipeline. First (right after the build) the native frame ops
+   (``pfrl_tpu_torch/runtime``, g++ on the card's host) against their numpy
+   versions (1 apart at most, in under 1% of the pixels) and their rates on
+   one thread. Then small card-vs-CPU runs: the ``nips``, ``dueling``,
+   prioritized and C51 recipes (4 lanes, as phase 3 runs its own); one
+   forward and 1 and 3 updates of the ``nips`` ``ConvQ``, ``DuelingDQN``
+   and ``C51Q`` cores at 84x84x4, and a burst of 4 pipeline updates, each
+   difference in float32 ulps beside its tolerance (4x what ulp nudges of
+   the weights move, at least 128); the pipeline's act stage, commit and
+   sample exact. Then at full width ``train_dqn_ale.py --sim`` with
+   ``--arch nature``, ``nips`` and ``dueling``, with ``--prioritized``
+   (the prefix-sample kernel at C = 2**20, B = 32, once per update) and
+   ``train_categorical_dqn_ale.py --sim``: 64 lanes, the 10**6-slot ring
+   (28.3 GB, its bytes printed), through the replay start of 50,000 uncut
+   (782 scan steps), 32 timed and 4 profiled scan steps of 16 updates, the
+   evaluation loop; each path freed before the next. Last the pipeline
+   (``train_dqn_pipeline_ale.py --sim``: 3 spawned actor processes x 96
+   lanes of ``SyntheticALE``, the 999,936-plane ring, 7.06 GB, bursts of
+   64) through its replay start of 50,000, then 40 s timed and 5 s
+   profiled: env-steps/s, updates/s, the act round trip (median and p90,
+   apart by whether a burst was in flight), burst and commit times, target
+   syncs (at least 1), the workers' start-up, the busy share; then a clean
+   stop.
 
 The kernels' launch counts are set to 0 just before each full-width path
 and read just after it; the kernels' JSON line gives their sum over the
@@ -183,6 +207,11 @@ ACER_ATARI_STEPS = (625, 100)       # warm (through replay start), timed
 ACER_ATARI_PROFILED = 4             # scan steps under torch.profiler: the device's busy time
 ACER_NUDGES = (1.0 + 2.0**-23, 1.0 - 2.0**-23)  # the small ACER runs' tolerance: the larger of both nudges
 ATARI_ONPOLICY_ITERATIONS = {"a2c-atarisim-16": 40, "ppo-atarisim-8": 4}  # timed, after one warm iteration
+# The Atari examples at their own settings: 782 scan steps of 64 lanes reach
+# the replay start of 50,000 uncut (t = 50,048, the first 16 updates on the
+# last of them), then timed and profiled scan steps of 16 updates each.
+EXAMPLE_ATARI_STEPS = (782, 32, 4)  # warm, timed, profiled
+PIPELINE_SECONDS = (40.0, 5.0)      # the pipeline after its replay start: timed, profiled
 
 
 def card_line() -> str:
@@ -2330,6 +2359,484 @@ def run_full_atari_onpolicy(card: str, name: str) -> dict:
     return result
 
 
+# -------------------------------------------------------------------- phase 14
+def check_frame_ops(card: str) -> dict:
+    """The native frame ops, built by g++ on the card's host, against their
+    numpy versions with the JAX package's tests' tolerance (1 apart at most,
+    in under 1% of the pixels; ``frame_max`` exact), and their rates on one
+    thread: frames warped per second, and the env steps per second of one
+    ``make_warped`` lane (4 raw frames, a max, a warp per step)."""
+    from pfrl_tpu_torch import runtime
+    from pfrl_tpu_torch.envs.synthetic_ale import make_warped
+
+    t0 = time.perf_counter()
+    path = runtime.build()
+    build_s = time.perf_counter() - t0
+    rs = np.random.RandomState(0)
+    frames = rs.randint(0, 256, (64, 210, 160, 3), dtype=np.uint8)
+    diffs = {}
+    for kind, batch in (("rgb", frames), ("gray", frames[..., 1])):
+        d = np.abs(runtime.warp_frames(batch).astype(int) - runtime.warp_frames(batch, plain=True).astype(int))
+        diffs[kind] = {"max": int(d.max()), "share_off_by_one": float((d > 0).mean())}
+    max_exact = np.array_equal(runtime.frame_max(frames[:32], frames[32:]), np.maximum(frames[:32], frames[32:]))
+
+    def rate(fn, n, reps):
+        fn()
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return n * reps / (time.perf_counter() - t)
+
+    native_fps = rate(lambda: runtime.warp_frames(frames), 64, 20)
+    plain_fps = rate(lambda: runtime.warp_frames(frames, plain=True), 64, 2)
+    max_fps = rate(lambda: runtime.frame_max(frames[0], frames[1]), 1, 2_000)
+    env = make_warped(0)
+    env.reset()
+
+    def lane_steps(n=500):
+        for _ in range(n):
+            _, _, done, _ = env.step(1)
+            if done:
+                env.reset()
+
+    lane_sps = rate(lane_steps, 500, 2)
+    checks = {
+        "warp within 1 of numpy in under 1% of the pixels": all(
+            d["max"] <= 1 and d["share_off_by_one"] < 0.01 for d in diffs.values()),
+        "frame_max exact": max_exact,
+    }
+    _raise_on_failed("frame ops", checks)
+    result = {"library": path.name, "build_s": build_s, "differences": diffs, "warp_frames_per_s": native_fps,
+              "warp_frames_per_s_numpy": plain_fps, "frame_max_per_s": max_fps, "make_warped_lane_steps_per_s": lane_sps}
+    print(f"frame ops: {path.name} (g++ {build_s:.1f} s); native against numpy: rgb max {diffs['rgb']['max']} "
+          f"({diffs['rgb']['share_off_by_one'] * 100:.3f}% of pixels off by 1), gray max {diffs['gray']['max']} "
+          f"({diffs['gray']['share_off_by_one'] * 100:.3f}%), held to 1 in under 1%; frame_max exact; one thread: "
+          f"{native_fps:.0f} 210x160x3 frames warped per s (numpy {plain_fps:.0f}), {max_fps:.0f} frame_max per s, "
+          f"{lane_sps:.0f} make_warped env steps per s (host of {card})")
+    return result
+
+
+def _fp32_ulps(a, b) -> float:
+    """``_ulps`` in float32 ulps, the largest over a list of tensors."""
+    if isinstance(a, list):
+        return max(_ulps(x, y, FP32_ULP) for x, y in zip(a, b))
+    return _ulps(a, b, FP32_ULP)
+
+
+def _small_example_configs() -> dict:
+    """name -> (function making a 4-lane runner of a phase-14 recipe on a
+    device, scan steps, kernel launches expected on the card), at phase 3's
+    sizes (``_small_configs``): uniform rings of 48 slots that wrap,
+    2 updates per scan step from 32 transitions on, 17 scan steps; the
+    prioritized ring of 8,196 slots, one update per scan step, 20 scan
+    steps; target syncs at 48."""
+    from pfrl_tpu_torch.experiments import atari_c51, atari_dqn_ale
+
+    small = dict(num_envs=4, replay_start_size=32, target_update_interval=48, minibatch_size=8,
+                 final_exploration_frames=100)
+    uniform = dict(capacity=48, **small)
+    return {
+        "dqn-ale-nips": (lambda dev: atari_dqn_ale.make_dqn_ale_runner(
+            "nips", update_interval=2, device=dev, **uniform)[0], 17, 0),
+        "dqn-ale-dueling": (lambda dev: atari_dqn_ale.make_dqn_ale_runner(
+            "dueling", update_interval=2, device=dev, **uniform)[0], 17, 0),
+        "per-dqn-ale": (lambda dev: atari_dqn_ale.make_dqn_ale_runner(
+            "nature", prioritized=True, capacity=8196, steps=400, device=dev, **small)[0], 20, 13),
+        "c51-atarisim": (lambda dev: atari_c51.make_c51_atarisim_runner(device=dev, **uniform)[0], 17, 0),
+    }
+
+
+def check_small_example_slice(name: str, build, steps: int, expect_launches: int, device) -> dict:
+    """A 4-lane run of one phase-14 recipe on the card and on the CPU from
+    the same draws and weights: the frames and actions in the ring, the
+    counters and the kernel's launches exact; the losses, a prioritized
+    ring's trees and each network's change over the run in float32 ulps,
+    each held to 4x the larger of what 1 + 2**-23 and 1 - 2**-23 nudges of
+    the CPU run's initial weights move it, and never less than
+    ``FP32_LOSS_ULPS`` (``FP32_CHANGE_ULPS`` for a change). Adam, which
+    these recipes take, divides each gradient by its own root mean square,
+    so a near-cancelling gradient's rounding moves a step by up to the
+    learning rate (C22, C48), and the PER ring turns each step into the
+    next samples' priorities."""
+    from pfrl_tpu_torch.ops.prefix_sample import prefix_sample
+
+    def run(dev, scale=1.0):
+        runner = build(dev)
+        state = runner.init(0, draws=SeededDraws(0, dev))
+        train = state.train_state
+        with torch.no_grad():
+            for p in train.model.parameters():
+                p.mul_(scale)
+            for t, p in zip(train.target_model.parameters(), train.model.parameters()):
+                t.copy_(p)
+        start = {k: [p.detach().clone() for p in m.parameters()] for k, m in _networks(train).items()}
+        state, metrics = runner.run_chunk(state, steps)
+        return runner, state, metrics, start
+
+    def ring(s):
+        return getattr(s.replay_state, "base", s.replay_state)
+
+    def differences(a, b):
+        (_, sa, ma, start_a), (_, sb, mb, start_b) = a, b
+        out = {"loss": _ulps(ma["loss"], mb["loss"], FP32_ULP)}
+        if hasattr(sb.replay_state, "tree"):
+            out["tree"] = _ulps(sa.replay_state.tree, sb.replay_state.tree, FP32_ULP)
+        nets_b = _networks(sb.train_state)
+        for which, module in _networks(sa.train_state).items():
+            out[f"{which} change"] = _change_ulps(list(module.parameters()), start_a[which],
+                                                  list(nets_b[which].parameters()), start_b[which], FP32_ULP)
+        return out
+
+    before = prefix_sample.launches
+    gpu = run(device)
+    torch.cuda.synchronize()
+    launches = prefix_sample.launches - before
+    cpu = run("cpu")
+    worst = differences(gpu, cpu)
+    moved = {}
+    for scale in ACER_NUDGES:
+        for k, v in differences(run("cpu", scale), cpu).items():
+            moved[k] = max(v, moved.get(k, 0.0))
+    tolerance = {k: max(FP32_CHANGE_ULPS if k.endswith("change") else FP32_LOSS_ULPS, BF16_SENSITIVITY * moved[k])
+                 for k in worst}
+    runner, gs, cs = gpu[0], gpu[1], cpu[1]
+    updates = _updates_in(runner.config, 1, steps)
+    checks = {
+        f"{expect_launches} kernel launches": launches == expect_launches,
+        "n_updates as expected": gs.train_state.n_updates == cs.train_state.n_updates == updates,
+        "counters agree": gs.t == cs.t and int(ring(gs).cursor) == int(ring(cs).cursor),
+        "frames and actions in the ring exact": torch.equal(ring(gs).storage["obs"].cpu(), ring(cs).storage["obs"])
+        and torch.equal(ring(gs).storage["action"].cpu(), ring(cs).storage["action"]),
+        **{f"{k} within {tolerance[k]:.2f} ulps": worst[k] <= tolerance[k] for k in worst},
+    }
+    print(f"small {name}: card vs CPU over {steps} scan steps, {updates} updates, {launches} prefix-sample launches; "
+          "worst, in float32 ulps: " + "; ".join(
+              f"{k} {worst[k]:.2f} (held to {tolerance[k]:.2f}; nudges move it {moved[k]:.2f})" for k in worst))
+    _raise_on_failed(f"small {name}", checks)
+    return {"steps": steps, "updates": updates, "kernel_launches": launches, "worst_ulps": worst,
+            "tolerance_ulps": tolerance, "nudged_ulps": moved}
+
+
+def _example_core_makers() -> dict:
+    """name -> (function making the recipe's core, the batch's frames as
+    the recipe's ring gives them: dequantized float32 or uint8)."""
+    from pfrl_tpu_torch.experiments import atari_c51, atari_dqn_ale
+
+    def dqn(arch):
+        return lambda: atari_dqn_ale.make_dqn_ale_runner(arch, device="cpu", num_envs=4, capacity=64)[0].core
+
+    return {"convq-nips": (dqn("nips"), True), "dueling": (dqn("dueling"), True),
+            "c51q": (lambda: atari_c51.make_c51_core(), False)}
+
+
+def _example_batch(seed: int, dequantized: bool, device, b: int = 32):
+    from pfrl_tpu_torch.replay import TransitionBatch
+
+    rs = np.random.RandomState(seed)
+
+    def frames():
+        x = torch.from_numpy(rs.randint(0, 256, (b, 84, 84, 4)).astype(np.uint8))
+        return x.to(torch.float32) * (1.0 / 255.0) if dequantized else x
+
+    batch = dict(obs=frames(), action=torch.from_numpy(rs.randint(0, 6, b).astype(np.int32)),
+                 reward=torch.from_numpy(rs.choice([-1.0, 0.0, 1.0], b).astype(np.float32)), next_obs=frames(),
+                 discount=torch.full((b,), 0.99), is_terminal=torch.arange(b) % 4 == 1,
+                 weight=torch.ones(b), indices=torch.arange(b, dtype=torch.int32))
+    return TransitionBatch(**{k: v.to(device) for k, v in batch.items()})
+
+
+def check_small_example_cores(device) -> dict:
+    """One forward (a batch of 32 frames) and 1 and 3 updates of the
+    ``nips`` ``ConvQ``, ``DuelingDQN`` and ``C51Q`` recipes' cores at
+    84x84x4, on the card and on the CPU from the same weights and batches:
+    the Q-values, the losses and the parameters after 1 and 3 updates in
+    float32 ulps (of each quantity's largest magnitude), each held to 4x the
+    larger of what 1 + 2**-23 and 1 - 2**-23 nudges of the CPU's weights
+    move it, and never less than ``FP32_LOSS_ULPS``."""
+    out = {}
+    for name, (make, dequantized) in _example_core_makers().items():
+        def run(dev, scale=1.0):
+            core = make()
+            state = core.init(torch.Generator().manual_seed(0), torch.zeros((1, 84, 84, 4), dtype=torch.uint8,
+                                                                            device=dev))
+            with torch.no_grad():
+                for p in state.model.parameters():
+                    p.mul_(scale)
+            obs = _example_batch(0, dequantized, dev).obs
+            with torch.no_grad():
+                q = core.action_value(state.model, obs).q_values.clone()
+            got = {"forward q": q}
+            for i in range(3):
+                _, aux = core.update(state, _example_batch(1 + i, dequantized, dev))
+                if i in (0, 2):
+                    got[f"loss after {i + 1}"] = aux["loss"].detach().clone()
+                    got[f"params after {i + 1}"] = [p.detach().clone() for p in state.model.parameters()]
+            return got
+
+        gpu, cpu = run(device), run("cpu")
+        nudged = [run("cpu", s) for s in ACER_NUDGES]
+        worst = {k: _fp32_ulps(gpu[k], cpu[k]) for k in cpu}
+        moved = {k: max(_fp32_ulps(n[k], cpu[k]) for n in nudged) for k in cpu}
+        tolerance = {k: max(FP32_LOSS_ULPS, BF16_SENSITIVITY * moved[k]) for k in cpu}
+        print(f"small {name}: card vs CPU, worst in float32 ulps: " + "; ".join(
+            f"{k} {worst[k]:.2f} (held to {tolerance[k]:.2f}; nudges move it {moved[k]:.2f})" for k in cpu))
+        _raise_on_failed(f"small {name}", {f"{k} within {tolerance[k]:.2f} ulps": worst[k] <= tolerance[k]
+                                           for k in cpu})
+        out[name] = {"worst_ulps": worst, "tolerance_ulps": tolerance, "nudged_ulps": moved}
+    return out
+
+
+def check_small_pipeline(device) -> dict:
+    """The pipeline's device functions on the card and on the CPU, the
+    recipe's core (NatureQ, RMSprop, a summed loss) from the same weights,
+    2 workers x 2 lanes and a ring of 256 rows: 6 rounds of act stages from
+    the same draws (actions, the stack and the staged rows exact), 70
+    commits across a wrap (exact), a sample from a ring of known contents
+    with the same ids (every field exact: uint8 frames, bool terminals),
+    and a burst of 4 updates from one state (the loss, the average Q and
+    the parameters in float32 ulps, held as ``check_small_example_cores``
+    holds them; the syncs equal)."""
+    from pfrl_tpu_torch.experiments.atari_pipeline import make_dqn_pipeline
+
+    sizes = dict(env_factory=None, n_workers=2, lanes_per_worker=2, capacity=256, minibatch_size=8,
+                 target_update_interval=12, replay_start_size=64, burst=4)
+
+    def build(dev, scale=1.0):
+        p = make_dqn_pipeline(device=dev, **sizes)
+        p._init_device_state(0)
+        with torch.no_grad():
+            for x in p.train_state.model.parameters():
+                x.mul_(scale)
+        p.publish()
+        return p
+
+    def act_and_commit(p):
+        dev, rs, actions = p.device, np.random.RandomState(1), []
+        for step in range(6):
+            for worker in range(p.n_workers):
+                planes = torch.from_numpy(rs.randint(0, 256, (p.K, 84 * 84)).astype(np.uint8)).to(dev)
+                prev_done = torch.from_numpy(rs.uniform(size=p.K) < (1.0 if step == 0 else 0.3)).to(dev)
+                actions.append(p.act_stage(p._acting, p.stack, p.ring, planes, prev_done, worker * p.K,
+                                           step * p.L + worker * p.K, 600_000 + step * p.L,
+                                           SeededDraws(10 * step + worker, dev)).cpu())
+        staged = (p.stack.cpu(), p.ring.planes.cpu(), p.ring.action.cpu())
+        for _ in range(p.capacity // p.L + 6):
+            rew = torch.from_numpy(rs.normal(size=p.L).astype(np.float32)).to(dev)
+            term = torch.from_numpy(rs.uniform(size=p.L) < 0.2).to(dev)
+            p.commit(p.ring, rew, term, term | torch.from_numpy(rs.uniform(size=p.L) < 0.1).to(dev))
+        committed = (p.ring.reward.cpu(), p.ring.terminated.cpu(), p.ring.done.cpu(), p.ring.commit_cursor)
+        return torch.stack(actions), staged, committed
+
+    def fill(p):
+        rs = np.random.RandomState(7)
+        p.ring.planes.copy_(torch.from_numpy(rs.randint(0, 256, p.ring.planes.shape).astype(np.uint8)))
+        p.ring.action.copy_(torch.from_numpy(rs.randint(0, 6, p.capacity).astype(np.int32)))
+        p.ring.reward.copy_(torch.from_numpy(rs.normal(size=p.capacity).astype(np.float32)))
+        done = torch.from_numpy(rs.uniform(size=p.capacity) < 0.1)
+        p.ring.done.copy_(done)
+        p.ring.terminated.copy_(done & torch.from_numpy(rs.uniform(size=p.capacity) < 0.5))
+        p.ring.commit_cursor = 40 * p.L
+
+    gp, cp = build(device), build("cpu")
+    g_act, c_act = act_and_commit(gp), act_and_commit(cp)
+    checks = {
+        "act stage: actions exact": torch.equal(g_act[0], c_act[0]),
+        "act stage: stack and staged rows exact": all(torch.equal(a, b) for a, b in zip(g_act[1], c_act[1])),
+        "commit exact": all(torch.equal(a, b) for a, b in zip(g_act[2][:3], c_act[2][:3]))
+        and g_act[2][3] == c_act[2][3] == (gp.capacity // gp.L + 6) * gp.L,
+    }
+    fill(gp), fill(cp)
+    gb, cb = gp.sample(gp.ring, SeededDraws(3, device)), cp.sample(cp.ring, SeededDraws(3, "cpu"))
+    checks["sample exact (uint8 frames, bool terminals)"] = all(
+        torch.equal(getattr(gb, k).cpu(), getattr(cb, k)) for k in
+        ("obs", "next_obs", "action", "reward", "is_terminal", "discount", "weight", "indices"))
+    checks["sample: frames uint8"] = gb.obs.dtype == torch.uint8 and gb.obs.shape == (8, 84, 84, 4)
+
+    def burst(p):
+        loss, q, syncs = p.learner_burst(p.train_state, p.ring, SeededDraws(5, p.device), 4)
+        return {"loss": loss.detach().cpu(), "average q": q.detach().cpu(),
+                "params": [x.detach().cpu() for x in p.train_state.model.parameters()],
+                "target params": [x.detach().cpu() for x in p.train_state.target_model.parameters()]}, syncs
+
+    (g, g_syncs), (c, c_syncs) = burst(gp), burst(cp)
+    nudged = []
+    for s in ACER_NUDGES:
+        p = build("cpu", s)
+        fill(p)
+        nudged.append(burst(p)[0])
+    worst = {k: _fp32_ulps(g[k], c[k]) for k in c}
+    moved = {k: max(_fp32_ulps(n[k], c[k]) for n in nudged) for k in c}
+    tolerance = {k: max(FP32_LOSS_ULPS, BF16_SENSITIVITY * moved[k]) for k in c}
+    checks["burst: the same syncs"] = g_syncs == c_syncs == 1
+    checks.update({f"burst: {k} within {tolerance[k]:.2f} ulps": worst[k] <= tolerance[k] for k in c})
+    print("small pipeline: card vs CPU, act stage (actions, stack, staged rows), commit and sample exact; burst of 4, "
+          "worst in float32 ulps: " + "; ".join(
+              f"{k} {worst[k]:.2f} (held to {tolerance[k]:.2f}; nudges move it {moved[k]:.2f})" for k in c))
+    _raise_on_failed("small pipeline", checks)
+    return {"worst_ulps": worst, "tolerance_ulps": tolerance, "nudged_ulps": moved, "syncs": g_syncs}
+
+
+def _example_configs() -> dict:
+    """name -> function making the recipe's ``(runner, eval_loop)`` at
+    full width on the card."""
+    from pfrl_tpu_torch.experiments import atari_c51, atari_dqn_ale
+
+    return {
+        "dqn-ale-nature-64": lambda: atari_dqn_ale.make_dqn_ale_runner("nature"),
+        "dqn-ale-nips-64": lambda: atari_dqn_ale.make_dqn_ale_runner("nips"),
+        "dqn-ale-dueling-64": lambda: atari_dqn_ale.make_dqn_ale_runner("dueling"),
+        "per-dqn-ale-64": lambda: atari_dqn_ale.make_dqn_ale_runner("nature", prioritized=True),
+        "c51-atarisim-64": lambda: atari_c51.make_c51_atarisim_runner(),
+    }
+
+
+def _ring_bytes(buffer, replay) -> dict:
+    """Bytes of a ring on the card: frames, the rest, and a PER ring's trees."""
+    base = getattr(replay, "base", replay)
+    size = lambda x: x.numel() * x.element_size()  # noqa: E731
+    frames = sum(size(v) for k, v in base.storage.items() if k in ("obs", "next_obs"))
+    rest = sum(size(v) for k, v in base.storage.items() if k not in ("obs", "next_obs"))
+    trees = sum(size(getattr(replay, k)) for k in ("tree", "min_tree") if hasattr(replay, k))
+    return {"frames": frames, "rest": rest, "trees": trees, "total": frames + rest + trees}
+
+
+def run_full_example_atari(card: str, name: str) -> dict:
+    """``train_dqn_ale.py --sim`` (``--arch nature``, ``nips``, ``dueling``;
+    ``--prioritized``) or ``train_categorical_dqn_ale.py --sim`` at the
+    example's own settings on the card: 64 lanes, the 10^6-slot ring, replay
+    start 50,000 uncut: ``EXAMPLE_ATARI_STEPS`` scan steps through it (the
+    first 16 updates on the last), timed scan steps of 16 updates each,
+    profiled ones (kernels per scan step, the busy share of their own wall
+    time), then the evaluation loop (5 x 500). The prioritized path launches
+    the prefix-sample kernel once per update at C = 2^20, B = 32; the
+    others never. The path is freed before the next is built."""
+    from pfrl_tpu_torch.experiments.profile_slice import _profiled
+    from pfrl_tpu_torch.ops.prefix_sample import prefix_sample
+
+    runner, evaluator = _example_configs()[name]()
+    cfg, buf = runner.config, runner.buffer
+    prioritized = hasattr(buf, "tree_capacity")
+    state = runner.init(0)
+    torch.cuda.synchronize()
+    nbytes = _ring_bytes(buf, state.replay_state)
+    row = getattr(state.replay_state, "base", state.replay_state).storage["obs"].shape[-1]
+    print(f"{name}: ring of {buf.capacity:,} slots on the card: {nbytes['total'] / 1e9:.3f} GB (frames "
+          f"{nbytes['frames'] / 1e9:.3f} GB: 84x84x4 = 28,224 B a slot, padded to {row:,} B as the JAX ring pads "
+          f"it; the rest {nbytes['rest'] / 1e6:.3f} MB; trees {nbytes['trees'] / 1e6:.3f} MB); "
+          f"{torch.cuda.memory_allocated() / 1e9:.3f} GB allocated")
+    warm_steps, timed_steps, profiled_steps = EXAMPLE_ATARI_STEPS
+    prefix_sample.launches = 0
+    t0 = time.perf_counter()
+    state, warm = runner.run_chunk(state, warm_steps)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    state, timed = runner.run_chunk(state, timed_steps)
+    torch.cuda.synchronize()
+    timed_s = time.perf_counter() - t1
+    (state, _), profiled_s, kernels, busy_us, top = _profiled(lambda: runner.run_chunk(state, profiled_steps))
+    launches = prefix_sample.launches
+    train = state.train_state
+    steps = warm_steps + timed_steps + profiled_steps
+    updates = _updates_in(cfg, 1, steps)
+    t2 = time.perf_counter()
+    returns = evaluator.evaluate(train, state.draws)
+    eval_s = time.perf_counter() - t2
+    loss = torch.cat([warm["loss"], timed["loss"]])
+    checks = {
+        "the ring holds 10^6 frame stacks": buf.capacity == 10**6 and nbytes["frames"] > 28.2e9,
+        "the first updates on the last warm step": _updates_in(cfg, 1, warm_steps) == cfg.updates_per_step,
+        "n_updates as expected": train.n_updates == updates,
+        "losses finite": bool(torch.isfinite(loss).all()) and float(loss[-1]) > 0,
+        "evaluation returns finite": bool(np.isfinite(returns).all()) and returns.shape == (5,),
+    }
+    if prioritized:
+        checks["one prefix-sample launch per update, at C = 2^20"] = launches == updates and buf.tree_capacity == 2**20
+    else:
+        checks["no prefix-sample launch"] = launches == 0
+    scan_step_ms = timed_s / timed_steps * 1e3
+    result = {
+        "steps": steps, "t": state.t, "n_updates": updates, "kernel_launches": launches, "ring_bytes": nbytes,
+        "acting_env_steps_per_s": warm_steps * cfg.num_envs / warm_s,
+        "env_steps_per_s": timed_steps * cfg.num_envs / timed_s,
+        "updates_per_s": timed_steps * cfg.updates_per_step / timed_s,
+        "scan_step_ms": scan_step_ms,
+        "profiled_scan_step_ms": profiled_s / profiled_steps * 1e3,
+        "device_launches_per_step": kernels / profiled_steps,
+        "device_busy_ms_per_step": busy_us / profiled_steps / 1e3,
+        "device_busy_share": busy_us / 1e6 / profiled_s,  # over the profiled steps' own wall time
+        "top_device_ops": [{"name": n, "ms_per_step": us / profiled_steps / 1e3,
+                            "launches_per_step": k / profiled_steps} for n, (us, k) in top[:8]],
+        "warm_chunk_s": warm_s, "timed_chunk_s": timed_s, "eval_s": eval_s,
+        "eval_returns": [float(r) for r in returns], "last_loss": float(loss[-1]),
+    }
+    print(f"{name}: env-steps/s {result['env_steps_per_s']:.1f} updates/s {result['updates_per_s']:.1f} over "
+          f"{timed_steps} scan steps with 16 updates each ({scan_step_ms:.2f} ms each); through replay start "
+          f"(50,000, uncut) {result['acting_env_steps_per_s']:.1f} env-steps/s over {warm_steps} scan steps; over "
+          f"{profiled_steps} profiled scan steps of {result['profiled_scan_step_ms']:.2f} ms each, device busy "
+          f"{result['device_busy_ms_per_step']:.2f} ms per scan step ({result['device_busy_share'] * 100:.1f}%), "
+          f"{result['device_launches_per_step']:.1f} kernels per scan step; {launches} prefix-sample launches"
+          f"{' at C = 2^20, B = 32' if prioritized else ''}; evaluation {eval_s:.2f} s; last loss "
+          f"{result['last_loss']:.5f} (fp32, no TF32) on {card}")
+    _raise_on_failed(name, checks)
+    del runner, evaluator, state, train, warm, timed, loss
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return result
+
+
+def run_full_pipeline(card: str) -> dict:
+    """``train_dqn_pipeline_ale.py --sim`` at the example's settings on the
+    card: 3 spawned actor processes x 96 lanes of ``SyntheticALE`` through
+    the C++ frame ops, the 999,936-plane ring (7.06 GB), bursts of 64
+    batch-32 updates paced at one per 4 transitions from 50,000 on, target
+    syncs every 10^4: through replay start, then ``PIPELINE_SECONDS`` of
+    wall time timed and profiled (``profile_slice.run_pipeline``), then a
+    clean stop."""
+    from pfrl_tpu_torch.experiments.atari_pipeline import make_dqn_pipeline
+    from pfrl_tpu_torch.experiments.profile_slice import run_pipeline
+    from pfrl_tpu_torch.ops.prefix_sample import prefix_sample
+
+    pipeline = make_dqn_pipeline()
+    prefix_sample.launches = 0
+    record = run_pipeline(pipeline, *PIPELINE_SECONDS)
+    launches = prefix_sample.launches
+    timings, stats = record["timings"], record["statistics"]
+    ring_bytes = pipeline.ring.nbytes
+    checks = {
+        "the ring holds 999,936 planes, 7.06 GB": pipeline.capacity == 999_936
+        and pipeline.ring.planes.numel() == 999_936 * 7_056,
+        "loss finite": math.isfinite(stats["average_loss"]),
+        "the learner never ahead of acted // 4": pipeline.optim_t <= pipeline.acted_steps // 4,
+        "at least one target sync": timings["target_syncs"] >= 1,
+        "every thread ended": not any(t.is_alive() for t in pipeline._threads),
+        "every actor process ended": all(w.exitcode is not None for w in pipeline._workers),
+        "acts during bursts and between them": timings["act_round_trip_during_burst"]["n"] > 0,
+        "no prefix-sample launch": launches == 0,
+    }
+    trip = timings["act_round_trip"]
+    busy, idle = timings["act_round_trip_during_burst"], timings["act_round_trip_idle_learner"]
+    fmt = lambda s: f"{s['median_ms']:.2f} / {s['p90_ms']:.2f} ms (n {s['n']})" if s["n"] else "none"  # noqa: E731
+    result = {**{k: v for k, v in record.items() if k != "top_device_ops"}, "kernel_launches": launches,
+              "ring_bytes": ring_bytes, "top_device_ops": record.get("top_device_ops", [])[:8]}
+    print(f"dqn-pipeline-288: {pipeline.n_workers} actor processes x {pipeline.K} lanes, ring "
+          f"{ring_bytes / 1e9:.3f} GB; worker start-up {timings['worker_startup_s']:.2f} s; first burst "
+          f"{record['start_to_first_burst_s']:.1f} s after the start; over {record['timed_s']:.1f} s: env-steps/s "
+          f"{record['env_steps_per_s']:.1f} updates/s {record['updates_per_s']:.1f}; act round trip median / p90 "
+          f"{fmt(trip)} (a burst in flight {fmt(busy)}; none {fmt(idle)}); burst {fmt(timings['burst'])} (gathers "
+          f"issued {fmt(timings['burst_gathers'])}, updates {fmt(timings['burst_updates'])}); commit "
+          f"{fmt(timings['commit'])}; {timings['target_syncs']} target syncs; over {record['profiled_s']:.1f} s "
+          f"profiled: {record['device_launches_per_s']:.0f} kernels per s ({record['device_launches_per_env_step']:.2f} "
+          f"per env step), device busy {record['device_busy_share'] * 100:.1f}%; acted {pipeline.acted_steps}, "
+          f"{pipeline.optim_t} updates, loss {stats['average_loss']:.5f}; {launches} prefix-sample launches "
+          f"(fp32, no TF32) on {card}")
+    _raise_on_failed("dqn-pipeline-288", checks)
+    del pipeline
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2356,6 +2863,7 @@ def main() -> int:
         return out
 
     record["build"] = phase("build", build_kernels)
+    record["frame_ops"] = phase("frame ops", check_frame_ops, card)
     kernel = phase(
         "kernel checks", check_prefix_sample, device, tree_capacity(100_000), 32, tree_capacity(1_000_000)
     )
@@ -2413,6 +2921,14 @@ def main() -> int:
     record["full_acer"] = {"acer-atarisim-16": phase("full acer-atarisim-16", run_full_acer_atarisim, card)}
     for name in ATARI_ONPOLICY_ITERATIONS:
         record["full_acer"][name] = phase(f"full {name}", run_full_atari_onpolicy, card, name)
+    for name, (build, steps, launches) in _small_example_configs().items():
+        record["small_slices"][name] = phase(f"small {name}", check_small_example_slice, name, build, steps, launches,
+                                             device)
+    record["small_slices"]["example cores"] = phase("small example cores", check_small_example_cores, device)
+    record["small_slices"]["pipeline"] = phase("small pipeline", check_small_pipeline, device)
+    record["full_examples"] = {name: phase(f"full {name}", run_full_example_atari, card, name)
+                               for name in _example_configs()}
+    record["full_examples"]["dqn-pipeline-288"] = phase("full dqn-pipeline-288", run_full_pipeline, card)
     # Counted over each path that samples by priority, from 0 at its start;
     # every other path asserts a count of 0.
     kernel["launches_by_path"] = {
@@ -2424,6 +2940,7 @@ def main() -> int:
         **{name: r["kernel_launches"] for name, r in record["full_bf16"].items()},
         **{name: r["kernel_launches"] for name, r in record["full_recurrent"].items()},
         **{name: r["kernel_launches"] for name, r in record["full_acer"].items()},
+        **{name: r["kernel_launches"] for name, r in record["full_examples"].items()},
     }
     kernel["launches"] = sum(kernel["launches_by_path"].values())
     record["kernels"] = [kernel]

@@ -5,23 +5,45 @@ here mirror it, and ``tests/test_torch_*.py`` hold each module against its
 counterpart. This package imports ``torch`` and nothing of JAX or
 ``pfrl_tpu``.
 
-Ported so far: the DQN family's device path (Nature DQN over the uniform
-and the prioritized ring, Double DQN, Rainbow; on CartPole DQN, C51, AL,
-Rainbow-CartPole and IQN, with the PAL, DPP and Double IQN cores) and
-off-policy actor-critic for continuous control (SAC, TD3, DDPG), each
-through ``experiments.OffPolicyRunner`` and ``experiments.EvalLoop``; see
-``experiments/atari_per_dqn.py``, ``atari_rainbow.py``,
-``cartpole_value.py`` and ``mujoco_actor_critic.py``; on-policy training
-(PPO, A2C, TRPO) through ``experiments.OnPolicyRunner``, see
-``experiments/onpolicy.py``. Every first-order core takes
-``compute_dtype`` (bf16 compute over float32 masters, see
-:mod:`.utils.precision`); TRPO refuses it, as in JAX. Not ported yet:
-REINFORCE, the recurrent and episodic paths, the agents' host shells and
-the host-env training loops, device meshes.
+Ported so far, each through ``experiments.OffPolicyRunner`` or
+``experiments.OnPolicyRunner`` and ``experiments.EvalLoop``:
+
+- the DQN family on AtariSim: Nature DQN over the uniform and the
+  prioritized ring (``atari_per_dqn.py``, ``bench.py``'s workload), Double
+  DQN, Rainbow (``atari_rainbow.py``), and ``train_dqn_ale.py --sim`` at its
+  own settings with the ``nature``, ``nips`` and ``dueling`` networks and
+  C51 on the Nature CNN (``atari_dqn_ale.py``, ``atari_c51.py``); on
+  CartPole DQN, C51, AL, Rainbow-CartPole and IQN, with the PAL, DPP and
+  Double IQN cores (``cartpole_value.py``);
+- off-policy actor-critic for continuous control, SAC, TD3 and DDPG
+  (``mujoco_actor_critic.py``), and on-policy PPO, A2C and TRPO
+  (``onpolicy.py``);
+- the recurrent and episodic paths: the episodic and prioritized episodic
+  buffers, DRQN, recurrent IQN, recurrent PPO and TRPO (``recurrent.py``),
+  and ACER, discrete and continuous (``acer.py``);
+- the host side of the Atari path: the C++ frame ops (:mod:`.runtime`),
+  the Atari wrappers (:mod:`.wrappers.atari_wrappers`), ``SyntheticALE``
+  (:mod:`.envs.synthetic_ale`) and the actor-learner pipeline over spawned
+  actor processes (:mod:`.parallel.atari_pipeline`,
+  ``experiments/atari_pipeline.py``).
+
+Every first-order core takes ``compute_dtype`` (bf16 compute over float32
+masters, see :mod:`.utils.precision`); TRPO refuses it, as in JAX. Not
+ported yet: REINFORCE, the agents' host shells, the host-env training
+loops and vector envs, ``make_atari`` (a real ALE), persistence and
+device meshes.
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; without a card they raise (see :mod:`._device`). Kernels
 are built from ``csrc/`` at first use (see :mod:`.ops.cuda_build`).
 """
 
-from pfrl_tpu_torch._device import resolve_device  # noqa: F401
+
+def __getattr__(name):
+    # Resolved on first use, so that the Atari pipeline's actor processes,
+    # which import the package's host modules, never load torch.
+    if name == "resolve_device":
+        from pfrl_tpu_torch._device import resolve_device
+
+        return resolve_device
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,16 +1,41 @@
-"""Device environment protocol (counterpart of ``pfrl_tpu/env.py``'s
+"""Environment protocols (counterpart of ``pfrl_tpu/env.py``'s ``Env``,
 ``TimeStep`` and ``JaxEnv``).
 
 A :class:`TorchEnv` is batched over lanes directly: its state is a set of
 ``[L]`` tensors and ``reset``/``step`` act on all lanes at once, where the
 JAX package writes one lane and vmaps it. Random draws come from a draw
 source (:mod:`pfrl_tpu_torch.utils.draws`) in place of a PRNG key.
+:class:`Env` is the host protocol (numpy observations, the gym 4-tuple) of
+the Atari wrappers and ``SyntheticALE``.
+
+The module imports no torch (the annotations stay strings): the Atari
+pipeline's actor processes import it through the wrappers, and they never
+load torch.
 """
 
-import dataclasses
-from typing import Any, Tuple
+from __future__ import annotations
 
-import torch
+import dataclasses
+from typing import TYPE_CHECKING, Any, Tuple
+
+if TYPE_CHECKING:
+    import torch
+
+
+class Env:
+    """Host RL environment (reference parity: pfrl/env.py:4-20)."""
+
+    observation_space = None
+    action_space = None
+
+    def step(self, action) -> Tuple[Any, float, bool, dict]:
+        raise NotImplementedError
+
+    def reset(self):
+        raise NotImplementedError
+
+    def close(self):
+        pass
 
 
 @dataclasses.dataclass

@@ -58,17 +58,20 @@ class NatureQ(nn.Module):
     """LargeAtariCNN -> Dense(512, n_actions) -> DiscreteActionValueHead,
     the ``NatureQ`` that ``bench.py`` defines in flax and the ``ConvQ`` of
     ``train_dqn_ale.py``. ``dense_cls`` ``(in, out) -> layer`` replaces the
-    head (``to_factorized_noisy``); the draw source reaches it."""
+    head (``to_factorized_noisy``); the draw source reaches it.
+    ``torso_cls`` swaps the torso (``SmallAtariCNN`` for ``--arch nips``,
+    :class:`~pfrl_tpu_torch.experiments.atari_dqn_ale.ConvQ`)."""
 
     def __init__(
         self,
         n_actions: int = 6,
         frame_shape: Tuple[int, int, int] = (84, 84, 4),
         dense_cls: Optional[Callable[[int, int], nn.Module]] = None,
+        torso_cls: type = LargeAtariCNN,
     ):
         super().__init__()
         h, w, c = frame_shape
-        self.torso = LargeAtariCNN(n_input_channels=c, input_hw=(h, w))
+        self.torso = torso_cls(n_input_channels=c, input_hw=(h, w))
         self.head = (dense_cls or Dense)(self.torso.dense.out_features, n_actions)
         self.q = DiscreteActionValueHead()
         self.reset_parameters()
@@ -78,7 +81,8 @@ class NatureQ(nn.Module):
         self.head.reset_parameters(generator)
 
     def flax_names(self) -> Dict[str, str]:
-        names = {f"torso.{k}": f"LargeAtariCNN_0/{v}" for k, v in self.torso.flax_names().items()}
+        torso = type(self.torso).__name__
+        names = {f"torso.{k}": f"{torso}_0/{v}" for k, v in self.torso.flax_names().items()}
         names["head"] = f"{self.head.flax_scope}_0"
         return names
 

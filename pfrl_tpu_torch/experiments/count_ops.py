@@ -18,9 +18,17 @@ The recurrent family's configurations count the same way
 do ACER's (``acer-atarisim-16``, ``acer-abc-16``,
 ``acer-continuous-abc-16``) and the Atari on-policy examples'
 (``a2c-atarisim-16``, ``ppo-atarisim-8``, per iteration).
+The Atari examples' configurations (``dqn-ale-*-64``, ``per-dqn-ale-64``,
+``c51-atarisim-64``) count per scan step; ``dqn-pipeline-288``, which is
+no runner, counts its device functions on a ring that is filled by
+commits, without spawning its actors: one act stage (96 lanes), one
+commit (288 lanes) and one burst of 64 updates, and from them the ops per
+env step at its cadence (3 act stages and a commit per 288 transitions,
+a burst per 256 of them).
 ``--bf16`` builds the configuration at ``compute_dtype=torch.bfloat16``.
 ``--capacity`` shrinks the replay ring, which changes no op of a scan step
-(the AtariSim configurations' 100,000 frame slots need 2.8 GB otherwise);
+(the AtariSim configurations' 100,000 frame slots need 2.8 GB otherwise,
+the Atari examples' 10^6 28.3 GB, the pipeline's 999,936 planes 7.1 GB);
 for the episodic buffers it is the number of rows (``drqn-atarisim-32``'s
 2,048 rows of 128 frames and carries need 5.9 GB, ``acer-atarisim-16``'s
 2,048 rows of 50 frame pairs 5.8 GB); the on-policy
@@ -36,7 +44,8 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from pfrl_tpu_torch.experiments.cartpole_value import RECIPES
-from pfrl_tpu_torch.experiments.profile_slice import CONFIGS
+from pfrl_tpu_torch.experiments.profile_slice import CONFIGS, PIPELINES
+from pfrl_tpu_torch.utils.draws import Draws
 
 
 class OpCounter(TorchDispatchMode):
@@ -50,7 +59,43 @@ class OpCounter(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
+def count_pipeline_ops(config: str, device=None, compute_dtype=None, capacity=None) -> dict:
+    """Ops of a pipeline's device functions (see the module docstring)."""
+    p = PIPELINES[config](device=device, compute_dtype=compute_dtype, capacity=capacity)
+    p._init_device_state(0)
+    dev, L, K = p.device, p.L, p.K
+    draws = Draws(torch.Generator(device=dev).manual_seed(0))
+    flags = lambda: torch.zeros(L, dtype=torch.bool, device=dev)  # noqa: E731
+    while p.ring.commit_cursor < p.capacity:  # every row committed: the window is as wide as it gets
+        p.commit(p.ring, torch.zeros(L, device=dev), flags(), flags())
+    planes = torch.zeros((K, p.hw[0] * p.hw[1]), dtype=torch.uint8, device=dev)
+    prev_done = torch.zeros(K, dtype=torch.bool, device=dev)
+    counts = {}
+    for name, fn in (
+        ("act_stage", lambda: p.act_stage(p._acting, p.stack, p.ring, planes, prev_done, 0, p.ring.commit_cursor,
+                                          p.replay_start_size, draws)),
+        ("commit", lambda: p.commit(p.ring, torch.zeros(L, device=dev), flags(), flags())),
+        ("burst", lambda: p.learner_burst(p.train_state, p.ring, draws, p.burst)),
+    ):
+        with OpCounter() as counter:
+            fn()
+        counts[name] = counter.counts
+    per_env_step = (p.n_workers * sum(counts["act_stage"].values()) + sum(counts["commit"].values())
+                    + sum(counts["burst"].values()) * L / (p.update_interval * p.burst)) / L
+    return {
+        "config": config,
+        "compute_dtype": str(compute_dtype),
+        "lanes": L,
+        **{f"ops_per_{name}": sum(c.values()) for name, c in counts.items()},
+        "ops_per_update": sum(counts["burst"].values()) / p.burst,
+        "ops_per_env_step": per_env_step,
+        "top_ops_per_burst": dict(counts["burst"].most_common(10)),
+    }
+
+
 def count_ops(config: str, steps: int, device=None, compute_dtype=None, capacity=None) -> dict:
+    if config in PIPELINES:
+        return count_pipeline_ops(config, device, compute_dtype, capacity)
     runner = CONFIGS[config](device=device, compute_dtype=compute_dtype, capacity=capacity)
     if hasattr(runner, "run_iterations"):
         state, _ = runner.run_iterations(runner.init(0), 1)
@@ -76,7 +121,7 @@ def count_ops(config: str, steps: int, device=None, compute_dtype=None, capacity
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--config", choices=sorted(CONFIGS), default=None,
+    parser.add_argument("--config", choices=sorted([*CONFIGS, *PIPELINES]), default=None,
                         help="default: each CartPole recipe")
     parser.add_argument("--steps", type=int, default=4)
     parser.add_argument("--bf16", action="store_true", help="bf16 compute over float32 masters")

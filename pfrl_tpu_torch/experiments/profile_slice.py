@@ -6,7 +6,9 @@
                   ppo|ppo-pendulum|trpo|a2c|drqn-atarisim-32|drqn-po-abc-16|
                   drqn-delayedcue-16|riqn-delayedcue-16|rppo-delayedcue-16|
                   rtrpo-delayedcue-16|acer-atarisim-16|acer-abc-16|
-                  acer-continuous-abc-16|a2c-atarisim-16|ppo-atarisim-8]
+                  acer-continuous-abc-16|a2c-atarisim-16|ppo-atarisim-8|
+                  dqn-ale-nature-64|dqn-ale-nips-64|dqn-ale-dueling-64|
+                  per-dqn-ale-64|c51-atarisim-64|dqn-pipeline-288]
         [--steps 8] [--bf16] [--out PATH]
 
 Runs one configuration at full width on the CUDA device. On 64 lanes of
@@ -81,6 +83,22 @@ the update's Retrace recursion apart. The Atari on-policy examples,
 ``ppo-atarisim-8`` (8 lanes, rollout 128, 16 batch-256 Adam steps per
 iteration), take the on-policy phases of A2C and PPO.
 
+The Atari examples at their own settings (``experiments/atari_dqn_ale.py``,
+``atari_c51.py``; 64 lanes, a 10^6-slot ring, 16 batch-32 updates per scan
+step): ``dqn-ale-nature-64``, ``dqn-ale-nips-64`` and
+``dqn-ale-dueling-64`` (``train_dqn_ale.py --sim --arch A``: Adam, the
+mean loss, the uniform ring), ``per-dqn-ale-64`` (``--prioritized``: the
+prefix-sample kernel at C = 2^20) and ``c51-atarisim-64``
+(``train_categorical_dqn_ale.py --sim``); their replay start is cut from
+50,000 to 2,048, as Rainbow's is. ``dqn-pipeline-288``
+(``experiments/atari_pipeline.make_dqn_pipeline()``: 3 actor processes x 96
+lanes of ``SyntheticALE``, the 999,936-plane ring, bursts of 64 updates) is
+no runner: it is started, run through its replay start of 50,000, then
+``--steps`` seconds timed (env-steps/s, updates/s, and the host's act round
+trips, commits, bursts' gathers and updates from ``timings()``), then
+``--steps`` seconds under ``torch.profiler`` (kernels per second and per
+env step, the device's busy share of that wall time), then stopped.
+
 ``--bf16`` builds the configuration at ``compute_dtype=torch.bfloat16``
 (bf16 compute over float32 masters, as the examples' ``--bf16``); TRPO
 refuses it by name.
@@ -110,7 +128,8 @@ from pfrl_tpu_torch.agents.ppo import PPOCore
 from pfrl_tpu_torch.agents.recurrent_ppo import RecurrentPPOCore
 from pfrl_tpu_torch.agents.recurrent_trpo import RecurrentTRPOCore
 from pfrl_tpu_torch.agents.trpo import TRPOCore
-from pfrl_tpu_torch.experiments import acer, cartpole_value, onpolicy, recurrent
+from pfrl_tpu_torch.experiments import acer, atari_c51, atari_dqn_ale, cartpole_value, onpolicy, recurrent
+from pfrl_tpu_torch.experiments.atari_pipeline import make_dqn_pipeline
 from pfrl_tpu_torch.experiments.atari_per_dqn import make_dqn_runner, make_per_dqn_runner
 from pfrl_tpu_torch.experiments.atari_rainbow import make_rainbow_runner
 from pfrl_tpu_torch.experiments.mujoco_actor_critic import (
@@ -160,7 +179,14 @@ CONFIGS = {
     **{name: _maker(make, "max_episodes") for name, make in acer.RECIPES.items()},
     "a2c-atarisim-16": _maker(onpolicy.make_a2c_atarisim_runner, None),
     "ppo-atarisim-8": _maker(onpolicy.make_ppo_atarisim_runner, None),
+    **{f"dqn-ale-{arch}-64": _maker(atari_dqn_ale.make_dqn_ale_runner, arch=arch, replay_start_size=2_048)
+       for arch in atari_dqn_ale.ARCHS},
+    "per-dqn-ale-64": _maker(atari_dqn_ale.make_dqn_ale_runner, prioritized=True, replay_start_size=2_048),
+    "c51-atarisim-64": _maker(atari_c51.make_c51_atarisim_runner, replay_start_size=2_048),
 }
+# ``--config`` name -> ``build(device=None, compute_dtype=None, capacity=None)``
+# of an actor-learner pipeline (not a runner).
+PIPELINES = {"dqn-pipeline-288": _maker(make_dqn_pipeline)}
 
 # Labels that start with two spaces are parts of the phase above them.
 COMMON_PHASES = (
@@ -276,7 +302,10 @@ def _wrap(acc, label, fn):
 
 def profile_config(config: str, steps: int, compute_dtype=None) -> dict:
     """Builds ``config`` on the card and profiles it: per scan step through
-    an off-policy runner, per iteration through an on-policy one."""
+    an off-policy runner, per iteration through an on-policy one, per
+    second through a pipeline."""
+    if config in PIPELINES:
+        return profile_pipeline(PIPELINES[config](compute_dtype=compute_dtype), config, steps, compute_dtype)
     runner = CONFIGS[config](compute_dtype=compute_dtype)
     measure = profile_onpolicy if hasattr(runner, "run_iterations") else profile_slice
     return measure(runner, config, steps, compute_dtype)
@@ -363,6 +392,68 @@ def profile_onpolicy(runner, config: str, iterations: int, compute_dtype=None) -
     }
 
 
+def run_pipeline(pipeline, seconds: float, profiled_seconds: float = 0.0, start_timeout: float = 600.0) -> dict:
+    """Starts ``pipeline``, waits for its replay start, runs it ``seconds``
+    timed and ``profiled_seconds`` under ``torch.profiler``, and stops it
+    (also when a thread fails, which raises). Returns the rates over the
+    timed window, ``timings()`` and the profiled window's kernels and busy
+    time."""
+    t0 = time.perf_counter()
+    pipeline.start()
+    try:
+        def wait(until):
+            while not until():
+                if pipeline.exception_event.is_set():
+                    raise RuntimeError("the pipeline failed (see the log)")
+                time.sleep(0.05)
+
+        deadline = t0 + start_timeout
+        wait(lambda: pipeline.optim_t > 0 or time.perf_counter() > deadline)
+        if pipeline.optim_t == 0:
+            raise RuntimeError(f"no update within {start_timeout} s of the start")
+        start_s = time.perf_counter() - t0
+        acted0, optim0, t1 = pipeline.acted_steps, pipeline.optim_t, time.perf_counter()
+        wait(lambda: time.perf_counter() - t1 >= seconds)
+        timed_s = time.perf_counter() - t1
+        acted1, optim1 = pipeline.acted_steps, pipeline.optim_t
+        record = {
+            "start_to_first_burst_s": start_s,
+            "timed_s": timed_s,
+            "env_steps_per_s": (acted1 - acted0) / timed_s,
+            "updates_per_s": (optim1 - optim0) / timed_s,
+        }
+        if profiled_seconds:
+            def window():
+                t = time.perf_counter()
+                wait(lambda: time.perf_counter() - t >= profiled_seconds)
+
+            acted2 = pipeline.acted_steps
+            _, profiled_s, kernels, busy_us, top = _profiled(window)
+            acted = pipeline.acted_steps - acted2
+            record.update({
+                "profiled_s": profiled_s,
+                "device_launches_per_s": kernels / profiled_s,
+                "device_launches_per_env_step": kernels / max(acted, 1),
+                "device_busy_share": busy_us / 1e6 / profiled_s,
+                "top_device_ops": _top(top, 1),
+            })
+    finally:
+        pipeline.stop()
+    if pipeline.exception_event.is_set():
+        raise RuntimeError("the pipeline failed (see the log)")
+    record.update({"acted_steps": pipeline.acted_steps, "optim_t": pipeline.optim_t,
+                   "statistics": dict(pipeline.get_statistics()), "timings": pipeline.timings()})
+    return record
+
+
+def profile_pipeline(pipeline, config: str, seconds: float, compute_dtype=None) -> dict:
+    """The pipeline counterpart of :func:`profile_slice`: ``seconds`` timed
+    after replay start, then as long under the profiler."""
+    record = run_pipeline(pipeline, seconds, seconds)
+    return {"device": torch.cuda.get_device_name(0), "config": config, "compute_dtype": str(compute_dtype),
+            "lanes": pipeline.L, "burst": pipeline.burst, "ring_bytes": pipeline.ring.nbytes, **record}
+
+
 @contextlib.contextmanager
 def _phase_timers(phases, owners):
     """Wraps each ``(owner, attribute, label)`` in a synchronizing timer that
@@ -414,8 +505,9 @@ def _top(top, steps: int) -> list:
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--config", choices=sorted(CONFIGS), default="per-dqn")
-    parser.add_argument("--steps", type=int, default=8, help="scan steps, or iterations of an on-policy config")
+    parser.add_argument("--config", choices=sorted([*CONFIGS, *PIPELINES]), default="per-dqn")
+    parser.add_argument("--steps", type=int, default=8,
+                        help="scan steps, iterations of an on-policy config, or seconds of a pipeline")
     parser.add_argument("--bf16", action="store_true", help="bf16 compute over float32 masters")
     parser.add_argument("--out", default=None, help="default: chiprun_out/profile_<config>[_bf16].json")
     args = parser.parse_args()
@@ -427,7 +519,7 @@ def main() -> None:
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(record, indent=1))
     print(json.dumps({k: v for k, v in record.items() if k != "top_device_ops"}, indent=1))
-    for op in record["top_device_ops"]:
+    for op in record.get("top_device_ops", []):
         print(f"{op['ms_per_step']:9.3f} ms/step {op['launches_per_step']:8.1f} launches/step  {op['name'][:90]}")
 
 
