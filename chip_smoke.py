@@ -130,7 +130,26 @@ result, without them. Its phases, each raising on failure:
    profiled: env-steps/s, updates/s, the act round trip (median and p90,
    apart by whether a burst was in flight), burst and commit times, target
    syncs (at least 1), the workers' start-up, the busy share; then a clean
-   stop.
+   stop;
+15. the host-env object path: small card-vs-CPU runs, on the same weights
+   and draws, of the ``DQN`` shell over a prioritized ring (the kernel once
+   per update, C = 2**14) through ``train_agent_with_evaluation``, of the
+   ``REINFORCE`` shell at ``train_reinforce_gym.py``'s widths over two and
+   more update batches, and of the ``DoubleDQN`` shell through
+   ``train_agent_batch_with_evaluation`` over a 4-lane ``SerialVectorEnv``,
+   each on the port's CartPole behind ``HostTorchEnv``: actions, counts and
+   evaluation rows equal, every learned tensor within 3e-6 or 4x what ulp
+   nudges of the weights move it. Then ``dqn-batch-ale-8``
+   (``train_dqn_batch_ale.py``'s ``run_batch`` at its settings,
+   ``experiments/atari_dqn_batch.py``: the ``DQN`` shell over the
+   10**6-slot ring, 28.3 GB, and 8 + 8 spawned ``SyntheticALE`` workers)
+   one batch step at a time through its replay start of 50,000 uncut and
+   the target sync at 60,000, then one evaluation of 10 episodes: env-steps/s
+   before the replay start and after it (past the 32 profiled batch steps
+   that follow it), updates/s, the median ``batch_act``,
+   env round trip, ``batch_observe`` and update ms, the workers' start-up,
+   the target syncs, 32 profiled batch steps' kernels and busy share; 0
+   kernel launches; the ring freed.
 
 The kernels' launch counts are set to 0 just before each full-width path
 and read just after it; the kernels' JSON line gives their sum over the
@@ -141,11 +160,13 @@ kernels' JSON line, the card's name and power limit, and
 """
 
 import copy
+import functools
 import json
 import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -2837,6 +2858,210 @@ def run_full_pipeline(card: str) -> dict:
     return result
 
 
+# -------------------------------------------------------------------- phase 15
+HOST_SMALL_DIR = OUT_DIR / "host_small"
+HOST_BATCH_STEPS = 60_032          # dqn-batch-ale-8: past the replay start of 50,000 uncut and the sync at 60,000
+HOST_BATCH_PROFILED = (50_048, 32)  # from t, batch steps under torch.profiler
+
+
+def _small_host_configs() -> dict:
+    """name -> (agent(device, draws), env(device, seed), driver):
+    the ``DQN`` shell over PER (the prefix-sample kernel once per update),
+    the ``REINFORCE`` shell at ``train_reinforce_gym.py``'s widths, and the
+    ``DoubleDQN`` shell over 4 lanes of a ``SerialVectorEnv``, each on the
+    500-step CartPole behind ``HostTorchEnv`` with its episodes cut at 50
+    steps (CartPole grows the card's and the CPU's ulp differences of the
+    state once the pole balances)."""
+    from pfrl_tpu_torch.agents import DQN, DoubleDQN
+    from pfrl_tpu_torch.envs import CartPole, HostTorchEnv, SerialVectorEnv
+    from pfrl_tpu_torch.envs.wrappers import TimeLimit
+    from pfrl_tpu_torch.experiments import train_agent_batch_with_evaluation, train_agent_with_evaluation
+    from pfrl_tpu_torch.experiments.reinforce_gym import make_reinforce_agent
+    from pfrl_tpu_torch.explorers import LinearDecayEpsilonGreedy
+    from pfrl_tpu_torch.optimizers import Adam
+    from pfrl_tpu_torch.q_functions import FCStateQFunctionWithDiscreteAction
+    from pfrl_tpu_torch.replay import PrioritizedReplayBuffer, ReplayBuffer
+
+    def cartpole(dev, seed):
+        return HostTorchEnv(TimeLimit(CartPole(device=dev), 500), draws=SeededDraws(seed, dev))
+
+    def dqn(cls, buffer, update_interval):
+        def make(dev, draws):
+            return cls(FCStateQFunctionWithDiscreteAction(4, 2, 2, 64), Adam(1e-3), buffer(dev), 0.99,
+                       LinearDecayEpsilonGreedy(1.0, 0.1, 1_000, 2), replay_start_size=100, minibatch_size=32,
+                       update_interval=update_interval, target_update_interval=100, device=dev, draws=draws)
+        return make
+
+    serial = functools.partial(train_agent_with_evaluation, eval_n_steps=None, eval_n_episodes=2,
+                               train_max_episode_len=50)
+    return {
+        "host-per-dqn-cartpole": (
+            dqn(DQN, lambda dev: PrioritizedReplayBuffer(10_000, betasteps=10_000, gamma=0.99, device=dev), 2),
+            cartpole, functools.partial(serial, steps=300, eval_interval=150)),
+        "host-reinforce-cartpole": (
+            lambda dev, draws: make_reinforce_agent(batchsize=2, device=dev, draws=draws),
+            cartpole, functools.partial(serial, steps=120, eval_interval=120)),
+        "host-double-dqn-batch-4": (
+            dqn(DoubleDQN, lambda dev: ReplayBuffer(10_000, gamma=0.99, device=dev), 4),
+            lambda dev, seed: SerialVectorEnv([cartpole(dev, seed + i) for i in range(4)]),
+            functools.partial(train_agent_batch_with_evaluation, steps=400, eval_n_steps=None, eval_n_episodes=4,
+                              eval_interval=200, max_episode_len=50)),
+    }
+
+
+def _shell_tensors(agent) -> dict:
+    """Every tensor a shell learns: the networks and the Adam moments."""
+    ts = agent.train_state
+    out = {f"online {n}": p for n, p in ts.model.named_parameters()}
+    if hasattr(ts, "target_model"):
+        out.update({f"target {n}": p for n, p in ts.target_model.named_parameters()})
+    names = [n for n, _ in ts.model.named_parameters()]
+    out.update({f"mu {n}": m for n, m in zip(names, ts.opt_state.mu)})
+    out.update({f"nu {n}": m for n, m in zip(names, ts.opt_state.nu)})
+    return {k: v.detach().cpu() for k, v in out.items()}
+
+
+def _host_scores(outdir: Path) -> list:
+    """``scores.txt``'s rows without ``elapsed``, a wall time."""
+    lines = (outdir / "scores.txt").read_text().splitlines()
+    header = lines[0].split("\t")
+    return [{k: v for k, v in zip(header, line.split("\t")) if k != "elapsed"} for line in lines[1:]]
+
+
+def check_small_host(name: str, make_agent, make_env, drive, device) -> dict:
+    """One shell through its host driver on the card and on the CPU, from
+    the same weights (a CPU generator's) and the same draws (agent and envs
+    from ``SeededDraws``): the actions, update counts and evaluation
+    returns equal, the statistics within 1e-4 relative (5e-5 absolute: the
+    baseline makes REINFORCE's loss a near-cancelling sum), every learned
+    tensor within 3e-6 (second moments 1e-5 of their largest) or 4x what
+    1 + 2**-23 and 1 - 2**-23 nudges of the weights move it on the CPU,
+    where that is more (C48's rule). The prefix-sample kernel launches once
+    per update of a prioritized ring on the card."""
+    from pfrl_tpu_torch.ops.prefix_sample import prefix_sample
+
+    def run(dev, tag, scale=1.0):
+        agent = make_agent(dev, SeededDraws(1, dev))
+        agent.train_state = agent.core.init(torch.Generator().manual_seed(0), torch.zeros((1, 4), device=dev))
+        state = agent.train_state
+        with torch.no_grad():
+            for module in (state.model, getattr(state, "target_model", None)):
+                for p in module.parameters() if module is not None else ():
+                    p.mul_(scale)
+        actions, act = [], agent.batch_act
+
+        def batch_act(batch_obs):
+            out = act(batch_obs)
+            actions.append(np.asarray(out).copy())
+            return out
+
+        agent.batch_act = batch_act
+        outdir = HOST_SMALL_DIR / name / tag
+        drive(agent, make_env(dev, 10), outdir=str(outdir), eval_env=make_env(dev, 20))
+        return agent, actions, _host_scores(outdir)
+
+    prefix_sample.launches = 0
+    card, card_actions, card_scores = run(device, "card")
+    torch.cuda.synchronize()
+    launches = prefix_sample.launches
+    cpu, cpu_actions, cpu_scores = run("cpu", "cpu")
+    nudged = [_shell_tensors(run("cpu", f"nudged{i}", s)[0]) for i, s in enumerate(ACER_NUDGES)]
+    updates = card.train_state.n_updates
+    checks = {
+        "equal actions": len(card_actions) == len(cpu_actions) > 0
+        and all(np.array_equal(a, b) for a, b in zip(card_actions, cpu_actions)),
+        "equal step and update counts": card.t == cpu.t and updates == cpu.train_state.n_updates > 0,
+        "equal evaluation rows": len(card_scores) == len(cpu_scores) >= 1 and all(
+            a[k] == b[k] for a, b in zip(card_scores, cpu_scores) for k in a if not k.startswith("average_")),
+        "statistics within 1e-4": all(
+            math.isclose(float(a), float(b), rel_tol=1e-4, abs_tol=5e-5)
+            for (_, a), (_, b) in zip(card.get_statistics(), cpu.get_statistics())),
+        "prefix-sample launches": launches == (updates if hasattr(getattr(card, "buffer", None), "tree_capacity")
+                                               else 0),
+    }
+    worst = {}
+    got, want = _shell_tensors(card), _shell_tensors(cpu)
+    for key, x in got.items():
+        nudge = max(float((want[key] - n[key]).abs().max()) for n in nudged)
+        floor = 1e-5 * float(want[key].abs().max()) if key.startswith("nu ") else 3e-6
+        diff = float((x - want[key]).abs().max())
+        worst[key] = (diff, max(floor, 4 * nudge))
+    checks["learned tensors within their bounds"] = all(d <= b for d, b in worst.values())
+    top = max(worst.items(), key=lambda kv: kv[1][0] / kv[1][1])
+    print(f"small {name}: card vs CPU over {card.t} host steps, {updates} updates, {len(card_actions)} acts (actions "
+          f"{'equal' if checks['equal actions'] else 'DIFFER'}), {launches} prefix-sample launches; largest "
+          f"difference against its bound {top[0]} {top[1][0]:.3g} <= {top[1][1]:.3g}; evaluation rows "
+          f"{[r['mean'] for r in card_scores]}")
+    _raise_on_failed(f"small {name}", checks)
+    return {"host_steps": card.t, "updates": updates, "acts": len(card_actions), "kernel_launches": launches,
+            "largest_differences": {k: v[0] for k, v in worst.items()}, "bounds": {k: v[1] for k, v in worst.items()}}
+
+
+def run_full_host_batch(card: str) -> dict:
+    """``dqn-batch-ale-8`` on the card: ``train_dqn_batch_ale.py``'s
+    ``run_batch`` at the example's settings (``experiments/atari_dqn_batch.py``:
+    the ``DQN`` shell, the 10^6-slot ring, 8 + 8 spawned workers of
+    ``SyntheticALE`` through ``wrap_deepmind``) through its replay start of
+    50,000 uncut and the target sync at 60,000, one batch step at a time
+    (``profile_host.run_host_batch``), then one evaluation of 10 episodes.
+    The run is cut short of the example's 5 * 10^7 steps and nothing else.
+    The ring is freed before the phase ends."""
+    from pfrl_tpu_torch.experiments.atari_dqn_batch import make_dqn_batch_agent, make_vector_envs
+    from pfrl_tpu_torch.experiments.profile_host import run_host_batch
+    from pfrl_tpu_torch.ops.prefix_sample import prefix_sample
+
+    agent = make_dqn_batch_agent()
+    env, eval_env = make_vector_envs(8, 0)
+    prefix_sample.launches = 0
+    try:
+        with tempfile.TemporaryDirectory() as outdir:  # the saved agents: 27 MB each
+            record = run_host_batch(agent, env, eval_env, HOST_BATCH_STEPS, HOST_BATCH_STEPS, 10, outdir,
+                                    profiled=HOST_BATCH_PROFILED)
+    finally:
+        for e in (env, eval_env):
+            if not e.closed:
+                e.close()
+    launches = prefix_sample.launches
+    record["kernel_launches"] = launches
+    stats, tm = record["statistics"], record["timings"]
+    expected_updates = HOST_BATCH_STEPS // 4 - (agent.replay_start_size - 8) // 4
+    checks = {
+        "the 10^6-slot ring, 28.288 GB of frames": record["ring_slots"] == 10**6 and record["ring_bytes"] > 28.28e9,
+        "t and the updates as the shell's gating has them": record["t"] == HOST_BATCH_STEPS
+        and record["n_updates"] == expected_updates,
+        "at least one target sync": record["target_syncs"] >= 1,
+        "loss finite": math.isfinite(stats["average_loss"]) and math.isfinite(stats["average_q"]),
+        "one evaluation of 10 episodes, finite": len(record["eval"]) == 1 and math.isfinite(record["eval"][0]["mean"]),
+        "every worker ended": all(p.exitcode is not None for e in (env, eval_env) for p in e.ps),
+        "no prefix-sample launch": launches == 0,
+        "a profiled window": "profiled" in record,
+    }
+    prof = record.get("profiled", {})
+    med = lambda k: tm.get(k, {}).get("median_ms", float("nan"))  # noqa: E731
+    after = "ms_per_batch_step_after_replay_start"
+    print(f"dqn-batch-ale-8: 8 + 8 spawned workers up in {record['worker_startup_s']['train']:.2f} + "
+          f"{record['worker_startup_s']['eval']:.2f} s; ring {record['ring_bytes'] / 1e9:.3f} GB; env-steps/s "
+          f"{record['env_steps_per_s_before_replay_start']:.1f} before the replay start (50,000, uncut), "
+          f"{record['env_steps_per_s_after_replay_start']:.1f} after it (from t = {record['learning_from_t']:,}, past "
+          f"the profiled window), updates/s "
+          f"{record['updates_per_s_after_replay_start']:.1f}; median batch_act {med('batch_act'):.3f} ms, env round "
+          f"trip {med('env round trip'):.3f} ms, batch_observe {med('batch_observe (ring add)'):.3f} ms (ring add), "
+          f"{med('batch_observe with updates'):.3f} ms (with its updates), update {med('update'):.3f} ms; past the "
+          f"profiled window {record['batch_step_ms_after_replay_start']:.3f} ms per batch step, of which "
+          f"{', '.join(f'{k} {v[after]:.3f}' for k, v in tm.items() if v.get(after) is not None)}; "
+          f"{record['n_updates']} updates, {record['target_syncs']} target syncs; over {prof.get('batch_steps')} "
+          f"profiled batch steps {prof.get('kernels_per_batch_step', float('nan')):.1f} kernels per batch step, "
+          f"device busy {prof.get('device_busy_share', float('nan')) * 100:.1f}%; evaluation mean "
+          f"{record['eval'][0]['mean'] if record['eval'] else float('nan')} over 10 episodes; loss "
+          f"{stats['average_loss']:.5f}; {launches} prefix-sample launches (fp32, no TF32) on {card}")
+    _raise_on_failed("dqn-batch-ale-8", checks)
+    agent.replay_state = None
+    del agent
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2929,6 +3154,10 @@ def main() -> int:
     record["full_examples"] = {name: phase(f"full {name}", run_full_example_atari, card, name)
                                for name in _example_configs()}
     record["full_examples"]["dqn-pipeline-288"] = phase("full dqn-pipeline-288", run_full_pipeline, card)
+    for name, (make_agent, make_env, drive) in _small_host_configs().items():
+        record["small_slices"][name] = phase(f"small {name}", check_small_host, name, make_agent, make_env, drive,
+                                             device)
+    record["full_host"] = {"dqn-batch-ale-8": phase("full dqn-batch-ale-8", run_full_host_batch, card)}
     # Counted over each path that samples by priority, from 0 at its start;
     # every other path asserts a count of 0.
     kernel["launches_by_path"] = {
@@ -2941,6 +3170,9 @@ def main() -> int:
         **{name: r["kernel_launches"] for name, r in record["full_recurrent"].items()},
         **{name: r["kernel_launches"] for name, r in record["full_acer"].items()},
         **{name: r["kernel_launches"] for name, r in record["full_examples"].items()},
+        # The card's side of the PER shell's card-vs-CPU run: one launch per update.
+        "host-per-dqn-cartpole": record["small_slices"]["host-per-dqn-cartpole"]["kernel_launches"],
+        **{name: r["kernel_launches"] for name, r in record["full_host"].items()},
     }
     kernel["launches"] = sum(kernel["launches_by_path"].values())
     record["kernels"] = [kernel]

@@ -27,11 +27,19 @@ Ported so far, each through ``experiments.OffPolicyRunner`` or
   actor processes (:mod:`.parallel.atari_pipeline`,
   ``experiments/atari_pipeline.py``).
 
+- the host-env object path: the agent protocol (:mod:`.agent`), the
+  ``DQN`` and ``DoubleDQN`` shells and ``REINFORCE`` (:mod:`.agents`), the
+  host vector envs (``SerialVectorEnv``, ``MultiprocessVectorEnv`` over
+  spawned workers), ``GymnasiumEnv`` and ``HostTorchEnv``, the small
+  wrappers (:mod:`.wrappers`), and the drivers ``train_agent*`` with
+  ``Evaluator`` (:mod:`.experiments`); ``train_dqn_batch_ale.py``'s batch
+  mode at its own settings (``atari_dqn_batch.py``) and
+  ``train_reinforce_gym.py`` (``reinforce_gym.py``).
+
 Every first-order core takes ``compute_dtype`` (bf16 compute over float32
 masters, see :mod:`.utils.precision`); TRPO refuses it, as in JAX. Not
-ported yet: REINFORCE, the agents' host shells, the host-env training
-loops and vector envs, ``make_atari`` (a real ALE), persistence and
-device meshes.
+ported yet: the shells of the other cores, the actor-learner half of the
+DQN shell, ``make_atari`` (a real ALE), persistence and device meshes.
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; without a card they raise (see :mod:`._device`). Kernels

@@ -1,9 +1,10 @@
 """Double DQN (counterpart of ``pfrl_tpu/agents/double_dqn.py``): the
-greedy action from the online network, evaluated by the target network."""
+greedy action from the online network, evaluated by the target network;
+:class:`DoubleDQN` is the host shell over it."""
 
 import torch
 
-from pfrl_tpu_torch.agents.dqn import DQNCore
+from pfrl_tpu_torch.agents.dqn import DQN, DQNCore
 from pfrl_tpu_torch.replay.transition import TransitionBatch
 
 
@@ -17,3 +18,7 @@ class DoubleDQNCore(DQNCore):
             next_target = self.action_value(target_model, batch.next_obs, draws)
             t = self.bootstrap(batch, next_target.evaluate_actions(greedy))
         return y, t
+
+
+class DoubleDQN(DQN):
+    default_core = DoubleDQNCore

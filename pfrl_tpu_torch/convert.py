@@ -38,6 +38,7 @@ from pfrl_tpu_torch.agents.acer import ACERState
 from pfrl_tpu_torch.agents.ddpg import ActorCriticState, DDPGCore
 from pfrl_tpu_torch.agents.dqn import DQNCore, DQNState
 from pfrl_tpu_torch.agents.ppo import PPOCore, PPOState
+from pfrl_tpu_torch.agents.reinforce import ReinforceCore, ReinforceState
 from pfrl_tpu_torch.agents.soft_actor_critic import SACCore, SACState
 from pfrl_tpu_torch.agents.td3 import TD3Core, TD3State
 from pfrl_tpu_torch.agents.trpo import TRPOCore, TRPOState
@@ -119,6 +120,19 @@ def dqn_state_from_flax(
     _load_optimizer(core.optimizer, state.opt_state, model, opt_state)
     state.n_updates = int(n_updates)
     return state
+
+
+def dqn_shell_from_flax(shell, flax_state):
+    """A JAX ``DQN`` shell's ``train_state`` (the tree its ``save`` writes,
+    with numpy leaves: ``params``, ``target_params``, ``opt_state``,
+    ``n_updates``) into the port's shell ``shell`` (``DQN`` or
+    ``DoubleDQN``), on the shell's device. Set before the first act, it is
+    the state the shell acts and learns from. Returns ``shell``."""
+    shell.train_state = dqn_state_from_flax(
+        shell.core, flax_state.params, flax_state.target_params, flax_state.opt_state,
+        device=shell.device, n_updates=int(np.asarray(flax_state.n_updates)),
+    )
+    return shell
 
 
 def _load_network(template: nn.Module, flax_state, params_field: str, device) -> nn.Module:
@@ -225,6 +239,18 @@ def ppo_state_from_flax(core: PPOCore, flax_state, device=None) -> PPOState:
     """A whole JAX ``PPOState`` (A2C's too) into the port's: the model, the
     optimizer's state (Adam, or the ``(clip_by_global_norm, rmsprop)``
     chain's) and ``n_updates``."""
+    device = resolve_device(device)
+    model = _load_network(core.model, flax_state, "params", device)
+    state = core.state_from_model(model)
+    _load_optimizer(core.optimizer, state.opt_state, model, flax_state.opt_state)
+    state.n_updates = int(np.asarray(flax_state.n_updates))
+    return state
+
+
+def reinforce_state_from_flax(core: ReinforceCore, flax_state, device=None) -> ReinforceState:
+    """A whole JAX ``ReinforceState`` (a ``REINFORCE`` shell's
+    ``train_state``) into the port's: the policy, its optimizer's state and
+    ``n_updates``."""
     device = resolve_device(device)
     model = _load_network(core.model, flax_state, "params", device)
     state = core.state_from_model(model)

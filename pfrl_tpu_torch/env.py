@@ -1,16 +1,18 @@
 """Environment protocols (counterpart of ``pfrl_tpu/env.py``'s ``Env``,
-``TimeStep`` and ``JaxEnv``).
+``TimeStep``, ``JaxEnv`` and ``VectorEnv``).
 
 A :class:`TorchEnv` is batched over lanes directly: its state is a set of
 ``[L]`` tensors and ``reset``/``step`` act on all lanes at once, where the
 JAX package writes one lane and vmaps it. Random draws come from a draw
 source (:mod:`pfrl_tpu_torch.utils.draws`) in place of a PRNG key.
 :class:`Env` is the host protocol (numpy observations, the gym 4-tuple) of
-the Atari wrappers and ``SyntheticALE``.
+the Atari wrappers, ``SyntheticALE`` and the host-env drivers, and
+:class:`VectorEnv` its vectorized form (``envs/serial_vector_env.py``,
+``envs/multiprocess_vector_env.py``).
 
 The module imports no torch (the annotations stay strings): the Atari
-pipeline's actor processes import it through the wrappers, and they never
-load torch.
+pipeline's actor processes and the workers of ``MultiprocessVectorEnv``
+import it through the wrappers, and they never load torch.
 """
 
 from __future__ import annotations
@@ -36,6 +38,37 @@ class Env:
 
     def close(self):
         pass
+
+
+class VectorEnv:
+    """Host vectorized env (reference parity: pfrl/env.py:23-55).
+
+    ``reset(mask)`` resets only the envs where ``mask`` is falsy; envs with
+    a true mask keep running and return their last observation.
+    """
+
+    observation_space = None
+    action_space = None
+
+    @property
+    def num_envs(self) -> int:
+        raise NotImplementedError
+
+    def step(self, actions):
+        raise NotImplementedError
+
+    def reset(self, mask=None):
+        raise NotImplementedError
+
+    def seed(self, seeds=None):
+        raise NotImplementedError
+
+    def close(self):
+        pass
+
+    @property
+    def unwrapped(self):
+        return self
 
 
 @dataclasses.dataclass

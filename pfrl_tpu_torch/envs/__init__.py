@@ -1,7 +1,8 @@
-"""Device environments (batched over lanes, on tensors) and the host
-``SyntheticALE``. The names resolve on first use, so that importing
-:mod:`.synthetic_ale` (in the Atari pipeline's actor processes, by
-unpickling a factory) loads no torch."""
+"""Device environments (batched over lanes, on tensors), the host
+``SyntheticALE``, the host vector envs and adapters. The names resolve on
+first use, so that importing :mod:`.synthetic_ale`,
+:mod:`.multiprocess_vector_env` or :mod:`.gymnasium_env` (in actor and
+worker processes, by unpickling a factory) loads no torch."""
 
 import importlib
 
@@ -15,6 +16,10 @@ _EXPORTS = {
     "vector_env": ("VecStep", "VectorTorchEnv"),
     "wrappers": ("CastObservationToFloat32", "NormalizeActionSpace", "ScaleReward", "TimeLimit", "TimeLimitState"),
     "synthetic_ale": ("SyntheticALE",),
+    "host_adapter": ("HostTorchEnv",),
+    "serial_vector_env": ("SerialVectorEnv",),
+    "multiprocess_vector_env": ("MultiprocessVectorEnv",),
+    "gymnasium_env": ("GymnasiumEnv", "make_gymnasium_env"),
 }
 _MODULE_OF = {name: module for module, names in _EXPORTS.items() for name in names}
 __all__ = sorted(_MODULE_OF)

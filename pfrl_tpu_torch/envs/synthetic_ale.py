@@ -7,8 +7,8 @@ Produces 210x160x3 uint8 frames via a cheap numpy pattern, geometric
 episode lengths, and the gym 4-tuple step API the Atari wrapper stack
 expects (reference workload shape: pfrl/wrappers/atari_wrappers.py:23-325).
 
-Top-level factories (``make_raw``, ``make_warped``, ``make_warped_stacked``)
-are spawn-picklable so actor processes can build their own envs. Neither
+Top-level factories (``make_raw``, ``make_warped``, ``make_warped_stacked``,
+``make_ale_env``) are spawn-picklable so actor processes can build their own envs. Neither
 this module nor the wrappers it builds import torch, so unpickling a
 factory in an actor process loads none.
 """
@@ -79,3 +79,21 @@ def make_warped_stacked(seed=0):
     return atari_wrappers.wrap_deepmind(
         env, episode_life=False, channel_order="hwc"
     )
+
+
+def make_ale_env(seed=0, idx=0, test=False):
+    """``examples/atari/train_dqn_batch_ale.py``'s ``make_ale_env`` with
+    ``MaxAndSkipEnv(SyntheticALE(...), skip=4)`` in place of
+    ``make_atari(args.env)``: ``wrap_deepmind`` (84x84x4 uint8 stacks, hwc;
+    rewards clipped in training), seeded ``seed + idx`` (``+ 10**6`` for an
+    evaluation env), and an evaluation env takes a random action 5% of the
+    time (``RandomizeAction``, unseeded as in the example). SyntheticALE has
+    no lives, so ``EpisodicLifeEnv`` cannot wrap it: training runs with
+    ``episode_life=False``, the one change from the example."""
+    from pfrl_tpu_torch.wrappers import RandomizeAction, atari_wrappers
+
+    env = atari_wrappers.MaxAndSkipEnv(SyntheticALE(seed + idx + (10**6 if test else 0)), skip=4)
+    env = atari_wrappers.wrap_deepmind(env, episode_life=False, clip_rewards=not test, channel_order="hwc")
+    if test:
+        env = RandomizeAction(env, 0.05)
+    return env

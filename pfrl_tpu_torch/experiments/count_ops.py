@@ -25,6 +25,10 @@ commits, without spawning its actors: one act stage (96 lanes), one
 commit (288 lanes) and one burst of 64 updates, and from them the ops per
 env step at its cadence (3 act stages and a commit per 288 transitions,
 a burst per 256 of them).
+``dqn-batch-ale-8``, the ``DQN`` shell of ``experiments/atari_dqn_batch.py``,
+counts one ``batch_act`` (8 lanes), one ``batch_observe`` without an update
+and one update on frames made on the host, spawning no worker, and from
+them the ops per env step (an update per 4 transitions).
 ``--bf16`` builds the configuration at ``compute_dtype=torch.bfloat16``.
 ``--capacity`` shrinks the replay ring, which changes no op of a scan step
 (the AtariSim configurations' 100,000 frame slots need 2.8 GB otherwise,
@@ -44,7 +48,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from pfrl_tpu_torch.experiments.cartpole_value import RECIPES
-from pfrl_tpu_torch.experiments.profile_slice import CONFIGS, PIPELINES
+from pfrl_tpu_torch.experiments.profile_slice import CONFIGS, HOSTS, PIPELINES
 from pfrl_tpu_torch.utils.draws import Draws
 
 
@@ -96,6 +100,12 @@ def count_pipeline_ops(config: str, device=None, compute_dtype=None, capacity=No
 def count_ops(config: str, steps: int, device=None, compute_dtype=None, capacity=None) -> dict:
     if config in PIPELINES:
         return count_pipeline_ops(config, device, compute_dtype, capacity)
+    if config in HOSTS:
+        from pfrl_tpu_torch.experiments.profile_host import count_host_ops
+
+        kw = {} if capacity is None else {"capacity": capacity}
+        agent = HOSTS[config](device=device, compute_dtype=compute_dtype, **kw)
+        return {"config": config, "compute_dtype": str(compute_dtype), **count_host_ops(agent)}
     runner = CONFIGS[config](device=device, compute_dtype=compute_dtype, capacity=capacity)
     if hasattr(runner, "run_iterations"):
         state, _ = runner.run_iterations(runner.init(0), 1)
@@ -121,7 +131,7 @@ def count_ops(config: str, steps: int, device=None, compute_dtype=None, capacity
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--config", choices=sorted([*CONFIGS, *PIPELINES]), default=None,
+    parser.add_argument("--config", choices=sorted([*CONFIGS, *PIPELINES, *HOSTS]), default=None,
                         help="default: each CartPole recipe")
     parser.add_argument("--steps", type=int, default=4)
     parser.add_argument("--bf16", action="store_true", help="bf16 compute over float32 masters")

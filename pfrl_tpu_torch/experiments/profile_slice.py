@@ -8,7 +8,7 @@
                   rtrpo-delayedcue-16|acer-atarisim-16|acer-abc-16|
                   acer-continuous-abc-16|a2c-atarisim-16|ppo-atarisim-8|
                   dqn-ale-nature-64|dqn-ale-nips-64|dqn-ale-dueling-64|
-                  per-dqn-ale-64|c51-atarisim-64|dqn-pipeline-288]
+                  per-dqn-ale-64|c51-atarisim-64|dqn-pipeline-288|dqn-batch-ale-8]
         [--steps 8] [--bf16] [--out PATH]
 
 Runs one configuration at full width on the CUDA device. On 64 lanes of
@@ -99,6 +99,15 @@ trips, commits, bursts' gathers and updates from ``timings()``), then
 ``--steps`` seconds under ``torch.profiler`` (kernels per second and per
 env step, the device's busy share of that wall time), then stopped.
 
+``dqn-batch-ale-8`` (``experiments/atari_dqn_batch.py``,
+``train_dqn_batch_ale.py``'s ``run_batch``: the ``DQN`` shell, the
+10^6-slot ring, 8 + 8 spawned ``SyntheticALE`` workers) is driven one batch
+step at a time by ``train_agent_batch_with_evaluation``
+(``experiments/profile_host.py``): its replay start cut to 2,048, then
+``--steps`` batch steps under ``torch.profiler`` and ``--steps`` more timed
+(env-steps/s, updates/s, and the median ``batch_act``, env round trip,
+``batch_observe`` and update), then one evaluation of 10 episodes.
+
 ``--bf16`` builds the configuration at ``compute_dtype=torch.bfloat16``
 (bf16 compute over float32 masters, as the examples' ``--bf16``); TRPO
 refuses it by name.
@@ -128,7 +137,7 @@ from pfrl_tpu_torch.agents.ppo import PPOCore
 from pfrl_tpu_torch.agents.recurrent_ppo import RecurrentPPOCore
 from pfrl_tpu_torch.agents.recurrent_trpo import RecurrentTRPOCore
 from pfrl_tpu_torch.agents.trpo import TRPOCore
-from pfrl_tpu_torch.experiments import acer, atari_c51, atari_dqn_ale, cartpole_value, onpolicy, recurrent
+from pfrl_tpu_torch.experiments import acer, atari_c51, atari_dqn_ale, atari_dqn_batch, cartpole_value, onpolicy, recurrent
 from pfrl_tpu_torch.experiments.atari_pipeline import make_dqn_pipeline
 from pfrl_tpu_torch.experiments.atari_per_dqn import make_dqn_runner, make_per_dqn_runner
 from pfrl_tpu_torch.experiments.atari_rainbow import make_rainbow_runner
@@ -187,6 +196,9 @@ CONFIGS = {
 # ``--config`` name -> ``build(device=None, compute_dtype=None, capacity=None)``
 # of an actor-learner pipeline (not a runner).
 PIPELINES = {"dqn-pipeline-288": _maker(make_dqn_pipeline)}
+# A host-env object path: a shell over spawned vector envs (not a runner).
+HOSTS = {"dqn-batch-ale-8": atari_dqn_batch.make_dqn_batch_agent}
+HOST_REPLAY_START = 2_048
 
 # Labels that start with two spaces are parts of the phase above them.
 COMMON_PHASES = (
@@ -306,6 +318,8 @@ def profile_config(config: str, steps: int, compute_dtype=None) -> dict:
     second through a pipeline."""
     if config in PIPELINES:
         return profile_pipeline(PIPELINES[config](compute_dtype=compute_dtype), config, steps, compute_dtype)
+    if config in HOSTS:
+        return profile_host_batch(config, steps, compute_dtype)
     runner = CONFIGS[config](compute_dtype=compute_dtype)
     measure = profile_onpolicy if hasattr(runner, "run_iterations") else profile_slice
     return measure(runner, config, steps, compute_dtype)
@@ -454,6 +468,31 @@ def profile_pipeline(pipeline, config: str, seconds: float, compute_dtype=None) 
             "lanes": pipeline.L, "burst": pipeline.burst, "ring_bytes": pipeline.ring.nbytes, **record}
 
 
+def profile_host_batch(config: str, steps: int, compute_dtype=None) -> dict:
+    """The host path's counterpart of :func:`profile_slice`: replay start
+    cut to 2,048, ``2 * steps`` batch steps past it, the first ``steps``
+    profiled and the next timed, one evaluation of 10 episodes at the end.
+    The driver's output directory (with the agents it saves) is a temporary
+    one."""
+    import tempfile
+
+    from pfrl_tpu_torch.experiments.profile_host import run_host_batch
+
+    agent = HOSTS[config](replay_start_size=HOST_REPLAY_START, compute_dtype=compute_dtype)
+    env, eval_env = atari_dqn_batch.make_vector_envs(agent.buffer.num_lanes)
+    lanes = env.num_envs
+    total = HOST_REPLAY_START + 2 * steps * lanes
+    try:
+        with tempfile.TemporaryDirectory() as outdir:
+            record = run_host_batch(agent, env, eval_env, total, total, 10, outdir,
+                                    profiled=(HOST_REPLAY_START, steps))
+    finally:
+        for e in (env, eval_env):
+            if not e.closed:
+                e.close()
+    return {"config": config, "compute_dtype": str(compute_dtype), **record}
+
+
 @contextlib.contextmanager
 def _phase_timers(phases, owners):
     """Wraps each ``(owner, attribute, label)`` in a synchronizing timer that
@@ -505,9 +544,10 @@ def _top(top, steps: int) -> list:
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--config", choices=sorted([*CONFIGS, *PIPELINES]), default="per-dqn")
+    parser.add_argument("--config", choices=sorted([*CONFIGS, *PIPELINES, *HOSTS]), default="per-dqn")
     parser.add_argument("--steps", type=int, default=8,
-                        help="scan steps, iterations of an on-policy config, or seconds of a pipeline")
+                        help="scan steps, iterations of an on-policy config, seconds of a pipeline, "
+                             "or batch steps of a host path")
     parser.add_argument("--bf16", action="store_true", help="bf16 compute over float32 masters")
     parser.add_argument("--out", default=None, help="default: chiprun_out/profile_<config>[_bf16].json")
     args = parser.parse_args()

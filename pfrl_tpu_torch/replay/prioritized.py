@@ -83,6 +83,14 @@ class PrioritizedReplayBuffer(ReplayBuffer):
         self.error_max = error_max
         self.tree_capacity = sum_tree.tree_capacity(self.capacity)
 
+    def _config(self) -> dict:
+        return dict(
+            super()._config(), alpha=self.alpha, beta0=self.beta0,
+            betasteps=None if self.beta_add == 0 else (1.0 - self.beta0) / self.beta_add,
+            eps=self.eps, normalize_by_max=self.normalize_by_max,
+            error_min=self.error_min, error_max=self.error_max,
+        )
+
     # ------------------------------------------------------------------ init
     def init(self, example: Transition) -> PrioritizedReplayState:
         dev = self.device

@@ -90,6 +90,26 @@ class ReplayBuffer:
     #: minibatches at once. PrioritizedReplayBuffer overrides this to False.
     iid_samples = True
 
+    @property
+    def wants_next_obs(self) -> bool:
+        """Whether ``add`` reads the ``next_obs`` leaf. False: the bootstrap
+        observation comes from the successor ring slot, so a host caller
+        may skip collating and uploading it."""
+        return self.store_next_obs
+
+    def _config(self) -> dict:
+        return dict(
+            capacity=self.capacity, num_steps=self.num_steps, gamma=self.gamma,
+            num_lanes=self.num_lanes, store_next_obs=self.store_next_obs,
+            fused_dequant_scale=self.fused_dequant_scale, device=self.device,
+        )
+
+    def configure_lanes(self, num_lanes: int) -> "ReplayBuffer":
+        """A copy for another env-batch width (the ring stride); the host
+        shell calls it once it learns the vector env's size. The capacity
+        is the one this buffer rounded to, as in the JAX package."""
+        return type(self)(**{**self._config(), "num_lanes": num_lanes})
+
     def _leaves(self, t: Transition) -> Dict[str, torch.Tensor]:
         leaves = {
             "obs": t.obs, "action": t.action, "reward": t.reward,

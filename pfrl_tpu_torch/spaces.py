@@ -1,6 +1,6 @@
-"""Minimal space specs: a copy of ``pfrl_tpu/spaces.py``'s ``Discrete`` and
-``Box`` (static metadata only: shapes, dtypes, bounds), kept here so the
-port never imports the JAX package."""
+"""Minimal space specs: a copy of ``pfrl_tpu/spaces.py``'s ``Discrete``,
+``Box`` (static metadata only: shapes, dtypes, bounds) and
+``from_gym_space``, kept here so the port never imports the JAX package."""
 
 import dataclasses
 from typing import Tuple
@@ -61,3 +61,13 @@ def box(low, high, shape=None) -> Box:
         low = np.full(shape, low, dtype=np.float32)
         high = np.full(shape, high, dtype=np.float32)
     return Box(low=low, high=high)
+
+
+def from_gym_space(space):
+    """A gym or gymnasium ``Discrete`` or ``Box`` as the local spec type."""
+    name = type(space).__name__
+    if name == "Discrete":
+        return Discrete(n=int(space.n))
+    if name == "Box":
+        return Box(low=np.asarray(space.low), high=np.asarray(space.high))
+    raise NotImplementedError(f"Unsupported gym space: {space!r}")

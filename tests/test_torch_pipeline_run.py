@@ -241,8 +241,18 @@ def test_a_burst_is_the_same_when_acting_and_committing_are_hammered_during_it()
     stop, seen, committed = threading.Event(), [], [0]
     rs = np.random.RandomState(9)
 
+    # A commit before the burst reads the cursor is allowed (C51 promises
+    # only what comes after that read), so the hammers start once it has.
+    cursor_read = threading.Event()
+
+    def gated_burst_batches(*args, batches=p.burst_batches):
+        out = batches(*args)
+        cursor_read.set()
+        return out
+
     def hammer(worker):
         draws = Draws(torch.Generator().manual_seed(10 + worker))
+        assert cursor_read.wait(timeout=60)
         while not stop.is_set():
             planes = torch.from_numpy(rs.randint(0, 255, (p.K, 84 * 84)).astype(np.uint8))
             prev_done = torch.from_numpy(rs.uniform(size=p.K) < 0.3)
@@ -260,6 +270,7 @@ def test_a_burst_is_the_same_when_acting_and_committing_are_hammered_during_it()
         return update(state, batch, draws)
 
     p.core.update = slow_update
+    p.burst_batches = gated_burst_batches
     threads = [threading.Thread(target=hammer, args=(w,)) for w in range(p.n_workers)]
     try:
         for t in threads:
@@ -269,7 +280,7 @@ def test_a_burst_is_the_same_when_acting_and_committing_are_hammered_during_it()
         stop.set()
         for t in threads:
             t.join(timeout=10)
-        del p.core.update
+        del p.core.update, p.burst_batches
     assert committed[0] >= p.capacity, committed[0]  # every row was overwritten during the burst
     for got, want in zip(_state_tensors(p.train_state), _state_tensors(alone)):
         assert torch.equal(got, want)
