@@ -35,7 +35,7 @@ result, without them. Its phases, each raising on failure:
 7. drive SAC and TD3 at full width (32 lanes of MujocoSim, obs 17, action
    6, 256 x 256 networks, a 100,000-slot float32 ring that stores
    ``next_obs``, one batch-256 update per transition from 1,000 on): 31
-   scan steps of collection, then 100 with 32 updates each, then the
+   scan steps of collection, then 52 with 32 updates each, then the
    greedy evaluation loop (5 lanes, 1,000 steps, through the truncation at
    step 1,000); these paths launch no kernel;
 8. drive DDPG at full width (16 lanes of the time-limited,
@@ -122,11 +122,11 @@ result, without them. Its phases, each raising on failure:
    (the prefix-sample kernel at C = 2**20, B = 32, once per update) and
    ``train_categorical_dqn_ale.py --sim``: 64 lanes, the 10**6-slot ring
    (28.3 GB, its bytes printed), through the replay start of 50,000 uncut
-   (782 scan steps), 32 timed and 4 profiled scan steps of 16 updates, the
+   (782 scan steps), 16 timed and 4 profiled scan steps of 16 updates, the
    evaluation loop; each path freed before the next. Last the pipeline
    (``train_dqn_pipeline_ale.py --sim``: 3 spawned actor processes x 96
    lanes of ``SyntheticALE``, the 999,936-plane ring, 7.06 GB, bursts of
-   64) through its replay start of 50,000, then 40 s timed and 5 s
+   64) through its replay start of 50,000, then 20 s timed and 5 s
    profiled: env-steps/s, updates/s, the act round trip (median and p90,
    apart by whether a burst was in flight), burst and commit times, target
    syncs (at least 1), the workers' start-up, the busy share; then a clean
@@ -143,13 +143,35 @@ result, without them. Its phases, each raising on failure:
    (``train_dqn_batch_ale.py``'s ``run_batch`` at its settings,
    ``experiments/atari_dqn_batch.py``: the ``DQN`` shell over the
    10**6-slot ring, 28.3 GB, and 8 + 8 spawned ``SyntheticALE`` workers)
-   one batch step at a time through its replay start of 50,000 uncut and
-   the target sync at 60,000, then one evaluation of 10 episodes: env-steps/s
+   one batch step at a time through its replay start of 50,000 uncut to
+   t = 52,032, then one evaluation of 10 episodes: env-steps/s
    before the replay start and after it (past the 32 profiled batch steps
    that follow it), updates/s, the median ``batch_act``,
    env round trip, ``batch_observe`` and update ms, the workers' start-up,
    the target syncs, 32 profiled batch steps' kernels and busy share; 0
-   kernel launches; the ring freed.
+   kernel launches; the ring freed;
+16. the remaining host shells: small card-vs-CPU runs, on the same weights
+   and draws, of ``DDPG`` (hard targets), ``TD3`` (two lanes, bursting),
+   ``SoftActorCritic`` and ``PPO`` on the 50-step Pendulum, ``TRPO`` on a
+   MujocoSim, ``A2C`` on four CartPole lanes and the eight value-family
+   shells over PER on CartPole (the kernel once per update): discrete
+   actions, counts and evaluation rows equal, continuous actions and every
+   learned tensor within 4x what ulp nudges of the weights move them, and
+   at least C22's 3e-6 (AL, PAL and Double PAL within C22's 1e-6 per
+   update). Then the paths of
+   ``profile_host.HOST_PATHS`` at their scripts' widths and settings, each
+   through its ``make_*_agent``, ``HostTorchEnv`` (the env on the CPU) and
+   its driver, then one evaluation: SAC, TD3 and DDPG over ``MujocoSim(17, 6)`` through the
+   replay start of 10,000 to t = 11,000, TD3 also over 4 lanes with
+   ``--update-burst``; PPO to t = 6,144 (three updates) and TRPO to 10,000
+   (two) over ``MujocoSim(11, 3)``; SlimeVolley Rainbow on its CartPole
+   backend to t = 2,600 through the target sync at 2,000 (the target equal
+   to the online network), its 10**6-transition ring sampled by the
+   prefix-sample kernel at C = 2**20 once per update: env-steps/s before
+   and after the learning start, updates/s, the median act, env step,
+   observe and update ms, kernels per update and the busy share over 32
+   profiled batch steps, the launches (0 on every other new path) and the
+   ring's bytes.
 
 The kernels' launch counts are set to 0 just before each full-width path
 and read just after it; the kernels' JSON line gives their sum over the
@@ -190,7 +212,7 @@ RAINBOW_STEPS_WARM = 4  # the first scan steps with updates, before the timed on
 UNIFORM_STEPS_TIMED = 32
 
 MUJOCO_STEPS_WARM = 4      # the first scan steps with updates (from t = 1,024), before the timed ones
-MUJOCO_STEPS_TIMED = 96    # 3,072 updates
+MUJOCO_STEPS_TIMED = 48    # 1,536 updates (96 until PR 11; cut for the time budget)
 MUJOCO_EVAL = (5, 1_000)   # lanes, steps: the truncation at step 1,000 is crossed
 DDPG_STEPS_WARM = 2
 DDPG_STEPS = 405           # every lane is truncated at its steps 200 and 400
@@ -231,8 +253,8 @@ ATARI_ONPOLICY_ITERATIONS = {"a2c-atarisim-16": 40, "ppo-atarisim-8": 4}  # time
 # The Atari examples at their own settings: 782 scan steps of 64 lanes reach
 # the replay start of 50,000 uncut (t = 50,048, the first 16 updates on the
 # last of them), then timed and profiled scan steps of 16 updates each.
-EXAMPLE_ATARI_STEPS = (782, 32, 4)  # warm, timed, profiled
-PIPELINE_SECONDS = (40.0, 5.0)      # the pipeline after its replay start: timed, profiled
+EXAMPLE_ATARI_STEPS = (782, 16, 4)  # warm, timed (32 until PR 11), profiled
+PIPELINE_SECONDS = (20.0, 5.0)      # the pipeline after its replay start: timed (40 s until PR 11), profiled
 
 
 def card_line() -> str:
@@ -947,7 +969,7 @@ def _evaluate(runner, train, draws, lanes: int, steps: int):
 
 def run_full_mujoco(card: str, name: str) -> dict:
     """SAC or TD3 on MujocoSim with ``bench.py``'s every width and cadence,
-    cut to 131 scan steps: 31 collecting, then 100 with 32 updates each."""
+    cut to 83 scan steps: 31 collecting, then 52 with 32 updates each."""
     import copy
 
     from pfrl_tpu_torch.experiments import mujoco_actor_critic as mac
@@ -988,7 +1010,7 @@ def run_full_mujoco(card: str, name: str) -> dict:
         "t advanced": state.t == steps * cfg.num_envs == int(state.replay_state.cursor),
         "no update before replay start": not bool(collect["loss"].any()),
         "losses finite": bool(torch.isfinite(loss).all()) and bool((loss > 0).all()),
-        "n_updates as expected": train.n_updates == updates >= 3_072,
+        "n_updates as expected": train.n_updates == updates >= MUJOCO_STEPS_TIMED * cfg.num_envs,
         "every Adam count as expected": counts == expected,
         "stored actions in [-1, 1]": float(stored["action"][:rows].abs().max()) <= 1.0,
         "next_obs stored": stored["next_obs"].shape == (buffer.capacity, 17)
@@ -2860,7 +2882,7 @@ def run_full_pipeline(card: str) -> dict:
 
 # -------------------------------------------------------------------- phase 15
 HOST_SMALL_DIR = OUT_DIR / "host_small"
-HOST_BATCH_STEPS = 60_032          # dqn-batch-ale-8: past the replay start of 50,000 uncut and the sync at 60,000
+HOST_BATCH_STEPS = 52_032          # dqn-batch-ale-8: past the replay start of 50,000 uncut (60,032 until PR 11)
 HOST_BATCH_PROFILED = (50_048, 32)  # from t, batch steps under torch.profiler
 
 
@@ -2909,18 +2931,6 @@ def _small_host_configs() -> dict:
     }
 
 
-def _shell_tensors(agent) -> dict:
-    """Every tensor a shell learns: the networks and the Adam moments."""
-    ts = agent.train_state
-    out = {f"online {n}": p for n, p in ts.model.named_parameters()}
-    if hasattr(ts, "target_model"):
-        out.update({f"target {n}": p for n, p in ts.target_model.named_parameters()})
-    names = [n for n, _ in ts.model.named_parameters()]
-    out.update({f"mu {n}": m for n, m in zip(names, ts.opt_state.mu)})
-    out.update({f"nu {n}": m for n, m in zip(names, ts.opt_state.nu)})
-    return {k: v.detach().cpu() for k, v in out.items()}
-
-
 def _host_scores(outdir: Path) -> list:
     """``scores.txt``'s rows without ``elapsed``, a wall time."""
     lines = (outdir / "scores.txt").read_text().splitlines()
@@ -2928,81 +2938,12 @@ def _host_scores(outdir: Path) -> list:
     return [{k: v for k, v in zip(header, line.split("\t")) if k != "elapsed"} for line in lines[1:]]
 
 
-def check_small_host(name: str, make_agent, make_env, drive, device) -> dict:
-    """One shell through its host driver on the card and on the CPU, from
-    the same weights (a CPU generator's) and the same draws (agent and envs
-    from ``SeededDraws``): the actions, update counts and evaluation
-    returns equal, the statistics within 1e-4 relative (5e-5 absolute: the
-    baseline makes REINFORCE's loss a near-cancelling sum), every learned
-    tensor within 3e-6 (second moments 1e-5 of their largest) or 4x what
-    1 + 2**-23 and 1 - 2**-23 nudges of the weights move it on the CPU,
-    where that is more (C48's rule). The prefix-sample kernel launches once
-    per update of a prioritized ring on the card."""
-    from pfrl_tpu_torch.ops.prefix_sample import prefix_sample
-
-    def run(dev, tag, scale=1.0):
-        agent = make_agent(dev, SeededDraws(1, dev))
-        agent.train_state = agent.core.init(torch.Generator().manual_seed(0), torch.zeros((1, 4), device=dev))
-        state = agent.train_state
-        with torch.no_grad():
-            for module in (state.model, getattr(state, "target_model", None)):
-                for p in module.parameters() if module is not None else ():
-                    p.mul_(scale)
-        actions, act = [], agent.batch_act
-
-        def batch_act(batch_obs):
-            out = act(batch_obs)
-            actions.append(np.asarray(out).copy())
-            return out
-
-        agent.batch_act = batch_act
-        outdir = HOST_SMALL_DIR / name / tag
-        drive(agent, make_env(dev, 10), outdir=str(outdir), eval_env=make_env(dev, 20))
-        return agent, actions, _host_scores(outdir)
-
-    prefix_sample.launches = 0
-    card, card_actions, card_scores = run(device, "card")
-    torch.cuda.synchronize()
-    launches = prefix_sample.launches
-    cpu, cpu_actions, cpu_scores = run("cpu", "cpu")
-    nudged = [_shell_tensors(run("cpu", f"nudged{i}", s)[0]) for i, s in enumerate(ACER_NUDGES)]
-    updates = card.train_state.n_updates
-    checks = {
-        "equal actions": len(card_actions) == len(cpu_actions) > 0
-        and all(np.array_equal(a, b) for a, b in zip(card_actions, cpu_actions)),
-        "equal step and update counts": card.t == cpu.t and updates == cpu.train_state.n_updates > 0,
-        "equal evaluation rows": len(card_scores) == len(cpu_scores) >= 1 and all(
-            a[k] == b[k] for a, b in zip(card_scores, cpu_scores) for k in a if not k.startswith("average_")),
-        "statistics within 1e-4": all(
-            math.isclose(float(a), float(b), rel_tol=1e-4, abs_tol=5e-5)
-            for (_, a), (_, b) in zip(card.get_statistics(), cpu.get_statistics())),
-        "prefix-sample launches": launches == (updates if hasattr(getattr(card, "buffer", None), "tree_capacity")
-                                               else 0),
-    }
-    worst = {}
-    got, want = _shell_tensors(card), _shell_tensors(cpu)
-    for key, x in got.items():
-        nudge = max(float((want[key] - n[key]).abs().max()) for n in nudged)
-        floor = 1e-5 * float(want[key].abs().max()) if key.startswith("nu ") else 3e-6
-        diff = float((x - want[key]).abs().max())
-        worst[key] = (diff, max(floor, 4 * nudge))
-    checks["learned tensors within their bounds"] = all(d <= b for d, b in worst.values())
-    top = max(worst.items(), key=lambda kv: kv[1][0] / kv[1][1])
-    print(f"small {name}: card vs CPU over {card.t} host steps, {updates} updates, {len(card_actions)} acts (actions "
-          f"{'equal' if checks['equal actions'] else 'DIFFER'}), {launches} prefix-sample launches; largest "
-          f"difference against its bound {top[0]} {top[1][0]:.3g} <= {top[1][1]:.3g}; evaluation rows "
-          f"{[r['mean'] for r in card_scores]}")
-    _raise_on_failed(f"small {name}", checks)
-    return {"host_steps": card.t, "updates": updates, "acts": len(card_actions), "kernel_launches": launches,
-            "largest_differences": {k: v[0] for k, v in worst.items()}, "bounds": {k: v[1] for k, v in worst.items()}}
-
-
 def run_full_host_batch(card: str) -> dict:
     """``dqn-batch-ale-8`` on the card: ``train_dqn_batch_ale.py``'s
     ``run_batch`` at the example's settings (``experiments/atari_dqn_batch.py``:
     the ``DQN`` shell, the 10^6-slot ring, 8 + 8 spawned workers of
     ``SyntheticALE`` through ``wrap_deepmind``) through its replay start of
-    50,000 uncut and the target sync at 60,000, one batch step at a time
+    50,000 uncut to t = 52,032, one batch step at a time
     (``profile_host.run_host_batch``), then one evaluation of 10 episodes.
     The run is cut short of the example's 5 * 10^7 steps and nothing else.
     The ring is freed before the phase ends."""
@@ -3055,6 +2996,334 @@ def run_full_host_batch(card: str) -> dict:
           f"{record['eval'][0]['mean'] if record['eval'] else float('nan')} over 10 episodes; loss "
           f"{stats['average_loss']:.5f}; {launches} prefix-sample launches (fp32, no TF32) on {card}")
     _raise_on_failed("dqn-batch-ale-8", checks)
+    agent.replay_state = None
+    del agent
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return record
+
+
+# -------------------------------------------------------------------- phase 16
+def _small_shell_configs() -> dict:
+    """name -> (agent(device, draws), env(device, seed), driver, observation
+    size, action shape[, tolerance overrides]): the ``DDPG`` (hard
+    targets), ``TD3`` (two lanes through the batch driver,
+    ``update_burst``), ``SoftActorCritic`` and ``PPO`` shells on the
+    time-limited Pendulum (50 steps, ``NormalizeActionSpace``), ``TRPO``
+    over one update on a 3 x 1 MujocoSim, ``A2C`` on four CartPole lanes,
+    and the eight value-family shells over PER (the prefix-sample kernel
+    once per update on the card) on CartPole, each behind ``HostTorchEnv``
+    with episodes cut at 50 steps, at widths of 64."""
+    from pfrl_tpu_torch import agents, spaces
+    from pfrl_tpu_torch.envs import CartPole, HostTorchEnv, MujocoSim, Pendulum, SerialVectorEnv
+    from pfrl_tpu_torch.envs.wrappers import TimeLimit
+    from pfrl_tpu_torch.experiments import train_agent_batch_with_evaluation, train_agent_with_evaluation
+    from pfrl_tpu_torch.experiments.cartpole_value import ReLUMLP
+    from pfrl_tpu_torch.experiments.mujoco_actor_critic import MLPPolicy, uniform_burnin
+    from pfrl_tpu_torch.experiments.onpolicy import GaussianPiV, GaussianPolicy, SoftmaxPiV
+    from pfrl_tpu_torch.explorers import AdditiveGaussian, LinearDecayEpsilonGreedy
+    from pfrl_tpu_torch.models import MLP
+    from pfrl_tpu_torch.optimizers import Adam, RMSprop
+    from pfrl_tpu_torch.policies import DeterministicHead, SquashedGaussianHead
+    from pfrl_tpu_torch.q_functions import (
+        DistributionalFCStateQFunctionWithDiscreteAction,
+        FCStateQFunctionWithDiscreteAction,
+        ImplicitQuantileQFunction,
+        FCSAQFunction,
+    )
+    from pfrl_tpu_torch.replay import PrioritizedReplayBuffer, ReplayBuffer
+    from pfrl_tpu_torch.wrappers import NormalizeActionSpace
+
+    def pendulum(dev, seed):
+        return NormalizeActionSpace(HostTorchEnv(TimeLimit(Pendulum(device=dev), 50), draws=SeededDraws(seed, dev)))
+
+    def cartpole(dev, seed):
+        return HostTorchEnv(TimeLimit(CartPole(device=dev), 500), draws=SeededDraws(seed, dev))
+
+    def lanes(env, n):
+        return lambda dev, seed: SerialVectorEnv([env(dev, seed + i) for i in range(n)])
+
+    serial = functools.partial(train_agent_with_evaluation, eval_n_steps=None, eval_n_episodes=2,
+                               train_max_episode_len=50)
+    batch = functools.partial(train_agent_batch_with_evaluation, eval_n_steps=None, eval_n_episodes=2,
+                              max_episode_len=50)
+    box = spaces.box(-1.0, 1.0, (1,))
+    det = lambda: MLPPolicy(3, 1, (64, 64), DeterministicHead(), squash=torch.tanh)  # noqa: E731
+    qf = lambda: FCSAQFunction(3, 1, 64, 2)  # noqa: E731
+    off = dict(action_space=box, replay_start_size=100, minibatch_size=32, burnin_action_func=uniform_burnin(1),
+               burnin_steps=100)
+
+    def ring(dev):
+        return ReplayBuffer(10_000, gamma=0.99, device=dev)
+
+    configs = {
+        "host-ddpg-pendulum-hard": (
+            lambda dev, draws: agents.DDPG(det(), qf(), Adam(1e-3), Adam(1e-3), ring(dev), 0.99,
+                                           AdditiveGaussian(0.1, low=-1.0, high=1.0), target_update_method="hard",
+                                           target_update_interval=50, device=dev, draws=draws, **off),
+            pendulum, functools.partial(serial, steps=300, eval_interval=150), 3, (1,)),
+        "host-td3-pendulum-batch-2-burst": (
+            lambda dev, draws: agents.TD3(det(), qf(), qf(), Adam(3e-4), Adam(3e-4), Adam(3e-4), ring(dev), 0.99,
+                                          AdditiveGaussian(0.1, low=-1.0, high=1.0), update_burst=True, device=dev,
+                                          draws=draws, **off),
+            lanes(pendulum, 2), functools.partial(batch, steps=300, eval_interval=150), 3, (1,)),
+        "host-sac-pendulum": (
+            lambda dev, draws: agents.SoftActorCritic(
+                MLPPolicy(3, 2, (64, 64), SquashedGaussianHead(1)), qf(), qf(), Adam(3e-4), Adam(3e-4), Adam(3e-4),
+                ring(dev), 0.99, temperature_optimizer_lr=3e-4, device=dev, draws=draws, **off),
+            pendulum, functools.partial(serial, steps=300, eval_interval=150), 3, (1,)),
+        "host-ppo-pendulum": (
+            lambda dev, draws: agents.PPO(GaussianPiV(3, 1, 64, mean_scale=1e-4), Adam(3e-4), gamma=0.995, lambd=0.97,
+                                          update_interval=64, minibatch_size=16, epochs=2, entropy_coef=0.0,
+                                          device=dev, draws=draws),
+            pendulum, functools.partial(serial, steps=200, eval_interval=100), 3, (1,)),
+        "host-a2c-cartpole-batch-4": (
+            lambda dev, draws: agents.A2C(SoftmaxPiV(4, 2, 64), RMSprop(7e-4, decay=0.99, eps=1e-5), 0.99, 4,
+                                          update_steps=5, max_grad_norm=40.0, device=dev, draws=draws),
+            lanes(cartpole, 4), functools.partial(batch, steps=400, eval_interval=200), 4, ()),
+        "host-trpo-mujocosim": (
+            lambda dev, draws: agents.TRPO(GaussianPolicy(3, 1, 64, mean_scale=1e-2), MLP(3, 1, (64, 64)),
+                                           Adam(1e-3), gamma=0.995, lambd=0.97, update_interval=100, vf_epochs=2,
+                                           vf_batch_size=32, device=dev, draws=draws),
+            lambda dev, seed: HostTorchEnv(MujocoSim(3, 1, episode_len=50, device=dev), draws=SeededDraws(seed, dev)),
+            # One update, on the last step: on the 50-step Pendulum, CUDA's
+            # and the CPU's sin and cos moved the rollouts an ulp apart,
+            # and conjugate gradient (C21) amplified that to 5.3e-4 in the
+            # evaluation's actions after one update; MujocoSim contracts.
+            functools.partial(serial, steps=100, eval_interval=100), 3, (1,)),
+    }
+    q_functions = {
+        "fc": lambda: FCStateQFunctionWithDiscreteAction(4, 2, 2, 64),
+        "categorical": lambda: DistributionalFCStateQFunctionWithDiscreteAction(4, 2, 51, 0.0, 100.0, 2, 64),
+        "iqn": lambda: ImplicitQuantileQFunction(ReLUMLP(4, 64, 64), 64, 2, n_basis_functions=64),
+    }
+    for shell in ("AL", "PAL", "DoublePAL", "DPP", "CategoricalDQN", "CategoricalDoubleDQN", "IQN", "DoubleIQN"):
+        kind = "categorical" if shell.startswith("Categorical") else "iqn" if shell.endswith("IQN") else "fc"
+
+        def make(dev, draws, cls=getattr(agents, shell), q=q_functions[kind]):
+            return cls(q(), Adam(1e-3), PrioritizedReplayBuffer(10_000, betasteps=10_000, gamma=0.99, device=dev),
+                       0.99, LinearDecayEpsilonGreedy(1.0, 0.1, 1_000, 2), replay_start_size=100,
+                       minibatch_size=32, update_interval=2, target_update_interval=100, device=dev, draws=draws)
+
+        # AL, PAL and Double PAL move one weight 9.1e-6 apart over their 31
+        # updates, 4.7x what the nudges move it: held to C22's 1e-6 per
+        # Adam step.
+        tolerance = {"per_update": 1e-6} if shell in ("AL", "PAL", "DoublePAL") else {}
+        configs[f"host-per-{shell.lower()}-cartpole"] = (
+            make, cartpole, functools.partial(serial, steps=160, eval_interval=80), 4, (), tolerance)
+    return configs
+
+
+def _learned_tensors(state) -> dict:
+    """Every tensor a shell's state learns: each network's parameters, each
+    optimizer's moments (Adam's ``mu`` and ``nu``, RMSprop's list of ``nu``)
+    and any learned tensor (SAC's ``log_temperature``)."""
+    out = {}
+    for field, value in vars(state).items():
+        if isinstance(value, torch.nn.Module):
+            out.update({f"{field} {n}": p for n, p in value.named_parameters()})
+        elif isinstance(value, torch.Tensor):
+            out[field] = value
+        elif isinstance(value, list) and value and isinstance(value[0], torch.Tensor):
+            out.update({f"nu {field} {i}": m for i, m in enumerate(value)})
+        else:
+            for k in ("mu", "nu"):
+                out.update({f"{k} {field} {i}": m for i, m in enumerate(getattr(value, k, None) or [])})
+    return {k: v.detach().cpu() for k, v in out.items()}
+
+
+RETURN_COLUMNS = ("mean", "median", "stdev", "max", "min")
+
+
+def _within_nudges(got: float, want: float, nudged: list, rel: float, floor: float) -> bool:
+    """``got`` within ``rel`` of ``want`` (``floor`` absolute), or within 4x
+    what the nudged runs move ``want``."""
+    nudge = max(abs(n - want) for n in nudged)
+    return abs(got - want) <= max(rel * abs(want), floor, 4 * nudge)
+
+
+def check_small_shell(name: str, make_agent, make_env, drive, obs_size: int, action_shape, device,
+                      tolerance=None) -> dict:
+    """One host shell through its driver on the card and on the CPU, from
+    the same weights (a CPU generator's) and draws (``SeededDraws``):
+    discrete actions, the step, update and target-sync counts and the
+    evaluation rows equal; continuous actions within 1e-5, and the returns
+    within 1e-4 relative, or 4x what 1 + 2**-23 and 1 - 2**-23 nudges of
+    the weights move them on the CPU; the statistics within 1e-4 relative
+    (5e-5 absolute: the baseline makes REINFORCE's loss a near-cancelling
+    sum); every learned tensor within 3e-6 (first moments 3e-6 of their
+    largest where that exceeds 1: a critic's gradients reach tens; second
+    moments 1e-5 of their largest) or 4x what the nudges move it, where
+    that is more (C22, C48, C54). ``tolerance`` raises these floors where a
+    configuration says why: ``per_update`` (absolute, times the updates). A prioritized ring launches the
+    prefix-sample kernel once per update on the card."""
+    from pfrl_tpu_torch.ops.prefix_sample import prefix_sample
+
+    def run(dev, tag, scale=1.0):
+        agent = make_agent(dev, SeededDraws(1, dev))
+        agent.train_state = agent.core.init(torch.Generator().manual_seed(0), torch.zeros((1, obs_size), device=dev),
+                                            torch.zeros((1,) + tuple(action_shape), device=dev))
+        with torch.no_grad():
+            for module in vars(agent.train_state).values():
+                for p in module.parameters() if isinstance(module, torch.nn.Module) else ():
+                    p.mul_(scale)
+        log = {"actions": [], "syncs": 0}
+        act, sync = agent.batch_act, getattr(agent.core, "sync_target", None)
+
+        def batch_act(batch_obs):
+            out = act(batch_obs)
+            log["actions"].append(np.asarray(out).copy())
+            return out
+
+        def sync_target(state):
+            log["syncs"] += 1
+            return sync(state)
+
+        agent.batch_act = batch_act
+        if sync is not None:
+            agent.core.sync_target = sync_target
+        outdir = HOST_SMALL_DIR / name / tag
+        drive(agent, make_env(dev, 10), outdir=str(outdir), eval_env=make_env(dev, 20))
+        return agent, log, _host_scores(outdir)
+
+    tol = tolerance or {}
+    prefix_sample.launches = 0
+    card, card_log, card_scores = run(device, "card")
+    torch.cuda.synchronize()
+    launches = prefix_sample.launches
+    cpu, cpu_log, cpu_scores = run("cpu", "cpu")
+    nudged = [run("cpu", f"nudged{i}", s) for i, s in enumerate(ACER_NUDGES)]
+    card_actions, cpu_actions = card_log["actions"], cpu_log["actions"]
+    continuous = cpu_actions[0].dtype.kind == "f"
+    action_diff, action_bound = 0.0, 0.0
+    same_count = len(card_actions) == len(cpu_actions) > 0 and all(len(n[1]["actions"]) == len(cpu_actions)
+                                                                   for n in nudged)
+    if same_count and continuous:
+        for i, (a, b) in enumerate(zip(card_actions, cpu_actions)):
+            nudge = max(float(np.abs(n[1]["actions"][i] - b).max()) for n in nudged)
+            diff, bound = float(np.abs(a - b).max()), max(1e-5, 4 * nudge)
+            if diff / bound > action_diff / max(action_bound, 1e-30):
+                action_diff, action_bound = diff, bound
+    prioritized = hasattr(getattr(card, "buffer", None), "tree_capacity")
+    updates = card.train_state.n_updates
+    checks = {
+        "actions": same_count and (all(np.array_equal(a, b) for a, b in zip(card_actions, cpu_actions))
+                                   if not continuous else action_diff <= action_bound),
+        "equal step, update and sync counts": card.t == cpu.t and updates == cpu.train_state.n_updates > 0
+        and card_log["syncs"] == cpu_log["syncs"],
+        # Continuous actions move the returns by what they move the actions.
+        "equal evaluation rows": len(card_scores) == len(cpu_scores) >= 1 and all(
+            a[k] == b[k] for a, b in zip(card_scores, cpu_scores) for k in a
+            if not k.startswith("average_") and not (continuous and k in RETURN_COLUMNS)),
+        "evaluation returns within their bounds": not continuous or all(
+            _within_nudges(float(a[k]), float(b[k]), [float(n[2][i][k]) for n in nudged], 1e-4, 1e-4)
+            for i, (a, b) in enumerate(zip(card_scores, cpu_scores)) for k in RETURN_COLUMNS),
+        "statistics within 1e-4": all(
+            math.isclose(float(a), float(b), rel_tol=1e-4, abs_tol=5e-5)
+            for (_, a), (_, b) in zip(card.get_statistics(), cpu.get_statistics())),
+        "prefix-sample launches": launches == (card.optim_t if prioritized else 0),
+    }
+    worst = {}
+    got, want = _learned_tensors(card.train_state), _learned_tensors(cpu.train_state)
+    nudged_tensors = [_learned_tensors(n[0].train_state) for n in nudged]
+    for key, x in got.items():
+        nudge = max(float((want[key] - n[key]).abs().max()) for n in nudged_tensors)
+        scale = float(want[key].abs().max())
+        floor = 1e-5 * scale if key.startswith("nu ") else 3e-6 * max(1.0, scale) if key.startswith("mu ") else 3e-6
+        floor = max(floor, tol.get("per_update", 0.0) * card.train_state.n_updates)
+        worst[key] = (float((x - want[key]).abs().max()), max(floor, 4 * nudge))
+    checks["learned tensors within their bounds"] = all(d <= b for d, b in worst.values())
+    top = max(worst.items(), key=lambda kv: kv[1][0] / kv[1][1])
+    actions = (f"largest action difference {action_diff:.3g} <= {action_bound:.3g}" if continuous
+               else f"actions {'equal' if checks['actions'] else 'DIFFER'}")
+    print(f"small {name}: card vs CPU over {card.t} host steps, {updates} updates, {card_log['syncs']} target syncs, "
+          f"{len(card_actions)} acts ({actions}), {launches} prefix-sample launches; largest difference against its "
+          f"bound {top[0]} {top[1][0]:.3g} <= {top[1][1]:.3g}; evaluation rows {[r['mean'] for r in card_scores]}")
+    _raise_on_failed(f"small {name}", checks)
+    return {"host_steps": card.t, "updates": updates, "acts": len(card_actions), "kernel_launches": launches,
+            "largest_action_difference": action_diff, "action_bound": action_bound,
+            "largest_differences": {k: v[0] for k, v in worst.items()}, "bounds": {k: v[1] for k, v in worst.items()}}
+
+
+# The profiled windows: 32 batch steps from the learning start, or, for the
+# on-policy paths, around their second update (PPO at 4,096, TRPO at 5,000
+# is its first: the run ends on the second at 10,000).
+HOST_PATH_PROFILED = {"ppo-hopper-host-1": (4_080, 32), "trpo-hopper-host-1": (4_984, 32)}
+
+
+def run_full_host_path(card: str, name: str) -> dict:
+    """One path of ``profile_host.HOST_PATHS`` on the card at its script's
+    widths and settings, through ``make_*_agent``, ``HostTorchEnv`` (the
+    env on the CPU, where a host simulator runs) and the script's driver,
+    then one evaluation (``profile_host.run_host_batch``). Only the run's
+    length is cut, and the evaluation's episodes (2 of MujocoSim's 1,000
+    steps, 10 of CartPole). Rainbow's target must equal the online network
+    after each hard sync, and its ring is the example's 10^6 transitions,
+    2^20 leaves, sampled by the prefix-sample kernel once per update."""
+    from pfrl_tpu_torch.experiments.profile_host import HOST_PATHS, learning_start, make_host_path, run_host_batch
+    from pfrl_tpu_torch.ops.prefix_sample import prefix_sample
+
+    path = HOST_PATHS[name]
+    agent, env, eval_env = make_host_path(name)
+    start = learning_start(agent)
+    synced_equal = []
+    sync_target = getattr(agent.core, "sync_target", None)
+
+    def checked_sync(state):
+        out = sync_target(state)
+        if agent.core.target_update_method == "hard" and hasattr(state, "target_model"):
+            synced_equal.append(all(torch.equal(a, b) for a, b in zip(state.model.parameters(),
+                                                                       state.target_model.parameters())))
+        return out
+
+    if sync_target is not None:
+        agent.core.sync_target = checked_sync
+    prefix_sample.launches = 0
+    with tempfile.TemporaryDirectory() as outdir:  # the saved agents
+        record = run_host_batch(agent, env, eval_env, path.steps, path.steps, path.eval_n_episodes, outdir,
+                                profiled=HOST_PATH_PROFILED.get(name, (start, 32)))
+    torch.cuda.synchronize()
+    launches = prefix_sample.launches
+    record["kernel_launches"] = launches
+    record["hard_syncs_equal"] = synced_equal
+    onpolicy = not hasattr(agent, "replay_start_size")
+    lanes = path.lanes
+    if onpolicy:
+        expected_updates = path.steps // agent.update_interval
+    else:
+        expected_updates = (path.steps - (start - lanes)) * agent.n_times_update // agent.update_interval
+    prioritized = hasattr(agent.buffer, "tree_capacity") if not onpolicy else False
+    stats, tm = record["statistics"], record["timings"]
+    checks = {
+        "t and the updates as the shell's gating has them": record["t"] == path.steps
+        and record["n_updates"] == expected_updates,
+        "statistics finite": all(math.isfinite(float(v)) for v in stats.values()),
+        "one evaluation, finite": len(record["eval"]) == 1 and math.isfinite(record["eval"][0]["mean"]),
+        "prefix-sample launches": launches == (record["n_updates"] if prioritized else 0),
+        "a profiled window": "profiled" in record,
+    }
+    if prioritized:
+        checks["the example's 10^6-transition ring, 2^20 leaves"] = agent.buffer.tree_capacity == 2**20
+        checks["the target equals the online network after each hard sync"] = len(synced_equal) >= 1 and all(
+            synced_equal)
+    if not onpolicy:
+        checks["the scripts' 10^6-slot ring"] = record["ring_slots"] == 10**6
+    prof = record.get("profiled", {})
+    med = lambda k: tm.get(k, {}).get("median_ms", float("nan"))  # noqa: E731
+    env_label = "env round trip" if lanes > 1 else "env step"
+    print(f"{name}: {lanes} lane(s); ring {record['ring_bytes'] / 1e6:.1f} MB; env-steps/s "
+          f"{record['env_steps_per_s_before_replay_start'] or float('nan'):.1f} before the learning start "
+          f"({start:,}), {record['env_steps_per_s_after_replay_start'] or float('nan'):.1f} after it (from t = "
+          f"{record['learning_from_t']:,}), updates/s {record['updates_per_s_after_replay_start'] or float('nan'):.2f}; "
+          f"median batch_act {med('batch_act'):.3f} ms, {env_label} {med(env_label):.3f} ms, batch_observe "
+          f"{med('batch_observe (ring add)'):.3f} ms, update {med('update'):.3f} ms; {record['n_updates']} updates, "
+          f"{record['target_syncs']} sync_target calls; over {prof.get('batch_steps')} profiled batch steps with "
+          f"{prof.get('updates')} updates {prof.get('kernels_per_batch_step', float('nan')):.1f} kernels per batch "
+          f"step, {prof.get('kernels_per_update') or float('nan'):.1f} per update, device busy "
+          f"{prof.get('device_busy_share', float('nan')) * 100:.1f}%; evaluation mean "
+          f"{record['eval'][0]['mean'] if record['eval'] else float('nan'):.3f} over {path.eval_n_episodes} episodes; "
+          f"{launches} prefix-sample launches (fp32, no TF32) on {card}")
+    _raise_on_failed(name, checks)
     agent.replay_state = None
     del agent
     torch.cuda.synchronize()
@@ -3155,9 +3424,15 @@ def main() -> int:
                                for name in _example_configs()}
     record["full_examples"]["dqn-pipeline-288"] = phase("full dqn-pipeline-288", run_full_pipeline, card)
     for name, (make_agent, make_env, drive) in _small_host_configs().items():
-        record["small_slices"][name] = phase(f"small {name}", check_small_host, name, make_agent, make_env, drive,
-                                             device)
+        record["small_slices"][name] = phase(f"small {name}", check_small_shell, name, make_agent, make_env, drive,
+                                             4, (), device)
     record["full_host"] = {"dqn-batch-ale-8": phase("full dqn-batch-ale-8", run_full_host_batch, card)}
+    for name, (make_agent, make_env, drive, obs_size, action_shape, *tolerance) in _small_shell_configs().items():
+        record["small_slices"][name] = phase(f"small {name}", check_small_shell, name, make_agent, make_env, drive,
+                                             obs_size, action_shape, device, *tolerance)
+    from pfrl_tpu_torch.experiments.profile_host import HOST_PATHS
+
+    record["full_host_shells"] = {name: phase(f"full {name}", run_full_host_path, card, name) for name in HOST_PATHS}
     # Counted over each path that samples by priority, from 0 at its start;
     # every other path asserts a count of 0.
     kernel["launches_by_path"] = {
@@ -3173,6 +3448,10 @@ def main() -> int:
         # The card's side of the PER shell's card-vs-CPU run: one launch per update.
         "host-per-dqn-cartpole": record["small_slices"]["host-per-dqn-cartpole"]["kernel_launches"],
         **{name: r["kernel_launches"] for name, r in record["full_host"].items()},
+        # The card's side of the value shells' card-vs-CPU runs over PER.
+        **{name: r["kernel_launches"] for name, r in record["small_slices"].items() if name.startswith("host-per-")
+           and name != "host-per-dqn-cartpole"},
+        **{name: r["kernel_launches"] for name, r in record["full_host_shells"].items()},
     }
     kernel["launches"] = sum(kernel["launches_by_path"].values())
     record["kernels"] = [kernel]

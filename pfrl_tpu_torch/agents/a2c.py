@@ -7,7 +7,10 @@ returns, bootstrapped from V at episode boundaries and at the rollout's end
 (``use_gae=False``), or GAE's (``use_gae=True``, with ``tau`` as lambda).
 ``update`` draws nothing. ``compute_dtype`` as in :mod:`.ppo`.
 
-Not ported yet: the host shell ``A2C``.
+:class:`A2C` is the host shell (``a2c.py:123-161``) over
+:class:`~.ppo.OnPolicyShellAgent`: ``update_interval = update_steps *
+num_processes``, and ``pi_loss_coef`` is accepted and dropped, as the JAX
+shell drops it.
 """
 
 from typing import Callable, Optional
@@ -15,7 +18,7 @@ from typing import Callable, Optional
 import torch
 
 from pfrl_tpu_torch.agents.ddpg import _identity
-from pfrl_tpu_torch.agents.ppo import PPOCore, PPOState, Rollout, flat
+from pfrl_tpu_torch.agents.ppo import OnPolicyShellAgent, PPOCore, PPOState, Rollout, flat
 from pfrl_tpu_torch.ops.returns import discounted_returns, gae_advantages
 
 
@@ -82,3 +85,44 @@ class A2CCore(PPOCore):
             "entropy": ent.detach(),
             "errors": torch.zeros(1, device=loss.device),
         }
+
+
+class A2C(OnPolicyShellAgent):
+    """The reference's A2C agent (``a2c.py:123-161``). ``update_steps`` is
+    the reference's ``t_max``, the rollout's length per env."""
+
+    def __init__(
+        self,
+        model,
+        optimizer,
+        gamma: float,
+        num_processes: int,
+        *,
+        gpu=None,
+        update_steps: int = 5,
+        phi: Callable = _identity,
+        pi_loss_coef: float = 1.0,
+        v_loss_coef: float = 0.5,
+        entropy_coeff: float = 0.01,
+        use_gae: bool = False,
+        tau: float = 0.95,
+        max_grad_norm: Optional[float] = None,
+        compute_dtype: Optional[torch.dtype] = None,
+        seed: int = 0,
+        device=None,
+        draws=None,
+    ):
+        del gpu, pi_loss_coef
+        core = A2CCore(
+            model=model,
+            optimizer=optimizer,
+            gamma=gamma,
+            use_gae=use_gae,
+            tau=tau,
+            entropy_coeff=entropy_coeff,
+            v_loss_coef=v_loss_coef,
+            max_grad_norm=max_grad_norm,
+            phi=phi,
+            compute_dtype=compute_dtype,
+        )
+        super().__init__(core, update_interval=update_steps * num_processes, seed=seed, device=device, draws=draws)

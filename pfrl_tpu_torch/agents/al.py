@@ -3,7 +3,7 @@ target less ``alpha * (max_a Q_tgt(s, a) - Q_tgt(s, a_t))``."""
 
 import torch
 
-from pfrl_tpu_torch.agents.dqn import DQNCore
+from pfrl_tpu_torch.agents.dqn import DQN, DQNCore
 from pfrl_tpu_torch.replay.transition import TransitionBatch
 
 
@@ -29,3 +29,10 @@ class ALCore(DQNCore):
             advantage = cur_tgt.max() - cur_tgt.evaluate_actions(batch.action)
             t = self.bootstrap(batch, next_tgt.max()) - self.alpha * advantage
         return y, t
+
+
+class AL(DQN):
+    """The host shell over :class:`ALCore` (``al.py:37``): the port's
+    :class:`~pfrl_tpu_torch.agents.dqn.DQN` with this core."""
+
+    default_core = ALCore

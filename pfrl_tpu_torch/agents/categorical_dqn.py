@@ -4,7 +4,7 @@ target distributions; the per-sample cross-entropy is the PER error."""
 
 import torch
 
-from pfrl_tpu_torch.agents.dqn import DQNCore
+from pfrl_tpu_torch.agents.dqn import DQN, DQNCore
 from pfrl_tpu_torch.ops.categorical import categorical_projection
 from pfrl_tpu_torch.replay.transition import TransitionBatch
 
@@ -47,3 +47,17 @@ class CategoricalDoubleDQNCore(CategoricalDQNCore):
         greedy = self.action_value(model, batch.next_obs, draws).greedy_actions()
         next_target = self.action_value(target_model, batch.next_obs, draws)
         return next_target.evaluate_actions_as_distribution(greedy), next_target.z_values
+
+
+class CategoricalDQN(DQN):
+    """The host shell over :class:`CategoricalDQNCore` (``categorical_dqn.py:64-69``): the port's
+    :class:`~pfrl_tpu_torch.agents.dqn.DQN` with this core."""
+
+    default_core = CategoricalDQNCore
+
+
+class CategoricalDoubleDQN(DQN):
+    """The host shell over :class:`CategoricalDoubleDQNCore` (``categorical_dqn.py:64-69``): the port's
+    :class:`~pfrl_tpu_torch.agents.dqn.DQN` with this core."""
+
+    default_core = CategoricalDoubleDQNCore

@@ -20,21 +20,28 @@ and of the critics in that dtype over the float32 parameters
 at the apply boundary and the distribution or value comes back float32.
 The targets, losses and optimizers stay float32.
 
-Not ported yet: the host shell ``DDPG`` / ``ActorCriticShellAgent``
-(``batch_act`` / ``batch_observe``).
+:class:`ActorCriticShellAgent` is the host shell that DDPG, TD3 and SAC
+share (``ddpg.py:182-360``): the reference's ``batch_act``/``batch_observe``
+protocol around a core, a replay buffer and a draw source, and
+:class:`DDPG` is its DDPG (``ddpg.py:363-417``).
 """
 
 import copy
 import dataclasses
 from typing import Any, Callable, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
+from pfrl_tpu_torch._device import check_same_device, resolve_device, use_full_fp32
+from pfrl_tpu_torch.agent import AttributeSavingMixin, BatchAgent
 from pfrl_tpu_torch.ops.value_loss import compute_value_loss
-from pfrl_tpu_torch.replay.transition import TransitionBatch
+from pfrl_tpu_torch.replay.transition import Transition, TransitionBatch
 from pfrl_tpu_torch.utils.copy_param import copy_param, soft_copy_param
+from pfrl_tpu_torch.utils.draws import Draws
 from pfrl_tpu_torch.utils.precision import apply_cast, check_compute_dtype
+from pfrl_tpu_torch.utils.stats import RunningStats
 
 
 @dataclasses.dataclass
@@ -225,3 +232,211 @@ class DDPGCore(CastApplies):
             else:
                 soft_copy_param(target, source, self.soft_update_tau)
         return state
+
+
+def host_batch(batch_obs, device: torch.device) -> torch.Tensor:
+    """A batch of host observations on ``device``: one copy, float64 cast
+    to float32 as ``jnp.asarray`` does with x64 off."""
+    x = np.asarray(batch_obs)
+    if x.dtype == np.float64:
+        x = x.astype(np.float32)
+    return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+
+class ActorCriticShellAgent(AttributeSavingMixin, BatchAgent):
+    """Host shell of the actor-critic cores (``ddpg.py:182-360``).
+
+    The first act builds the state from the batch's shape (weights from a
+    CPU generator seeded with ``seed``; the example action is zeros of
+    ``action_space``'s shape, as only its shape matters), unless a state was
+    set or loaded before it. ``draws`` is the draw source of the acts and
+    the updates (default: a generator on ``device`` seeded with ``seed``).
+    ``replay_buffer`` lives on ``device``; the first observe reconfigures it
+    to the batch's width.
+
+    Each observe adds one transition per env (``done | reset`` as the
+    ring's done, ``done`` as terminated); ``t`` counts them. A
+    ``target_update_method == "hard"`` core syncs its targets on each
+    crossing of a multiple of ``target_update_interval`` (soft targets
+    follow every update inside the core). From ``replay_start_size`` on,
+    each crossing of a multiple of ``update_interval`` runs
+    ``n_times_update`` updates, each a sample, the core's update and the
+    priority feedback; ``update_burst`` runs more than one due update back
+    to back and keeps **one** mean loss for them, where the JAX shell runs
+    them as one jitted scan. ``float(loss)`` in the statistics waits for
+    the card, as in JAX. On the card it runs float32 without TF32.
+    """
+
+    saved_attributes = ("train_state",)
+
+    def __init__(
+        self,
+        core,
+        replay_buffer,
+        *,
+        action_space,
+        replay_start_size: int = 10000,
+        minibatch_size: int = 100,
+        update_interval: int = 1,
+        target_update_interval: int = 1,
+        n_times_update: int = 1,
+        update_burst: bool = False,
+        seed: int = 0,
+        device=None,
+        draws=None,
+    ):
+        self.core = core
+        self.device = check_same_device(agent=resolve_device(device), replay_buffer=replay_buffer.device)
+        if self.device.type == "cuda":
+            use_full_fp32()
+        self.buffer = replay_buffer
+        self.core_action_space = action_space
+        self.replay_start_size = replay_start_size
+        self.minibatch_size = minibatch_size
+        self.update_interval = update_interval
+        self.target_update_interval = target_update_interval
+        self.n_times_update = n_times_update
+        self.update_burst = update_burst
+        self.seed = seed
+        self.draws = draws if draws is not None else Draws(torch.Generator(device=self.device).manual_seed(seed))
+        self.t = 0
+        self.train_state = None
+        self.replay_state = None
+        self._last_obs = None
+        self._last_action = None
+        self._loss_stats = RunningStats(100)
+
+    # ------------------------------------------------------------------- act
+    def batch_act(self, batch_obs) -> np.ndarray:
+        obs = host_batch(batch_obs, self.device)
+        if self.train_state is None:
+            example_action = torch.zeros(
+                (obs.shape[0],) + tuple(self.core_action_space.shape), dtype=torch.float32, device=self.device
+            )
+            self.train_state = self.core.init(torch.Generator().manual_seed(self.seed), obs, example_action)
+            self._restore_pending()
+        actions = self.core.select_action(self.train_state, self.draws, obs, self.t, self.training)
+        if self.training:
+            self._last_obs = obs
+            self._last_action = actions
+        return actions.cpu().numpy()
+
+    # --------------------------------------------------------------- observe
+    def batch_observe(self, batch_obs, batch_reward, batch_done, batch_reset) -> None:
+        if not self.training:
+            return
+        done = np.asarray(batch_done, dtype=bool)
+        reset = np.asarray(batch_reset, dtype=bool)
+        b = done.shape[0]
+        dev = self.device
+        transition = Transition(
+            obs=self._last_obs,
+            action=self._last_action,
+            reward=torch.from_numpy(np.asarray(batch_reward, dtype=np.float32)).to(dev),
+            next_obs=host_batch(batch_obs, dev) if self.buffer.wants_next_obs else None,
+            terminated=torch.from_numpy(done).to(dev),
+            done=torch.from_numpy(done | reset).to(dev),
+        )
+        if self.replay_state is None:
+            if getattr(self.buffer, "num_lanes", 1) != b:
+                self.buffer = self.buffer.configure_lanes(b)
+            self.replay_state = self.buffer.init(Transition(
+                obs=transition.obs[0], action=transition.action[0], reward=transition.reward[0],
+                next_obs=None if transition.next_obs is None else transition.next_obs[0],
+                terminated=transition.terminated[0], done=transition.done[0],
+            ))
+        self.replay_state = self.buffer.add(self.replay_state, transition)
+
+        prev_t = self.t
+        self.t += b
+        if (
+            self.core.target_update_method == "hard"
+            and prev_t // self.target_update_interval != self.t // self.target_update_interval
+        ):
+            self.core.sync_target(self.train_state)
+        if self.t >= self.replay_start_size:
+            n_updates = (self.t // self.update_interval - prev_t // self.update_interval) * self.n_times_update
+            if self.update_burst and n_updates > 1:
+                losses = [self._update_once() for _ in range(n_updates)]
+                self._loss_stats.append(torch.stack(losses).mean())
+            else:
+                for _ in range(n_updates):
+                    self._loss_stats.append(self._update_once())
+
+    def _update_once(self) -> torch.Tensor:
+        """Sample, update, feed the priorities back; returns the critic's
+        loss (the JAX shell's ``fused_update``, op by op)."""
+        out = self.buffer.sample(self.replay_state, self.draws, self.minibatch_size)
+        batch = out[0] if isinstance(out, tuple) else out
+        _, aux = self.core.update(self.train_state, batch, self.draws)
+        self.buffer.update_priorities(self.replay_state, batch.indices, aux["errors"])
+        return aux["loss"]
+
+    # ----------------------------------------------------------------- stats
+    def get_statistics(self):
+        return [
+            ("average_critic_loss", self._loss_stats.mean()),
+            ("n_updates", self.train_state.n_updates if self.train_state is not None else 0),
+        ]
+
+
+class DDPG(ActorCriticShellAgent):
+    """The reference's DDPG agent (``ddpg.py:363-417``)."""
+
+    def __init__(
+        self,
+        policy: nn.Module,
+        q_func: nn.Module,
+        policy_optimizer,
+        q_optimizer,
+        replay_buffer,
+        gamma: float,
+        explorer,
+        *,
+        action_space,
+        gpu=None,
+        replay_start_size: int = 10000,
+        minibatch_size: int = 100,
+        update_interval: int = 1,
+        target_update_interval: int = 1,
+        phi: Callable = _identity,
+        target_update_method: str = "soft",
+        soft_update_tau: float = 5e-3,
+        n_times_update: int = 1,
+        update_burst: bool = False,
+        burnin_action_func: Optional[Callable] = None,
+        burnin_steps: int = 0,
+        compute_dtype: Optional[torch.dtype] = None,
+        seed: int = 0,
+        device=None,
+        draws=None,
+    ):
+        del gpu
+        core = DDPGCore(
+            policy=policy,
+            q_func=q_func,
+            policy_optimizer=policy_optimizer,
+            q_optimizer=q_optimizer,
+            explorer=explorer,
+            gamma=gamma,
+            target_update_method=target_update_method,
+            soft_update_tau=soft_update_tau,
+            phi=phi,
+            burnin_action_func=burnin_action_func,
+            burnin_steps=burnin_steps,
+            compute_dtype=compute_dtype,
+        )
+        super().__init__(
+            core,
+            replay_buffer,
+            action_space=action_space,
+            replay_start_size=replay_start_size,
+            minibatch_size=minibatch_size,
+            update_interval=update_interval,
+            target_update_interval=target_update_interval,
+            n_times_update=n_times_update,
+            update_burst=update_burst,
+            seed=seed,
+            device=device,
+            draws=draws,
+        )

@@ -5,7 +5,7 @@ a Boltzmann-softmax backup with inverse temperature ``eta``,
 import torch
 
 from pfrl_tpu_torch.agents.al import three_forwards
-from pfrl_tpu_torch.agents.dqn import DQNCore
+from pfrl_tpu_torch.agents.dqn import DQN, DQNCore
 from pfrl_tpu_torch.replay.transition import TransitionBatch
 
 
@@ -28,3 +28,10 @@ class DPPCore(DQNCore):
                 - _boltzmann_backup(cur_tgt.q_values, self.eta)
             )
         return y, t
+
+
+class DPP(DQN):
+    """The host shell over :class:`DPPCore` (``dpp.py:46``): the port's
+    :class:`~pfrl_tpu_torch.agents.dqn.DQN` with this core."""
+
+    default_core = DPPCore

@@ -18,7 +18,7 @@ the product ``psi(x) * phi(tau)`` compute in float32 by promotion; only
 
 import torch
 
-from pfrl_tpu_torch.agents.dqn import DQNCore
+from pfrl_tpu_torch.agents.dqn import DQN, DQNCore
 from pfrl_tpu_torch.ops.quantile import eltwise_huber_quantile_loss
 from pfrl_tpu_torch.replay.transition import TransitionBatch
 from pfrl_tpu_torch.utils.precision import apply_cast
@@ -89,3 +89,17 @@ class DoubleIQNCore(IQNCore):
         """Greedy in the online network's mean quantiles at s', on K fresh taus."""
         taus = _taus(draws, batch.reward.shape[0], self.K)
         return self.action_value(model, batch.next_obs, draws, taus).greedy_actions()
+
+
+class IQN(DQN):
+    """The host shell over :class:`IQNCore` (``iqn.py:116-121``): the port's
+    :class:`~pfrl_tpu_torch.agents.dqn.DQN` with this core."""
+
+    default_core = IQNCore
+
+
+class DoubleIQN(DQN):
+    """The host shell over :class:`DoubleIQNCore` (``iqn.py:116-121``): the port's
+    :class:`~pfrl_tpu_torch.agents.dqn.DQN` with this core."""
+
+    default_core = DoubleIQNCore

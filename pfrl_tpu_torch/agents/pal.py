@@ -5,6 +5,7 @@ action gaps at s and at s'."""
 import torch
 
 from pfrl_tpu_torch.agents.al import ALCore, three_forwards
+from pfrl_tpu_torch.agents.dqn import DQN
 from pfrl_tpu_torch.replay.transition import TransitionBatch
 
 
@@ -31,3 +32,17 @@ class DoublePALCore(PALCore):
         a fourth forward, online on next_obs, after the three of AL."""
         greedy = self.action_value(model, batch.next_obs, draws).greedy_actions()
         return next_tgt.evaluate_actions(greedy)
+
+
+class PAL(DQN):
+    """The host shell over :class:`PALCore` (``pal.py:52-57``): the port's
+    :class:`~pfrl_tpu_torch.agents.dqn.DQN` with this core."""
+
+    default_core = PALCore
+
+
+class DoublePAL(DQN):
+    """The host shell over :class:`DoublePALCore` (``pal.py:52-57``): the port's
+    :class:`~pfrl_tpu_torch.agents.dqn.DQN` with this core."""
+
+    default_core = DoublePALCore

@@ -29,19 +29,27 @@ so its backward, in that dtype over the float32 parameters
 value)`` comes back float32, so the log-probability ratios, GAE and the
 losses stay float32.
 
-Not ported yet: the host shells ``OnPolicyShellAgent`` and ``PPO``.
+:class:`OnPolicyShellAgent` is the host shell that PPO, A2C and TRPO share
+(``ppo.py:253-386``): it fills a ``[T, B, ...]`` rollout on the device, one
+row per observe, and updates when the block is full; :class:`PPO` is its PPO
+(``ppo.py:389-430``).
 """
 
 import dataclasses
 from typing import Any, Callable, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
-from pfrl_tpu_torch.agents.ddpg import _identity, fresh_module
+from pfrl_tpu_torch._device import resolve_device, use_full_fp32
+from pfrl_tpu_torch.agent import AttributeSavingMixin, BatchAgent
+from pfrl_tpu_torch.agents.ddpg import _identity, fresh_module, host_batch
 from pfrl_tpu_torch.ops.returns import gae_advantages
 from pfrl_tpu_torch.optimizers.clip_by_global_norm import ClipByGlobalNorm
+from pfrl_tpu_torch.utils.draws import Draws
 from pfrl_tpu_torch.utils.precision import apply_cast, check_compute_dtype
+from pfrl_tpu_torch.utils.stats import RunningStats
 
 
 @dataclasses.dataclass
@@ -217,3 +225,164 @@ def explained_variance(v_target: torch.Tensor, value: torch.Tensor) -> torch.Ten
     """``1 - Var(v_target - value) / (Var(v_target) + 1e-8)``, population variances."""
     var_y = torch.var(v_target, correction=0)
     return 1.0 - torch.var(v_target - value, correction=0) / (var_y + 1e-8)
+
+
+class OnPolicyShellAgent(AttributeSavingMixin, BatchAgent):
+    """Host shell of the on-policy cores (``ppo.py:253-386``).
+
+    The first act builds the state (weights from a CPU generator seeded with
+    ``seed``) unless a state was set or loaded before it; ``draws`` is the
+    draw source of the acts and the updates (default: a generator on
+    ``device`` seeded with ``seed``). The first observe allocates the
+    rollout, ``T = update_interval // B`` rows of ``B`` envs, and raises
+    unless ``B`` divides ``update_interval``; each observe writes one row
+    (``done | reset`` as done, ``done`` as terminated) and the full block
+    goes to ``core.update``. Every training act appends the mean value to
+    the statistics and every update its loss and, where the core reports
+    it, its entropy: each a ``float`` that waits for the card, as in JAX.
+    On the card it runs float32 without TF32.
+    """
+
+    saved_attributes = ("train_state",)
+
+    def __init__(self, core, update_interval: int = 2048, seed: int = 0, device=None, draws=None):
+        self.core = core
+        self.update_interval = update_interval
+        self.seed = seed
+        self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            use_full_fp32()
+        self.draws = draws if draws is not None else Draws(torch.Generator(device=self.device).manual_seed(seed))
+        self.t = 0
+        self.train_state = None
+        self._rollout: Optional[Rollout] = None
+        self._ptr = 0
+        self._T = None
+        self._last_obs = None
+        self._last_action = None
+        self._last_aux = None
+        self._loss_stats = RunningStats(100)
+        self._value_stats = RunningStats(1000)
+        self._entropy_stats = RunningStats(1000)
+
+    # ------------------------------------------------------------------- act
+    def batch_act(self, batch_obs) -> np.ndarray:
+        obs = host_batch(batch_obs, self.device)
+        if self.train_state is None:
+            self.train_state = self.core.init(torch.Generator().manual_seed(self.seed), obs)
+            self._restore_pending()
+        action, aux = self.core.act_with_aux(self.train_state, self.draws, obs, self.training)
+        if self.training:
+            self._last_obs = obs
+            self._last_action = action
+            self._last_aux = aux
+            self._value_stats.append(torch.mean(aux["value"]))
+        return action.cpu().numpy()
+
+    # --------------------------------------------------------------- observe
+    def _ensure_rollout(self, b: int) -> None:
+        if self._rollout is not None:
+            return
+        if self.update_interval % b:
+            raise ValueError(f"update_interval {self.update_interval} must divide by num_envs {b}")
+        self._T = T = self.update_interval // b
+
+        def alloc(x: torch.Tensor) -> torch.Tensor:
+            return torch.zeros((T,) + tuple(x.shape), dtype=x.dtype, device=x.device)
+
+        flags = torch.zeros(b, dtype=torch.bool, device=self.device)
+        self._rollout = Rollout(
+            obs=alloc(self._last_obs),
+            action=alloc(self._last_action),
+            log_prob=alloc(self._last_aux["log_prob"]),
+            value=alloc(self._last_aux["value"]),
+            reward=alloc(torch.zeros(b, dtype=torch.float32, device=self.device)),
+            terminated=alloc(flags),
+            done=alloc(flags),
+            next_obs=alloc(self._last_obs),
+        )
+
+    def batch_observe(self, batch_obs, batch_reward, batch_done, batch_reset) -> None:
+        if not self.training:
+            return
+        next_obs = host_batch(batch_obs, self.device)
+        b = next_obs.shape[0]
+        self._ensure_rollout(b)
+        done = np.asarray(batch_done, dtype=bool)
+        reset = np.asarray(batch_reset, dtype=bool)
+        rollout, row, dev = self._rollout, self._ptr, self.device
+        rollout.obs[row] = self._last_obs
+        rollout.action[row] = self._last_action
+        rollout.log_prob[row] = self._last_aux["log_prob"]
+        rollout.value[row] = self._last_aux["value"]
+        rollout.reward[row] = torch.from_numpy(np.asarray(batch_reward, dtype=np.float32)).to(dev)
+        rollout.terminated[row] = torch.from_numpy(done).to(dev)
+        rollout.done[row] = torch.from_numpy(done | reset).to(dev)
+        rollout.next_obs[row] = next_obs
+        self._ptr += 1
+        self.t += b
+        if self._ptr == self._T:
+            self._update_once()
+
+    def _update_once(self) -> None:
+        """One update over the full rollout block."""
+        _, aux = self.core.update(self.train_state, self.draws, self._rollout)
+        self._ptr = 0
+        self._loss_stats.append(aux["loss"])
+        if "entropy" in aux:
+            self._entropy_stats.append(aux["entropy"])
+
+    # ----------------------------------------------------------------- stats
+    def get_statistics(self):
+        return [
+            ("average_value", self._value_stats.mean()),
+            ("average_entropy", self._entropy_stats.mean()),
+            ("average_loss", self._loss_stats.mean()),
+            ("n_updates", self.train_state.n_updates if self.train_state is not None else 0),
+        ]
+
+
+class PPO(OnPolicyShellAgent):
+    """The reference's PPO agent (``ppo.py:389-430``)."""
+
+    def __init__(
+        self,
+        model: nn.Module,
+        optimizer,
+        *,
+        gpu=None,
+        gamma: float = 0.99,
+        lambd: float = 0.95,
+        phi: Callable = _identity,
+        value_func_coef: float = 1.0,
+        entropy_coef: float = 0.01,
+        update_interval: int = 2048,
+        minibatch_size: int = 64,
+        epochs: int = 10,
+        clip_eps: float = 0.2,
+        clip_eps_vf: Optional[float] = None,
+        standardize_advantages: bool = True,
+        max_grad_norm: Optional[float] = None,
+        compute_dtype: Optional[torch.dtype] = None,
+        seed: int = 0,
+        device=None,
+        draws=None,
+    ):
+        del gpu
+        core = PPOCore(
+            model=model,
+            optimizer=optimizer,
+            gamma=gamma,
+            lambd=lambd,
+            clip_eps=clip_eps,
+            clip_eps_vf=clip_eps_vf,
+            entropy_coef=entropy_coef,
+            value_func_coef=value_func_coef,
+            epochs=epochs,
+            minibatch_size=minibatch_size,
+            standardize_advantages=standardize_advantages,
+            max_grad_norm=max_grad_norm,
+            phi=phi,
+            compute_dtype=compute_dtype,
+        )
+        super().__init__(core, update_interval=update_interval, seed=seed, device=device, draws=draws)

@@ -21,7 +21,9 @@ sample noise, then, only while ``t < burnin_steps``, the burn-in actions,
 which replace the sample; ``update`` takes the critic's noise (the sample
 at ``next_obs``), then the actor's.
 
-Not ported yet: the host shell ``SoftActorCritic``.
+:class:`SoftActorCritic` is the host shell (``soft_actor_critic.py:259-324``)
+over :class:`~pfrl_tpu_torch.agents.ddpg.ActorCriticShellAgent`; its
+entropy target defaults to ``-|A|``.
 """
 
 import dataclasses
@@ -31,7 +33,14 @@ from typing import Any, Callable, Optional
 import torch
 from torch import nn
 
-from pfrl_tpu_torch.agents.ddpg import CastApplies, _identity, bootstrap_target, fresh_module, frozen_copy
+from pfrl_tpu_torch.agents.ddpg import (
+    ActorCriticShellAgent,
+    CastApplies,
+    _identity,
+    bootstrap_target,
+    fresh_module,
+    frozen_copy,
+)
 from pfrl_tpu_torch.optimizers.adam import Adam
 from pfrl_tpu_torch.replay.transition import TransitionBatch
 from pfrl_tpu_torch.utils.copy_param import soft_copy_param
@@ -202,3 +211,73 @@ class SACCore(CastApplies):
         soft_copy_param(state.target_q_func1, state.q_func1, self.soft_update_tau)
         soft_copy_param(state.target_q_func2, state.q_func2, self.soft_update_tau)
         return state
+
+
+class SoftActorCritic(ActorCriticShellAgent):
+    """The reference's SAC agent (``soft_actor_critic.py:259-324``);
+    ``temperature_optimizer_lr`` gives the temperature an Adam of that rate
+    (default: the core's Adam(3e-4))."""
+
+    def __init__(
+        self,
+        policy: nn.Module,
+        q_func1: nn.Module,
+        q_func2: nn.Module,
+        policy_optimizer,
+        q_func1_optimizer,
+        q_func2_optimizer,
+        replay_buffer,
+        gamma: float,
+        *,
+        action_space,
+        gpu=None,
+        replay_start_size: int = 10000,
+        minibatch_size: int = 100,
+        update_interval: int = 1,
+        phi: Callable = _identity,
+        soft_update_tau: float = 5e-3,
+        n_times_update: int = 1,
+        update_burst: bool = False,
+        temperature_optimizer_lr: Optional[float] = None,
+        initial_temperature: float = 1.0,
+        entropy_target: Optional[float] = None,
+        burnin_action_func: Optional[Callable] = None,
+        burnin_steps: int = 0,
+        compute_dtype: Optional[torch.dtype] = None,
+        seed: int = 0,
+        device=None,
+        draws=None,
+    ):
+        del gpu
+        if entropy_target is None:
+            entropy_target = -float(action_space.shape[0])
+        core = SACCore(
+            policy=policy,
+            q_func1=q_func1,
+            q_func2=q_func2,
+            policy_optimizer=policy_optimizer,
+            q_func1_optimizer=q_func1_optimizer,
+            q_func2_optimizer=q_func2_optimizer,
+            gamma=gamma,
+            soft_update_tau=soft_update_tau,
+            temperature_optimizer=Adam(temperature_optimizer_lr) if temperature_optimizer_lr is not None else None,
+            initial_temperature=initial_temperature,
+            entropy_target=entropy_target,
+            phi=phi,
+            burnin_action_func=burnin_action_func,
+            burnin_steps=burnin_steps,
+            compute_dtype=compute_dtype,
+        )
+        super().__init__(
+            core,
+            replay_buffer,
+            action_space=action_space,
+            replay_start_size=replay_start_size,
+            minibatch_size=minibatch_size,
+            update_interval=update_interval,
+            n_times_update=n_times_update,
+            update_burst=update_burst,
+            seed=seed,
+            device=device,
+            draws=draws,
+        )

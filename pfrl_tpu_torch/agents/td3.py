@@ -20,7 +20,10 @@ core's ``actor_loss`` does.
 Draws, in order: ``select_action`` as in :mod:`.ddpg`; ``update`` takes one
 ``draws.normal`` for the smoothing noise.
 
-Not ported yet: the host shell ``TD3``.
+:class:`TD3` is the host shell (``td3.py:228-287``) over
+:class:`~pfrl_tpu_torch.agents.ddpg.ActorCriticShellAgent`: its statistics
+report the critic's loss only, as the JAX shell's do, and ``n_updates`` is
+the core's host counter.
 """
 
 import dataclasses
@@ -30,6 +33,7 @@ import torch
 from torch import nn
 
 from pfrl_tpu_torch.agents.ddpg import (
+    ActorCriticShellAgent,
     CastApplies,
     _identity,
     bootstrap_target,
@@ -181,3 +185,69 @@ class TD3Core(CastApplies):
         soft_copy_param(state.target_q_func1, state.q_func1, tau)
         soft_copy_param(state.target_q_func2, state.q_func2, tau)
         return state
+
+
+class TD3(ActorCriticShellAgent):
+    """The reference's TD3 agent (``td3.py:228-287``)."""
+
+    def __init__(
+        self,
+        policy: nn.Module,
+        q_func1: nn.Module,
+        q_func2: nn.Module,
+        policy_optimizer,
+        q_func1_optimizer,
+        q_func2_optimizer,
+        replay_buffer,
+        gamma: float,
+        explorer,
+        *,
+        action_space,
+        gpu=None,
+        replay_start_size: int = 10000,
+        minibatch_size: int = 100,
+        update_interval: int = 1,
+        phi: Callable = _identity,
+        soft_update_tau: float = 5e-3,
+        n_times_update: int = 1,
+        update_burst: bool = False,
+        policy_update_delay: int = 2,
+        target_policy_smoothing_func: Callable = default_target_policy_smoothing_func,
+        burnin_action_func: Optional[Callable] = None,
+        burnin_steps: int = 0,
+        compute_dtype: Optional[torch.dtype] = None,
+        seed: int = 0,
+        device=None,
+        draws=None,
+    ):
+        del gpu
+        core = TD3Core(
+            policy=policy,
+            q_func1=q_func1,
+            q_func2=q_func2,
+            policy_optimizer=policy_optimizer,
+            q_func1_optimizer=q_func1_optimizer,
+            q_func2_optimizer=q_func2_optimizer,
+            explorer=explorer,
+            gamma=gamma,
+            soft_update_tau=soft_update_tau,
+            policy_update_delay=policy_update_delay,
+            target_policy_smoothing_func=target_policy_smoothing_func,
+            phi=phi,
+            burnin_action_func=burnin_action_func,
+            burnin_steps=burnin_steps,
+            compute_dtype=compute_dtype,
+        )
+        super().__init__(
+            core,
+            replay_buffer,
+            action_space=action_space,
+            replay_start_size=replay_start_size,
+            minibatch_size=minibatch_size,
+            update_interval=update_interval,
+            n_times_update=n_times_update,
+            update_burst=update_burst,
+            seed=seed,
+            device=device,
+            draws=draws,
+        )

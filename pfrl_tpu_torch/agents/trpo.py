@@ -27,7 +27,9 @@ standardized with the population standard deviation, then
 Draws, in order: the distribution's sample while acting; ``update`` takes
 one ``permutation(n)`` per value-function epoch and nothing else.
 
-Not ported yet: the host shell ``TRPO``.
+:class:`TRPO` is the host shell (``trpo.py:251-292``) over
+:class:`~.ppo.OnPolicyShellAgent`. It takes no ``compute_dtype``, as the
+JAX shell takes none.
 """
 
 import dataclasses
@@ -38,7 +40,7 @@ from torch import nn
 from torch.func import functional_call
 
 from pfrl_tpu_torch.agents.ddpg import _identity, fresh_module
-from pfrl_tpu_torch.agents.ppo import Rollout, flat, standardize
+from pfrl_tpu_torch.agents.ppo import OnPolicyShellAgent, Rollout, flat, standardize
 from pfrl_tpu_torch.ops.returns import gae_advantages
 from pfrl_tpu_torch.utils.conjugate_gradient import conjugate_gradient
 
@@ -223,3 +225,49 @@ class TRPOCore:
                 losses.append(loss.detach())
             epoch_losses.append(torch.mean(torch.stack(losses)))
         return torch.mean(torch.stack(epoch_losses))
+
+
+class TRPO(OnPolicyShellAgent):
+    """The reference's TRPO agent (``trpo.py:251-292``)."""
+
+    def __init__(
+        self,
+        policy: nn.Module,
+        vf: nn.Module,
+        vf_optimizer,
+        *,
+        gpu=None,
+        gamma: float = 0.99,
+        lambd: float = 0.95,
+        phi: Callable = _identity,
+        entropy_coef: float = 0.0,
+        update_interval: int = 2048,
+        max_kl: float = 0.01,
+        vf_epochs: int = 3,
+        vf_batch_size: int = 64,
+        standardize_advantages: bool = True,
+        line_search_max_backtrack: int = 10,
+        conjugate_gradient_max_iter: int = 10,
+        conjugate_gradient_damping: float = 1e-1,
+        seed: int = 0,
+        device=None,
+        draws=None,
+    ):
+        del gpu
+        core = TRPOCore(
+            policy=policy,
+            vf=vf,
+            vf_optimizer=vf_optimizer,
+            gamma=gamma,
+            lambd=lambd,
+            entropy_coef=entropy_coef,
+            max_kl=max_kl,
+            vf_epochs=vf_epochs,
+            vf_batch_size=vf_batch_size,
+            conjugate_gradient_max_iter=conjugate_gradient_max_iter,
+            conjugate_gradient_damping=conjugate_gradient_damping,
+            line_search_max_backtrack=line_search_max_backtrack,
+            standardize_advantages=standardize_advantages,
+            phi=phi,
+        )
+        super().__init__(core, update_interval=update_interval, seed=seed, device=device, draws=draws)

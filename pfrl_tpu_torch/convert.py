@@ -125,8 +125,9 @@ def dqn_state_from_flax(
 def dqn_shell_from_flax(shell, flax_state):
     """A JAX ``DQN`` shell's ``train_state`` (the tree its ``save`` writes,
     with numpy leaves: ``params``, ``target_params``, ``opt_state``,
-    ``n_updates``) into the port's shell ``shell`` (``DQN`` or
-    ``DoubleDQN``), on the shell's device. Set before the first act, it is
+    ``n_updates``) into the port's shell ``shell`` (``DQN``, ``DoubleDQN``
+    or a shell of another value core: the categorical and IQN states are
+    ``DQNState`` too), on the shell's device. Set before the first act, it is
     the state the shell acts and learns from. Returns ``shell``."""
     shell.train_state = dqn_state_from_flax(
         shell.core, flax_state.params, flax_state.target_params, flax_state.opt_state,
@@ -270,6 +271,39 @@ def trpo_state_from_flax(core: TRPOCore, flax_state, device=None) -> TRPOState:
     _load_optimizer(core.vf_optimizer, state.vf_opt_state, state.vf, flax_state.vf_opt_state)
     state.n_updates = int(np.asarray(flax_state.n_updates))
     return state
+
+
+def actor_critic_shell_from_flax(shell, flax_state):
+    """A JAX actor-critic shell's ``train_state`` (DDPG's, TD3's or SAC's,
+    numpy leaves) into the port's shell ``shell`` of the same algorithm, on
+    the shell's device, optimizer moments included. Set before the first
+    act, it is the state the shell acts and learns from. Returns ``shell``."""
+    core = shell.core
+    if isinstance(core, DDPGCore):
+        convert = actor_critic_state_from_flax
+    elif isinstance(core, TD3Core):
+        convert = td3_state_from_flax
+    elif isinstance(core, SACCore):
+        convert = sac_state_from_flax
+    else:
+        raise TypeError(f"no actor-critic state for {type(core).__name__}")
+    shell.train_state = convert(core, flax_state, device=shell.device)
+    return shell
+
+
+def onpolicy_shell_from_flax(shell, flax_state):
+    """A JAX on-policy shell's ``train_state`` (PPO's and A2C's
+    ``PPOState``, or TRPO's) into the port's shell ``shell``, as
+    :func:`actor_critic_shell_from_flax` does. Returns ``shell``."""
+    core = shell.core
+    if isinstance(core, PPOCore):
+        convert = ppo_state_from_flax
+    elif isinstance(core, TRPOCore):
+        convert = trpo_state_from_flax
+    else:
+        raise TypeError(f"no on-policy state for {type(core).__name__}")
+    shell.train_state = convert(core, flax_state, device=shell.device)
+    return shell
 
 
 def acer_state_from_flax(core, flax_state, device=None) -> ACERState:

@@ -50,7 +50,6 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from pfrl_tpu_torch.action_value import DistributionalDiscreteActionValue
 from pfrl_tpu_torch.agents.al import ALCore
 from pfrl_tpu_torch.agents.categorical_dqn import CategoricalDoubleDQNCore, CategoricalDQNCore
 from pfrl_tpu_torch.agents.dqn import DQNCore
@@ -58,11 +57,10 @@ from pfrl_tpu_torch.agents.iqn import IQNCore
 from pfrl_tpu_torch.env import TorchEnv
 from pfrl_tpu_torch.experiments.onpolicy import time_limited_cartpole
 from pfrl_tpu_torch.experiments.runner import EvalLoop, OffPolicyRunner, RunnerConfig
+from pfrl_tpu_torch.experiments.slimevolley_rainbow import DistributionalDuelingMLPHead
 from pfrl_tpu_torch.explorers.epsilon_greedy import ConstantEpsilonGreedy, LinearDecayEpsilonGreedy
 from pfrl_tpu_torch.models.mlp import MLP, scoped_names
-from pfrl_tpu_torch.models.noisy_linear import FactorizedNoisyLinear
 from pfrl_tpu_torch.optimizers import Adam, ClipByGlobalNorm
-from pfrl_tpu_torch.q_functions.dueling_dqn import support
 from pfrl_tpu_torch.q_functions.quantile_q_functions import ImplicitQuantileQFunction
 from pfrl_tpu_torch.q_functions.state_q_functions import (
     DistributionalFCStateQFunctionWithDiscreteAction,
@@ -70,13 +68,12 @@ from pfrl_tpu_torch.q_functions.state_q_functions import (
 )
 from pfrl_tpu_torch.replay.prioritized import PrioritizedReplayBuffer
 from pfrl_tpu_torch.replay.uniform import ReplayBuffer
-from pfrl_tpu_torch.utils.precision import softmax
 
 OBS, ACTIONS = 4, 2
 Recipe = Tuple[OffPolicyRunner, EvalLoop]
 
 
-class RainbowCartPoleHead(nn.Module):
+class RainbowCartPoleHead(DistributionalDuelingMLPHead):
     """``run_rainbow_cartpole``'s ``RainbowHead``: ReLU(MLP(4 -> hidden ->
     hidden)) split in two halves; the first feeds a noisy advantage stream
     (``n_actions * n_atoms``, mean-centred over the actions), the second a
@@ -86,30 +83,7 @@ class RainbowCartPoleHead(nn.Module):
     drawing their noise, in that order."""
 
     def __init__(self, hidden: int = 128, n_atoms: int = 51, sigma_scale: float = 0.5):
-        super().__init__()
-        self.n_atoms = n_atoms
-        self.mlp = MLP(OBS, hidden, (hidden,))
-        half = hidden // 2
-        self.advantage = FactorizedNoisyLinear(half, ACTIONS * n_atoms, sigma_scale)
-        self.value = FactorizedNoisyLinear(hidden - half, n_atoms, sigma_scale)
-        self.register_buffer("z_values", support(0.0, 500.0, n_atoms))
-
-    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
-        self.mlp.reset_parameters(generator)
-        self.advantage.reset_parameters(generator)
-        self.value.reset_parameters(generator)
-
-    def flax_names(self) -> Dict[str, str]:
-        names = scoped_names("mlp", "MLP_0", self.mlp)
-        names.update(advantage="FactorizedNoisyDense_0", value="FactorizedNoisyDense_1")
-        return names
-
-    def forward(self, x: torch.Tensor, draws=None) -> DistributionalDiscreteActionValue:
-        h_a, h_v = torch.chunk(torch.relu(self.mlp(x)), 2, dim=-1)
-        a = self.advantage(h_a, draws).reshape(-1, ACTIONS, self.n_atoms)
-        a = a - torch.mean(a, dim=1, keepdim=True)
-        v = self.value(h_v, draws)[:, None, :]
-        return DistributionalDiscreteActionValue(q_dist=softmax(a + v, dim=-1), z_values=self.z_values)
+        super().__init__(OBS, ACTIONS, n_atoms, 0.0, 500.0, hidden, sigma_scale)
 
 
 class ReLUMLP(nn.Module):

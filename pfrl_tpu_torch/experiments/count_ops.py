@@ -28,7 +28,12 @@ a burst per 256 of them).
 ``dqn-batch-ale-8``, the ``DQN`` shell of ``experiments/atari_dqn_batch.py``,
 counts one ``batch_act`` (8 lanes), one ``batch_observe`` without an update
 and one update on frames made on the host, spawning no worker, and from
-them the ops per env step (an update per 4 transitions).
+them the ops per env step (an update per 4 transitions). The host paths of
+``profile_host.HOST_PATHS`` (``sac-halfcheetah-host-1``, ...,
+``rainbow-slimevolley-cartpole-1``) count the same three calls of their
+shells on observations drawn from a normal, at their rings' own sizes
+unless ``--capacity`` cuts them; an on-policy shell's update is one whole
+update over its rollout.
 ``--bf16`` builds the configuration at ``compute_dtype=torch.bfloat16``.
 ``--capacity`` shrinks the replay ring, which changes no op of a scan step
 (the AtariSim configurations' 100,000 frame slots need 2.8 GB otherwise,
@@ -48,7 +53,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from pfrl_tpu_torch.experiments.cartpole_value import RECIPES
-from pfrl_tpu_torch.experiments.profile_slice import CONFIGS, HOSTS, PIPELINES
+from pfrl_tpu_torch.experiments.profile_slice import CONFIGS, HOST_PATHS, HOSTS, PIPELINES
 from pfrl_tpu_torch.utils.draws import Draws
 
 
@@ -100,6 +105,11 @@ def count_pipeline_ops(config: str, device=None, compute_dtype=None, capacity=No
 def count_ops(config: str, steps: int, device=None, compute_dtype=None, capacity=None) -> dict:
     if config in PIPELINES:
         return count_pipeline_ops(config, device, compute_dtype, capacity)
+    if config in HOST_PATHS:
+        from pfrl_tpu_torch.experiments.profile_host import count_host_path_ops
+
+        return {"config": config, "compute_dtype": str(compute_dtype),
+                **count_host_path_ops(config, device, compute_dtype, capacity)}
     if config in HOSTS:
         from pfrl_tpu_torch.experiments.profile_host import count_host_ops
 
@@ -131,7 +141,7 @@ def count_ops(config: str, steps: int, device=None, compute_dtype=None, capacity
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--config", choices=sorted([*CONFIGS, *PIPELINES, *HOSTS]), default=None,
+    parser.add_argument("--config", choices=sorted([*CONFIGS, *PIPELINES, *HOSTS, *HOST_PATHS]), default=None,
                         help="default: each CartPole recipe")
     parser.add_argument("--steps", type=int, default=4)
     parser.add_argument("--bf16", action="store_true", help="bf16 compute over float32 masters")

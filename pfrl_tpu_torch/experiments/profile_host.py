@@ -1,41 +1,129 @@
-"""Where the host-env object path's time goes: ``dqn-batch-ale-8``
-(``experiments/atari_dqn_batch.py``, ``train_dqn_batch_ale.py``'s
-``run_batch``), one batch step at a time.
+"""Where the host-env object path's time goes: a shell driven one batch
+step at a time, ``dqn-batch-ale-8`` (``experiments/atari_dqn_batch.py``,
+``train_dqn_batch_ale.py``'s ``run_batch``) and the paths of
+:data:`HOST_PATHS`.
 
 :func:`run_host_batch` drives a shell through
-``train_agent_batch_with_evaluation`` and times, each call between two
-synchronizations of the card: ``batch_act`` (observations up, the forward,
-actions down), the vector env's ``step`` (the pipe round trip to the
-workers), ``batch_observe`` (the ring add, and from the replay start its
-updates) and each update (sample, gradient step, the host read of the
-loss). It marks every observe's ``t``, so it gives env-steps/s before and
-after the replay start and updates/s, counts the target syncs, and records
-a window of batch steps under ``torch.profiler``: kernels per batch step
-and the device's busy share of that window's wall time. The profiler's
-start and stop take seconds, so the rates after the replay start, and the
-ms per batch step of each call, are taken from the first batch step after
-that window on; the synchronizing timers are in every rate.
+``train_agent_batch_with_evaluation`` (a vector env) or
+``train_agent_with_evaluation`` (a single env) and times, each call between
+two synchronizations of the card: ``batch_act`` (observations up, the
+forward, actions down), the env's ``step`` (the pipe round trip to the
+workers, or a host simulator's step), ``batch_observe`` (the ring add or
+the rollout row, and from the learning start its updates) and each update
+(``_update_once``: an off-policy shell's sample, gradient step and the host
+read of the loss; an on-policy shell's whole update over its rollout). It
+marks every observe's ``t`` and update count, so it gives env-steps/s
+before and after the learning start (the replay start, or an on-policy
+shell's first full rollout) and updates/s, counts the ``sync_target``
+calls, and records a window of batch steps under ``torch.profiler``:
+kernels per batch step and per update and the device's busy share of that
+window's wall time. The profiler's start and stop take seconds, so the
+rates after the learning start, and the ms per batch step of each call,
+are taken from the first batch step after that window on; the
+synchronizing timers are in every rate.
 
 :func:`count_host_ops` counts the aten ops of one ``batch_act``, one
 ``batch_observe`` without an update and one update (``count_ops.py``'s
 counter), on observations made on the host, spawning no worker.
 
-``profile_slice --config dqn-batch-ale-8`` and ``count_ops --config
-dqn-batch-ale-8`` run these; ``chip_smoke.py`` runs the recipe uncut.
+:data:`HOST_PATHS` holds the host paths of the MuJoCo reproduction
+examples (``experiments/mujoco_host.py``, over ``MujocoSim`` at HalfCheetah's
+and Hopper's sizes on the CPU) and of SlimeVolley Rainbow on its CartPole
+backend (``experiments/slimevolley_rainbow.py``), at their scripts'
+settings, each with the length that ``chip_smoke.py`` runs.
+``profile_slice --config C`` and ``count_ops --config C`` run these for
+``dqn-batch-ale-8`` and each path; ``chip_smoke.py`` runs them uncut.
 """
 
 import collections
+import dataclasses
+import functools
 import os
 import statistics
 import time
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from pfrl_tpu_torch.experiments import mujoco_host, slimevolley_rainbow
+from pfrl_tpu_torch.experiments.train_agent import train_agent_with_evaluation
 from pfrl_tpu_torch.experiments.train_agent_batch import train_agent_batch_with_evaluation
+
+
+@dataclasses.dataclass(frozen=True)
+class HostPath:
+    """A host path: ``make_agent(**kw)`` (``device``, ``compute_dtype``,
+    ``replay_start_size`` where the shell has one, ``update_burst``),
+    ``make_env(seed)`` for one lane, the observation's size, the run's
+    transitions and evaluation episodes, and the lanes of a
+    ``SerialVectorEnv`` (1: a single env through the serial driver)."""
+
+    make_agent: Callable
+    make_env: Callable
+    obs_size: int
+    steps: int
+    eval_n_episodes: int
+    lanes: int = 1
+    agent_kwargs: Tuple = ()
+
+
+_CHEETAH, _HOPPER = mujoco_host.HALFCHEETAH, mujoco_host.HOPPER
+HOST_PATHS = {
+    # Through the replay start of 10,000 uncut to t = 11,000: 1,001 updates,
+    # the truncation at step 1,000 crossed, then 2 evaluation episodes.
+    "sac-halfcheetah-host-1": HostPath(functools.partial(mujoco_host.make_sac_agent, *_CHEETAH),
+                                       mujoco_host.mujoco_sim_env(*_CHEETAH), 17, 11_000, 2),
+    "td3-halfcheetah-host-1": HostPath(functools.partial(mujoco_host.make_td3_agent, *_CHEETAH),
+                                       mujoco_host.mujoco_sim_env(*_CHEETAH), 17, 11_000, 2),
+    "ddpg-halfcheetah-host-1": HostPath(functools.partial(mujoco_host.make_ddpg_agent, *_CHEETAH),
+                                        mujoco_host.mujoco_sim_env(*_CHEETAH), 17, 11_000, 2),
+    # --update-burst --num-envs 4: four updates per batch step, one burst.
+    "td3-halfcheetah-host-4-burst": HostPath(functools.partial(mujoco_host.make_td3_agent, *_CHEETAH),
+                                             mujoco_host.mujoco_sim_env(*_CHEETAH), 17, 11_000, 2, lanes=4,
+                                             agent_kwargs=(("update_burst", True),)),
+    # Three updates of 2,048 transitions (320 Adam steps each).
+    "ppo-hopper-host-1": HostPath(functools.partial(mujoco_host.make_ppo_agent, *_HOPPER),
+                                  mujoco_host.mujoco_sim_env(*_HOPPER), 11, 6_144, 2),
+    # Two updates of 5,000 transitions.
+    "trpo-hopper-host-1": HostPath(functools.partial(mujoco_host.make_trpo_agent, *_HOPPER),
+                                   mujoco_host.mujoco_sim_env(*_HOPPER), 11, 10_000, 2),
+    # The replay start of 1,600 uncut to t = 2,600: 1,001 updates through the
+    # C = 2^20 ring, the target sync at 2,000 crossed; 10 evaluation episodes.
+    "rainbow-slimevolley-cartpole-1": HostPath(functools.partial(slimevolley_rainbow.make_rainbow_agent, 4, 2),
+                                               slimevolley_rainbow.cartpole_env, 4, 2_600, 10),
+}
+
+
+def make_host_path(name: str, device=None, compute_dtype=None, **agent_kwargs):
+    """``(agent, env, eval_env)`` of ``HOST_PATHS[name]`` on ``device``."""
+    from pfrl_tpu_torch.envs.serial_vector_env import SerialVectorEnv
+
+    path = HOST_PATHS[name]
+    agent = path.make_agent(device=device, compute_dtype=compute_dtype, **dict(path.agent_kwargs), **agent_kwargs)
+    if path.lanes == 1:
+        return agent, path.make_env(0), path.make_env(100)
+    envs = [SerialVectorEnv([path.make_env(seed + i) for i in range(path.lanes)]) for seed in (0, 100)]
+    return agent, envs[0], envs[1]
+
+
+def learning_start(agent) -> int:
+    """The first ``t`` at which ``agent`` updates: its replay start, or an
+    on-policy shell's first full rollout."""
+    return getattr(agent, "replay_start_size", None) or agent.update_interval
+
+
+def storage_bytes(agent) -> int:
+    """The bytes of a shell's replay ring, or of an on-policy shell's rollout."""
+    if getattr(agent, "replay_state", None) is not None:
+        storage = getattr(agent.replay_state, "base", agent.replay_state).storage
+        return sum(x.numel() * x.element_size() for x in storage.values())
+    rollout = getattr(agent, "_rollout", None)
+    if rollout is None:
+        return 0
+    return sum(x.numel() * x.element_size() for x in vars(rollout).values() if isinstance(x, torch.Tensor))
 
 
 def _stats(calls, lo: int, batch_steps_after: int) -> dict:
@@ -52,9 +140,10 @@ def _stats(calls, lo: int, batch_steps_after: int) -> dict:
 
 
 def _rate(marks, lo: int, hi: int) -> Tuple[Optional[float], int, float]:
-    """Transitions per second between the first mark at or past ``lo`` and
-    the last at or before ``hi``, with the transitions and seconds."""
-    inside = [(t, s) for t, s in marks if lo <= t <= hi]
+    """Transitions per second between the first mark ``(t, seconds, ...)``
+    at or past ``lo`` and the last at or before ``hi``, with the transitions
+    and seconds."""
+    inside = [m[:2] for m in marks if lo <= m[0] <= hi]
     if len(inside) < 2:
         return None, 0, 0.0
     (t0, s0), (t1, s1) = inside[0], inside[-1]
@@ -67,12 +156,13 @@ def run_host_batch(agent, env, eval_env, steps: int, eval_interval: int, eval_n_
     evaluation every ``eval_interval``; ``profiled = (t, n)`` records ``n``
     batch steps under the profiler from the first observe at or past ``t``
     (on the card only). The driver saves the agent into ``outdir`` (the
-    best and the finished one: 27 MB each at full width). Returns the
-    record (see the module docstring)."""
+    best and the finished one). Returns the record (see the module
+    docstring)."""
     cuda = agent.device.type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
+    lanes = getattr(env, "num_envs", 1)
     ms = collections.defaultdict(list)
-    marks, syncs, window = [], [0], {}
+    marks, syncs, updates, window = [], [0], [0], {}
 
     def timed(label, fn, training_only=False):
         def call(*args, **kwargs):
@@ -86,18 +176,22 @@ def run_host_batch(agent, env, eval_env, steps: int, eval_interval: int, eval_n_
         return call
 
     def observe(*args, **kwargs):
-        before, t = agent.optim_t, agent.t
+        before, t = updates[0], agent.t
         sync()
         t0 = time.perf_counter()
         batch_observe(*args, **kwargs)
         sync()
         now = time.perf_counter()
         if agent.training:
-            ms["batch_observe with updates" if agent.optim_t > before else "batch_observe (ring add)"].append(
+            ms["batch_observe with updates" if updates[0] > before else "batch_observe (ring add)"].append(
                 (t, (now - t0) * 1e3))
-            marks.append((agent.t, now))
+            marks.append((agent.t, now, updates[0]))
 
-    def sync_target(state, sync_target=agent.core.sync_target):
+    def update_once(update_once=agent._update_once):
+        updates[0] += 1
+        return update_once()
+
+    def sync_target(state, sync_target=getattr(agent.core, "sync_target", None)):
         syncs[0] += 1
         return sync_target(state)
 
@@ -109,21 +203,23 @@ def run_host_batch(agent, env, eval_env, steps: int, eval_interval: int, eval_n_
         if "start_t" not in window and t >= profiled[0]:
             sync()
             prof.start()
-            window.update(start_t=t, start_s=time.perf_counter())
-        elif "start_t" in window and "end_t" not in window and t >= window["start_t"] + profiled[1] * env.num_envs:
+            window.update(start_t=t, start_s=time.perf_counter(), start_updates=updates[0])
+        elif "start_t" in window and "end_t" not in window and t >= window["start_t"] + profiled[1] * lanes:
             sync()
-            window.update(end_t=t, end_s=time.perf_counter())
+            window.update(end_t=t, end_s=time.perf_counter(), end_updates=updates[0])
             prof.stop()
 
     batch_observe = agent.batch_observe
     agent.batch_act = timed("batch_act", agent.batch_act, training_only=True)
     agent.batch_observe = observe
-    agent._update_once = timed("update", agent._update_once)
-    agent.core.sync_target = sync_target
-    env.step = timed("env round trip", env.step)
+    agent._update_once = timed("update", update_once)
+    if hasattr(agent.core, "sync_target"):  # on-policy cores have no target
+        agent.core.sync_target = sync_target
+    env.step = timed("env round trip" if lanes > 1 else "env step", env.step)
+    driver = train_agent_batch_with_evaluation if hasattr(env, "num_envs") else train_agent_with_evaluation
     t0 = time.perf_counter()
     try:
-        _, history = train_agent_batch_with_evaluation(
+        _, history = driver(
             agent=agent, env=env, eval_env=eval_env, steps=steps, eval_n_steps=None,
             eval_n_episodes=eval_n_episodes, eval_interval=eval_interval, outdir=outdir,
             step_hooks=[profile_hook],
@@ -133,25 +229,26 @@ def run_host_batch(agent, env, eval_env, steps: int, eval_interval: int, eval_n_
                           (agent.core, "sync_target"), (env, "step")):
             vars(obj).pop(attr, None)
     wall_s = time.perf_counter() - t0
-    start = agent.replay_start_size
+    start = learning_start(agent)
     acting, acted, acting_s = _rate(marks, 0, start)
-    # The profiler's start and stop take seconds: the rates after the replay
-    # start are taken from the first batch step after its window.
-    lo = window["end_t"] + env.num_envs if "end_t" in window else start
+    # The profiler's start and stop take seconds: the rates after the
+    # learning start are taken from the first batch step after its window.
+    lo = window["end_t"] + lanes if "end_t" in window else start
     learning, learned, learning_s = _rate(marks, lo, steps)
-    storage = getattr(agent.replay_state, "base", agent.replay_state).storage
-    steps_after = learned // env.num_envs
+    inside = [m for m in marks if lo <= m[0] <= steps]
+    learned_updates = inside[-1][2] - inside[0][2] if len(inside) >= 2 else 0
+    steps_after = learned // lanes
     record = {
         "device": torch.cuda.get_device_name(0) if cuda else "cpu",
-        "lanes": env.num_envs, "steps": steps, "t": agent.t, "replay_start_size": start,
-        "n_updates": agent.optim_t, "target_syncs": syncs[0], "wall_s": wall_s,
+        "lanes": lanes, "steps": steps, "t": agent.t, "replay_start_size": start,
+        "n_updates": updates[0], "target_syncs": syncs[0], "wall_s": wall_s,
         "worker_startup_s": {"train": getattr(env, "startup_s", None), "eval": getattr(eval_env, "startup_s", None)},
-        "ring_bytes": sum(x.numel() * x.element_size() for x in storage.values()),
-        "ring_slots": agent.buffer.capacity,
+        "ring_bytes": storage_bytes(agent),
+        "ring_slots": getattr(getattr(agent, "buffer", None), "capacity", None),
         "env_steps_per_s_before_replay_start": acting, "acting_transitions": acted, "acting_s": acting_s,
         "env_steps_per_s_after_replay_start": learning, "learning_from_t": lo, "learning_transitions": learned,
         "learning_s": learning_s,
-        "updates_per_s_after_replay_start": learned / agent.update_interval / learning_s if learning_s else None,
+        "updates_per_s_after_replay_start": learned_updates / learning_s if learning_s else None,
         "batch_step_ms_after_replay_start": learning_s / steps_after * 1e3 if steps_after else None,
         "timings": {label: _stats(v, lo, steps_after) for label, v in ms.items()},
         "eval": [{"step": h["step"], "mean": h["eval_score"]} for h in history],
@@ -161,14 +258,16 @@ def run_host_batch(agent, env, eval_env, steps: int, eval_interval: int, eval_n_
     if prof is not None and "end_t" in window:
         kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
         busy_us = sum(e.time_range.elapsed_us() for e in kernels)
-        batch_steps = (window["end_t"] - window["start_t"]) // env.num_envs
+        batch_steps = (window["end_t"] - window["start_t"]) // lanes
+        window_updates = window["end_updates"] - window["start_updates"]
         seconds = window["end_s"] - window["start_s"]
         by_name = collections.defaultdict(float)
         for e in kernels:
             by_name[e.name] += e.time_range.elapsed_us()
         record["profiled"] = {
-            "from_t": window["start_t"], "batch_steps": batch_steps, "seconds": seconds,
+            "from_t": window["start_t"], "batch_steps": batch_steps, "updates": window_updates, "seconds": seconds,
             "kernels_per_batch_step": len(kernels) / batch_steps,
+            "kernels_per_update": len(kernels) / window_updates if window_updates else None,
             "device_busy_ms_per_batch_step": busy_us / 1e3 / batch_steps,
             "device_busy_share": busy_us / 1e6 / seconds,
             "top_device_ops": [{"name": n, "ms_per_batch_step": us / 1e3 / batch_steps}
@@ -177,34 +276,59 @@ def run_host_batch(agent, env, eval_env, steps: int, eval_interval: int, eval_n_
     return record
 
 
-def count_host_ops(agent, batch_steps: int = 16) -> dict:
+def _atari_frames(rs, lanes):
+    return rs.randint(0, 256, (lanes, 84, 84, 4)).astype(np.uint8)
+
+
+def count_host_ops(agent, batch_steps: int = 16, lanes: Optional[int] = None, obs: Callable = _atari_frames) -> dict:
     """Aten ops of one ``batch_act``, one ``batch_observe`` without an
-    update and one update of ``agent``, after ``batch_steps`` batch steps
-    of uint8 frames made on the host fill its ring; per env step at the
-    shell's cadence (one update per ``update_interval`` transitions)."""
+    update and one update of ``agent`` (an on-policy shell's update over
+    its rollout), after ``batch_steps`` batch steps of ``obs(rs, lanes)``
+    observations made on the host (default: uint8 frames, and the ring's
+    lanes) fill its ring or rollout; per env step at the shell's cadence
+    (``n_times_update`` updates per ``update_interval`` transitions)."""
     from pfrl_tpu_torch.experiments.count_ops import OpCounter
 
-    lanes = agent.buffer.num_lanes
+    lanes = lanes or agent.buffer.num_lanes
     rs = np.random.RandomState(0)
     agent.replay_start_size = 10**12  # the counted steps update only when asked
-    obs = lambda: rs.randint(0, 256, (lanes, 84, 84, 4)).astype(np.uint8)  # noqa: E731
     flags = np.zeros(lanes, bool)
     for _ in range(batch_steps):
-        agent.batch_act(obs())
-        agent.batch_observe(obs(), np.zeros(lanes, np.float32), flags, flags)
+        agent.batch_act(obs(rs, lanes))
+        agent.batch_observe(obs(rs, lanes), np.zeros(lanes, np.float32), flags, flags)
     counts = {}
-    frames = obs()
-    for name, fn in (("batch_act", lambda: agent.batch_act(frames)),
-                     ("batch_observe", lambda: agent.batch_observe(frames, np.zeros(lanes, np.float32), flags, flags)),
+    batch = obs(rs, lanes)
+    for name, fn in (("batch_act", lambda: agent.batch_act(batch)),
+                     ("batch_observe", lambda: agent.batch_observe(batch, np.zeros(lanes, np.float32), flags, flags)),
                      ("update", agent._update_once)):
         with OpCounter() as counter:
             fn()
         counts[name] = counter.counts
+    transitions_per_update = agent.update_interval / getattr(agent, "n_times_update", 1)
     per_env_step = (sum(counts["batch_act"].values()) + sum(counts["batch_observe"].values())) / lanes \
-        + sum(counts["update"].values()) / agent.update_interval
+        + sum(counts["update"].values()) / transitions_per_update
     return {
         "lanes": lanes,
         **{f"ops_per_{name}": sum(c.values()) for name, c in counts.items()},
         "ops_per_env_step": per_env_step,
         "top_ops_per_update": dict(counts["update"].most_common(10)),
     }
+
+
+def count_host_path_ops(name: str, device=None, compute_dtype=None, capacity: Optional[int] = None) -> dict:
+    """:func:`count_host_ops` of ``HOST_PATHS[name]``'s shell, on
+    observations drawn from a normal. ``capacity`` cuts its ring, which
+    changes no op of a uniform ring; a prioritized ring's add and feedback
+    take a few ops per level of its tree."""
+    path = HOST_PATHS[name]
+    kw = {"capacity": capacity} if capacity and "capacity" in _keywords(path.make_agent) else {}
+    agent = path.make_agent(device=device, compute_dtype=compute_dtype, **dict(path.agent_kwargs), **kw)
+    size = path.obs_size
+    return count_host_ops(agent, lanes=path.lanes,
+                          obs=lambda rs, lanes: rs.normal(size=(lanes, size)).astype(np.float32))
+
+
+def _keywords(fn) -> set:
+    import inspect
+
+    return set(inspect.signature(fn).parameters)

@@ -106,7 +106,13 @@ step at a time by ``train_agent_batch_with_evaluation``
 (``experiments/profile_host.py``): its replay start cut to 2,048, then
 ``--steps`` batch steps under ``torch.profiler`` and ``--steps`` more timed
 (env-steps/s, updates/s, and the median ``batch_act``, env round trip,
-``batch_observe`` and update), then one evaluation of 10 episodes.
+``batch_observe`` and update), then one evaluation of 10 episodes. The
+host paths of ``profile_host.HOST_PATHS`` (the MuJoCo reproduction
+examples' shells over ``MujocoSim`` at HalfCheetah's and Hopper's sizes,
+and SlimeVolley Rainbow on CartPole) run the same way through their
+scripts' drivers: an off-policy shell's replay start cut to 2,048, then
+``--steps`` batch steps profiled and ``--steps`` more timed; an on-policy
+shell over two updates, ``--steps`` batch steps profiled around the second.
 
 ``--bf16`` builds the configuration at ``compute_dtype=torch.bfloat16``
 (bf16 compute over float32 masters, as the examples' ``--bf16``); TRPO
@@ -141,6 +147,7 @@ from pfrl_tpu_torch.experiments import acer, atari_c51, atari_dqn_ale, atari_dqn
 from pfrl_tpu_torch.experiments.atari_pipeline import make_dqn_pipeline
 from pfrl_tpu_torch.experiments.atari_per_dqn import make_dqn_runner, make_per_dqn_runner
 from pfrl_tpu_torch.experiments.atari_rainbow import make_rainbow_runner
+from pfrl_tpu_torch.experiments.profile_host import HOST_PATHS
 from pfrl_tpu_torch.experiments.mujoco_actor_critic import (
     make_ddpg_runner,
     make_sac_pendulum_runner,
@@ -320,6 +327,8 @@ def profile_config(config: str, steps: int, compute_dtype=None) -> dict:
         return profile_pipeline(PIPELINES[config](compute_dtype=compute_dtype), config, steps, compute_dtype)
     if config in HOSTS:
         return profile_host_batch(config, steps, compute_dtype)
+    if config in HOST_PATHS:
+        return profile_host_path(config, steps, compute_dtype)
     runner = CONFIGS[config](compute_dtype=compute_dtype)
     measure = profile_onpolicy if hasattr(runner, "run_iterations") else profile_slice
     return measure(runner, config, steps, compute_dtype)
@@ -493,6 +502,27 @@ def profile_host_batch(config: str, steps: int, compute_dtype=None) -> dict:
     return {"config": config, "compute_dtype": str(compute_dtype), **record}
 
 
+def profile_host_path(config: str, steps: int, compute_dtype=None) -> dict:
+    """A path of ``profile_host.HOST_PATHS`` on the card (see the module
+    docstring), one evaluation at the end."""
+    import tempfile
+
+    from pfrl_tpu_torch.experiments.profile_host import _keywords, make_host_path, run_host_batch
+
+    onpolicy = "replay_start_size" not in _keywords(HOST_PATHS[config].make_agent)
+    kw = {} if onpolicy else {"replay_start_size": HOST_REPLAY_START}
+    agent, env, eval_env = make_host_path(config, compute_dtype=compute_dtype, **kw)
+    lanes = getattr(env, "num_envs", 1)
+    if onpolicy:
+        total, profiled = 2 * agent.update_interval, (2 * agent.update_interval - steps * lanes, steps)
+    else:
+        total, profiled = HOST_REPLAY_START + 2 * steps * lanes, (HOST_REPLAY_START, steps)
+    with tempfile.TemporaryDirectory() as outdir:
+        record = run_host_batch(agent, env, eval_env, total, total, HOST_PATHS[config].eval_n_episodes, outdir,
+                                profiled=profiled)
+    return {"config": config, "compute_dtype": str(compute_dtype), **record}
+
+
 @contextlib.contextmanager
 def _phase_timers(phases, owners):
     """Wraps each ``(owner, attribute, label)`` in a synchronizing timer that
@@ -544,7 +574,7 @@ def _top(top, steps: int) -> list:
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--config", choices=sorted([*CONFIGS, *PIPELINES, *HOSTS]), default="per-dqn")
+    parser.add_argument("--config", choices=sorted([*CONFIGS, *PIPELINES, *HOSTS, *HOST_PATHS]), default="per-dqn")
     parser.add_argument("--steps", type=int, default=8,
                         help="scan steps, iterations of an on-policy config, seconds of a pipeline, "
                              "or batch steps of a host path")

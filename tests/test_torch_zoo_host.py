@@ -1,14 +1,17 @@
-"""The converted-zoo gate for the three checkpoints of the host-env object
+"""The converted-zoo gate for the five checkpoints of the host-env object
 path (``train_state.msgpack``, written by the JAX shells' runs of
 ``tools/record_curves.py``): ``zoo/double_dqn/lunarlander_real`` (the
 ``DoubleDQN`` shell of ``tests/test_zoo.py``'s slow gate),
 ``zoo/reinforce/cartpole`` and ``zoo/reinforce/cartpole_real``
-(``train_reinforce_gym.py``'s ``REINFORCE``). Each JAX shell loads its
-checkpoint (``agent.load`` before the first act, applied when the shell
-builds its state), and its ``train_state`` goes to the port's shell through
-``convert.dqn_shell_from_flax`` or ``convert.reinforce_state_from_flax``,
-optimizer moments included. With them, 24 of the 26 checkpoints of ``zoo/``
-convert.
+(``train_reinforce_gym.py``'s ``REINFORCE``), ``zoo/sac/hopper_real`` and
+``zoo/td3/halfcheetah_real`` (the ``SoftActorCritic`` and ``TD3`` shells of
+the MuJoCo reproduction scripts, as ``tests/test_zoo.py``'s slow gates
+build them). Each JAX shell loads its checkpoint (``agent.load`` before the
+first act, applied when the shell builds its state), and its
+``train_state`` goes to the port's shell through
+``convert.dqn_shell_from_flax``, ``convert.reinforce_state_from_flax`` or
+``convert.actor_critic_shell_from_flax``, optimizer moments included. With
+them, all 26 checkpoints of ``zoo/`` convert.
 
 (a) The whole state converts: the first layer's kernel and Adam moments to
     the bit, Adam's count and ``n_updates``.
@@ -17,11 +20,14 @@ convert.
     rollouts of gymnasium's ``LunarLander-v3`` and ``CartPole-v1``, and of
     the port's CartPole), where the two best Q-values or logits lie more
     than 1e-3 apart (away from ties).
+    The actor-critic policies' greedy actions agree within 1e-5 on 256
+    observations of seeded random-action rollouts of gymnasium's
+    ``Hopper-v5`` and ``HalfCheetah-v5`` (MuJoCo).
 (c) The REINFORCE policies evaluate through the port's
     ``eval_performance``: 4 greedy episodes each, on the port's CartPole
     and on gymnasium's, held to the slow gate's mean of 400
     (``tests/test_zoo.py``). The real-env evaluations of the JAX package
-    stay ``slow``; LunarLander's too.
+    stay ``slow``; LunarLander's, Hopper's and HalfCheetah's too.
 
 Only this test reads msgpack; the port never does.
 """
@@ -171,3 +177,111 @@ def test_converted_reinforce_policy_balances_the_pole(kind):
     stats = eval_performance(env=env, agent=tagent, n_steps=None, n_episodes=4)
     print(f"{kind}: the port's greedy mean over 4 episodes {stats['mean']}")
     assert stats["episodes"] == 4 and stats["mean"] >= 400.0, stats
+
+
+# ------------------------------------------------- the actor-critic gates
+AC_KINDS = {"sac/hopper_real": ("Hopper-v5", 11, 3), "td3/halfcheetah_real": ("HalfCheetah-v5", 17, 6)}
+
+
+@functools.lru_cache(maxsize=None)
+def actor_critic_checkpoint(kind):
+    """The JAX shell of the slow gate with its checkpoint loaded, and the
+    port's shell of ``mujoco_host`` converted from it (on the CPU)."""
+    import flax.linen as fnn
+    import jax.numpy as jnp
+
+    from pfrl_tpu import spaces as jspaces
+    from pfrl_tpu.agents.soft_actor_critic import SoftActorCritic as JaxSAC
+    from pfrl_tpu.agents.td3 import TD3 as JaxTD3
+    from pfrl_tpu.models import MLP as JaxMLP
+    from pfrl_tpu.policies import DeterministicHead, SquashedGaussianHead
+    from pfrl_tpu.q_functions import FCSAQFunction as JaxFCSAQFunction
+
+    from pfrl_tpu_torch.experiments import mujoco_host
+
+    _, obs_size, action_size = AC_KINDS[kind]
+
+    class SACPolicy(fnn.Module):
+        @fnn.compact
+        def __call__(self, x):
+            return SquashedGaussianHead(action_size=action_size)(
+                JaxMLP(out_size=2 * action_size, hidden_sizes=(256, 256))(x))
+
+    class TD3Policy(fnn.Module):
+        @fnn.compact
+        def __call__(self, x):
+            return DeterministicHead()(jnp.tanh(JaxMLP(out_size=action_size, hidden_sizes=(400, 300))(x)))
+
+    burnin = functools.partial(lambda n, rng, b: jax.random.uniform(rng, (b, n), minval=-1.0), action_size)
+    kw = dict(action_space=jspaces.box(-1.0, 1.0, (action_size,)), replay_start_size=10,
+              burnin_action_func=burnin, burnin_steps=0, seed=0)
+    if kind.startswith("sac"):
+        qf = lambda: JaxFCSAQFunction(n_hidden_channels=256, n_hidden_layers=2)  # noqa: E731
+        jagent = JaxSAC(SACPolicy(), qf(), qf(), optax.adam(3e-4), optax.adam(3e-4), optax.adam(3e-4),
+                        JaxReplayBuffer(1000, gamma=0.99), 0.99, **kw)
+        tagent = mujoco_host.make_sac_agent(obs_size, action_size, replay_start_size=10, capacity=1000, device="cpu")
+    else:
+        qf = lambda: JaxFCSAQFunction(n_hidden_channels=400, n_hidden_layers=2)  # noqa: E731
+        jagent = JaxTD3(TD3Policy(), qf(), qf(), optax.adam(3e-4), optax.adam(3e-4), optax.adam(3e-4),
+                        JaxReplayBuffer(1000, gamma=0.99), 0.99,
+                        jexplorers.AdditiveGaussian(0.1, low=-1.0, high=1.0), **kw)
+        tagent = mujoco_host.make_td3_agent(obs_size, action_size, replay_start_size=10, capacity=1000, device="cpu")
+    jagent.load(os.path.join(ZOO, kind, "best"))
+    with jagent.eval_mode():
+        jagent.batch_act(np.zeros((1, obs_size), np.float32))  # builds the state: the pending load lands
+    convert.actor_critic_shell_from_flax(tagent, np_tree(jagent.train_state))
+    return jagent, tagent
+
+
+def _first_dense(tree):
+    return np_tree(tree)["params"]["MLP_0"]["Dense_0"]["kernel"]
+
+
+@pytest.mark.parametrize("kind", sorted(AC_KINDS))
+def test_converted_actor_critic_checkpoint_carries_the_whole_state(kind):
+    """The first layers of the policy and both critics, their Adam moments
+    to the bit; Adam's counts and ``n_updates``; SAC's temperature."""
+    jagent, tagent = actor_critic_checkpoint(kind)
+    js, ts = jagent.train_state, tagent.train_state
+    assert ts.n_updates == int(js.n_updates) > 1000
+    for net, opt, jnet, jopt in (("policy", "policy_opt_state", "policy_params", "policy_opt_state"),
+                                 ("q_func1", "q1_opt_state", "q1_params", "q1_opt_state"),
+                                 ("q_func2", "q2_opt_state", "q2_params", "q2_opt_state")):
+        module, adam = getattr(ts, net), getattr(js, jopt)[0]
+        weight = next(iter(module.parameters()))
+        np.testing.assert_array_equal(weight.detach().numpy(), _first_dense(getattr(js, jnet)).T, err_msg=net)
+        np.testing.assert_array_equal(getattr(ts, opt).mu[0].numpy(), _first_dense(adam.mu).T, err_msg=net)
+        np.testing.assert_array_equal(getattr(ts, opt).nu[0].numpy(), _first_dense(adam.nu).T, err_msg=net)
+        assert getattr(ts, opt).count == int(adam.count) > 1000
+    target = next(iter(ts.target_q_func1.parameters()))
+    np.testing.assert_array_equal(target.detach().numpy(), _first_dense(js.target_q1_params).T)
+    if kind.startswith("sac"):
+        assert float(ts.log_temperature) == float(np.asarray(js.log_temperature))
+        assert ts.temperature_opt_state.count == int(js.temperature_opt_state[0].count)
+    else:
+        target = next(iter(ts.target_policy.parameters()))
+        np.testing.assert_array_equal(target.detach().numpy(), _first_dense(js.target_policy_params).T)
+
+
+@pytest.mark.parametrize("kind", sorted(AC_KINDS))
+def test_converted_actor_critic_checkpoint_gives_the_jax_greedy_actions(kind):
+    pytest.importorskip("gymnasium")
+    pytest.importorskip("mujoco")
+    env_id, obs_size, action_size = AC_KINDS[kind]
+    jagent, tagent = actor_critic_checkpoint(kind)
+    env = CastObservationToFloat32(make_gymnasium_env(env_id, seed=1))
+    rs = np.random.RandomState(0)
+    obs, rows = env.reset(), []
+    while len(rows) < 256:
+        rows.append(np.asarray(obs, np.float32))
+        obs, _, done, info = env.step(rs.uniform(-1.0, 1.0, action_size).astype(np.float32))
+        if done or info.get("needs_reset"):
+            obs = env.reset()
+    batch = np.stack(rows)
+    assert batch.shape == (256, obs_size)
+    with jagent.eval_mode(), tagent.eval_mode():
+        want = np.asarray(jagent.batch_act(batch))
+        got = tagent.batch_act(batch)
+    assert got.shape == want.shape == (256, action_size)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    assert np.abs(want).max() > 0.5  # a trained policy, not the template
