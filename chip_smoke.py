@@ -171,7 +171,32 @@ result, without them. Its phases, each raising on failure:
    and after the learning start, updates/s, the median act, env step,
    observe and update ms, kernels per update and the busy share over 32
    profiled batch steps, the launches (0 on every other new path) and the
-   ring's bytes.
+   ring's bytes;
+17. the actor-learner path: the ``DQN`` shell's actor-learner half in
+   lockstep on the card and on the CPU, from the same weights and draws
+   (one actor's pre-filled transition queue drained by the poller, which
+   is then stopped; the server's padded act of 3 rows in 8 slots; 31
+   updates of the learner loop), over the uniform ring and over PER
+   through ``DoubleDQN`` (C = 2**14, the prefix-sample kernel once per
+   update, its draws the plain version's): the ring rows, the sampled ids,
+   the actions, the counts equal, the statistics within 1e-4 and every
+   learned tensor within 3e-6 or 4x what ulp nudges move it. Then
+   ``dqn-actor-learner-ale-8`` (``train_dqn_batch_ale.py --actor-learner``
+   at its settings, ``experiments/atari_dqn_batch.run_actor_learner``: 8
+   actor threads of one ``SyntheticALE`` lane through one batched
+   inference server, the poller and the learner over the 10**6-slot ring,
+   28.3 GB, a publication every 8 updates) through its replay start of
+   50,000 uncut to the learner's 640th update, with one ``AsyncEvaluator``
+   evaluation of 10 episodes (``eval_interval`` cut to 50,000):
+   env-steps/s before the replay start and after it (to the learner's
+   576th update), updates/s, rows per forward, the act round trip (median, p90; apart by
+   whether an update ran during it), the poller's add and the learner's
+   update ms, publications and target syncs, kernels per update and the
+   busy share over the last 64 updates (profiled from the learner's
+   thread); 0 kernel launches; the ring freed. Last
+   ``a3c-atarisim-16`` (``train_a3c.py --sim``: 16 AtariSim lanes, t_max
+   5, 40 timed iterations, kernels and busy share over one, evaluation
+   5 x 500).
 
 The kernels' launch counts are set to 0 just before each full-width path
 and read just after it; the kernels' JSON line gives their sum over the
@@ -2343,21 +2368,24 @@ def run_full_acer_atarisim(card: str) -> dict:
 
 
 def run_full_atari_onpolicy(card: str, name: str) -> dict:
-    """``train_a2c_ale.py --sim`` or ``train_ppo_ale.py --sim`` at full width
-    (``SmallAtariCNN`` PiV on 84x84x4 AtariSim frames): one warm iteration,
+    """``train_a2c_ale.py --sim``, ``train_ppo_ale.py --sim`` or
+    ``train_a3c.py --sim`` at full width (``SmallAtariCNN`` PiV on 84x84x4
+    AtariSim frames): one warm iteration,
     ``ATARI_ONPOLICY_ITERATIONS[name]`` timed, one under ``torch.profiler``
     (kernels per iteration, busy time over its own wall time), then the
     examples' evaluation loop (5 lanes x 500 steps)."""
+    from pfrl_tpu_torch.experiments import atari_a3c
     from pfrl_tpu_torch.experiments import onpolicy as onp
     from pfrl_tpu_torch.experiments.profile_slice import _profiled
     from pfrl_tpu_torch.experiments.runner import EvalLoop
     from pfrl_tpu_torch.ops.prefix_sample import prefix_sample
 
-    make = {"a2c-atarisim-16": onp.make_a2c_atarisim_runner, "ppo-atarisim-8": onp.make_ppo_atarisim_runner}[name]
+    make = {"a2c-atarisim-16": onp.make_a2c_atarisim_runner, "ppo-atarisim-8": onp.make_ppo_atarisim_runner,
+            "a3c-atarisim-16": atari_a3c.make_a3c_atarisim_runner}[name]
     runner = make()
     core, lanes, T = runner.core, runner.num_envs, runner.rollout_len
-    per_iteration = 1 if name.startswith("a2c") else core.epochs * core.minibatch_shape(lanes * T)[0]
-    iterations = ATARI_ONPOLICY_ITERATIONS[name]
+    per_iteration = 1 if name.startswith(("a2c", "a3c")) else core.epochs * core.minibatch_shape(lanes * T)[0]
+    iterations = {**ATARI_ONPOLICY_ITERATIONS, "a3c-atarisim-16": A3C_ITERATIONS}[name]
     state = runner.init(0)
     train = state.train_state
     prefix_sample.launches = 0
@@ -2391,13 +2419,15 @@ def run_full_atari_onpolicy(card: str, name: str) -> dict:
         "device_busy_ms_per_iteration": busy_us / 1e3,
         "device_busy_share": busy_us / 1e6 / profiled_s,  # over the profiled iteration's own wall time
         "finished_episodes": int(state.recent_count), "eval_s": eval_s, "eval_returns": [float(r) for r in returns],
+        "eval_mean": float(np.mean(returns)),
         "last": {k: float(aux[k][-1]) for k in scalars},
     }
     print(f"{name}: env-steps/s {result['env_steps_per_s']:.1f} updates/s {result['updates_per_s']:.1f} over "
           f"{iterations} iterations ({result['iteration_ms']:.1f} ms each: {lanes} lanes x rollout {T}, "
           f"{per_iteration} gradient steps); {kernels} kernels in one profiled iteration of "
           f"{result['profiled_iteration_ms']:.1f} ms, device busy {result['device_busy_ms_per_iteration']:.2f} ms "
-          f"({result['device_busy_share'] * 100:.1f}%); {launches} prefix-sample launches; evaluation {eval_s:.2f} s; "
+          f"({result['device_busy_share'] * 100:.1f}%); {launches} prefix-sample launches; evaluation {eval_s:.2f} s, "
+          f"mean {result['eval_mean']:.3f} over 5 x 500 steps; "
           f"last {json.dumps(result['last'])} (fp32, no TF32) on {card}")
     return result
 
@@ -3135,6 +3165,22 @@ def _learned_tensors(state) -> dict:
 RETURN_COLUMNS = ("mean", "median", "stdev", "max", "min")
 
 
+def _learned_differences(card_state, cpu_state, nudged_states, floor: float = 0.0) -> dict:
+    """name -> (the card's largest difference from the CPU, its bound): 3e-6
+    (first moments 3e-6 of their largest where that exceeds 1; second
+    moments 1e-5 of their largest), at least ``floor``, or 4x what the
+    nudged runs move it where that is more (C22, C48, C54)."""
+    worst = {}
+    got, want = _learned_tensors(card_state), _learned_tensors(cpu_state)
+    nudged_tensors = [_learned_tensors(n) for n in nudged_states]
+    for key, x in got.items():
+        nudge = max(float((want[key] - n[key]).abs().max()) for n in nudged_tensors)
+        scale = float(want[key].abs().max())
+        base = 1e-5 * scale if key.startswith("nu ") else 3e-6 * max(1.0, scale) if key.startswith("mu ") else 3e-6
+        worst[key] = (float((x - want[key]).abs().max()), max(base, floor, 4 * nudge))
+    return worst
+
+
 def _within_nudges(got: float, want: float, nudged: list, rel: float, floor: float) -> bool:
     """``got`` within ``rel`` of ``want`` (``floor`` absolute), or within 4x
     what the nudged runs move ``want``."""
@@ -3223,15 +3269,8 @@ def check_small_shell(name: str, make_agent, make_env, drive, obs_size: int, act
             for (_, a), (_, b) in zip(card.get_statistics(), cpu.get_statistics())),
         "prefix-sample launches": launches == (card.optim_t if prioritized else 0),
     }
-    worst = {}
-    got, want = _learned_tensors(card.train_state), _learned_tensors(cpu.train_state)
-    nudged_tensors = [_learned_tensors(n[0].train_state) for n in nudged]
-    for key, x in got.items():
-        nudge = max(float((want[key] - n[key]).abs().max()) for n in nudged_tensors)
-        scale = float(want[key].abs().max())
-        floor = 1e-5 * scale if key.startswith("nu ") else 3e-6 * max(1.0, scale) if key.startswith("mu ") else 3e-6
-        floor = max(floor, tol.get("per_update", 0.0) * card.train_state.n_updates)
-        worst[key] = (float((x - want[key]).abs().max()), max(floor, 4 * nudge))
+    worst = _learned_differences(card.train_state, cpu.train_state, [n[0].train_state for n in nudged],
+                                 tol.get("per_update", 0.0) * card.train_state.n_updates)
     checks["learned tensors within their bounds"] = all(d <= b for d, b in worst.values())
     top = max(worst.items(), key=lambda kv: kv[1][0] / kv[1][1])
     actions = (f"largest action difference {action_diff:.3g} <= {action_bound:.3g}" if continuous
@@ -3324,6 +3363,205 @@ def run_full_host_path(card: str, name: str) -> dict:
           f"{record['eval'][0]['mean'] if record['eval'] else float('nan'):.3f} over {path.eval_n_episodes} episodes; "
           f"{launches} prefix-sample launches (fp32, no TF32) on {card}")
     _raise_on_failed(name, checks)
+    agent.replay_state = None
+    del agent
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return record
+
+# -------------------------------------------------------------------- phase 17
+AL_SMALL_TRANSITIONS = 160  # the one actor's transitions, drained by the poller before the learner runs
+AL_SMALL_UPDATES = 31
+AL_FULL_EVAL_INTERVAL = 50_000  # cut from the example's 10^5: one evaluation of 10 episodes in the run
+AL_FULL_PROFILED = (576, 64)    # the learner's last 64 updates under torch.profiler, after the timed ones
+A3C_ITERATIONS = 40             # a3c-atarisim-16: timed, after one warm iteration
+
+
+def _al_script(seed: int, n: int) -> list:
+    """One actor's transitions, as ``StateQFunctionActor.observe`` queues
+    them, with episode ends and time-limit resets."""
+    rs = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        done = bool(rs.uniform() < 0.05)
+        reset = not done and bool(rs.uniform() < 0.02)
+        out.append((0, dict(obs=rs.normal(size=4).astype(np.float32), action=np.int64(rs.randint(2)),
+                            reward=np.float32(rs.normal()), next_obs=rs.normal(size=4).astype(np.float32),
+                            terminated=done, done=done or reset)))
+    return out
+
+
+def check_small_actor_learner(name: str, cls_name: str, prioritized: bool, device) -> dict:
+    """The ``DQN`` shell's actor-learner half in lockstep, on the card and
+    on the CPU from the same weights (a CPU generator's) and draws
+    (``SeededDraws``: the learner's, and the server's own): one actor's
+    pre-filled transition queue drained by ``_poller_loop`` (then stopped),
+    the server's padded act of 3 rows into 8 slots, then ``_learner_loop``
+    for 31 updates. The ring rows, the sampled ids of every update and the
+    actions equal; ``t``, the updates, publications and target syncs equal;
+    the statistics within 1e-4; every learned tensor within 3e-6 or 4x what
+    1 + 2**-23 and 1 - 2**-23 nudges of the weights move it (C22, C54). Over
+    PER (``DoubleDQN``, C = 2**14) the card launches the prefix-sample
+    kernel once per update, and its draws are the plain version's."""
+    import logging
+    import threading
+
+    from pfrl_tpu_torch import agents
+    from pfrl_tpu_torch.explorers import LinearDecayEpsilonGreedy
+    from pfrl_tpu_torch.ops.prefix_sample import prefix_sample
+    from pfrl_tpu_torch.optimizers import Adam
+    from pfrl_tpu_torch.parallel.inference_server import _Request
+    from pfrl_tpu_torch.q_functions import FCStateQFunctionWithDiscreteAction
+    from pfrl_tpu_torch.replay import PrioritizedReplayBuffer, ReplayBuffer
+
+    script = _al_script(3, AL_SMALL_TRANSITIONS)
+
+    def run(dev, scale=1.0):
+        buffer = (PrioritizedReplayBuffer(10_000, betasteps=10_000, gamma=0.99, device=dev) if prioritized
+                  else ReplayBuffer(10_000, gamma=0.99, device=dev))
+        agent = getattr(agents, cls_name)(
+            FCStateQFunctionWithDiscreteAction(4, 2, 2, 64), Adam(1e-3), buffer, 0.99,
+            LinearDecayEpsilonGreedy(1.0, 0.1, 1_000, 2), replay_start_size=100, minibatch_size=32,
+            update_interval=1, target_update_interval=8, device=dev, draws=SeededDraws(1, dev))
+        agent.train_state = agent.core.init(torch.Generator().manual_seed(0), torch.zeros((1, 4), device=dev))
+        with torch.no_grad():
+            for module in (agent.train_state.model, agent.train_state.target_model):
+                for p in module.parameters():
+                    p.mul_(scale)
+        make_actor, _, poller, exception_event = agent.setup_actor_learner_training(
+            n_actors=1, inference_slots=8, actor_draws=SeededDraws(2, dev))
+        transitions = make_actor(0).transition_queue
+        for msg in script:
+            transitions.put(msg)
+        poller.start()
+        deadline = time.time() + 60
+        while agent._replay_inserted < len(script) and time.time() < deadline and not exception_event.is_set():
+            time.sleep(0.01)
+        poller.stop()
+        poller.join()
+        if exception_event.is_set() or agent._replay_inserted != len(script):
+            raise AssertionError(f"small {name}: the poller failed ({agent.actor_learner_errors})")
+        request = _Request(np.random.RandomState(4).normal(size=(3, 4)).astype(np.float32), 3, True)
+        agent._inference._run_batch([request], 3)  # the poller stopped the server thread
+        sampled, syncs = [], []
+        sample, sync_target = agent.buffer.sample, agent.core.sync_target
+
+        def recording_sample(state, draws, batch_size):
+            out = sample(state, draws, batch_size)
+            sampled.append((out[0] if isinstance(out, tuple) else out).indices.cpu())
+            return out
+
+        def counted_sync(state):
+            syncs.append(agent.t)
+            return sync_target(state)
+
+        agent.buffer.sample, agent.core.sync_target = recording_sample, counted_sync
+        prefix_sample.launches = 0
+        agent._learner_loop(threading.Event(), exception_event, AL_SMALL_UPDATES, 8, [], [],
+                            logging.getLogger("chip_smoke"))
+        if torch.device(dev).type == "cuda":
+            torch.cuda.synchronize()
+        if exception_event.is_set():
+            raise AssertionError(f"small {name}: the learner failed ({agent.actor_learner_errors})")
+        return agent, {"actions": request.actions, "sampled": sampled, "syncs": syncs,
+                       "launches": prefix_sample.launches}
+
+    card, card_log = run(device)
+    cpu, cpu_log = run("cpu")
+    nudged = [run("cpu", s)[0] for s in ACER_NUDGES]
+    card_ring, cpu_ring = (getattr(a.replay_state, "base", a.replay_state) for a in (card, cpu))
+    rings_equal = all(torch.equal(x.cpu(), cpu_ring.storage[k]) for k, x in card_ring.storage.items())
+    worst = _learned_differences(card.train_state, cpu.train_state, [n.train_state for n in nudged])
+    launches = card_log["launches"]
+    checks = {
+        "the ring rows equal": rings_equal and int(card_ring.cursor) == int(cpu_ring.cursor) == AL_SMALL_TRANSITIONS,
+        "the padded act's actions equal": np.array_equal(card_log["actions"], cpu_log["actions"])
+        and card_log["actions"].shape == (3,),
+        "the sampled ids of every update equal": len(card_log["sampled"]) == AL_SMALL_UPDATES and all(
+            torch.equal(a, b) for a, b in zip(card_log["sampled"], cpu_log["sampled"])),
+        "t, updates, publications and syncs": card.t == cpu.t == AL_SMALL_UPDATES
+        and card.optim_t == cpu.optim_t == card.train_state.n_updates == AL_SMALL_UPDATES
+        and card.update_counter.value == cpu.update_counter.value == AL_SMALL_UPDATES // 8
+        and card_log["syncs"] == cpu_log["syncs"] == [8, 16, 24],
+        "statistics within 1e-4": all(math.isclose(float(a), float(b), rel_tol=1e-4, abs_tol=5e-5)
+                                      for (_, a), (_, b) in zip(card.get_statistics(), cpu.get_statistics())),
+        "learned tensors within their bounds": all(d <= b for d, b in worst.values()),
+        "prefix-sample launches": launches == (AL_SMALL_UPDATES if prioritized else 0),
+    }
+    top = max(worst.items(), key=lambda kv: kv[1][0] / kv[1][1])
+    print(f"small {name}: card vs CPU, one actor's {AL_SMALL_TRANSITIONS} transitions through the poller, the padded "
+          f"act of 3 rows in 8 slots {card_log['actions'].tolist()}, {AL_SMALL_UPDATES} learner updates, "
+          f"{card.update_counter.value} publications, target syncs at t = {card_log['syncs']}, {launches} "
+          f"prefix-sample launches; largest difference against its bound {top[0]} {top[1][0]:.3g} <= "
+          f"{top[1][1]:.3g}; statistics {card.get_statistics()}")
+    _raise_on_failed(f"small {name}", checks)
+    return {"updates": card.optim_t, "kernel_launches": launches, "syncs": card_log["syncs"],
+            "largest_differences": {k: v[0] for k, v in worst.items()}, "bounds": {k: v[1] for k, v in worst.items()}}
+
+
+def run_full_actor_learner(card: str) -> dict:
+    """``dqn-actor-learner-ale-8`` on the card: ``train_dqn_batch_ale.py
+    --actor-learner`` at the example's settings
+    (``atari_dqn_batch.run_actor_learner``: the ``DQN`` shell over the
+    10^6-slot ring, 8 actor threads of one ``SyntheticALE`` lane, the
+    inference server, the poller and the learner, a publication every 8
+    updates) through the replay start of 50,000 uncut, until the learner's
+    640th update (``profile_host.HOST_PATHS``), with one ``AsyncEvaluator``
+    evaluation of 10 episodes (``eval_interval`` cut to 50,000). The run's
+    length and the evaluation interval are its cuts. The ring is freed
+    before the phase ends."""
+    from pfrl_tpu_torch.experiments.profile_host import HOST_PATHS, run_actor_learner_path
+    from pfrl_tpu_torch.ops.prefix_sample import prefix_sample
+
+    path = HOST_PATHS["dqn-actor-learner-ale-8"]
+    agent = path.make_agent()
+    prefix_sample.launches = 0
+    with tempfile.TemporaryDirectory() as outdir:  # the saved agents: 27 MB each
+        record = run_actor_learner_path(agent, path.make_env, path.steps, AL_FULL_EVAL_INTERVAL,
+                                        path.eval_n_episodes, outdir, actors=path.actors, n_updates=path.n_updates,
+                                        profiled=AL_FULL_PROFILED)
+    torch.cuda.synchronize()
+    launches = prefix_sample.launches
+    record["kernel_launches"] = launches
+    stats, tm, prof = record["statistics"], record["timings"], record.get("profiled", {})
+    rows = [line.split("\t") for line in record["scores_txt"]]
+    evaluation = dict(zip(rows[0], rows[1])) if len(rows) == 2 else {}
+    record["eval_mean"] = float(evaluation.get("mean", "nan"))
+    updates_after = (record["learning_to_update"] or 0) - (record["learning_from_update"] or 0)
+    checks = {
+        "the 10^6-slot ring, 28.288 GB of frames": record["ring_slots"] == 10**6 and record["ring_bytes"] > 28.28e9,
+        "the learner's 640 updates, past the replay start": record["n_updates"] == path.n_updates
+        and record["t"] >= agent.replay_start_size,
+        "at least 500 timed updates after the replay start": updates_after >= 500,
+        "a sane profiled window": prof.get("kernels_per_update") is not None and prof["kernels_per_update"] > 100,
+        "a publication every 8 updates": record["publications"] == path.n_updates // 8,
+        "loss finite": math.isfinite(stats["average_loss"]) and math.isfinite(stats["average_q"]),
+        "one evaluation of 10 episodes, finite": math.isfinite(record["eval_mean"]),
+        "no prefix-sample launch": launches == 0,
+        "a profiled window": "profiled" in record,
+        "every forward at most 8 rows": 1 <= record["rows_per_forward"] <= 8,
+    }
+    med = lambda k, q="median_ms": tm.get(k, {}).get(q, float("nan"))  # noqa: E731
+    trip = "act round trip (all)"
+    print(f"dqn-actor-learner-ale-8: 8 actor threads; ring {record['ring_bytes'] / 1e9:.3f} GB; "
+          f"{record['t']:,} transitions received; env-steps/s {record['env_steps_per_s_before_replay_start']:.1f} "
+          f"before the replay start (50,000, uncut), {record['env_steps_per_s_after_replay_start'] or float('nan'):.1f}"
+          f" after it (updates {record['learning_from_update']} to {record['learning_to_update']}, before the "
+          f"profiled window), updates/s "
+          f"{record['updates_per_s_after_replay_start'] or float('nan'):.1f}; {record['rows_per_forward']:.2f} rows "
+          f"per forward over {record['forwards']} forwards; act round trip median {med(trip):.3f} ms, p90 "
+          f"{med(trip, 'p90_ms'):.3f} ms ({med('act round trip (before the replay start)'):.3f} ms before the replay "
+          f"start; after it {med('act round trip (during an update)'):.3f} ms "
+          f"with an update in flight over {tm['act round trip (during an update)'].get('n', 0)} acts, "
+          f"{med('act round trip (between updates)'):.3f} ms without, over "
+          f"{tm['act round trip (between updates)'].get('n', 0)}); poller add {med('poller add'):.3f} ms, learner "
+          f"update {med('learner update'):.3f} ms (medians); {record['n_updates']} updates, {record['publications']} "
+          f"publications, {record['target_syncs']} target syncs; over {prof.get('updates')} profiled updates "
+          f"{prof.get('kernels_per_update') or float('nan'):.1f} kernels per update and {prof.get('env_steps')} env "
+          f"steps (the actors' card calls wait while the profiler runs), device busy "
+          f"{prof.get('device_busy_share', float('nan')) * 100:.1f}%; evaluation mean {record['eval_mean']} over 10 "
+          f"episodes; loss {stats['average_loss']:.5f}; {launches} prefix-sample launches (fp32, no TF32) on {card}")
+    _raise_on_failed("dqn-actor-learner-ale-8", checks)
     agent.replay_state = None
     del agent
     torch.cuda.synchronize()
@@ -3432,7 +3670,16 @@ def main() -> int:
                                              obs_size, action_shape, device, *tolerance)
     from pfrl_tpu_torch.experiments.profile_host import HOST_PATHS
 
-    record["full_host_shells"] = {name: phase(f"full {name}", run_full_host_path, card, name) for name in HOST_PATHS}
+    record["full_host_shells"] = {name: phase(f"full {name}", run_full_host_path, card, name) for name in HOST_PATHS
+                                  if not HOST_PATHS[name].actors}
+    for name, cls_name, prioritized in (("actor-learner-dqn", "DQN", False),
+                                        ("actor-learner-per-double-dqn", "DoubleDQN", True)):
+        record["small_slices"][name] = phase(f"small {name}", check_small_actor_learner, name, cls_name, prioritized,
+                                             device)
+    record["full_actor_learner"] = {
+        "dqn-actor-learner-ale-8": phase("full dqn-actor-learner-ale-8", run_full_actor_learner, card),
+        "a3c-atarisim-16": phase("full a3c-atarisim-16", run_full_atari_onpolicy, card, "a3c-atarisim-16"),
+    }
     # Counted over each path that samples by priority, from 0 at its start;
     # every other path asserts a count of 0.
     kernel["launches_by_path"] = {
@@ -3452,6 +3699,9 @@ def main() -> int:
         **{name: r["kernel_launches"] for name, r in record["small_slices"].items() if name.startswith("host-per-")
            and name != "host-per-dqn-cartpole"},
         **{name: r["kernel_launches"] for name, r in record["full_host_shells"].items()},
+        # The card's side of the PER actor-learner run: one launch per update.
+        "actor-learner-per-double-dqn": record["small_slices"]["actor-learner-per-double-dqn"]["kernel_launches"],
+        **{name: r["kernel_launches"] for name, r in record["full_actor_learner"].items()},
     }
     kernel["launches"] = sum(kernel["launches_by_path"].values())
     record["kernels"] = [kernel]

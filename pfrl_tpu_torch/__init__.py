@@ -34,12 +34,19 @@ Ported so far, each through ``experiments.OffPolicyRunner`` or
   wrappers (:mod:`.wrappers`), and the drivers ``train_agent*`` with
   ``Evaluator`` (:mod:`.experiments`); ``train_dqn_batch_ale.py``'s batch
   mode at its own settings (``atari_dqn_batch.py``) and
-  ``train_reinforce_gym.py`` (``reinforce_gym.py``).
+  ``train_reinforce_gym.py`` (``reinforce_gym.py``); the shells of every
+  other core (DDPG, TD3, SAC, PPO, A2C and A3C, TRPO, the value family);
+- the actor-learner mode of the ``DQN`` shell
+  (``DQN.setup_actor_learner_training``: actor threads through one
+  :class:`.parallel.inference_server.BatchedInferenceServer`, a poller and a
+  learner thread), ``experiments.train_agent_async`` with
+  ``AsyncEvaluator``, and ``train_dqn_batch_ale.py --actor-learner``
+  (``atari_dqn_batch.run_actor_learner``) and ``train_a3c.py --sim``
+  (``atari_a3c.py``) at their own settings.
 
 Every first-order core takes ``compute_dtype`` (bf16 compute over float32
 masters, see :mod:`.utils.precision`); TRPO refuses it, as in JAX. Not
-ported yet: the shells of the other cores, the actor-learner half of the
-DQN shell, ``make_atari`` (a real ALE), persistence and device meshes.
+ported yet: ``make_atari`` (a real ALE), persistence and device meshes.
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; without a card they raise (see :mod:`._device`). Kernels

@@ -27,12 +27,39 @@ float32. ``None`` is plain float32.
 ``batch_act``/``batch_observe``/``save``/``load`` protocol around a core, a
 replay buffer and a draw source, with the reference's ``ReplayUpdater``
 gating as host counters. Each act and each update takes its draws from the
-shell's draw source (``draws``), where the JAX shell splits a key. The
-actor-learner half of the JAX shell (``dqn.py:402-669``) is not ported.
+shell's draw source (``draws``), where the JAX shell splits a key.
+
+Its actor-learner half (``dqn.py:402-669``,
+:meth:`DQN.setup_actor_learner_training`): actor threads act through one
+:class:`~pfrl_tpu_torch.parallel.inference_server.BatchedInferenceServer`
+and queue their transitions, a poller thread adds them to the ring one
+whole row at a time, and a learner thread updates flat out. Three things
+differ from the JAX shell, each for the port's in-place state:
+
+- the actors act from a **copy** of the online network. ``update`` changes
+  the network in place, op by op, where JAX swaps a pointer to an immutable
+  state; so the learner copies the online weights into the acting network
+  under a lock after every ``actor_update_interval`` updates (a
+  publication), and after every update before the first publication (when
+  the JAX actors read the live state). An act launches its forward under
+  the same lock, and everything runs on one CUDA stream, so an act sees
+  whole weights from before a publication or from after it (ROADMAP C51);
+- the server draws from a source of its own, used by the server thread
+  only, where JAX seeds each act with ``PRNGKey(seed)`` from the server's
+  batch count; the learner draws from the shell's ``draws``;
+- a poller's, learner's or server's failure is kept in
+  ``actor_learner_errors`` beside the exception event, so that a run can
+  raise it after the join.
 """
 
+import collections
+import contextlib
 import copy
 import dataclasses
+import logging
+import queue
+import threading
+import time
 from typing import Any, Callable, Optional
 
 import numpy as np
@@ -324,13 +351,7 @@ class DQN(AttributeSavingMixin, BatchAgent):
             done=torch.from_numpy(done | reset).to(dev),
         )
         if self.replay_state is None:
-            if getattr(self.buffer, "num_lanes", 1) != b:
-                self.buffer = self.buffer.configure_lanes(b)
-            self.replay_state = self.buffer.init(Transition(
-                obs=transition.obs[0], action=transition.action[0], reward=transition.reward[0],
-                next_obs=None if transition.next_obs is None else transition.next_obs[0],
-                terminated=transition.terminated[0], done=transition.done[0],
-            ))
+            self._init_ring(transition, b)
         self.replay_state = self.buffer.add(self.replay_state, transition)
 
         prev_t = self.t
@@ -343,6 +364,18 @@ class DQN(AttributeSavingMixin, BatchAgent):
             n_triggers = self.t // self.update_interval - prev_t // self.update_interval
             for _ in range(n_triggers * self.n_times_update):
                 self._update_once()
+
+    def _init_ring(self, transition: Transition, lanes: int) -> None:
+        """The ring, configured to ``lanes`` lanes, from the first row of the
+        first transition batch."""
+        if getattr(self.buffer, "num_lanes", 1) != lanes:
+            self.buffer = self.buffer.configure_lanes(lanes)
+        self.replay_state = self.buffer.init(Transition(
+            obs=_tree_map(lambda x: x[0], transition.obs), action=transition.action[0],
+            reward=transition.reward[0],
+            next_obs=None if transition.next_obs is None else _tree_map(lambda x: x[0], transition.next_obs),
+            terminated=transition.terminated[0], done=transition.done[0],
+        ))
 
     def _update_once(self) -> None:
         """Sample, update, feed the priorities back (the JAX shell's fused
@@ -363,12 +396,242 @@ class DQN(AttributeSavingMixin, BatchAgent):
             ("n_updates", self.optim_t),
         ]
 
+    def save(self, dirname: str) -> None:
+        # During actor-learner training an actor saves from its own thread:
+        # the learner changes the state in place only under the ring's lock.
+        with getattr(self, "_replay_lock", None) or contextlib.nullcontext():
+            super().save(dirname)
+
     @property
     def cumulative_steps(self) -> int:
-        """Env transitions observed (``dqn.py:631``)."""
-        return self.t
+        """Env transitions observed, or received from the actors
+        (``dqn.py:631``)."""
+        counter = getattr(self, "_cumulative_steps_counter", None)
+        return counter.value if counter is not None else self.t
 
     @property
     def optim_t(self) -> int:
         """Optimizer steps so far."""
         return self._optim_t
+
+    # ======================================================== actor-learner
+    def _can_start_replay(self) -> bool:
+        """Enough transitions inserted to sample safely (``dqn.py:402-406``)."""
+        margin = (self.buffer.num_steps + 1) * self.buffer.num_lanes
+        return self._replay_inserted >= max(self.replay_start_size, margin, self.minibatch_size)
+
+    def _publish(self) -> None:
+        """The online weights into the actors' copy, under the acting lock."""
+        with self._acting_lock:
+            copy_param(self._acting.model, self.train_state.model)
+
+    def _make_acting_copy(self) -> None:
+        model = copy.deepcopy(self.train_state.model)
+        model.requires_grad_(False)
+        self._acting = DQNState(model=model, target_model=None, opt_state=None)
+
+    def _actor_act_fn(self, seed: int, obs_batch, t: int, training: bool):
+        """The server's batched act (``dqn.py:408-426``): the state built at
+        the first call, then one forward of the acting copy at the server's
+        ``t``, drawing from the server's own source. ``seed`` (the JAX
+        server's key) is not needed."""
+        obs = to_device(obs_batch, self.device)
+        with self._init_lock:
+            if self.train_state is None:
+                self._ensure_init(obs)
+            if self._acting is None:
+                self._make_acting_copy()
+        with self._acting_lock:  # the launches only; the actions come down outside
+            return self.core.select_action(self._acting, self._actor_draws, obs, t, training)
+
+    def _rows_to_transition(self, rows) -> Transition:
+        """One transition per actor as one ring row: single-lane actors'
+        rows stacked, vector actors' ``[k, ...]`` rows concatenated, each
+        field uploaded once. ``next_obs`` is not uploaded for a ring that
+        reads it from the successor slot."""
+        join = np.stack if self._lanes_per_actor == 1 else np.concatenate
+        dev = self.device
+
+        def field(key, dtype=None):
+            return torch.from_numpy(join([np.asarray(r[key], dtype) for r in rows])).to(dev)
+
+        def obs(key):
+            return to_device(_join_rows([r[key] for r in rows], join), dev)
+
+        return Transition(
+            obs=obs("obs"),
+            action=field("action"),
+            reward=field("reward", np.float32),
+            next_obs=obs("next_obs") if self.buffer.wants_next_obs else None,
+            terminated=field("terminated", bool),
+            done=field("done", bool),
+        )
+
+    def _poller_loop(self, transition_queue, stop_event, exception_event, logger):
+        """Drains the actors' transitions into the ring (``dqn.py:428-508``).
+        The ring interleaves lanes (a lane per actor lane), so transitions
+        wait in per-actor FIFOs and go in one whole row at a time, one
+        transition per actor: each lane keeps its order for the n-step
+        fold. The first add configures the ring to ``n_actors * K`` lanes.
+        Stopping it stops the server."""
+        n, k = self._n_actors, self._lanes_per_actor
+        staging = [collections.deque() for _ in range(n)]
+        try:
+            while not stop_event.is_set() and not exception_event.is_set():
+                try:
+                    actor_id, data = transition_queue.get(timeout=0.05)
+                except queue.Empty:
+                    continue
+                staging[actor_id].append(data)
+                self._cumulative_steps_counter.increment(k)
+                while True:  # everything already in flight
+                    try:
+                        actor_id, data = transition_queue.get_nowait()
+                    except queue.Empty:
+                        break
+                    staging[actor_id].append(data)
+                    self._cumulative_steps_counter.increment(k)
+                while all(staging):
+                    t0 = time.perf_counter()
+                    transition = self._rows_to_transition([staging[i].popleft() for i in range(n)])
+                    with self._replay_lock:
+                        if self.replay_state is None:
+                            self._init_ring(transition, n * k)
+                        self.replay_state = self.buffer.add(self.replay_state, transition)
+                        self._replay_inserted += n * k
+                    self.add_spans.append((t0, time.perf_counter()))
+        except Exception as e:
+            logger.exception("Poller loop failed. Exiting")
+            self.actor_learner_errors.append(e)
+            exception_event.set()
+        finally:
+            self._inference.stop()
+
+    def _learner_loop(self, stop_event, exception_event, n_updates, actor_update_interval, step_hooks,
+                      optimizer_step_hooks, logger):
+        """Updates decoupled from acting (``dqn.py:510-557``): an update
+        under the ring's lock, a publication every ``actor_update_interval``
+        updates (before the first, a refresh after every update), ``t =
+        optim_t * update_interval`` for the hooks, a hard sync when ``t`` is
+        a multiple of ``target_update_interval``; it stops itself after
+        ``n_updates``."""
+        try:
+            update_counter = 0
+            published = False
+            while not stop_event.is_set():
+                if (self.train_state is None or self.replay_state is None or self._acting is None
+                        or not self._can_start_replay()):
+                    time.sleep(5e-3)  # not a tight poll: the actors need the GIL
+                    continue
+                if n_updates is not None and self._optim_t >= n_updates:
+                    stop_event.set()
+                    break
+                t0 = time.perf_counter()
+                with self._replay_lock:
+                    self._update_once()
+                self.update_spans.append((t0, time.perf_counter()))
+                update_counter += 1
+                if update_counter % actor_update_interval == 0:
+                    self.update_counter.increment()
+                    self._publish()
+                    published = True
+                elif not published:
+                    self._publish()  # the JAX actors read the live state until then
+                effective_timestep = self._optim_t * self.update_interval
+                self.t = effective_timestep
+                for hook in optimizer_step_hooks:
+                    hook(None, self, self._optim_t)
+                for hook in step_hooks:
+                    hook(None, self, effective_timestep)
+                if effective_timestep % self.target_update_interval == 0:
+                    with self._replay_lock:
+                        self.core.sync_target(self.train_state)
+        except Exception as e:
+            logger.exception("Learner loop failed. Exiting")
+            self.actor_learner_errors.append(e)
+            exception_event.set()
+
+    def setup_actor_learner_training(
+        self,
+        n_actors: int,
+        update_counter=None,
+        n_updates: Optional[int] = None,
+        actor_update_interval: int = 8,
+        lanes_per_actor: int = 1,
+        inference_slots: Optional[int] = None,
+        step_hooks=(),
+        optimizer_step_hooks=(),
+        logger=None,
+        actor_draws=None,
+    ):
+        """Returns ``(make_actor, learner, poller, exception_event)``
+        (``dqn.py:559-667``): start ``poller`` and ``learner``, drive the
+        actors of ``make_actor(i)`` (``experiments.train_agent_async(...,
+        make_agent=make_actor, stop_event=learner.stop_event)``), then stop
+        and join the learner, then the poller, which stops the server.
+
+        With ``lanes_per_actor`` K > 1 each actor is a
+        :class:`~.state_q_function_actor.VectorStateQFunctionActor` of K
+        lanes, and the ring gets ``n_actors * K``. ``inference_slots`` is
+        the server's batch width (default: every lane). ``actor_draws`` is
+        the server's draw source (default: a generator on the device
+        seeded with ``seed + 1``)."""
+        from pfrl_tpu_torch.agents.state_q_function_actor import StateQFunctionActor, VectorStateQFunctionActor
+        from pfrl_tpu_torch.parallel.inference_server import BatchedInferenceServer
+        from pfrl_tpu_torch.utils.stoppable_thread import Counter, StoppableThread
+
+        logger = logger or logging.getLogger(__name__)
+        self._n_actors = n_actors
+        self._lanes_per_actor = lanes_per_actor
+        self.update_counter = update_counter if update_counter is not None else Counter()
+        self._cumulative_steps_counter = Counter()
+        self._replay_inserted = 0
+        self._optim_t = 0
+        self._replay_lock = threading.Lock()
+        self._init_lock = threading.Lock()
+        self._acting_lock = threading.Lock()
+        self._actor_draws = actor_draws if actor_draws is not None else Draws(
+            torch.Generator(device=self.device).manual_seed(self.seed + 1))
+        self._acting = None
+        if self.train_state is not None:
+            self._make_acting_copy()
+        self.actor_learner_errors = []
+        # Host timings, ``(start, end)`` on ``time.perf_counter``'s clock.
+        self.add_spans, self.update_spans = [], []
+
+        self._inference = BatchedInferenceServer(
+            act_fn=self._actor_act_fn,
+            n_slots=inference_slots or n_actors * lanes_per_actor,
+            t_fn=lambda: self._cumulative_steps_counter.value,
+        )
+        self._inference.start()
+        transition_queue: "queue.Queue" = queue.Queue()
+        exception_event = threading.Event()
+
+        def make_actor(i: int) -> StateQFunctionActor:
+            if lanes_per_actor > 1:
+                return VectorStateQFunctionActor(self._inference, transition_queue, i, lanes_per_actor,
+                                                 learner_agent=self, logger=logger)
+            return StateQFunctionActor(self._inference, transition_queue, i, learner_agent=self, logger=logger)
+
+        poller_stop = threading.Event()
+        poller = StoppableThread(stop_event=poller_stop, target=self._poller_loop, name="poller", kwargs=dict(
+            transition_queue=transition_queue, stop_event=poller_stop, exception_event=exception_event,
+            logger=logger))
+        learner_stop = threading.Event()
+        learner = StoppableThread(stop_event=learner_stop, target=self._learner_loop, name="learner", kwargs=dict(
+            stop_event=learner_stop, exception_event=exception_event, n_updates=n_updates,
+            actor_update_interval=actor_update_interval, step_hooks=list(step_hooks),
+            optimizer_step_hooks=list(optimizer_step_hooks), logger=logger))
+        return make_actor, learner, poller, exception_event
+
+
+def _join_rows(parts, join):
+    """``join`` (``np.stack`` or ``np.concatenate``) over the leaves of
+    observations of one structure."""
+    first = parts[0]
+    if isinstance(first, dict):
+        return {k: _join_rows([p[k] for p in parts], join) for k in first}
+    if isinstance(first, tuple):
+        return tuple(_join_rows([p[i] for p in parts], join) for i in range(len(first)))
+    return join([np.asarray(p) for p in parts])

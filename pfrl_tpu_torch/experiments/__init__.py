@@ -1,5 +1,6 @@
 from pfrl_tpu_torch.experiments.evaluation_hooks import EvaluationHook, OptunaPrunerHook  # noqa: F401
 from pfrl_tpu_torch.experiments.evaluator import (  # noqa: F401
+    AsyncEvaluator,
     Evaluator,
     batch_run_evaluation_episodes,
     eval_performance,
@@ -15,6 +16,7 @@ from pfrl_tpu_torch.experiments.runner import (  # noqa: F401
     RunnerState,
 )
 from pfrl_tpu_torch.experiments.train_agent import train_agent, train_agent_with_evaluation  # noqa: F401
+from pfrl_tpu_torch.experiments.train_agent_async import train_agent_async  # noqa: F401
 from pfrl_tpu_torch.experiments.train_agent_batch import (  # noqa: F401
     train_agent_batch,
     train_agent_batch_with_evaluation,

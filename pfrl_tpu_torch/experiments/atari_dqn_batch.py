@@ -20,6 +20,15 @@ example. :func:`run_batch` drives them through
 ``train_agent_batch_with_evaluation`` with 10 evaluation episodes, one
 batch step at a time: observations go up to the card and actions come
 down on every step. Sizes are arguments, so that tests run it small.
+
+:func:`run_actor_learner` is the example's ``--actor-learner`` mode
+(``:126-152``) at the same settings: the same agent, its actor-learner half
+(``DQN.setup_actor_learner_training(n_actors=8)``: one actor thread per
+env, one batched inference server, the poller and the learner threads,
+publications every 8 updates) driven by ``train_agent_async``; actor ``i``
+builds its training env (seed ``seed + i``) and its evaluation env (seed
+``seed + i + 10**6``, ``RandomizeAction(0.05)``) in its own thread, with
+the same one cut, ``episode_life=False``.
 """
 
 import functools
@@ -33,6 +42,7 @@ from pfrl_tpu_torch.agents.dqn import DQN
 from pfrl_tpu_torch.envs import synthetic_ale
 from pfrl_tpu_torch.envs.multiprocess_vector_env import MultiprocessVectorEnv
 from pfrl_tpu_torch.experiments.atari_per_dqn import NatureQ
+from pfrl_tpu_torch.experiments.train_agent_async import train_agent_async
 from pfrl_tpu_torch.experiments.train_agent_batch import train_agent_batch_with_evaluation
 from pfrl_tpu_torch.explorers.epsilon_greedy import LinearDecayEpsilonGreedy
 from pfrl_tpu_torch.optimizers import Adam
@@ -119,3 +129,47 @@ def run_batch(
         for e in (env, eval_env):
             if not e.closed:
                 e.close()
+
+
+def run_actor_learner(
+    outdir: str,
+    steps: int = 5 * 10**7,
+    eval_interval: int = 10**5,
+    eval_n_episodes: int = 10,
+    num_envs: int = 8,
+    seed: int = 0,
+    device=None,
+    agent: Optional[DQN] = None,
+    global_step_hooks=(),
+    learner_step_hooks=(),
+    n_updates: Optional[int] = None,
+    **agent_kwargs,
+) -> DQN:
+    """``train_dqn_batch_ale.py``'s ``run_actor_learner``: builds the agent
+    (or takes ``agent``), starts the poller and the learner, drives
+    ``num_envs`` actor threads through ``train_agent_async``, then stops and
+    joins the learner and the poller (which stops the server). A failure of
+    any of these threads is raised here after the join. Returns the
+    learner agent."""
+    if agent is None:
+        agent = make_dqn_batch_agent(num_envs=num_envs, seed=seed, device=device, **agent_kwargs)
+    runtime.build()  # the frame ops, once, before the actor threads load them
+    make_actor, learner, poller, exception_event = agent.setup_actor_learner_training(
+        n_actors=num_envs, n_updates=n_updates, step_hooks=learner_step_hooks)
+    poller.start()
+    learner.start()
+    try:
+        train_agent_async(
+            outdir=outdir, processes=num_envs, make_env=functools.partial(synthetic_ale.make_ale_env, seed),
+            steps=steps, eval_interval=eval_interval, eval_n_steps=None, eval_n_episodes=eval_n_episodes,
+            make_agent=make_actor, stop_event=learner.stop_event, exception_event=exception_event,
+            global_step_hooks=global_step_hooks,
+        )
+    finally:
+        learner.stop()
+        learner.join()
+        poller.stop()
+        poller.join()
+        if agent.actor_learner_errors:  # the cause, before what the actors raised after it
+            raise agent.actor_learner_errors[0]
+    return agent

@@ -17,7 +17,8 @@ The recurrent family's configurations count the same way
 (``rppo-delayedcue-16`` and ``rtrpo-delayedcue-16`` per iteration), and so
 do ACER's (``acer-atarisim-16``, ``acer-abc-16``,
 ``acer-continuous-abc-16``) and the Atari on-policy examples'
-(``a2c-atarisim-16``, ``ppo-atarisim-8``, per iteration).
+(``a2c-atarisim-16``, ``a3c-atarisim-16``, ``ppo-atarisim-8``, per
+iteration).
 The Atari examples' configurations (``dqn-ale-*-64``, ``per-dqn-ale-64``,
 ``c51-atarisim-64``) count per scan step; ``dqn-pipeline-288``, which is
 no runner, counts its device functions on a ring that is filled by
@@ -33,7 +34,9 @@ them the ops per env step (an update per 4 transitions). The host paths of
 ``rainbow-slimevolley-cartpole-1``) count the same three calls of their
 shells on observations drawn from a normal, at their rings' own sizes
 unless ``--capacity`` cuts them; an on-policy shell's update is one whole
-update over its rollout.
+update over its rollout. ``dqn-actor-learner-ale-8`` counts one server act
+of the padded batch of 8 rows, one poller add of a ring row of 8 frames
+and one update, starting no thread.
 ``--bf16`` builds the configuration at ``compute_dtype=torch.bfloat16``.
 ``--capacity`` shrinks the replay ring, which changes no op of a scan step
 (the AtariSim configurations' 100,000 frame slots need 2.8 GB otherwise,

@@ -1,18 +1,19 @@
-"""Evaluation machinery (counterpart of ``pfrl_tpu/experiments/evaluator.py``
-up to its ``AsyncEvaluator``, which is not ported; reference parity:
-pfrl/experiments/evaluator.py). Host code only: it imports no torch, but
-the optional tensorboard writer's.
+"""Evaluation machinery (counterpart of ``pfrl_tpu/experiments/evaluator.py``;
+reference parity: pfrl/experiments/evaluator.py). Host code only: it
+imports no torch, but the optional tensorboard writer's.
 
 Serial and vector-env evaluation with the reference's bookkeeping: the
 batch evaluator scores the *first n started* episodes to avoid length bias
 (evaluator.py:100-251); scores land in a ``scores.txt`` TSV with the same
 basic columns (evaluator.py:309-311,375-393); the best-so-far agent is
-saved under ``<outdir>/best`` (evaluator.py:509-513).
+saved under ``<outdir>/best`` (evaluator.py:509-513). :class:`AsyncEvaluator`
+is shared by the actor threads of ``train_agent_async``.
 """
 
 import logging
 import os
 import statistics
+import threading
 import time
 from typing import Optional
 
@@ -289,4 +290,86 @@ class Evaluator:
         if t >= self.prev_eval_t + self.eval_interval:
             self.prev_eval_t = t - t % self.eval_interval
             return self.evaluate_and_update_max_score(t, episodes)
+        return None
+
+
+class AsyncEvaluator:
+    """Evaluator shared by concurrent actor threads (``evaluator.py:293-401``;
+    reference evaluator.py:524-674). A ``threading.Lock`` guards its state:
+    of the threads that reach an evaluation point, one evaluates (schedule
+    once), and a new best score is saved by one (best-save once). Each
+    caller brings its own env and agent:
+    ``evaluate_if_necessary(t, episodes, env, agent)``."""
+
+    def __init__(
+        self,
+        n_steps: Optional[int],
+        n_episodes: Optional[int],
+        eval_interval: int,
+        outdir: str,
+        max_episode_len: Optional[int] = None,
+        step_offset: int = 0,
+        evaluation_hooks=(),
+        save_best_so_far_agent: bool = True,
+        logger=None,
+    ):
+        assert (n_steps is None) != (n_episodes is None)
+        self.start_time = time.time()
+        self.n_steps = n_steps
+        self.n_episodes = n_episodes
+        self.eval_interval = eval_interval
+        self.outdir = outdir
+        self.max_episode_len = max_episode_len
+        self.step_offset = step_offset
+        self.evaluation_hooks = evaluation_hooks
+        self.save_best_so_far_agent = save_best_so_far_agent
+        self.logger = logger or logging.getLogger(__name__)
+        self._lock = threading.Lock()
+        self._prev_eval_t = step_offset - step_offset % eval_interval
+        self._max_score = float("-inf")
+        self._wrote_header = False
+        with open(os.path.join(outdir, "scores.txt"), "a"):  # evaluator.py:590-592
+            pass
+
+    @property
+    def max_score(self) -> float:
+        with self._lock:
+            return self._max_score
+
+    def _record_stats(self, t, episodes, stats, agent) -> None:
+        agent_stats = agent.get_statistics()
+        path = os.path.join(self.outdir, "scores.txt")
+        if not self._wrote_header:
+            with open(path, "w") as f:
+                f.write("\t".join(_BASIC_COLUMNS + tuple(name for name, _ in agent_stats)) + "\n")
+            self._wrote_header = True
+        values = (t, episodes, time.time() - self.start_time, stats["mean"], stats["median"], stats["stdev"],
+                  stats["max"], stats["min"]) + tuple(v for _, v in agent_stats)
+        with open(path, "a") as f:
+            f.write("\t".join(str(v) for v in values) + "\n")
+
+    def evaluate_and_update_max_score(self, t, episodes, env, agent) -> float:
+        stats = eval_performance(env, agent, self.n_steps, self.n_episodes, max_episode_len=self.max_episode_len,
+                                 logger=self.logger)
+        mean = stats["mean"]
+        with self._lock:
+            self._record_stats(t, episodes, stats, agent)
+        for hook in self.evaluation_hooks:
+            hook(env=env, agent=agent, evaluator=self, step=t, eval_stats=stats,
+                 agent_stats=agent.get_statistics(), env_stats=None)
+        with self._lock:
+            if mean > self._max_score:
+                self.logger.info("The best score is updated %s -> %s", self._max_score, mean)
+                self._max_score = mean
+                if self.save_best_so_far_agent:
+                    agent.save(os.path.join(self.outdir, "best"))
+        return mean
+
+    def evaluate_if_necessary(self, t, episodes, env, agent) -> Optional[float]:
+        with self._lock:
+            necessary = t >= self._prev_eval_t + self.eval_interval
+            if necessary:
+                self._prev_eval_t += self.eval_interval
+        if necessary:
+            return self.evaluate_and_update_max_score(t, episodes, env, agent)
         return None

@@ -33,8 +33,29 @@ backend (``experiments/slimevolley_rainbow.py``), at their scripts'
 settings, each with the length that ``chip_smoke.py`` runs.
 ``profile_slice --config C`` and ``count_ops --config C`` run these for
 ``dqn-batch-ale-8`` and each path; ``chip_smoke.py`` runs them uncut.
+
+One path of :data:`HOST_PATHS` has actor threads: ``dqn-actor-learner-ale-8``,
+``train_dqn_batch_ale.py --actor-learner`` (``atari_dqn_batch.run_actor_learner``:
+8 actor threads of one ``SyntheticALE`` lane, the inference server, the
+poller and the learner over the 10^6-slot ring). :func:`run_actor_learner_path`
+runs it with a step hook of the learner that starts and stops
+``torch.profiler`` over a window of updates, on the learner's thread (a
+profiler started from a thread that launches no kernel saw none of the
+other threads' kernels on the card; started from the learner's, it holds
+the other threads' card calls back, so the window counts the learner's
+kernels alone, and the rates are taken outside it). It
+marks every actor step's global ``t`` and the learner's update count, so
+it gives env-steps/s before the replay start and after it (outside the
+window, which slows the run), updates/s, the server's rows per forward and the act round trips (median
+and p90; before the replay start, and after it apart by whether a learner
+update ran during the act), the
+poller's add and the learner's update ms, the publications and target
+syncs, and kernels per update and the device's busy share over the
+window. :func:`count_actor_learner_ops` counts the aten ops of one server
+act of the padded batch, one poller add of a ring row and one update.
 """
 
+import bisect
 import collections
 import dataclasses
 import functools
@@ -48,7 +69,8 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from pfrl_tpu_torch.experiments import mujoco_host, slimevolley_rainbow
+from pfrl_tpu_torch.envs import synthetic_ale
+from pfrl_tpu_torch.experiments import atari_dqn_batch, mujoco_host, slimevolley_rainbow
 from pfrl_tpu_torch.experiments.train_agent import train_agent_with_evaluation
 from pfrl_tpu_torch.experiments.train_agent_batch import train_agent_batch_with_evaluation
 
@@ -59,7 +81,11 @@ class HostPath:
     ``replay_start_size`` where the shell has one, ``update_burst``),
     ``make_env(seed)`` for one lane, the observation's size, the run's
     transitions and evaluation episodes, and the lanes of a
-    ``SerialVectorEnv`` (1: a single env through the serial driver)."""
+    ``SerialVectorEnv`` (1: a single env through the serial driver). A path
+    with ``actors`` runs the actor-learner mode instead
+    (:func:`run_actor_learner_path`): that many actor threads of one lane,
+    ``make_env(idx, test)`` each, to ``steps`` transitions or ``n_updates``
+    updates, whichever comes first."""
 
     make_agent: Callable
     make_env: Callable
@@ -68,6 +94,8 @@ class HostPath:
     eval_n_episodes: int
     lanes: int = 1
     agent_kwargs: Tuple = ()
+    actors: int = 0
+    n_updates: Optional[int] = None
 
 
 _CHEETAH, _HOPPER = mujoco_host.HALFCHEETAH, mujoco_host.HOPPER
@@ -94,6 +122,13 @@ HOST_PATHS = {
     # C = 2^20 ring, the target sync at 2,000 crossed; 10 evaluation episodes.
     "rainbow-slimevolley-cartpole-1": HostPath(functools.partial(slimevolley_rainbow.make_rainbow_agent, 4, 2),
                                                slimevolley_rainbow.cartpole_env, 4, 2_600, 10),
+    # train_dqn_batch_ale.py --actor-learner: 8 actor threads through the
+    # replay start of 50,000 uncut; the learner updates flat out, so the run
+    # ends on its 640th update (past t = 52,032 at any learner rate up to
+    # 4 updates per transition), or at 10^6 transitions.
+    "dqn-actor-learner-ale-8": HostPath(atari_dqn_batch.make_dqn_batch_agent,
+                                        functools.partial(synthetic_ale.make_ale_env, 0), 84 * 84 * 4, 10**6, 10,
+                                        lanes=8, actors=8, n_updates=640),
 }
 
 
@@ -102,6 +137,8 @@ def make_host_path(name: str, device=None, compute_dtype=None, **agent_kwargs):
     from pfrl_tpu_torch.envs.serial_vector_env import SerialVectorEnv
 
     path = HOST_PATHS[name]
+    if path.actors:
+        raise ValueError(f"{name} runs actor threads: run it with run_actor_learner_path")
     agent = path.make_agent(device=device, compute_dtype=compute_dtype, **dict(path.agent_kwargs), **agent_kwargs)
     if path.lanes == 1:
         return agent, path.make_env(0), path.make_env(100)
@@ -195,7 +232,9 @@ def run_host_batch(agent, env, eval_env, steps: int, eval_interval: int, eval_n_
         syncs[0] += 1
         return sync_target(state)
 
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if cuda and profiled[1] else None
+    # The card's activity only: recording every thread's CPU ops slowed the
+    # run for good after the window.
+    prof = profile(activities=[ProfilerActivity.CUDA]) if cuda and profiled[1] else None
 
     def profile_hook(env, agent, t):
         if prof is None:
@@ -276,6 +315,163 @@ def run_host_batch(agent, env, eval_env, steps: int, eval_interval: int, eval_n_
     return record
 
 
+def _overlaps(spans, starts, a: float, b: float) -> bool:
+    """Whether ``[a, b]`` overlaps one of ``spans``: sorted, disjoint
+    ``(start, end)`` pairs with their ``starts``."""
+    i = bisect.bisect_right(starts, b)
+    return i > 0 and spans[i - 1][1] >= a
+
+
+def run_actor_learner_path(agent, make_env, steps: int, eval_interval: int, eval_n_episodes: int, outdir: str,
+                           actors: int = 8, n_updates: Optional[int] = None,
+                           profiled: Tuple[int, int] = (0, 0)) -> dict:
+    """Runs ``atari_dqn_batch.run_actor_learner`` with ``agent`` and
+    ``actors`` actor threads of ``make_env(idx, test)``, to ``steps``
+    transitions or ``n_updates`` updates; ``profiled = (u, n)`` records the
+    updates ``u`` to ``u + n`` under the profiler (on the card only).
+    Raises what the run raised. Returns the record (see the module
+    docstring)."""
+    cuda = agent.device.type == "cuda"
+    marks, syncs, window = [], [0], {}
+    start = agent.replay_start_size
+
+    def mark(env, actor, t):
+        marks.append((t, time.perf_counter(), agent.optim_t))
+
+    sync_target = agent.core.sync_target
+
+    def counted_sync(state):
+        syncs[0] += 1
+        return sync_target(state)
+
+    # The card's activity only: recording every thread's CPU ops slowed the
+    # run for good after the window.
+    prof = profile(activities=[ProfilerActivity.CUDA]) if cuda and profiled[1] else None
+
+    def profile_window(_, learner, t):
+        """On the learner's thread, after its updates ``u`` and ``u + n``."""
+        key = {profiled[0]: "start", profiled[0] + profiled[1]: "end"}.get(learner.optim_t)
+        if prof is not None and key is not None:
+            torch.cuda.synchronize()
+            window[key] = (time.perf_counter(), learner.optim_t, learner.cumulative_steps)
+            (prof.start if key == "start" else prof.stop)()
+
+    agent.core.sync_target = counted_sync
+    t0 = time.perf_counter()
+    try:
+        atari_dqn_batch.run_actor_learner(outdir, steps=steps, eval_interval=eval_interval,
+                                          eval_n_episodes=eval_n_episodes, num_envs=actors, agent=agent,
+                                          global_step_hooks=[mark], learner_step_hooks=[profile_window],
+                                          n_updates=n_updates)
+    finally:
+        del agent.core.sync_target
+        if "start" in window and "end" not in window:
+            prof.stop()
+    wall_s = time.perf_counter() - t0
+    acting = [m for m in marks if m[2] == 0]
+    learning = [m for m in marks if m[2] > 0]
+    if "end" in window:  # the longer stretch of updates before or after the profiled window
+        before = [m for m in learning if m[1] <= window["start"][0]]
+        after = [m for m in learning if m[1] >= window["end"][0]]
+        span = lambda ms: ms[-1][1] - ms[0][1] if len(ms) > 1 else 0.0  # noqa: E731
+        learning = before if span(before) > span(after) else after
+
+    def rate(ms):
+        if len(ms) < 2:
+            return None, None, 0.0
+        (t_a, s_a, u_a), (t_b, s_b, u_b) = ms[0], ms[-1]
+        return (t_b - t_a) / (s_b - s_a), (u_b - u_a) / (s_b - s_a), s_b - s_a
+
+    server = agent._inference
+    spans = sorted(agent.update_spans)
+    span_starts = [a for a, _ in spans]
+    first_update = spans[0][0] if spans else float("inf")
+    trips = {"all": [], "before the replay start": [], "during an update": [], "between updates": []}
+    for a, b in server.round_trips:
+        trips["all"].append((0, (b - a) * 1e3))
+        if b < first_update:
+            label = "before the replay start"
+        else:
+            label = "during an update" if _overlaps(spans, span_starts, a, b) else "between updates"
+        trips[label].append((0, (b - a) * 1e3))
+    before, _, before_s = rate(acting)
+    after, updates_per_s, after_s = rate(learning)
+    record = {
+        "device": torch.cuda.get_device_name(0) if cuda else "cpu",
+        "actors": actors, "steps": steps, "n_updates_limit": n_updates, "t": agent.cumulative_steps,
+        "replay_start_size": start, "n_updates": agent.optim_t, "publications": agent.update_counter.value,
+        "target_syncs": syncs[0], "wall_s": wall_s, "ring_bytes": storage_bytes(agent),
+        "ring_slots": agent.buffer.capacity,
+        "env_steps_per_s_before_replay_start": before, "acting_s": before_s,
+        "env_steps_per_s_after_replay_start": after, "updates_per_s_after_replay_start": updates_per_s,
+        "learning_s": after_s, "learning_from_update": learning[0][2] if learning else None,
+        "learning_to_update": learning[-1][2] if learning else None,
+        "rows_per_forward": sum(server.batch_rows) / len(server.batch_rows) if server.batch_rows else None,
+        "forwards": len(server.batch_rows),
+        "timings": {
+            **{f"act round trip ({k})": _stats(v, 0, 0) for k, v in trips.items()},
+            "poller add": _stats([(0, (b - a) * 1e3) for a, b in agent.add_spans], 0, 0),
+            "learner update": _stats([(0, (b - a) * 1e3) for a, b in agent.update_spans], 0, 0),
+        },
+        "statistics": dict(agent.get_statistics()),
+        "scores_txt": open(os.path.join(outdir, "scores.txt")).read().splitlines(),
+    }
+    if prof is not None and "end" in window:
+        kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+        (s_a, u_a, t_a), (s_b, u_b, t_b) = window["start"], window["end"]
+        by_name = collections.defaultdict(float)
+        for e in kernels:
+            by_name[e.name] += e.time_range.elapsed_us()
+        record["profiled"] = {
+            "from_update": u_a, "updates": u_b - u_a, "env_steps": t_b - t_a, "seconds": s_b - s_a,
+            "kernels_per_update": len(kernels) / (u_b - u_a) if u_b > u_a else None,
+            "kernels_per_env_step": len(kernels) / (t_b - t_a) if t_b > t_a else None,
+            "device_busy_share": busy_us / 1e6 / (s_b - s_a),
+            "top_device_ops": [{"name": n, "ms": us / 1e3}
+                               for n, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]],
+        }
+    return record
+
+
+def count_actor_learner_ops(agent, actors: int = 8, rows: int = 16) -> dict:
+    """Aten ops of one server act (the padded batch of ``actors`` rows), one
+    poller add of a ring row and one update of ``agent``'s actor-learner
+    mode, after ``rows`` rows of uint8 frames made on the host; the server
+    and the threads are not started."""
+    from pfrl_tpu_torch.experiments.count_ops import OpCounter
+
+    rs = np.random.RandomState(0)
+    agent.setup_actor_learner_training(n_actors=actors)
+    agent._inference.stop()
+
+    def row():
+        return [dict(obs=_atari_frames(rs, 1)[0], action=np.int64(0), reward=np.float32(0.0),
+                     next_obs=_atari_frames(rs, 1)[0], terminated=False, done=False) for _ in range(actors)]
+
+    def add():
+        transition = agent._rows_to_transition(row())
+        if agent.replay_state is None:
+            agent._init_ring(transition, actors)
+        agent.replay_state = agent.buffer.add(agent.replay_state, transition)
+
+    batch = _atari_frames(rs, actors)
+    agent._actor_act_fn(1, batch, 0, True)
+    for _ in range(rows):
+        add()
+    counts = {}
+    for name, fn in (("act", lambda: agent._actor_act_fn(2, batch, 0, True)), ("add", add),
+                     ("update", agent._update_once)):
+        with OpCounter() as counter:
+            fn()
+        counts[name] = counter.counts
+    return {
+        "actors": actors,
+        **{f"ops_per_{name}": sum(c.values()) for name, c in counts.items()},
+        "top_ops_per_update": dict(counts["update"].most_common(10)),
+    }
+
+
 def _atari_frames(rs, lanes):
     return rs.randint(0, 256, (lanes, 84, 84, 4)).astype(np.uint8)
 
@@ -323,6 +519,8 @@ def count_host_path_ops(name: str, device=None, compute_dtype=None, capacity: Op
     path = HOST_PATHS[name]
     kw = {"capacity": capacity} if capacity and "capacity" in _keywords(path.make_agent) else {}
     agent = path.make_agent(device=device, compute_dtype=compute_dtype, **dict(path.agent_kwargs), **kw)
+    if path.actors:
+        return count_actor_learner_ops(agent, path.actors)
     size = path.obs_size
     return count_host_ops(agent, lanes=path.lanes,
                           obs=lambda rs, lanes: rs.normal(size=(lanes, size)).astype(np.float32))

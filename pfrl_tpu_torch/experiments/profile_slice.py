@@ -6,9 +6,10 @@
                   ppo|ppo-pendulum|trpo|a2c|drqn-atarisim-32|drqn-po-abc-16|
                   drqn-delayedcue-16|riqn-delayedcue-16|rppo-delayedcue-16|
                   rtrpo-delayedcue-16|acer-atarisim-16|acer-abc-16|
-                  acer-continuous-abc-16|a2c-atarisim-16|ppo-atarisim-8|
+                  acer-continuous-abc-16|a2c-atarisim-16|a3c-atarisim-16|ppo-atarisim-8|
                   dqn-ale-nature-64|dqn-ale-nips-64|dqn-ale-dueling-64|
-                  per-dqn-ale-64|c51-atarisim-64|dqn-pipeline-288|dqn-batch-ale-8]
+                  per-dqn-ale-64|c51-atarisim-64|dqn-pipeline-288|dqn-batch-ale-8|
+                  the paths of profile_host.HOST_PATHS, dqn-actor-learner-ale-8 among them]
         [--steps 8] [--bf16] [--out PATH]
 
 Runs one configuration at full width on the CUDA device. On 64 lanes of
@@ -79,9 +80,11 @@ step over the 2,048 x 50 episodic buffer on the card, from 10,000
 transitions on), ``acer-abc-16`` and ``acer-continuous-abc-16`` take the
 episodic phases with the act that stores the behaviour distribution, and
 the update's Retrace recursion apart. The Atari on-policy examples,
-``a2c-atarisim-16`` (16 lanes, rollout 5, one step per iteration) and
+``a2c-atarisim-16`` (16 lanes, rollout 5, one step per iteration),
+``a3c-atarisim-16`` (``train_a3c.py --sim``: the same widths, the network's
+own ``x / 255`` and RMSprop behind a global-norm clip of 40) and
 ``ppo-atarisim-8`` (8 lanes, rollout 128, 16 batch-256 Adam steps per
-iteration), take the on-policy phases of A2C and PPO.
+iteration), take the on-policy phases of A2C, A3C and PPO.
 
 The Atari examples at their own settings (``experiments/atari_dqn_ale.py``,
 ``atari_c51.py``; 64 lanes, a 10^6-slot ring, 16 batch-32 updates per scan
@@ -113,6 +116,12 @@ and SlimeVolley Rainbow on CartPole) run the same way through their
 scripts' drivers: an off-policy shell's replay start cut to 2,048, then
 ``--steps`` batch steps profiled and ``--steps`` more timed; an on-policy
 shell over two updates, ``--steps`` batch steps profiled around the second.
+``dqn-actor-learner-ale-8`` (``train_dqn_batch_ale.py --actor-learner``:
+8 actor threads, the inference server, the poller and the learner over
+the 10^6-slot ring) runs from a thread of its own: its replay start cut to
+2,048, ``2 * --steps`` updates timed, then ``--steps`` under
+``torch.profiler`` (env-steps/s before the replay start and after it, updates/s, rows per forward, act round trips, poller add and
+learner update ms, kernels per update, the busy share).
 
 ``--bf16`` builds the configuration at ``compute_dtype=torch.bfloat16``
 (bf16 compute over float32 masters, as the examples' ``--bf16``); TRPO
@@ -143,7 +152,16 @@ from pfrl_tpu_torch.agents.ppo import PPOCore
 from pfrl_tpu_torch.agents.recurrent_ppo import RecurrentPPOCore
 from pfrl_tpu_torch.agents.recurrent_trpo import RecurrentTRPOCore
 from pfrl_tpu_torch.agents.trpo import TRPOCore
-from pfrl_tpu_torch.experiments import acer, atari_c51, atari_dqn_ale, atari_dqn_batch, cartpole_value, onpolicy, recurrent
+from pfrl_tpu_torch.experiments import (
+    acer,
+    atari_a3c,
+    atari_c51,
+    atari_dqn_ale,
+    atari_dqn_batch,
+    cartpole_value,
+    onpolicy,
+    recurrent,
+)
 from pfrl_tpu_torch.experiments.atari_pipeline import make_dqn_pipeline
 from pfrl_tpu_torch.experiments.atari_per_dqn import make_dqn_runner, make_per_dqn_runner
 from pfrl_tpu_torch.experiments.atari_rainbow import make_rainbow_runner
@@ -194,6 +212,7 @@ CONFIGS = {
     "rtrpo-delayedcue-16": _maker(recurrent.make_rtrpo_delayed_cue_runner, None),
     **{name: _maker(make, "max_episodes") for name, make in acer.RECIPES.items()},
     "a2c-atarisim-16": _maker(onpolicy.make_a2c_atarisim_runner, None),
+    "a3c-atarisim-16": _maker(atari_a3c.make_a3c_atarisim_runner, None),
     "ppo-atarisim-8": _maker(onpolicy.make_ppo_atarisim_runner, None),
     **{f"dqn-ale-{arch}-64": _maker(atari_dqn_ale.make_dqn_ale_runner, arch=arch, replay_start_size=2_048)
        for arch in atari_dqn_ale.ARCHS},
@@ -509,6 +528,8 @@ def profile_host_path(config: str, steps: int, compute_dtype=None) -> dict:
 
     from pfrl_tpu_torch.experiments.profile_host import _keywords, make_host_path, run_host_batch
 
+    if HOST_PATHS[config].actors:
+        return profile_actor_learner(config, steps, compute_dtype)
     onpolicy = "replay_start_size" not in _keywords(HOST_PATHS[config].make_agent)
     kw = {} if onpolicy else {"replay_start_size": HOST_REPLAY_START}
     agent, env, eval_env = make_host_path(config, compute_dtype=compute_dtype, **kw)
@@ -520,6 +541,23 @@ def profile_host_path(config: str, steps: int, compute_dtype=None) -> dict:
     with tempfile.TemporaryDirectory() as outdir:
         record = run_host_batch(agent, env, eval_env, total, total, HOST_PATHS[config].eval_n_episodes, outdir,
                                 profiled=profiled)
+    return {"config": config, "compute_dtype": str(compute_dtype), **record}
+
+
+def profile_actor_learner(config: str, steps: int, compute_dtype=None) -> dict:
+    """An actor-learner path of ``profile_host.HOST_PATHS`` on the card: its
+    replay start cut to 2,048, ``2 * --steps`` updates timed, then
+    ``--steps`` profiled; no evaluation (its interval is past the run's
+    end)."""
+    import tempfile
+
+    from pfrl_tpu_torch.experiments.profile_host import run_actor_learner_path
+
+    path = HOST_PATHS[config]
+    agent = path.make_agent(replay_start_size=HOST_REPLAY_START, compute_dtype=compute_dtype)
+    with tempfile.TemporaryDirectory() as outdir:
+        record = run_actor_learner_path(agent, path.make_env, path.steps, path.steps, path.eval_n_episodes, outdir,
+                                        actors=path.actors, n_updates=3 * steps, profiled=(2 * steps, steps))
     return {"config": config, "compute_dtype": str(compute_dtype), **record}
 
 

@@ -18,14 +18,19 @@ Tolerances: A2C parameters 1e-6 absolute, RMSprop's ``nu`` 1e-4 relative to
 each tensor's largest entry, losses 1e-5 relative. CG 1e-5 relative to the
 solution's largest entry (float32 dots over up to 50 terms, amplified by the
 condition number). TRPO: the policy's change 2e-3 relative to its largest
-entry, and the step's KL 1e-3 relative: the surrogate's gradient and the
-Fisher-vector products agree to 1e-7 (double backward here,
+entry, or 4x what 1 +- 2**-23 nudges of the port's own policy move it where
+that is more, and the step's KL 1e-3 relative: the surrogate's gradient and
+the Fisher-vector products agree to 1e-7 (double backward here,
 forward-over-reverse there), but ten unconverged float32 CG iterations
-amplify rounding, and each package's direction lies 1.6e-3 (relative to
-its largest entry) from a float64 CG on the same operator, 1.5e-3 from the
-other's. The value function 1e-6, its Adam moments 1e-4 relative; the
+amplify rounding by an amount that depends on the CPU's kernels: each
+package's direction lies 1.6e-3 (relative to its largest entry) from a
+float64 CG on the same operator, 1.5e-3 from the other's on one CPU, 2.6e-3
+with an entropy bonus on an AMD EPYC with avx512_bf16, where the nudges
+move it 2.3e-3 (ROADMAP C21). The value function 1e-6, its Adam moments 1e-4 relative; the
 rejected step's policy exact; counts and the accept flag exact.
 """
+
+import copy
 
 import jax
 import jax.numpy as jnp
@@ -197,6 +202,30 @@ def _assert_trpo_states(tstate, jstate, what):
     assert_adam(tstate.vf_opt_state, tstate.vf, jstate.vf_opt_state, f"{what} vf adam")
 
 
+def _flat_step(tstate, jstate_before, jstate_after):
+    """The JAX policy change, one array per parameter of the port's policy."""
+    before = convert.torch_arrays(tstate.policy, np_tree(jstate_before.policy_params))
+    after = convert.torch_arrays(tstate.policy, np_tree(jstate_after.policy_params))
+    return [after[name] - before[name] for name, _ in tstate.policy.named_parameters()]
+
+
+def _nudged_step_move(tcore, tstate, perms, rollout) -> float:
+    """How far 1 + 2**-23 and 1 - 2**-23 nudges of the port's own policy
+    move its step (the larger): float32 CG amplifies rounding (ROADMAP C21),
+    by an amount that depends on the CPU, so the parity bound is 4x this
+    where that exceeds 2e-3 of the step (C48's rule)."""
+    steps = []
+    for scale in (1.0, 1 + 2**-23, 1 - 2**-23):
+        state = copy.deepcopy(tstate)
+        with torch.no_grad():
+            for p in state.policy.parameters():
+                p.mul_(scale)
+        start = [p.detach().clone() for p in state.policy.parameters()]
+        tcore.update(state, GivenDraws(*perms), rollout)
+        steps.append([p.detach() - s for p, s in zip(state.policy.parameters(), start)])
+    return max(float((a - b).abs().max()) for nudged in steps[1:] for a, b in zip(steps[0], nudged))
+
+
 def _policy_step_difference(tstate, jstate_before, jstate_after) -> float:
     """The largest difference of the two policy changes over the largest
     entry of the JAX change."""
@@ -220,6 +249,7 @@ def test_trpo_update_with_an_accepted_step_matches_jax(entropy_coef, monkeypatch
     perms = permutations(1, 2, 64)
     jbefore = jstate
     jstate, jaux = jax_update(jcore, jstate, perms, jr)
+    nudge = _nudged_step_move(tcore, tstate, perms, tr)
     seen = _capture_line_search(tcore, monkeypatch)
     draws = GivenDraws(*perms)
     _, aux = tcore.update(tstate, draws, tr)
@@ -236,8 +266,11 @@ def test_trpo_update_with_an_accepted_step_matches_jax(entropy_coef, monkeypatch
     assert_metrics(aux, jaux, ("policy_loss", "value_loss", "entropy", "loss"))
     _assert_trpo_states(tstate, jstate, "trpo")
     step_diff = _policy_step_difference(tstate, jbefore, jstate)
-    print(f"trpo policy step: port vs JAX {step_diff:.2e} of the step's largest entry")
-    assert step_diff <= 2e-3
+    scale = max(float(np.abs(a).max()) for a in _flat_step(tstate, jbefore, jstate))
+    bound = max(2e-3, 4 * nudge / scale)
+    print(f"trpo policy step: port vs JAX {step_diff:.2e} of the step's largest entry; "
+          f"a 1 +- 2**-23 nudge moves it {nudge / scale:.2e}; bound {bound:.2e}")
+    assert 1e-8 < nudge and step_diff <= bound
     assert any(not torch.equal(a, b) for a, b in zip(before, tstate.policy.parameters()))
     assert all(p.grad is None for p in list(tstate.policy.parameters()) + list(tstate.vf.parameters()))
 

@@ -17,11 +17,13 @@ updates' permutations are handed to the jitted JAX update by value
 Tolerances (float32): losses, errors and metrics 1e-5 relative (floor
 1e-6); parameters and Adam moments within 1e-6 after one update and 3e-6
 after three (sequential Adam steps amplify rounding, ROADMAP C22); TRPO's
-policy within 8e-6 after one and three updates, over four times what scaling
-its weights by 1 + 2**-23 moves the port's own step (1.5e-6, measured:
-float32 CG amplifies the rounding of the Fisher-vector products, ROADMAP
-C21; :func:`test_trpo_tolerance_is_what_an_ulp_nudge_moves`; measured
-against JAX: 4.5e-7 and 5.6e-7) and its value function 2e-6. bf16 (JAX eager, ROADMAP C34): the first loss
+policy within 8e-6 after one and three updates, or four times what scaling
+its weights by 1 + 2**-23 moves the port's own step where that is more
+(measured on the machine that runs the test: 1.5e-6 on one CPU, 2.4e-6 on
+an AMD EPYC with avx512_bf16; float32 CG amplifies the rounding of the
+Fisher-vector products, ROADMAP C21;
+:func:`test_trpo_tolerance_is_what_an_ulp_nudge_moves`; measured against
+JAX: 4.2e-7 to 5.6e-7) and its value function 2e-6. bf16 (JAX eager, ROADMAP C34): the first loss
 within 1e-3 relative; each parameter tensor's change after one and three
 updates within 3% (L2, relative), as ``test_torch_bf16_cores.py`` holds the
 feed-forward cores (ROADMAP C37).
@@ -504,15 +506,16 @@ def test_rtrpo_update_matches_jax_through_the_double_backward(n):
         for key in ta:
             assert_close(ta[key].numpy(), ja[key], 1e-4, 1e-6, f"update {i} {key}")
         assert float(ta["step_accepted"]) == 1.0
-    assert_network(tstate.policy, jstate.policy_params, TRPO_POLICY_ATOL, "policy")
+    assert_network(tstate.policy, jstate.policy_params, max(TRPO_POLICY_ATOL, 4 * trpo_nudge_move()), "policy")
     assert_network(tstate.vf, jstate.vf_params, 2e-6 * n, "vf")
     assert tstate.n_updates == int(jstate.n_updates) == n
 
 
-def test_trpo_tolerance_is_what_an_ulp_nudge_moves():
-    """The float32 CG amplifies rounding (ROADMAP C21): scaling the policy's
-    weights by 1 + 2**-23 moves the port's own step, and the policy is held
-    to JAX's at four times that."""
+def trpo_nudge_move() -> float:
+    """How far scaling the policy's weights by 1 + 2**-23 moves the port's
+    own policy after one update. The float32 CG amplifies rounding (ROADMAP
+    C21) by an amount that depends on the CPU's kernels: 1.5e-6 on one CPU,
+    2.4e-6 on an AMD EPYC with avx512_bf16."""
     _, tcore, _, tstate = onpolicy_pair("trpo")
     nudged = copy.deepcopy(tstate)
     with torch.no_grad():
@@ -522,8 +525,20 @@ def test_trpo_tolerance_is_what_an_ulp_nudge_moves():
     a, b = copy.deepcopy(tstate), nudged
     tcore.update(a, PermutingTape(6), port_rollout(d, True))
     tcore.update(b, PermutingTape(6), port_rollout(d, True))
-    moved = max(float((p - q).detach().abs().max()) for p, q in zip(a.policy.parameters(), b.policy.parameters()))
-    assert 1e-8 < moved and 4 * moved <= TRPO_POLICY_ATOL, moved
+    return max(float((p - q).detach().abs().max()) for p, q in zip(a.policy.parameters(), b.policy.parameters()))
+
+
+def test_trpo_tolerance_is_what_an_ulp_nudge_moves():
+    """A 1 + 2**-23 nudge of the policy moves the port's own step, and the
+    port's policy after one update lies within four times that of JAX's
+    (C48's rule; the held bound is the larger of this and
+    ``TRPO_POLICY_ATOL``)."""
+    moved = trpo_nudge_move()
+    _, _, jstate, tstate, _, _ = run_onpolicy_updates("trpo", 1)
+    want = convert.torch_arrays(tstate.policy, np_tree(jstate.policy_params))
+    diff = max(float(np.abs(p.detach().numpy() - want[name]).max()) for name, p in tstate.policy.named_parameters())
+    print(f"rtrpo: port vs JAX {diff:.3e}, a nudge moves the port {moved:.3e}")
+    assert 1e-8 < moved and diff <= 4 * moved, (diff, moved)
 
 
 @pytest.mark.parametrize("kind", ["ppo", "trpo"])
