@@ -35,7 +35,7 @@ result, without them. Its phases, each raising on failure:
 7. drive SAC and TD3 at full width (32 lanes of MujocoSim, obs 17, action
    6, 256 x 256 networks, a 100,000-slot float32 ring that stores
    ``next_obs``, one batch-256 update per transition from 1,000 on): 31
-   scan steps of collection, then 52 with 32 updates each, then the
+   scan steps of collection, then 28 with 32 updates each, then the
    greedy evaluation loop (5 lanes, 1,000 steps, through the truncation at
    step 1,000); these paths launch no kernel;
 8. drive DDPG at full width (16 lanes of the time-limited,
@@ -46,7 +46,7 @@ result, without them. Its phases, each raising on failure:
 9. on-policy, through ``OnPolicyRunner.run_iterations``: small card-vs-CPU
    runs of PPO, A2C and TRPO (4 lanes, 3 iterations, the same draws and
    weights), then at full width PPO on MujocoSim as ``bench.py`` runs it (8
-   lanes, rollout 256, 320 batch-64 Adam steps per iteration, 10
+   lanes, rollout 256, 320 batch-64 Adam steps per iteration, 8
    iterations: every lane truncated at its steps 1,000 and 2,000), PPO and
    TRPO on the time-limited Pendulum (16 lanes, rollout 128, 10 iterations:
    six truncations per lane, then the evaluation loop, 10 lanes x 201
@@ -76,7 +76,7 @@ result, without them. Its phases, each raising on failure:
    its kernel launches counted), SAC on Pendulum at bf16
    (``run_sac_pendulum_bf16``: 160 scan steps through burn-in and replay
    start, then 10 lanes x 201 steps of evaluation) and PPO on MujocoSim at
-   bf16 (``bench_ppo``'s widths, 10 iterations);
+   bf16 (``bench_ppo``'s widths, 8 iterations);
 12. the recurrent family (``experiments/recurrent.py``): small card-vs-CPU
    runs of DRQN on PO-ABC and DelayedCue, recurrent IQN, DRQN-AtariSim
    (Nature CNN, LSTM 16, burn-in 2), recurrent PPO and TRPO, and
@@ -85,7 +85,7 @@ result, without them. Its phases, each raising on failure:
    width (``train_drqn_ale.py --sim``: 32 lanes of 84x84x1 frames, Nature
    CNN -> LSTM 512 -> 6, the 2,048 x 128 episodic buffer with the carries,
    about 5.9 GB on the card, its bytes printed; 8 batch-32 updates of
-   32-step windows per scan step) through replay start (cut to 4,160) and
+   32-step windows per scan step) through replay start (cut to 8,000) and
    the target sync at 10,000, printing env-steps/s, updates/s and the
    device's busy share over profiled scan steps, then 5 x 500 steps of
    evaluation; then the five ``tools/record_curves.py`` recipes at their
@@ -121,13 +121,13 @@ result, without them. Its phases, each raising on failure:
    ``--arch nature``, ``nips`` and ``dueling``, with ``--prioritized``
    (the prefix-sample kernel at C = 2**20, B = 32, once per update) and
    ``train_categorical_dqn_ale.py --sim``: 64 lanes, the 10**6-slot ring
-   (28.3 GB, its bytes printed), through the replay start of 50,000 uncut
-   (782 scan steps), 16 timed and 4 profiled scan steps of 16 updates, the
+   (28.3 GB, its bytes printed), through the replay start (cut to 20,000:
+   313 scan steps), 8 timed and 4 profiled scan steps of 16 updates, the
    evaluation loop; each path freed before the next. Last the pipeline
    (``train_dqn_pipeline_ale.py --sim``: 3 spawned actor processes x 96
    lanes of ``SyntheticALE``, the 999,936-plane ring, 7.06 GB, bursts of
-   64) through its replay start of 50,000, then 20 s timed and 5 s
-   profiled: env-steps/s, updates/s, the act round trip (median and p90,
+   64) through its replay start of 50,000, then 10 s timed and 5 s
+   profiled, then on to the burst of the first target sync: env-steps/s, updates/s, the act round trip (median and p90,
    apart by whether a burst was in flight), burst and commit times, target
    syncs (at least 1), the workers' start-up, the busy share; then a clean
    stop;
@@ -143,8 +143,8 @@ result, without them. Its phases, each raising on failure:
    (``train_dqn_batch_ale.py``'s ``run_batch`` at its settings,
    ``experiments/atari_dqn_batch.py``: the ``DQN`` shell over the
    10**6-slot ring, 28.3 GB, and 8 + 8 spawned ``SyntheticALE`` workers)
-   one batch step at a time through its replay start of 50,000 uncut to
-   t = 52,032, then one evaluation of 10 episodes: env-steps/s
+   one batch step at a time through its replay start (cut to 10,000) to
+   t = 12,032, then one evaluation of 10 episodes: env-steps/s
    before the replay start and after it (past the 32 profiled batch steps
    that follow it), updates/s, the median ``batch_act``,
    env round trip, ``batch_observe`` and update ms, the workers' start-up,
@@ -162,10 +162,10 @@ result, without them. Its phases, each raising on failure:
    ``profile_host.HOST_PATHS`` at their scripts' widths and settings, each
    through its ``make_*_agent``, ``HostTorchEnv`` (the env on the CPU) and
    its driver, then one evaluation: SAC, TD3 and DDPG over ``MujocoSim(17, 6)`` through the
-   replay start of 10,000 to t = 11,000, TD3 also over 4 lanes with
-   ``--update-burst``; PPO to t = 6,144 (three updates) and TRPO to 10,000
-   (two) over ``MujocoSim(11, 3)``; SlimeVolley Rainbow on its CartPole
-   backend to t = 2,600 through the target sync at 2,000 (the target equal
+   replay start and burn-in (cut to 2,000) to t = 2,500, TD3 also over 4 lanes with
+   ``--update-burst``; PPO to t = 4,128 (two updates) and TRPO to 5,024
+   (one) over ``MujocoSim(11, 3)``; SlimeVolley Rainbow on its CartPole
+   backend to t = 2,100 through the target sync at 2,000 (the target equal
    to the online network), its 10**6-transition ring sampled by the
    prefix-sample kernel at C = 2**20 once per update: env-steps/s before
    and after the learning start, updates/s, the median act, env step,
@@ -185,11 +185,11 @@ result, without them. Its phases, each raising on failure:
    at its settings, ``experiments/atari_dqn_batch.run_actor_learner``: 8
    actor threads of one ``SyntheticALE`` lane through one batched
    inference server, the poller and the learner over the 10**6-slot ring,
-   28.3 GB, a publication every 8 updates) through its replay start of
-   50,000 uncut to the learner's 640th update, with one ``AsyncEvaluator``
-   evaluation of 10 episodes (``eval_interval`` cut to 50,000):
+   28.3 GB, a publication every 8 updates) through its replay start (cut
+   to 20,000) to the learner's 384th update, with one ``AsyncEvaluator``
+   evaluation of 10 episodes (``eval_interval`` cut to 25,000):
    env-steps/s before the replay start and after it (to the learner's
-   576th update), updates/s, rows per forward, the act round trip (median, p90; apart by
+   320th update), updates/s, rows per forward, the act round trip (median, p90; apart by
    whether an update ran during it), the poller's add and the learner's
    update ms, publications and target syncs, kernels per update and the
    busy share over the last 64 updates (profiled from the learner's
@@ -197,6 +197,37 @@ result, without them. Its phases, each raising on failure:
    ``a3c-atarisim-16`` (``train_a3c.py --sim``: 16 AtariSim lanes, t_max
    5, 40 timed iterations, kernels and busy share over one, evaluation
    5 x 500).
+18. persistence and checkpoints, with no JAX: (1) per-dqn-ale-64's train
+   state at the end of phase 14's run ``--save-to``'d (``train_state.pt``,
+   its bytes and seconds printed), then ``train_dqn_ale.py --sim
+   --prioritized --load --demo`` through ``atari_dqn_ale.run_sim`` on a
+   fresh full-width runner: the loaded state equal to the saved one to the
+   bit (moments and ``n_updates`` too), the demo's 5 returns equal to an
+   evaluation of the state in memory on the same draws; (2) a resume
+   through the kernel: the same recipe with the ring cut to 131,072 slots
+   (C = 2**17) and the replay start to 4,096, 63 scan steps through it,
+   8 with updates, ``save_runner_snapshot`` (a 3.7 GB file), 8 more (run
+   A); a fresh runner loads the snapshot (equal to the saved state to the
+   bit: ring, cursor, trees, generator state, ``t``) and runs the same 8
+   (run B): the first resumed step's kernel draws the same slots in A and
+   B, B is held to A to the bit where two uninterrupted runs repeat to the
+   bit on the card and within their spread where they do not, and A and B
+   each launch the kernel 8 x 16 = 128 times; (3) ``PersistentReplayBuffer``
+   at the cut size: one snapshot through ``snapshot_interval``, restored
+   into a new buffer, equal to the bit; (4) the 26 ``zoo/`` checkpoints
+   read by the port's msgpack reader and converted onto the card: greedy
+   or mean actions on 256 seeded observations equal the CPU's away from
+   ties (discrete: where the CPU's best two scores lie more than 1e-3
+   apart, or 2**-5 of the best for the bf16 entries; continuous: within
+   the larger of the zoo tests' 1e-5 (1e-6 for ACER) and 4x what ulp
+   nudges of the CPU's weights move its actions, 2**-5 for bf16);
+   ``--demo`` of ``dqn/cartpole``,
+   ``sac/pendulum``, ``ppo/hopper_real`` and ``drqn/po_abc`` on the card
+   and the CPU from the same start states, held as the zoo tests hold them
+   (CartPole and PO-ABC lane by lane, the others' means within 0.01);
+   (5) the pipeline: saved at the end of phase 14's run, loaded into a
+   fresh pipeline, whose act servers' greedy actions on 256 frames equal
+   the saved pipeline's.
 
 The kernels' launch counts are set to 0 just before each full-width path
 and read just after it; the kernels' JSON line gives their sum over the
@@ -207,9 +238,12 @@ kernels' JSON line, the card's name and power limit, and
 """
 
 import copy
+import dataclasses
 import functools
 import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -237,12 +271,12 @@ RAINBOW_STEPS_WARM = 4  # the first scan steps with updates, before the timed on
 UNIFORM_STEPS_TIMED = 32
 
 MUJOCO_STEPS_WARM = 4      # the first scan steps with updates (from t = 1,024), before the timed ones
-MUJOCO_STEPS_TIMED = 48    # 1,536 updates (96 until PR 11; cut for the time budget)
+MUJOCO_STEPS_TIMED = 24    # 768 updates (cut from 96 for the script's time limit)
 MUJOCO_EVAL = (5, 1_000)   # lanes, steps: the truncation at step 1,000 is crossed
 DDPG_STEPS_WARM = 2
 DDPG_STEPS = 405           # every lane is truncated at its steps 200 and 400
 DDPG_EVAL = (10, 201)
-ONPOLICY_ITERATIONS = {"ppo": 10, "ppo-pendulum": 10, "trpo": 10, "a2c": 200}
+ONPOLICY_ITERATIONS = {"ppo": 8, "ppo-pendulum": 10, "trpo": 10, "a2c": 200}  # ppo: cut from 10 for the time limit
 ONPOLICY_EVAL = {"ppo-pendulum": (10, 201), "trpo": (10, 201), "a2c": (10, 501)}
 CARTPOLE_STEPS = (32, 64)           # warm, timed: t = 1,024 (first updates), then 3,072
 CARTPOLE_EXAMPLE_STEPS = (8, 16)    # 128 lanes: t = 1,024 (first updates), then 3,072
@@ -251,20 +285,21 @@ BF16_ULP = 2.0 ** -8                # bf16 keeps 8 significant bits
 BF16_LOSS_ULPS = 8                  # small bf16 runs, card vs CPU: losses and outputs
 BF16_CHANGE_ULPS = 16               # ... each network's change over the run (L2)
 BF16_SENSITIVITY = 4                # ... or this many times what a 1-ulp nudge of the weights moves on the CPU
-BENCH_CHUNK, BENCH_REPS, BENCH_ROUNDS = 16, 2, 3  # bench.py: 200, 2, 3
+BENCH_CHUNK, BENCH_REPS, BENCH_ROUNDS = 16, 2, 2  # bench.py: 200, 2, 3
 BF16_PER_DQN_STEPS_TIMED = 32       # after FULL_STEPS_WARM
 SAC_PENDULUM_STEPS = (64, 96)       # warm (t = 1,024: burn-in done, first updates), timed
 FP32_ULP = 2.0 ** -23               # float32 keeps 24 significant bits
 FP32_LOSS_ULPS = 128                # small recurrent runs, card vs CPU: each metric (1.5e-5 of its largest)
 FP32_CHANGE_ULPS = 128              # ... each network's change over the run (L2); the largest difference read
                                     # so far is 38.22 ulps (drqn-delayedcue's carry; a 1-ulp nudge moves it 7.00)
-# DRQN-AtariSim at full width: the replay start is cut from 10,000 to
-# recurrent.DRQN_ATARISIM_CUT_REPLAY_START, 4,160 transitions (130 scan steps
-# of 32 lanes), just past the first rows sealed by filling at 128 steps
-# (AtariSim's episodes average 1,000 steps); the timed chunk runs to
-# t = 10,016, the scan step of the target sync at 10,000, where the target
-# must equal the online net.
-DRQN_ATARI_STEPS = (130, 183)       # warm (through replay start), timed
+# DRQN-AtariSim at full width: the replay start is cut from 10,000 to 8,000
+# transitions (250 scan steps of 32 lanes, so that fewer steps update
+# before the sync, for the script's time limit), past the first rows
+# sealed by filling at 128 steps; the timed chunk runs to t = 10,016, the
+# scan step of the target sync at 10,000, where the target must equal the
+# online net.
+DRQN_ATARI_REPLAY_START = 8_000
+DRQN_ATARI_STEPS = (250, 63)        # warm (through replay start), timed
 DRQN_ATARI_PROFILED = 4             # scan steps under torch.profiler: the device's busy time
 RECURRENT_FULL_STEPS = {"drqn-po-abc-16": (10, 54), "drqn-delayedcue-16": (18, 46), "riqn-delayedcue-16": (18, 46),
                         "rppo-delayedcue-16": (1, 9), "rtrpo-delayedcue-16": (1, 9)}  # warm, timed
@@ -275,11 +310,14 @@ ACER_ATARI_STEPS = (625, 100)       # warm (through replay start), timed
 ACER_ATARI_PROFILED = 4             # scan steps under torch.profiler: the device's busy time
 ACER_NUDGES = (1.0 + 2.0**-23, 1.0 - 2.0**-23)  # the small ACER runs' tolerance: the larger of both nudges
 ATARI_ONPOLICY_ITERATIONS = {"a2c-atarisim-16": 40, "ppo-atarisim-8": 4}  # timed, after one warm iteration
-# The Atari examples at their own settings: 782 scan steps of 64 lanes reach
-# the replay start of 50,000 uncut (t = 50,048, the first 16 updates on the
-# last of them), then timed and profiled scan steps of 16 updates each.
-EXAMPLE_ATARI_STEPS = (782, 16, 4)  # warm, timed (32 until PR 11), profiled
-PIPELINE_SECONDS = (20.0, 5.0)      # the pipeline after its replay start: timed (40 s until PR 11), profiled
+# The Atari examples at their own settings but the replay start (50,000, cut
+# to 20,000 for the script's time limit): 313 scan steps of 64 lanes reach it
+# (t = 20,032, the first 16 updates on the last of them), then timed and
+# profiled scan steps of 16 updates each.
+EXAMPLE_REPLAY_START = 20_000       # cut from the examples' 50,000 for the time limit
+EXAMPLE_ATARI_STEPS = (313, 8, 4)   # warm, timed, profiled
+PIPELINE_SECONDS = (10.0, 5.0)      # the pipeline after its replay start: timed, profiled
+PIPELINE_MIN_UPDATES = 2_560        # then on to the burst holding the first target sync (the 2,500th update)
 
 
 def card_line() -> str:
@@ -994,7 +1032,7 @@ def _evaluate(runner, train, draws, lanes: int, steps: int):
 
 def run_full_mujoco(card: str, name: str) -> dict:
     """SAC or TD3 on MujocoSim with ``bench.py``'s every width and cadence,
-    cut to 83 scan steps: 31 collecting, then 52 with 32 updates each."""
+    cut to 59 scan steps: 31 collecting, then 28 with 32 updates each."""
     import copy
 
     from pfrl_tpu_torch.experiments import mujoco_actor_critic as mac
@@ -1294,9 +1332,10 @@ def run_full_onpolicy(card: str, name: str, compute_dtype=None) -> dict:
     result = {"compute_dtype": str(compute_dtype), "iterations": iterations, "t": state.t,
               "n_updates": train.n_updates, "kernel_launches": launches}
     if name in ("ppo", "ppo-pendulum"):
-        checks["Adam's count == n_updates == 3,200"] = train.opt_state.count == train.n_updates == 3_200
+        checks["Adam's count == n_updates == 320 per iteration"] = (
+            train.opt_state.count == train.n_updates == 320 * iterations)
         checks["log_std moved"] = abs(float(head.log_std.detach()) - log_std0) > 1e-4
-    if name == "ppo":  # MujocoSim truncates at 1,000 steps; 2,560 steps per lane
+    if name == "ppo":  # MujocoSim truncates at 1,000 steps; 2,048 steps per lane
         checks["every lane truncated at its steps 1,000 and 2,000, never terminated"] = (
             finished == train_truncations == 2 * lanes and train_terminations == 0)
     if name in ("ppo-pendulum", "trpo"):  # 1,280 steps per lane: 200, 400, ..., 1,200
@@ -2105,17 +2144,17 @@ def run_full_drqn_atarisim(card: str) -> dict:
     84x84x1 frames, Nature CNN -> LSTM 512 -> 6, the 2,048 x 128 episodic
     buffer with the carries stored, 8 batch-32 updates per scan step over
     windows of 32. The replay start is cut to
-    ``DRQN_ATARISIM_CUT_REPLAY_START``; the timed chunk runs through the
+    ``DRQN_ATARI_REPLAY_START``; the timed chunk runs through the
     target sync at 10,000 transitions; then ``DRQN_ATARI_PROFILED`` scan
     steps under ``torch.profiler``, whose busy time is taken over those same
     steps' wall time (the profiler slows the host, so this share is lower
     than the unprofiled one), and the evaluation loop (5 lanes x 500
     steps)."""
     from pfrl_tpu_torch.experiments.profile_slice import _profiled
-    from pfrl_tpu_torch.experiments.recurrent import DRQN_ATARISIM_CUT_REPLAY_START, make_drqn_atarisim_runner
+    from pfrl_tpu_torch.experiments.recurrent import make_drqn_atarisim_runner
     from pfrl_tpu_torch.ops.prefix_sample import prefix_sample
 
-    runner, evaluator = make_drqn_atarisim_runner(replay_start_size=DRQN_ATARISIM_CUT_REPLAY_START)
+    runner, evaluator = make_drqn_atarisim_runner(replay_start_size=DRQN_ATARI_REPLAY_START)
     cfg, buf = runner.config, runner.buffer
     state = runner.init(0)
     torch.cuda.synchronize()
@@ -2754,12 +2793,13 @@ def _example_configs() -> dict:
     full width on the card."""
     from pfrl_tpu_torch.experiments import atari_c51, atari_dqn_ale
 
+    cut = {"replay_start_size": EXAMPLE_REPLAY_START}
     return {
-        "dqn-ale-nature-64": lambda: atari_dqn_ale.make_dqn_ale_runner("nature"),
-        "dqn-ale-nips-64": lambda: atari_dqn_ale.make_dqn_ale_runner("nips"),
-        "dqn-ale-dueling-64": lambda: atari_dqn_ale.make_dqn_ale_runner("dueling"),
-        "per-dqn-ale-64": lambda: atari_dqn_ale.make_dqn_ale_runner("nature", prioritized=True),
-        "c51-atarisim-64": lambda: atari_c51.make_c51_atarisim_runner(),
+        "dqn-ale-nature-64": lambda: atari_dqn_ale.make_dqn_ale_runner("nature", **cut),
+        "dqn-ale-nips-64": lambda: atari_dqn_ale.make_dqn_ale_runner("nips", **cut),
+        "dqn-ale-dueling-64": lambda: atari_dqn_ale.make_dqn_ale_runner("dueling", **cut),
+        "per-dqn-ale-64": lambda: atari_dqn_ale.make_dqn_ale_runner("nature", prioritized=True, **cut),
+        "c51-atarisim-64": lambda: atari_c51.make_c51_atarisim_runner(**cut),
     }
 
 
@@ -2776,8 +2816,8 @@ def _ring_bytes(buffer, replay) -> dict:
 def run_full_example_atari(card: str, name: str) -> dict:
     """``train_dqn_ale.py --sim`` (``--arch nature``, ``nips``, ``dueling``;
     ``--prioritized``) or ``train_categorical_dqn_ale.py --sim`` at the
-    example's own settings on the card: 64 lanes, the 10^6-slot ring, replay
-    start 50,000 uncut: ``EXAMPLE_ATARI_STEPS`` scan steps through it (the
+    example's own settings on the card: 64 lanes, the 10^6-slot ring, the
+    replay start cut to ``EXAMPLE_REPLAY_START``: ``EXAMPLE_ATARI_STEPS`` scan steps through it (the
     first 16 updates on the last), timed scan steps of 16 updates each,
     profiled ones (kernels per scan step, the busy share of their own wall
     time), then the evaluation loop (5 x 500). The prioritized path launches
@@ -2845,13 +2885,15 @@ def run_full_example_atari(card: str, name: str) -> dict:
     }
     print(f"{name}: env-steps/s {result['env_steps_per_s']:.1f} updates/s {result['updates_per_s']:.1f} over "
           f"{timed_steps} scan steps with 16 updates each ({scan_step_ms:.2f} ms each); through replay start "
-          f"(50,000, uncut) {result['acting_env_steps_per_s']:.1f} env-steps/s over {warm_steps} scan steps; over "
+          f"({cfg.replay_start_size:,}, cut) {result['acting_env_steps_per_s']:.1f} env-steps/s over {warm_steps} scan steps; over "
           f"{profiled_steps} profiled scan steps of {result['profiled_scan_step_ms']:.2f} ms each, device busy "
           f"{result['device_busy_ms_per_step']:.2f} ms per scan step ({result['device_busy_share'] * 100:.1f}%), "
           f"{result['device_launches_per_step']:.1f} kernels per scan step; {launches} prefix-sample launches"
           f"{' at C = 2^20, B = 32' if prioritized else ''}; evaluation {eval_s:.2f} s; last loss "
           f"{result['last_loss']:.5f} (fp32, no TF32) on {card}")
     _raise_on_failed(name, checks)
+    if name == "per-dqn-ale-64":
+        _KEPT[name] = train  # phase 18 saves and reloads it: no second warm-up
     del runner, evaluator, state, train, warm, timed, loss
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -2872,7 +2914,7 @@ def run_full_pipeline(card: str) -> dict:
 
     pipeline = make_dqn_pipeline()
     prefix_sample.launches = 0
-    record = run_pipeline(pipeline, *PIPELINE_SECONDS)
+    record = run_pipeline(pipeline, *PIPELINE_SECONDS, min_updates=PIPELINE_MIN_UPDATES)
     launches = prefix_sample.launches
     timings, stats = record["timings"], record["statistics"]
     ring_bytes = pipeline.ring.nbytes
@@ -2904,6 +2946,11 @@ def run_full_pipeline(card: str) -> dict:
           f"{pipeline.optim_t} updates, loss {stats['average_loss']:.5f}; {launches} prefix-sample launches "
           f"(fp32, no TF32) on {card}")
     _raise_on_failed("dqn-pipeline-288", checks)
+    # Phase 18 loads this checkpoint into a fresh pipeline.
+    frames = np.random.RandomState(18).randint(0, 256, (256, 84, 84, 4)).astype(np.uint8)
+    checkpoint_dir = _snapshot_dir("pipeline")
+    pipeline.save(checkpoint_dir)
+    _KEPT["dqn-pipeline-288"] = (checkpoint_dir, frames, pipeline.greedy_actions(frames), pipeline.train_state.n_updates)
     del pipeline
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -2912,8 +2959,9 @@ def run_full_pipeline(card: str) -> dict:
 
 # -------------------------------------------------------------------- phase 15
 HOST_SMALL_DIR = OUT_DIR / "host_small"
-HOST_BATCH_STEPS = 52_032          # dqn-batch-ale-8: past the replay start of 50,000 uncut (60,032 until PR 11)
-HOST_BATCH_PROFILED = (50_048, 32)  # from t, batch steps under torch.profiler
+HOST_BATCH_REPLAY_START = 10_000   # dqn-batch-ale-8's replay start, cut from 50,000 for the time limit
+HOST_BATCH_STEPS = 12_032          # past it and the target sync at 10,000
+HOST_BATCH_PROFILED = (10_048, 32)  # from t, batch steps under torch.profiler
 
 
 def _small_host_configs() -> dict:
@@ -2972,16 +3020,17 @@ def run_full_host_batch(card: str) -> dict:
     """``dqn-batch-ale-8`` on the card: ``train_dqn_batch_ale.py``'s
     ``run_batch`` at the example's settings (``experiments/atari_dqn_batch.py``:
     the ``DQN`` shell, the 10^6-slot ring, 8 + 8 spawned workers of
-    ``SyntheticALE`` through ``wrap_deepmind``) through its replay start of
-    50,000 uncut to t = 52,032, one batch step at a time
-    (``profile_host.run_host_batch``), then one evaluation of 10 episodes.
-    The run is cut short of the example's 5 * 10^7 steps and nothing else.
+    ``SyntheticALE`` through ``wrap_deepmind``) through its replay start
+    (``HOST_BATCH_REPLAY_START``, cut from 50,000) to ``HOST_BATCH_STEPS``,
+    one batch step at a time (``profile_host.run_host_batch``), then one
+    evaluation of 10 episodes. The run's length and its replay start are
+    its cuts.
     The ring is freed before the phase ends."""
     from pfrl_tpu_torch.experiments.atari_dqn_batch import make_dqn_batch_agent, make_vector_envs
     from pfrl_tpu_torch.experiments.profile_host import run_host_batch
     from pfrl_tpu_torch.ops.prefix_sample import prefix_sample
 
-    agent = make_dqn_batch_agent()
+    agent = make_dqn_batch_agent(replay_start_size=HOST_BATCH_REPLAY_START)
     env, eval_env = make_vector_envs(8, 0)
     prefix_sample.launches = 0
     try:
@@ -3012,7 +3061,7 @@ def run_full_host_batch(card: str) -> dict:
     after = "ms_per_batch_step_after_replay_start"
     print(f"dqn-batch-ale-8: 8 + 8 spawned workers up in {record['worker_startup_s']['train']:.2f} + "
           f"{record['worker_startup_s']['eval']:.2f} s; ring {record['ring_bytes'] / 1e9:.3f} GB; env-steps/s "
-          f"{record['env_steps_per_s_before_replay_start']:.1f} before the replay start (50,000, uncut), "
+          f"{record['env_steps_per_s_before_replay_start']:.1f} before the replay start ({agent.replay_start_size:,}, cut), "
           f"{record['env_steps_per_s_after_replay_start']:.1f} after it (from t = {record['learning_from_t']:,}, past "
           f"the profiled window), updates/s "
           f"{record['updates_per_s_after_replay_start']:.1f}; median batch_act {med('batch_act'):.3f} ms, env round "
@@ -3288,6 +3337,14 @@ def check_small_shell(name: str, make_agent, make_env, drive, obs_size: int, act
 # on-policy paths, around their second update (PPO at 4,096, TRPO at 5,000
 # is its first: the run ends on the second at 10,000).
 HOST_PATH_PROFILED = {"ppo-hopper-host-1": (4_080, 32), "trpo-hopper-host-1": (4_984, 32)}
+# Cut for the script's time limit (HOST_PATHS' own: the replay start and burn-in of 10,000, t = 11,000,
+# 2,600, 6,144 and 10,000): the actor-critic paths learn from 2,000 to 2,500 (501 updates, the truncations at
+# steps 1,000 and 2,000 crossed), Rainbow runs to 2,100 (501 updates, its target sync at 2,000 crossed), PPO to
+# 4,128 (two updates) and TRPO to 5,024 (one), each past its profiled window.
+HOST_PATH_REPLAY_START = {name: 2_000 for name in ("sac-halfcheetah-host-1", "td3-halfcheetah-host-1",
+                                                   "ddpg-halfcheetah-host-1", "td3-halfcheetah-host-4-burst")}
+HOST_PATH_STEPS = {**{name: 2_500 for name in HOST_PATH_REPLAY_START}, "rainbow-slimevolley-cartpole-1": 2_100,
+                   "ppo-hopper-host-1": 4_128, "trpo-hopper-host-1": 5_024}
 
 
 def run_full_host_path(card: str, name: str) -> dict:
@@ -3303,7 +3360,9 @@ def run_full_host_path(card: str, name: str) -> dict:
     from pfrl_tpu_torch.ops.prefix_sample import prefix_sample
 
     path = HOST_PATHS[name]
-    agent, env, eval_env = make_host_path(name)
+    steps = HOST_PATH_STEPS.get(name, path.steps)
+    cut = {"replay_start_size": HOST_PATH_REPLAY_START[name]} if name in HOST_PATH_REPLAY_START else {}
+    agent, env, eval_env = make_host_path(name, **cut)
     start = learning_start(agent)
     synced_equal = []
     sync_target = getattr(agent.core, "sync_target", None)
@@ -3319,7 +3378,7 @@ def run_full_host_path(card: str, name: str) -> dict:
         agent.core.sync_target = checked_sync
     prefix_sample.launches = 0
     with tempfile.TemporaryDirectory() as outdir:  # the saved agents
-        record = run_host_batch(agent, env, eval_env, path.steps, path.steps, path.eval_n_episodes, outdir,
+        record = run_host_batch(agent, env, eval_env, steps, steps, path.eval_n_episodes, outdir,
                                 profiled=HOST_PATH_PROFILED.get(name, (start, 32)))
     torch.cuda.synchronize()
     launches = prefix_sample.launches
@@ -3328,13 +3387,13 @@ def run_full_host_path(card: str, name: str) -> dict:
     onpolicy = not hasattr(agent, "replay_start_size")
     lanes = path.lanes
     if onpolicy:
-        expected_updates = path.steps // agent.update_interval
+        expected_updates = steps // agent.update_interval
     else:
-        expected_updates = (path.steps - (start - lanes)) * agent.n_times_update // agent.update_interval
+        expected_updates = (steps - (start - lanes)) * agent.n_times_update // agent.update_interval
     prioritized = hasattr(agent.buffer, "tree_capacity") if not onpolicy else False
     stats, tm = record["statistics"], record["timings"]
     checks = {
-        "t and the updates as the shell's gating has them": record["t"] == path.steps
+        "t and the updates as the shell's gating has them": record["t"] == steps
         and record["n_updates"] == expected_updates,
         "statistics finite": all(math.isfinite(float(v)) for v in stats.values()),
         "one evaluation, finite": len(record["eval"]) == 1 and math.isfinite(record["eval"][0]["mean"]),
@@ -3372,8 +3431,10 @@ def run_full_host_path(card: str, name: str) -> dict:
 # -------------------------------------------------------------------- phase 17
 AL_SMALL_TRANSITIONS = 160  # the one actor's transitions, drained by the poller before the learner runs
 AL_SMALL_UPDATES = 31
-AL_FULL_EVAL_INTERVAL = 50_000  # cut from the example's 10^5: one evaluation of 10 episodes in the run
-AL_FULL_PROFILED = (576, 64)    # the learner's last 64 updates under torch.profiler, after the timed ones
+AL_FULL_REPLAY_START = 20_000   # cut from the example's 50,000 for the time limit
+AL_FULL_EVAL_INTERVAL = 25_000  # cut from the example's 10^5: one evaluation of 10 episodes
+AL_FULL_UPDATES = 384           # the learner's updates (HOST_PATHS' 640, cut for the time limit)
+AL_FULL_PROFILED = (320, 64)    # the learner's last 64 updates under torch.profiler, after the timed ones
 A3C_ITERATIONS = 40             # a3c-atarisim-16: timed, after one warm iteration
 
 
@@ -3505,20 +3566,21 @@ def run_full_actor_learner(card: str) -> dict:
     (``atari_dqn_batch.run_actor_learner``: the ``DQN`` shell over the
     10^6-slot ring, 8 actor threads of one ``SyntheticALE`` lane, the
     inference server, the poller and the learner, a publication every 8
-    updates) through the replay start of 50,000 uncut, until the learner's
-    640th update (``profile_host.HOST_PATHS``), with one ``AsyncEvaluator``
-    evaluation of 10 episodes (``eval_interval`` cut to 50,000). The run's
-    length and the evaluation interval are its cuts. The ring is freed
+    updates) through the replay start (``AL_FULL_REPLAY_START``, cut from
+    50,000), until the learner's ``AL_FULL_UPDATES``-th update, with one
+    ``AsyncEvaluator`` evaluation of 10 episodes (``eval_interval`` cut to
+    ``AL_FULL_EVAL_INTERVAL``). The run's length, its replay start and the
+    evaluation interval are its cuts. The ring is freed
     before the phase ends."""
     from pfrl_tpu_torch.experiments.profile_host import HOST_PATHS, run_actor_learner_path
     from pfrl_tpu_torch.ops.prefix_sample import prefix_sample
 
     path = HOST_PATHS["dqn-actor-learner-ale-8"]
-    agent = path.make_agent()
+    agent = path.make_agent(replay_start_size=AL_FULL_REPLAY_START)
     prefix_sample.launches = 0
     with tempfile.TemporaryDirectory() as outdir:  # the saved agents: 27 MB each
         record = run_actor_learner_path(agent, path.make_env, path.steps, AL_FULL_EVAL_INTERVAL,
-                                        path.eval_n_episodes, outdir, actors=path.actors, n_updates=path.n_updates,
+                                        path.eval_n_episodes, outdir, actors=path.actors, n_updates=AL_FULL_UPDATES,
                                         profiled=AL_FULL_PROFILED)
     torch.cuda.synchronize()
     launches = prefix_sample.launches
@@ -3530,11 +3592,11 @@ def run_full_actor_learner(card: str) -> dict:
     updates_after = (record["learning_to_update"] or 0) - (record["learning_from_update"] or 0)
     checks = {
         "the 10^6-slot ring, 28.288 GB of frames": record["ring_slots"] == 10**6 and record["ring_bytes"] > 28.28e9,
-        "the learner's 640 updates, past the replay start": record["n_updates"] == path.n_updates
+        "the learner's 384 updates, past the replay start": record["n_updates"] == AL_FULL_UPDATES
         and record["t"] >= agent.replay_start_size,
-        "at least 500 timed updates after the replay start": updates_after >= 500,
+        "at least 250 timed updates after the replay start": updates_after >= 250,
         "a sane profiled window": prof.get("kernels_per_update") is not None and prof["kernels_per_update"] > 100,
-        "a publication every 8 updates": record["publications"] == path.n_updates // 8,
+        "a publication every 8 updates": record["publications"] == AL_FULL_UPDATES // 8,
         "loss finite": math.isfinite(stats["average_loss"]) and math.isfinite(stats["average_q"]),
         "one evaluation of 10 episodes, finite": math.isfinite(record["eval_mean"]),
         "no prefix-sample launch": launches == 0,
@@ -3545,7 +3607,7 @@ def run_full_actor_learner(card: str) -> dict:
     trip = "act round trip (all)"
     print(f"dqn-actor-learner-ale-8: 8 actor threads; ring {record['ring_bytes'] / 1e9:.3f} GB; "
           f"{record['t']:,} transitions received; env-steps/s {record['env_steps_per_s_before_replay_start']:.1f} "
-          f"before the replay start (50,000, uncut), {record['env_steps_per_s_after_replay_start'] or float('nan'):.1f}"
+          f"before the replay start ({agent.replay_start_size:,}, cut), {record['env_steps_per_s_after_replay_start'] or float('nan'):.1f}"
           f" after it (updates {record['learning_from_update']} to {record['learning_to_update']}, before the "
           f"profiled window), updates/s "
           f"{record['updates_per_s_after_replay_start'] or float('nan'):.1f}; {record['rows_per_forward']:.2f} rows "
@@ -3567,6 +3629,392 @@ def run_full_actor_learner(card: str) -> dict:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return record
+
+
+# -------------------------------------------------------------------- phase 18
+SNAPSHOT_ROOT = HERE / "pfrl_tpu_torch" / "_build" / "snapshots"  # git-ignored, inside the checkout
+RESUME_CAPACITY = 131_072  # the 10^6-slot ring cut to C = 2^17: a 3.7 GB snapshot, not 28.3 GB
+RESUME_REPLAY_START = 4_096  # cut from 50,000
+RESUME_STEPS = (63, 8, 8)  # scan steps: warm (no update), with updates before the save, after it (A and B)
+ZOO_OBS = 256
+_KEPT = {}  # what phase 14 hands to phase 18
+
+
+def _snapshot_dir(name: str) -> str:
+    path = SNAPSHOT_ROOT / name
+    shutil.rmtree(path, ignore_errors=True)
+    path.mkdir(parents=True)
+    return str(path)
+
+
+def _plain(state) -> dict:
+    """Every leaf of ``to_saved(state)`` by its path, tensors cloned."""
+    from pfrl_tpu_torch.agent import to_saved
+
+    out = {}
+
+    def walk(x, path):
+        if isinstance(x, dict):
+            for k, v in x.items():
+                walk(v, f"{path}/{k}")
+        elif isinstance(x, (list, tuple)):
+            for i, v in enumerate(x):
+                walk(v, f"{path}[{i}]")
+        else:
+            out[path] = x.detach().clone() if isinstance(x, torch.Tensor) else x
+
+    walk(to_saved(state), "state")
+    return out
+
+
+def _compare(a: dict, b: dict) -> dict:
+    """Leaves of two ``_plain`` trees: how many differ, the largest
+    absolute difference over the floating ones, and the differing paths."""
+    if list(a) != list(b):
+        raise AssertionError(f"the trees differ in their leaves: {sorted(set(a) ^ set(b))[:8]}")
+    differ, worst = [], 0.0
+    for k in a:
+        x, y = a[k], b[k]
+        if isinstance(x, torch.Tensor):
+            y = y.to(x.device)
+            if not (x.dtype == y.dtype and x.shape == y.shape and torch.equal(x, y)):
+                differ.append(k)
+                if x.is_floating_point() and x.shape == y.shape:
+                    worst = max(worst, float((x.double() - y.double()).abs().max()))
+        elif x != y:
+            differ.append(k)
+    return {"leaves": len(a), "tensors": sum(isinstance(v, torch.Tensor) for v in a.values()),
+            "differing": len(differ), "max_abs_diff": worst, "first_differing": differ[:6]}
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def check_save_load_demo(card: str) -> dict:
+    """per-dqn-ale-64 at full width: phase 14's train state ``--save-to``,
+    then ``train_dqn_ale.py --sim --prioritized --load --demo`` on a fresh
+    runner (its 28.3 GB ring allocated again)."""
+    from pfrl_tpu_torch.experiments import atari_dqn_ale
+    from pfrl_tpu_torch.experiments.demo_cli import (
+        demo_returns,
+        load_train_state,
+        save_train_state_if_requested,
+    )
+
+    train = _KEPT.pop("per-dqn-ale-64")
+    saved = _plain(train)
+    directory = _snapshot_dir("per-dqn-ale-64")
+    path, save_s = _timed(lambda: save_train_state_if_requested(train, directory))
+    nbytes = os.path.getsize(path)
+    out, cli_s = _timed(lambda: atari_dqn_ale.run_sim(["--sim", "--prioritized", "--load", directory, "--demo"]))
+    loaded = _compare(_plain(out["state"].train_state), saved)
+    _, load_s = _timed(lambda: load_train_state(out["state"].train_state, directory))
+    want = demo_returns(out["eval_loop"], train, 0)  # the state in memory, on the demo's draws
+    got = out["demo_returns"]
+    ring = out["runner"].buffer.capacity
+    checks = {
+        "the loaded train state equals the saved one to the bit": loaded["differing"] == 0,
+        "moments and n_updates came back": out["state"].train_state.n_updates == train.n_updates > 0
+        and out["state"].train_state.opt_state.count == train.opt_state.count,
+        "the demo's returns equal the in-memory state's": np.array_equal(got, want) and got.shape == (5,),
+        "the fresh runner is full width": ring == 10**6,
+    }
+    result = {"file_bytes": nbytes, "save_s": save_s, "load_s": load_s, "cli_load_demo_s": cli_s,
+              "n_updates": train.n_updates, "leaves_compared": loaded["leaves"], "demo_returns": got.tolist(),
+              "in_memory_returns": want.tolist()}
+    print(f"per-dqn-ale-64 save/load/demo: train_state.pt {nbytes:,} B ({loaded['tensors']} tensors, n_updates "
+          f"{train.n_updates}), save {save_s:.3f} s, load {load_s:.3f} s, the CLI's init + load + demo on a fresh "
+          f"full-width runner {cli_s:.2f} s; loaded equal to the bit: {loaded['differing'] == 0}; demo returns "
+          f"{got.tolist()} (in memory {want.tolist()}) on {card}")
+    _raise_on_failed("per-dqn-ale-64 save/load/demo", checks)
+    del out, train
+    shutil.rmtree(directory, ignore_errors=True)
+    return result
+
+
+def _resume_runner():
+    from pfrl_tpu_torch.experiments import atari_dqn_ale
+
+    return atari_dqn_ale.make_dqn_ale_runner("nature", prioritized=True, capacity=RESUME_CAPACITY,
+                                             replay_start_size=RESUME_REPLAY_START)[0]
+
+
+def _first_step_slots(runner, state) -> torch.Tensor:
+    """One scan step, the slots of each of its PER samples logged (the
+    prefix-sample kernel's draws, clamped to the tree)."""
+    buffer, log = runner.buffer, []
+    sample = buffer.sample
+
+    def logged(*a, **kw):
+        batch, st = sample(*a, **kw)
+        log.append(batch.indices.clone())
+        return batch, st
+
+    buffer.sample = logged
+    try:
+        runner.run_chunk(state, 1)
+    finally:
+        del buffer.sample
+    return torch.cat(log)
+
+
+def check_resume(card: str) -> dict:
+    """A runner snapshot through the kernel: per-dqn-ale-64's recipe at the
+    cut ring; run A continues in memory after the save, run B resumes from
+    the file, run U repeats A's whole run without a save: A and U are the
+    card's two uninterrupted runs, and their difference its own spread. cuDNN runs its deterministic algorithms here (a
+    convolution's weight gradient may otherwise sum in another order from
+    run to run); the setting is restored after."""
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        return _check_resume(card)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def _check_resume(card: str) -> dict:
+    from pfrl_tpu_torch.agents.snapshot import load_runner_snapshot, save_runner_snapshot
+    from pfrl_tpu_torch.ops.prefix_sample import prefix_sample
+
+    warm, before, after = RESUME_STEPS
+    directory = _snapshot_dir("resume")
+    runner = _resume_runner()
+    state = runner.init(0)
+    runner.run_chunk(state, warm)
+    runner.run_chunk(state, before)
+    per_step = runner.config.updates_per_step
+    assert state.train_state.n_updates == before * per_step
+    saved = _plain(state)
+    _, save_s = _timed(lambda: save_runner_snapshot(state, directory))
+    nbytes = os.path.getsize(os.path.join(directory, "runner_state.pt"))
+    prefix_sample.launches = 0
+    first_a_slots = _first_step_slots(runner, state)
+    runner.run_chunk(state, after - 1)
+    torch.cuda.synchronize()
+    launches_a = prefix_sample.launches
+    after_a = _plain(state)
+    del runner, state
+    torch.cuda.empty_cache()
+
+    runner_b = _resume_runner()
+    template = runner_b.init(1)
+    restored, load_s = _timed(lambda: load_runner_snapshot(template, directory))
+    restored_vs_saved = _compare(_plain(restored), saved)
+    del saved
+    prefix_sample.launches = 0
+    first_b_slots = _first_step_slots(runner_b, restored)
+    runner_b.run_chunk(restored, after - 1)
+    torch.cuda.synchronize()
+    launches_b = prefix_sample.launches
+    b_vs_a = _compare(_plain(restored), after_a)
+    del runner_b, restored, template
+    shutil.rmtree(directory, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    runner_u = _resume_runner()
+    state_u = runner_u.init(0)
+    runner_u.run_chunk(state_u, warm + before + after)
+    spreads = [_compare(_plain(state_u), after_a)]
+    del runner_u, state_u, after_a
+    torch.cuda.empty_cache()
+
+    bitwise_repeats = all(r["differing"] == 0 for r in spreads)
+    spread = max(r["max_abs_diff"] for r in spreads)
+    checks = {
+        "the restored state equals the saved one to the bit": restored_vs_saved["differing"] == 0,
+        "the first resumed step draws the same slots": torch.equal(first_a_slots, first_b_slots)
+        and first_a_slots.numel() == per_step * 32,
+        "8 x 16 kernel launches on each side": launches_a == launches_b == after * per_step == 128,
+        ("B equals A to the bit (the card repeats to the bit)" if bitwise_repeats else
+         "B within the card's own spread"): b_vs_a["differing"] == 0 if bitwise_repeats
+        else b_vs_a["max_abs_diff"] <= spread,
+    }
+    result = {"file_bytes": nbytes, "save_s": save_s, "load_s": load_s, "launches_a": launches_a,
+              "launches_b": launches_b, "first_step_slots": int(first_a_slots.numel()),
+              "restored_vs_saved": restored_vs_saved, "b_vs_a": b_vs_a, "repeats": spreads,
+              "bitwise_repeats": bitwise_repeats, "capacity": RESUME_CAPACITY, "replay_start": RESUME_REPLAY_START,
+              "steps": list(RESUME_STEPS)}
+    spread_text = ", ".join(f"{r['differing']} leaves (max abs {r['max_abs_diff']:.3g})" for r in spreads)
+    print(f"resume through the kernel (per-dqn-ale-64's recipe, ring cut to {RESUME_CAPACITY:,} slots, C = 2^17, "
+          f"replay start cut to {RESUME_REPLAY_START:,}; cuDNN deterministic): snapshot {nbytes / 1e9:.3f} GB, save "
+          f"{save_s:.2f} s, load {load_s:.2f} s; restored vs saved: {restored_vs_saved['differing']} of "
+          f"{restored_vs_saved['leaves']} leaves differ; first resumed step's {first_a_slots.numel()} slots equal: "
+          f"{torch.equal(first_a_slots, first_b_slots)}; B vs A: {b_vs_a['differing']} leaves differ, max abs "
+          f"{b_vs_a['max_abs_diff']:.3g} ({b_vs_a['first_differing'][:3]}); the card's repeat (U vs A) differs in "
+          f"{spread_text}; launches A {launches_a}, B {launches_b} on {card}")
+    _raise_on_failed("resume", checks)
+    return result
+
+
+def check_persistent_buffer(card: str, device) -> dict:
+    """``PersistentReplayBuffer`` with the recipe's ring at the cut size:
+    64 adds of 64 lanes, a snapshot at the 64th, restored into a new
+    buffer."""
+    from pfrl_tpu_torch.replay import PersistentReplayBuffer, Transition
+
+    directory = _snapshot_dir("persistent")
+    kw = dict(num_lanes=64, store_next_obs=False, fused_dequant_scale=1.0 / 255.0, gamma=0.99, device=device)
+    buf = PersistentReplayBuffer(directory, RESUME_CAPACITY, snapshot_interval=64, **kw)
+    gen = torch.Generator(device=device).manual_seed(18)
+
+    def transition():
+        frames = torch.randint(0, 256, (64, 84, 84, 4), generator=gen, device=device, dtype=torch.uint8)
+        return Transition(obs=frames, action=torch.randint(0, 6, (64,), generator=gen, device=device,
+                                                           dtype=torch.int32),
+                          reward=torch.rand(64, generator=gen, device=device), next_obs=frames,
+                          terminated=torch.rand(64, generator=gen, device=device) < 0.01,
+                          done=torch.rand(64, generator=gen, device=device) < 0.02)
+
+    first = transition()
+    example = Transition(**{k: getattr(first, k)[0] for k in ("obs", "action", "reward", "next_obs",
+                                                               "terminated", "done")})
+    state = buf.init(example)
+    for i in range(63):
+        buf.add(state, first if i == 0 else transition())
+    _, save_s = _timed(lambda: buf.add(state, transition()))  # the 64th add writes the snapshot
+    path = os.path.join(directory, "replay_state.pt")
+    nbytes = os.path.getsize(path)
+    buf2 = PersistentReplayBuffer(directory, RESUME_CAPACITY, snapshot_interval=64, **kw)
+    restored, load_s = _timed(lambda: buf2.restore(example))
+    same = _compare(_plain(restored), _plain(state))
+    checks = {"restored equal to the bit": same["differing"] == 0 and int(restored.cursor) == 64 * 64}
+    print(f"PersistentReplayBuffer ({RESUME_CAPACITY:,} slots): snapshot {nbytes / 1e9:.3f} GB written by the "
+          f"64th add in {save_s:.2f} s, restored in {load_s:.2f} s, {same['differing']} of {same['leaves']} leaves "
+          f"differ on {card}")
+    _raise_on_failed("persistent buffer", checks)
+    del buf, buf2, state, restored
+    shutil.rmtree(directory, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"file_bytes": nbytes, "save_s": save_s, "load_s": load_s, "compared": same}
+
+
+ZOO_TIE = 1e-3         # discrete: rows whose best two CPU scores lie closer are ties
+ZOO_ATOL = {"acer_continuous/abc": 1e-6}  # continuous: the zoo tests' tolerance, 1e-5 elsewhere
+ZOO_BF16 = 2.0**-5     # bf16 entries: 4 bf16 ulps at 1 (relative, for scores; absolute, for actions)
+
+
+def _nudged(state, factor: float):
+    """``state`` with every floating parameter and tensor field scaled by
+    ``factor``, in place."""
+    with torch.no_grad():
+        for f in dataclasses.fields(state):
+            value = getattr(state, f.name)
+            tensors = value.parameters() if isinstance(value, torch.nn.Module) else [value]
+            for t in tensors:
+                if isinstance(t, torch.Tensor) and t.is_floating_point():
+                    t.mul_(factor)
+    return state
+
+
+def check_zoo(card: str, device) -> dict:
+    """The 26 ``zoo/`` checkpoints read by the port's reader and converted
+    onto the card, against the CPU's; then ``--demo`` of four on both."""
+    from pfrl_tpu_torch.experiments import zoo
+    from pfrl_tpu_torch.experiments.demo_cli import demo_returns
+
+    root = str(HERE / "zoo")
+    rows = {}
+    t0 = time.perf_counter()
+    for name, entry in zoo.ENTRIES.items():
+        (core_c, state_c), load_s = _timed(lambda: zoo.load(name, device=device, root=root))
+        core_p, state_p = zoo.load(name, device="cpu", root=root)
+        obs = zoo.observations(name, ZOO_OBS, 26)
+        got = zoo.greedy_actions(core_c, state_c, torch.from_numpy(obs).to(device), SeededDraws(3, device)).cpu()
+        want = zoo.greedy_actions(core_p, state_p, torch.from_numpy(obs), SeededDraws(3, "cpu"))
+        row = {"load_s": load_s}
+        if entry.discrete:
+            scores = zoo.action_scores(core_p, state_p, torch.from_numpy(obs), SeededDraws(3, "cpu")).float()
+            top2 = torch.topk(scores, 2, dim=-1).values
+            margin = top2[:, 0] - top2[:, 1]
+            tie = torch.clamp_min(ZOO_BF16 * top2[:, 0].abs(), ZOO_TIE) if entry.bf16 else ZOO_TIE
+            away = margin > tie
+            row.update(away=int(away.sum()), differ_away=int((got[away] != want[away]).sum()),
+                       differ_all=int((got != want).sum()))
+            row["ok"] = row["differ_away"] == 0 and row["away"] >= ZOO_OBS // 2
+        else:
+            # The larger of the zoo tests' tolerance and 4x what 1 +- 2^-23
+            # nudges of the CPU's weights move its actions, as phases 3-17
+            # hold card-vs-CPU runs.
+            moved = 0.0
+            for factor in ACER_NUDGES:
+                core_n, state_n = zoo.load(name, device="cpu", root=root)
+                nudged = zoo.greedy_actions(core_n, _nudged(state_n, factor), torch.from_numpy(obs),
+                                            SeededDraws(3, "cpu"))
+                moved = max(moved, float((nudged - want).abs().max()))
+            atol = ZOO_BF16 if entry.bf16 else max(ZOO_ATOL.get(name, 1e-5), 4 * moved)
+            row.update(max_abs_diff=float((got - want).abs().max()), atol=atol, nudge_moves=moved)
+            row["ok"] = row["max_abs_diff"] <= atol and bool(torch.isfinite(got).all())
+        rows[name] = row
+    zoo_s = time.perf_counter() - t0
+    demos = {}
+    for name, entry in zoo.ENTRIES.items():
+        if entry.eval_loop is None:
+            continue
+        core_c, state_c = zoo.load(name, device=device, root=root)
+        core_p, state_p = zoo.load(name, device="cpu", root=root)
+        got = demo_returns(entry.eval_loop(core_c, device), state_c, draws=SeededDraws(11, device))
+        want = demo_returns(entry.eval_loop(core_p, "cpu"), state_p, draws=SeededDraws(11, "cpu"))
+        lane_by_lane = name in ("dqn/cartpole", "drqn/po_abc")
+        if lane_by_lane:
+            ok = np.array_equal(got, want) and (name != "dqn/cartpole" or got.mean() >= 300.0)
+        else:
+            ok = abs(float(got.mean()) - float(want.mean())) <= 0.01 and np.allclose(got, want, rtol=1e-4, atol=0.01)
+        demos[name] = {"card_mean": float(got.mean()), "cpu_mean": float(want.mean()), "ok": bool(ok),
+                       "largest_lane_diff": float(np.abs(got - want).max())}
+        print(f"zoo demo {name}: n_episodes: {len(got)} mean: {got.mean():.1f} median: {np.median(got):.1f} stdev: "
+              f"{got.std():.1f} (card); CPU mean {want.mean():.3f}, card mean {got.mean():.3f}, largest lane "
+              f"difference {demos[name]['largest_lane_diff']:.4g}")
+    bad = [n for n, r in rows.items() if not r["ok"]] + [f"demo {n}" for n, d in demos.items() if not d["ok"]]
+    worst = max((r.get("max_abs_diff", 0.0) for r in rows.values()), default=0.0)
+    continuous = ", ".join(f"{n} {r['max_abs_diff']:.3g} (atol {r['atol']:.3g})" for n, r in rows.items()
+                           if "atol" in r)
+    print(f"zoo on the card: {len(rows)} checkpoints read without JAX and converted in {zoo_s:.2f} s with their "
+          f"CPU twins; discrete: {sum(r.get('differ_away', 0) for r in rows.values())} actions differ away from "
+          f"ties ({sum(r.get('differ_all', 0) for r in rows.values())} in all); continuous: largest difference "
+          f"{worst:.3g} ({continuous}); failed: {bad or 'none'} on {card}")
+    _raise_on_failed("zoo", {f"{n} on the card": False for n in bad})
+    return {"entries": rows, "demos": demos, "seconds": zoo_s}
+
+
+def check_pipeline_reload(card: str) -> dict:
+    """Phase 14's pipeline checkpoint loaded into a fresh (unstarted)
+    pipeline: the act path's greedy actions on 256 frames equal the saved
+    pipeline's."""
+    from pfrl_tpu_torch.experiments.atari_pipeline import make_dqn_pipeline
+
+    directory, frames, want, n_updates = _KEPT.pop("dqn-pipeline-288")
+    fresh = make_dqn_pipeline(seed=1)
+    _, load_s = _timed(lambda: fresh.load(directory))
+    got = fresh.greedy_actions(frames)
+    nbytes = os.path.getsize(os.path.join(directory, "train_state.pt"))
+    checks = {"the act servers' greedy actions equal the saved pipeline's": np.array_equal(got, want),
+              "n_updates came back": fresh.train_state.n_updates == n_updates > 0}
+    print(f"dqn-pipeline-288 reload: train_state.pt {nbytes:,} B loaded into a fresh pipeline in {load_s:.3f} s "
+          f"(n_updates {n_updates}); greedy actions on 256 frames equal the saved pipeline's: "
+          f"{np.array_equal(got, want)} on {card}")
+    _raise_on_failed("pipeline reload", checks)
+    del fresh
+    shutil.rmtree(directory, ignore_errors=True)
+    return {"file_bytes": nbytes, "load_s": load_s, "n_updates": n_updates}
+
+
+def run_persistence(card: str, device) -> dict:
+    try:
+        return {
+            "save_load_demo": check_save_load_demo(card),
+            "resume": check_resume(card),
+            "persistent_buffer": check_persistent_buffer(card, device),
+            "zoo": check_zoo(card, device),
+            "pipeline_reload": check_pipeline_reload(card),
+        }
+    finally:
+        shutil.rmtree(SNAPSHOT_ROOT, ignore_errors=True)
 
 
 def main() -> int:
@@ -3680,6 +4128,7 @@ def main() -> int:
         "dqn-actor-learner-ale-8": phase("full dqn-actor-learner-ale-8", run_full_actor_learner, card),
         "a3c-atarisim-16": phase("full a3c-atarisim-16", run_full_atari_onpolicy, card, "a3c-atarisim-16"),
     }
+    record["persistence"] = phase("persistence", run_persistence, card, device)
     # Counted over each path that samples by priority, from 0 at its start;
     # every other path asserts a count of 0.
     kernel["launches_by_path"] = {
@@ -3702,6 +4151,9 @@ def main() -> int:
         # The card's side of the PER actor-learner run: one launch per update.
         "actor-learner-per-double-dqn": record["small_slices"]["actor-learner-per-double-dqn"]["kernel_launches"],
         **{name: r["kernel_launches"] for name, r in record["full_actor_learner"].items()},
+        # The resumed PER run, C = 2^17: 8 scan steps of 16 updates, before (A) and after (B) the reload.
+        "resume-A": record["persistence"]["resume"]["launches_a"],
+        "resume-B": record["persistence"]["resume"]["launches_b"],
     }
     kernel["launches"] = sum(kernel["launches_by_path"].values())
     record["kernels"] = [kernel]

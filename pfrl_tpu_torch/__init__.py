@@ -45,13 +45,26 @@ Ported so far, each through ``experiments.OffPolicyRunner`` or
   (``atari_a3c.py``) at their own settings.
 
 Every first-order core takes ``compute_dtype`` (bf16 compute over float32
-masters, see :mod:`.utils.precision`); TRPO refuses it, as in JAX. Not
-ported yet: ``make_atari`` (a real ALE), persistence and device meshes.
+masters, see :mod:`.utils.precision`); TRPO refuses it, as in JAX.
+
+Persistence: ``save_state``/``load_state`` and the persistent buffers
+(:mod:`.replay.persistent`), runner and shell snapshots
+(:mod:`.agents.snapshot`), ``--load``/``--demo``/``--save-to``
+(:mod:`.experiments.demo_cli`), the local model zoo
+(:mod:`.utils.pretrained_models`, :mod:`.experiments.zoo`) and the host
+collections (:mod:`.collections_`, also ``collections``). A JAX checkpoint
+(flax msgpack) loads through the port's own reader
+(:mod:`.utils.flax_msgpack`) and :mod:`.convert`, with no JAX installed.
+
+Not ported yet: ``make_atari`` (a real ALE) and device meshes.
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; without a card they raise (see :mod:`._device`). Kernels
 are built from ``csrc/`` at first use (see :mod:`.ops.cuda_build`).
 """
+
+from pfrl_tpu_torch import collections_  # noqa: F401,E402  (no torch: safe in the actor processes)
+from pfrl_tpu_torch import collections_ as collections  # noqa: F401,E402  (pfrl name)
 
 
 def __getattr__(name):

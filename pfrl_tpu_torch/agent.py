@@ -8,9 +8,13 @@ out, host step counters, and the update gating on the host.
 
 :class:`AttributeSavingMixin` writes the port's own format: one
 ``torch.save`` file, ``<attr>.pt``, per saved attribute. A state is saved as
-plain data (tensors, numbers, lists and dicts; a module by its
+plain data (tensors, numbers, lists and dicts; a module, or any object with
+``state_dict``/``load_state_dict`` such as a draw source, by its
 ``state_dict``) and loaded back into the live object in place, so no class
-is pickled. A JAX checkpoint (msgpack) reaches the port only through the
+is pickled. A load checks every tensor's shape and dtype against the live
+one and raises :class:`CheckpointMismatchError` where they differ. A
+directory a JAX shell saved (``<attr>.msgpack``, no ``<attr>.pt``) loads
+through the reader of :mod:`pfrl_tpu_torch.utils.flax_msgpack` and the
 converters of :mod:`pfrl_tpu_torch.convert`.
 
 ``AsyncAgent`` has no counterpart here, as in the JAX package.
@@ -78,10 +82,19 @@ class BatchAgent(Agent):
         raise NotImplementedError
 
 
+class CheckpointMismatchError(ValueError):
+    """A saved value does not fit the live one it is loaded into."""
+
+
+def _has_state_dict(value: Any) -> bool:
+    return hasattr(value, "state_dict") and hasattr(value, "load_state_dict") and not isinstance(value, type)
+
+
 def to_saved(value: Any) -> Any:
     """``value`` as plain data for ``torch.save(..., weights_only)``: a
-    module becomes its ``state_dict``, a dataclass a dict of its fields."""
-    if isinstance(value, nn.Module):
+    module (or any object with ``state_dict``/``load_state_dict``) becomes
+    its ``state_dict``, a dataclass a dict of its fields."""
+    if _has_state_dict(value):
         return {"state_dict": value.state_dict()}
     if dataclasses.is_dataclass(value) and not isinstance(value, type):
         return {f.name: to_saved(getattr(value, f.name)) for f in dataclasses.fields(value)}
@@ -92,26 +105,65 @@ def to_saved(value: Any) -> Any:
     return value
 
 
-def restore_saved(value: Any, saved: Any) -> Any:
+def _check_tensor(live: torch.Tensor, saved: Any, where: str) -> None:
+    if not isinstance(saved, torch.Tensor):
+        raise CheckpointMismatchError(f"{where}: saved a {type(saved).__name__} where the live value is a tensor")
+    if saved.shape != live.shape or saved.dtype != live.dtype:
+        raise CheckpointMismatchError(
+            f"{where}: saved {saved.dtype}{list(saved.shape)} where the live tensor is "
+            f"{live.dtype}{list(live.shape)}")
+
+
+def restore_saved(value: Any, saved: Any, where: str = "state") -> Any:
     """Loads ``saved`` (from :func:`to_saved`) into ``value``: modules and
-    tensors in place, anything else replaced. Returns the restored value."""
-    if isinstance(value, nn.Module):
+    tensors in place, anything else replaced. Every tensor's shape and
+    dtype must equal the live one's, every dict's keys and every list's
+    length; :class:`CheckpointMismatchError` says where they do not. A live
+    tensor whose storage another live tensor shares (an env's reset may
+    hand out one zeros tensor for two fields) is replaced by a copy of its
+    saved value instead, so that restoring one never overwrites the other.
+    Returns the restored value."""
+    return _restore(value, saved, where, set())
+
+
+def _restore(value: Any, saved: Any, where: str, written: set) -> Any:
+    if _has_state_dict(value):
+        if not isinstance(saved, dict) or "state_dict" not in saved:
+            raise CheckpointMismatchError(f"{where}: no state_dict saved")
+        if isinstance(value, nn.Module):
+            live = value.state_dict()
+            if set(live) != set(saved["state_dict"]):
+                raise CheckpointMismatchError(
+                    f"{where}: saved entries {sorted(saved['state_dict'])} where the module has {sorted(live)}")
+            for k, t in live.items():
+                _check_tensor(t, saved["state_dict"][k], f"{where}.{k}")
         value.load_state_dict(saved["state_dict"])
         return value
     if isinstance(value, torch.Tensor):
+        _check_tensor(value, saved, where)
+        storage = value.untyped_storage().data_ptr()
+        if storage in written and value.numel():
+            return saved.to(device=value.device, copy=True)
+        written.add(storage)
         with torch.no_grad():
             value.copy_(saved)
         return value
     if dataclasses.is_dataclass(value) and not isinstance(value, type):
+        if not isinstance(saved, dict) or set(saved) != {f.name for f in dataclasses.fields(value)}:
+            raise CheckpointMismatchError(f"{where}: the saved fields are not {type(value).__name__}'s")
         for f in dataclasses.fields(value):
-            setattr(value, f.name, restore_saved(getattr(value, f.name), saved[f.name]))
+            setattr(value, f.name, _restore(getattr(value, f.name), saved[f.name], f"{where}.{f.name}", written))
         return value
     if isinstance(value, (list, tuple)):
-        if len(value) != len(saved):
-            raise ValueError(f"saved {len(saved)} items where the live value has {len(value)}")
-        return type(value)(restore_saved(v, s) for v, s in zip(value, saved))
+        if not isinstance(saved, (list, tuple)) or len(value) != len(saved):
+            raise CheckpointMismatchError(f"{where}: saved {saved!r:.80} where the live value has {len(value)} items")
+        return type(value)(_restore(v, s, f"{where}[{i}]", written) for i, (v, s) in enumerate(zip(value, saved)))
     if isinstance(value, dict):
-        return {k: restore_saved(v, saved[k]) for k, v in value.items()}
+        if not isinstance(saved, dict) or set(saved) != set(value):
+            raise CheckpointMismatchError(f"{where}: saved {saved!r:.80} where the live value has keys {sorted(value)}")
+        return {k: _restore(v, saved[k], f"{where}[{k!r}]", written) for k, v in value.items()}
+    if isinstance(saved, (torch.Tensor, list, dict)) or (value is None) != (saved is None):
+        raise CheckpointMismatchError(f"{where}: saved {saved!r:.80} where the live value is {value!r:.80}")
     return saved
 
 
@@ -141,18 +193,40 @@ class AttributeSavingMixin:
                 torch.save(to_saved(value), os.path.join(dirname, f"{attr}.pt"))
 
     def load(self, dirname: str) -> None:
+        """Loads ``<attr>.pt`` of each attribute or, where there is none, a
+        JAX shell's ``<attr>.msgpack`` through :meth:`_from_flax`. A
+        missing file raises ``FileNotFoundError``."""
         for attr in self.saved_attributes:
             value = getattr(self, attr)
             if _saves_itself(value):
                 value.load(os.path.join(dirname, attr))
                 continue
-            saved = torch.load(os.path.join(dirname, f"{attr}.pt"), map_location="cpu", weights_only=True)
+            path = os.path.join(dirname, f"{attr}.pt")
+            flax_path = os.path.join(dirname, f"{attr}.msgpack")
+            if not os.path.exists(path) and os.path.exists(flax_path):
+                from pfrl_tpu_torch.utils import flax_msgpack
+
+                saved = to_saved(self._from_flax(attr, flax_msgpack.load(flax_path)))
+            else:
+                saved = torch.load(path, map_location="cpu", weights_only=True)
             if value is None:
                 if not hasattr(self, "_pending_restores"):
                     self._pending_restores = {}
                 self._pending_restores[attr] = saved
             else:
-                setattr(self, attr, restore_saved(value, saved))
+                setattr(self, attr, restore_saved(value, saved, attr))
+
+    def _from_flax(self, attr: str, tree) -> Any:
+        """The port's value of ``attr`` from a JAX shell's checkpoint of it
+        (a :class:`~pfrl_tpu_torch.utils.flax_msgpack.FlaxTree`): a
+        ``train_state`` converts by the shell's core
+        (:func:`pfrl_tpu_torch.convert.state_from_flax`), on the shell's
+        device."""
+        if attr != "train_state":
+            raise NotImplementedError(f"no conversion of a JAX {attr!r}")
+        from pfrl_tpu_torch import convert
+
+        return convert.state_from_flax(self.core, tree, device=self.device)
 
     def _restore_pending(self) -> None:
         """Apply loads stashed before the attributes existed; the shells
@@ -163,4 +237,4 @@ class AttributeSavingMixin:
         for attr in list(pending):
             value = getattr(self, attr)
             if value is not None:
-                setattr(self, attr, restore_saved(value, pending.pop(attr)))
+                setattr(self, attr, restore_saved(value, pending.pop(attr), attr))

@@ -23,7 +23,11 @@ Like every entry point of the port, they build on the CUDA device unless
 given ``device="cpu"`` (:func:`~pfrl_tpu_torch._device.resolve_device`).
 
 Takes nested dicts of numpy arrays (``jax.tree.map(np.asarray, tree)`` on
-the JAX side); imports nothing of JAX.
+the JAX side) or a checkpoint read by the port's own reader
+(:func:`pfrl_tpu_torch.utils.flax_msgpack.load`, whose view offers the
+same fields and indices); imports nothing of JAX. :func:`state_from_flax`
+picks the converter by the core's class, and :func:`load_flax_checkpoint`
+reads a ``train_state.msgpack`` and converts it in one call.
 """
 
 import copy
@@ -34,7 +38,7 @@ import torch
 from torch import nn
 
 from pfrl_tpu_torch._device import resolve_device
-from pfrl_tpu_torch.agents.acer import ACERState
+from pfrl_tpu_torch.agents.acer import ACERContinuousCore, ACERCore, ACERState
 from pfrl_tpu_torch.agents.ddpg import ActorCriticState, DDPGCore
 from pfrl_tpu_torch.agents.dqn import DQNCore, DQNState
 from pfrl_tpu_torch.agents.ppo import PPOCore, PPOState
@@ -278,16 +282,9 @@ def actor_critic_shell_from_flax(shell, flax_state):
     numpy leaves) into the port's shell ``shell`` of the same algorithm, on
     the shell's device, optimizer moments included. Set before the first
     act, it is the state the shell acts and learns from. Returns ``shell``."""
-    core = shell.core
-    if isinstance(core, DDPGCore):
-        convert = actor_critic_state_from_flax
-    elif isinstance(core, TD3Core):
-        convert = td3_state_from_flax
-    elif isinstance(core, SACCore):
-        convert = sac_state_from_flax
-    else:
-        raise TypeError(f"no actor-critic state for {type(core).__name__}")
-    shell.train_state = convert(core, flax_state, device=shell.device)
+    if not isinstance(shell.core, (DDPGCore, TD3Core, SACCore)):
+        raise TypeError(f"no actor-critic state for {type(shell.core).__name__}")
+    shell.train_state = state_from_flax(shell.core, flax_state, device=shell.device)
     return shell
 
 
@@ -295,14 +292,9 @@ def onpolicy_shell_from_flax(shell, flax_state):
     """A JAX on-policy shell's ``train_state`` (PPO's and A2C's
     ``PPOState``, or TRPO's) into the port's shell ``shell``, as
     :func:`actor_critic_shell_from_flax` does. Returns ``shell``."""
-    core = shell.core
-    if isinstance(core, PPOCore):
-        convert = ppo_state_from_flax
-    elif isinstance(core, TRPOCore):
-        convert = trpo_state_from_flax
-    else:
-        raise TypeError(f"no on-policy state for {type(core).__name__}")
-    shell.train_state = convert(core, flax_state, device=shell.device)
+    if not isinstance(shell.core, (PPOCore, TRPOCore)):
+        raise TypeError(f"no on-policy state for {type(shell.core).__name__}")
+    shell.train_state = state_from_flax(shell.core, flax_state, device=shell.device)
     return shell
 
 
@@ -317,3 +309,37 @@ def acer_state_from_flax(core, flax_state, device=None) -> ACERState:
     _load_optimizer(core.optimizer, state.opt_state, model, flax_state.opt_state)
     state.n_updates = int(np.asarray(flax_state.n_updates))
     return state
+
+
+def state_from_flax(core, flax_state, device=None):
+    """A whole JAX train state of ``core``'s algorithm, by the core's class:
+    the value family (every ``DQNCore``: DQN, Double DQN, C51, AL, PAL, DPP,
+    IQN, the recurrent DRQN and IQN) through :func:`dqn_state_from_flax`;
+    DDPG, TD3 and SAC; PPO, A2C, A3C and recurrent PPO (``PPOCore``); TRPO
+    and recurrent TRPO; REINFORCE; ACER, discrete and continuous."""
+    if isinstance(core, DQNCore):
+        return dqn_state_from_flax(
+            core, flax_state.params, flax_state.target_params, flax_state.opt_state, device=device,
+            n_updates=int(np.asarray(flax_state.n_updates)),
+        )
+    for cls, convert in (
+        (SACCore, sac_state_from_flax),
+        (TD3Core, td3_state_from_flax),
+        (DDPGCore, actor_critic_state_from_flax),
+        (TRPOCore, trpo_state_from_flax),
+        (PPOCore, ppo_state_from_flax),
+        (ReinforceCore, reinforce_state_from_flax),
+        (ACERCore, acer_state_from_flax),
+        (ACERContinuousCore, acer_state_from_flax),
+    ):
+        if isinstance(core, cls):
+            return convert(core, flax_state, device=device)
+    raise TypeError(f"no converter for a JAX state of {type(core).__name__}")
+
+
+def load_flax_checkpoint(core, path: str, device=None):
+    """The JAX checkpoint at ``path`` (flax msgpack, read without JAX),
+    converted for ``core`` by :func:`state_from_flax`."""
+    from pfrl_tpu_torch.utils import flax_msgpack
+
+    return state_from_flax(core, flax_msgpack.load(path), device=device)

@@ -24,9 +24,18 @@ recipe small; the example's values are the defaults.
 ``make_dqn_runner`` (``atari_per_dqn.py``) stays ``bench.py``'s
 ``bench_dqn`` (RMSprop, a summed loss, a 10^5-slot ring); this module is
 the example itself.
+
+:func:`run_sim` is the example's ``--sim`` command line
+(``train_dqn_ale.py:128-144``): it builds the recipe from its flags,
+``--load``s a train state (the port's ``train_state.pt`` or a JAX
+``train_state.msgpack``), ``--demo``s it (the evaluation loop, 5 x 500,
+on a generator seeded with ``--seed``), or trains ``--steps`` transitions
+in chunks of ``--chunk`` scan steps and ``--save-to``s the train state.
 """
 
-from typing import Optional, Tuple
+import argparse
+import time
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -117,3 +126,68 @@ def make_dqn_ale_runner(
     )
     runner = OffPolicyRunner(env, core, buffer, config, device=env.device)
     return runner, EvalLoop(AtariSim(n_actions=n_actions, device=env.device), core, 5, 500, device=env.device)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    """``train_dqn_ale.py``'s flags that the ``--sim`` path reads."""
+    from pfrl_tpu_torch.experiments.demo_cli import add_demo_args
+
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--sim", action="store_true", help="run against AtariSim (the only mode ported)")
+    parser.add_argument("--arch", choices=ARCHS, default="nature")
+    parser.add_argument("--double", action="store_true")
+    parser.add_argument("--prioritized", action="store_true")
+    parser.add_argument("--noisy-net-sigma", type=float, default=None)
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--bf16", action="store_true", help="bf16 network compute over fp32 master params")
+    parser.add_argument("--steps", type=int, default=5 * 10**7)
+    parser.add_argument("--batch-size", type=int, default=32)
+    parser.add_argument("--num-envs", type=int, default=64)
+    parser.add_argument("--num-step-return", type=int, default=1)
+    parser.add_argument("--replay-capacity", type=int, default=10**6)
+    parser.add_argument("--replay-start-size", type=int, default=5 * 10**4)
+    parser.add_argument("--update-interval", type=int, default=4)
+    parser.add_argument("--target-update-interval", type=int, default=10**4)
+    parser.add_argument("--final-exploration-frames", type=int, default=10**6)
+    parser.add_argument("--chunk", type=int, default=500, help="scan steps per chunk")
+    add_demo_args(parser)
+    return parser
+
+
+def run_sim(argv: Optional[Sequence[str]] = None, device=None) -> dict:
+    """``train_dqn_ale.py --sim`` with ``argv``'s flags on ``device``
+    (default: the CUDA device). Returns ``{"runner", "eval_loop", "state"}``
+    and, with ``--demo``, ``"demo_returns"`` (the printed line's returns)
+    or, after training, ``"saved_to"``."""
+    from pfrl_tpu_torch.experiments.demo_cli import (
+        demo_returns,
+        maybe_load_train_state,
+        print_demo_line,
+        save_train_state_if_requested,
+    )
+
+    args = build_parser().parse_args(argv)
+    if not args.sim:
+        raise NotImplementedError("the real ALE (make_atari) is not ported: pass --sim")
+    runner, eval_loop = make_dqn_ale_runner(
+        args.arch, double=args.double, prioritized=args.prioritized, num_step_return=args.num_step_return,
+        noisy_net_sigma=args.noisy_net_sigma, compute_dtype=torch.bfloat16 if args.bf16 else None,
+        device=device, num_envs=args.num_envs, capacity=args.replay_capacity,
+        replay_start_size=args.replay_start_size, update_interval=args.update_interval,
+        target_update_interval=args.target_update_interval, minibatch_size=args.batch_size, steps=args.steps,
+        final_exploration_frames=args.final_exploration_frames,
+    )
+    state = maybe_load_train_state(runner.init(args.seed), args.load, runner.core)
+    out = {"runner": runner, "eval_loop": eval_loop, "state": state}
+    if args.demo:
+        out["demo_returns"] = demo_returns(eval_loop, state.train_state, args.seed)
+        print_demo_line(out["demo_returns"])
+        return out
+    t0 = time.time()
+    while state.t < args.steps:
+        state, metrics = runner.run_chunk(state, args.chunk)
+        print(f"step {state.t:>9} | {state.t / (time.time() - t0):>8.0f} env-steps/s"
+              f" | loss {float(metrics['loss'][-1]):.4f}")
+    print(f"done: {state.t} transitions in {time.time() - t0:.1f}s")
+    out["saved_to"] = save_train_state_if_requested(state.train_state, args.save_to)
+    return out

@@ -42,6 +42,7 @@ from pfrl_tpu_torch.agents.dqn import DQN
 from pfrl_tpu_torch.envs import synthetic_ale
 from pfrl_tpu_torch.envs.multiprocess_vector_env import MultiprocessVectorEnv
 from pfrl_tpu_torch.experiments.atari_per_dqn import NatureQ
+from pfrl_tpu_torch.experiments.evaluator import eval_performance
 from pfrl_tpu_torch.experiments.train_agent_async import train_agent_async
 from pfrl_tpu_torch.experiments.train_agent_batch import train_agent_batch_with_evaluation
 from pfrl_tpu_torch.explorers.epsilon_greedy import LinearDecayEpsilonGreedy
@@ -113,14 +114,26 @@ def run_batch(
     num_envs: int = 8,
     seed: int = 0,
     device=None,
+    load: Optional[str] = None,
+    demo: bool = False,
     **agent_kwargs,
 ):
     """``train_dqn_batch_ale.py``'s ``run_batch``: builds the agent and the
-    envs, trains through ``train_agent_batch_with_evaluation``, closes the
-    envs. Returns ``(agent, history)``."""
+    envs, loads ``load`` (``agent.load``: the port's ``train_state.pt``, or
+    a JAX shell's ``train_state.msgpack``) where given, then with ``demo``
+    evaluates 10 episodes, prints the example's line and returns ``(agent,
+    stats)``; else trains through ``train_agent_batch_with_evaluation`` and
+    returns ``(agent, history)``. Closes the envs."""
     agent = make_dqn_batch_agent(num_envs=num_envs, seed=seed, device=device, **agent_kwargs)
+    if load:
+        agent.load(load)
     env, eval_env = make_vector_envs(num_envs, seed)
     try:
+        if demo:
+            stats = eval_performance(env=eval_env, agent=agent, n_steps=None, n_episodes=10)
+            print(f"n_episodes: {stats['episodes']} mean: {stats['mean']} "
+                  f"median: {stats['median']} stdev: {stats['stdev']}")
+            return agent, stats
         return train_agent_batch_with_evaluation(
             agent=agent, env=env, eval_env=eval_env, steps=steps, eval_n_steps=None,
             eval_n_episodes=eval_n_episodes, eval_interval=eval_interval, outdir=outdir,

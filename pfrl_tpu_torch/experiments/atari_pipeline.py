@@ -14,9 +14,20 @@ ring of 10^6 rows, 999,936 after rounding down to whole rows of 288 lanes
 one per 4 transitions from 50,000 on, target syncs every 10^4 (in
 transitions of updates x 4). Sizes are arguments, so that tests run it
 small; the example's values are the defaults.
+
+:func:`run` is the example's ``--sim`` command line
+(``train_dqn_pipeline_ale.py:106-123,159``): with ``--load`` or ``--demo``
+it builds the core's train state, loads the saved one into it (the port's
+``train_state.pt`` or a JAX ``train_state.msgpack``) and, with
+``--demo``, evaluates it on ``EvalLoop(AtariSim(6), 5 x 500)`` and
+returns. Otherwise it trains the pipeline for ``--steps`` acted
+transitions, starting from the loaded state where ``--load`` gave one,
+and ``--save-to``s the train state.
 """
 
-from typing import Callable, Optional
+import argparse
+import time
+from typing import Callable, Optional, Sequence
 
 import torch
 
@@ -71,3 +82,80 @@ def make_dqn_pipeline(
         seed=seed,
         device=device,
     )
+
+
+def build_parser() -> argparse.ArgumentParser:
+    """``train_dqn_pipeline_ale.py``'s flags that the ``--sim`` path reads."""
+    from pfrl_tpu_torch.experiments.demo_cli import add_demo_args
+
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--sim", action="store_true", help="SyntheticALE frames (the only mode ported)")
+    parser.add_argument("--steps", type=int, default=5 * 10**7)
+    parser.add_argument("--workers", type=int, default=3)
+    parser.add_argument("--lanes", type=int, default=96)
+    parser.add_argument("--batch-size", type=int, default=32)
+    parser.add_argument("--replay-capacity", type=int, default=10**6)
+    parser.add_argument("--replay-start-size", type=int, default=5 * 10**4)
+    parser.add_argument("--update-interval", type=int, default=4)
+    parser.add_argument("--target-update-interval", type=int, default=10**4)
+    parser.add_argument("--burst", type=int, default=64)
+    parser.add_argument("--log-interval", type=float, default=30.0)
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--bf16", action="store_true", help="bf16 network compute over fp32 master params")
+    add_demo_args(parser)
+    return parser
+
+
+def run(argv: Optional[Sequence[str]] = None, device=None, env_factory: Callable = make_warped) -> dict:
+    """``train_dqn_pipeline_ale.py --sim`` with ``argv``'s flags on
+    ``device`` (default: the CUDA device). With ``--demo`` returns
+    ``{"train_state", "demo_returns"}``; after training ``{"train_state",
+    "pipeline"`` (stopped) ``, "saved_to"}``."""
+    from pfrl_tpu_torch.envs.atari_sim import AtariSim
+    from pfrl_tpu_torch.experiments.demo_cli import (
+        demo_returns,
+        load_train_state,
+        print_demo_line,
+        save_train_state_if_requested,
+    )
+    from pfrl_tpu_torch.experiments.runner import EvalLoop
+
+    args = build_parser().parse_args(argv)
+    if not args.sim:
+        raise NotImplementedError("the real ALE (make_atari) is not ported: pass --sim")
+    compute_dtype = torch.bfloat16 if args.bf16 else None
+    if args.demo:
+        core = make_pipeline_core(compute_dtype=compute_dtype)
+        eval_loop = EvalLoop(AtariSim(n_actions=6, device=device), core, 5, 500, device=device)
+        example = torch.zeros((1, 84, 84, 4), dtype=torch.uint8, device=eval_loop.device)
+        train_state = core.init(torch.Generator().manual_seed(0), example)
+        if args.load:
+            train_state = load_train_state(train_state, args.load, core, eval_loop.device)
+        returns = demo_returns(eval_loop, train_state, args.seed)
+        print_demo_line(returns)
+        return {"train_state": train_state, "demo_returns": returns}
+    pipe = make_dqn_pipeline(
+        compute_dtype=compute_dtype, device=device, env_factory=env_factory, n_workers=args.workers,
+        lanes_per_worker=args.lanes, capacity=args.replay_capacity, minibatch_size=args.batch_size,
+        update_interval=args.update_interval, target_update_interval=args.target_update_interval,
+        replay_start_size=args.replay_start_size, burst=args.burst, seed=args.seed,
+    )
+    if args.load:
+        pipe.load(args.load)  # kept by ``start``
+    pipe.start()
+    try:
+        last_t, last_steps = time.time(), 0
+        while pipe.acted_steps < args.steps:
+            if pipe.exception_event.is_set():
+                raise RuntimeError("pipeline failed (see logs)")
+            time.sleep(args.log_interval)
+            now, steps = time.time(), pipe.acted_steps
+            stats = dict(pipe.get_statistics())
+            print(f"step {steps} | {(steps - last_steps) / (now - last_t):,.0f} env-steps/s | "
+                  f"{stats['n_updates']} updates | loss {stats['average_loss']:.4f} | "
+                  f"avg Q {stats['average_q']:.2f}", flush=True)
+            last_t, last_steps = now, steps
+    finally:
+        pipe.stop()
+    saved_to = save_train_state_if_requested(pipe.train_state, args.save_to)
+    return {"train_state": pipe.train_state, "pipeline": pipe, "saved_to": saved_to}

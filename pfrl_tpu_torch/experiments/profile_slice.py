@@ -138,7 +138,6 @@ import time
 from pathlib import Path
 
 import torch
-from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from pfrl_tpu_torch.agents import a2c as a2c_module
@@ -165,7 +164,7 @@ from pfrl_tpu_torch.experiments import (
 from pfrl_tpu_torch.experiments.atari_pipeline import make_dqn_pipeline
 from pfrl_tpu_torch.experiments.atari_per_dqn import make_dqn_runner, make_per_dqn_runner
 from pfrl_tpu_torch.experiments.atari_rainbow import make_rainbow_runner
-from pfrl_tpu_torch.experiments.profile_host import HOST_PATHS
+from pfrl_tpu_torch.experiments.profile_host import HOST_PATHS, device_kernels
 from pfrl_tpu_torch.experiments.mujoco_actor_critic import (
     make_ddpg_runner,
     make_sac_pendulum_runner,
@@ -434,11 +433,13 @@ def profile_onpolicy(runner, config: str, iterations: int, compute_dtype=None) -
     }
 
 
-def run_pipeline(pipeline, seconds: float, profiled_seconds: float = 0.0, start_timeout: float = 600.0) -> dict:
+def run_pipeline(pipeline, seconds: float, profiled_seconds: float = 0.0, start_timeout: float = 600.0,
+                 min_updates: int = 0) -> dict:
     """Starts ``pipeline``, waits for its replay start, runs it ``seconds``
-    timed and ``profiled_seconds`` under ``torch.profiler``, and stops it
-    (also when a thread fails, which raises). Returns the rates over the
-    timed window, ``timings()`` and the profiled window's kernels and busy
+    timed and ``profiled_seconds`` under ``torch.profiler``, then on until
+    ``min_updates`` updates (within ``start_timeout``), and stops it (also
+    when a thread fails, which raises). Returns the rates over the timed
+    window, ``timings()`` and the profiled window's kernels and busy
     time."""
     t0 = time.perf_counter()
     pipeline.start()
@@ -479,6 +480,8 @@ def run_pipeline(pipeline, seconds: float, profiled_seconds: float = 0.0, start_
                 "device_busy_share": busy_us / 1e6 / profiled_s,
                 "top_device_ops": _top(top, 1),
             })
+        deadline = time.perf_counter() + start_timeout
+        wait(lambda: pipeline.optim_t >= min_updates or time.perf_counter() > deadline)
     finally:
         pipeline.stop()
     if pipeline.exception_event.is_set():
@@ -586,14 +589,10 @@ def _profiled(fn):
     kernels it launched, their busy microseconds, and the top 15 by time."""
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         out, seconds = _synced(fn)
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    by_name = collections.defaultdict(lambda: [0.0, 0])
-    for e in kernels:
-        by_name[e.name][0] += e.time_range.elapsed_us()
-        by_name[e.name][1] += 1
+    by_name = device_kernels(prof)
     busy_us = sum(v[0] for v in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
-    return out, seconds, len(kernels), busy_us, top
+    return out, seconds, sum(v[1] for v in by_name.values()), busy_us, top
 
 
 def _per_step_ms(acc, phased_s: float, steps: int) -> dict:

@@ -55,12 +55,21 @@ those semantics by construction:
 The four device functions are methods over explicit tensors, as the JAX
 tests reach its jitted ones: :meth:`act_stage`, :meth:`commit`,
 :meth:`sample` (:meth:`sample_ids` then :meth:`gather`) and
-:meth:`learner_burst`. ``save``/``load`` wait for the port's persistence.
+:meth:`learner_burst`.
+
+**Checkpoints.** :meth:`save` writes ``train_state.pt`` while no burst is
+in flight and under the state lock. :meth:`load` restores a
+``train_state.pt`` (or a JAX ``train_state.msgpack``, converted) into the
+live train state and **re-publishes the acting copy** in the same locked
+section: without that the servers would go on acting from the old weights
+until the next burst. A pipeline loaded before :meth:`start` keeps the
+loaded state.
 """
 
 import copy
 import dataclasses
 import logging
+import os
 import queue
 import statistics
 import threading
@@ -176,6 +185,7 @@ class AtariActorLearnerPipeline:
         self.exception_event = threading.Event()
         self._stop = threading.Event()
         self._state_lock = threading.Lock()  # guards the ring, the stack and the acting copy
+        self._learner_lock = threading.Lock()  # held over a burst's updates and its publication
         self._trans_q: "queue.Queue" = queue.Queue()
         self._req_qs = {}
         self._threads: List[threading.Thread] = []
@@ -313,12 +323,18 @@ class AtariActorLearnerPipeline:
         """:meth:`burst_batches` then :meth:`burst_updates`."""
         return self.burst_updates(train_state, self.burst_batches(ring, draws, n), draws)
 
+    def _example_stack(self) -> torch.Tensor:
+        H, W = self.hw
+        return torch.zeros((self.L, H, W, self.stack_k), dtype=torch.uint8, device=self.device)
+
     def _init_device_state(self, seed: int) -> None:
         """The train state (weights from a CPU generator seeded with
-        ``seed``), the acting copy, the stack and the ring."""
+        ``seed``) and its acting copy, unless a state was set or loaded
+        already; the stack and the ring."""
         H, W = self.hw
-        example = torch.zeros((self.L, H, W, self.stack_k), dtype=torch.uint8, device=self.device)
-        self.set_train_state(self.core.init(torch.Generator().manual_seed(seed), example))
+        example = self._example_stack()
+        if self.train_state is None:
+            self.set_train_state(self.core.init(torch.Generator().manual_seed(seed), example))
         self.stack = torch.zeros_like(example)
         zeros = lambda *shape, dtype: torch.zeros(shape, dtype=dtype, device=self.device)  # noqa: E731
         self.ring = PlaneRing(
@@ -485,8 +501,9 @@ class AtariActorLearnerPipeline:
         with self._state_lock:
             batches = self.burst_batches(self.ring, draws, n)
         gathers_issued = time.perf_counter() - t0
-        loss, q, syncs = self.burst_updates(self.train_state, batches, draws)
-        self.publish()
+        with self._learner_lock:
+            loss, q, syncs = self.burst_updates(self.train_state, batches, draws)
+            self.publish()
         # One sync per burst, not per update.
         self._loss, self._avg_q = float(loss), float(q)
         self._bursts.append((gathers_issued, time.perf_counter() - t0))
@@ -508,6 +525,39 @@ class AtariActorLearnerPipeline:
         with self._state_lock:
             self.train_state = train_state
             self._acting = dataclasses.replace(train_state, model=acting)
+
+    # ------------------------------------------------------------ checkpoint
+    def save(self, dirname: str) -> str:
+        """Writes the train state to ``<dirname>/train_state.pt`` between
+        bursts, under the state lock; returns the path."""
+        from pfrl_tpu_torch.replay.persistent import save_state
+
+        path = os.path.join(dirname, "train_state.pt")
+        with self._learner_lock, self._state_lock:
+            save_state(self.train_state, path)
+        return path
+
+    def load(self, dirname: str) -> None:
+        """Restores the train state saved in ``dirname`` (a
+        ``train_state.pt``, or a JAX ``train_state.msgpack`` converted for
+        the pipeline's core) and re-publishes the acting copy, between
+        bursts and under the state lock. A pipeline with no state yet builds
+        one as the template."""
+        from pfrl_tpu_torch.agent import restore_saved, to_saved
+        from pfrl_tpu_torch.experiments.demo_cli import resolve_train_state_path
+
+        path = resolve_train_state_path(dirname)
+        if path.endswith(".msgpack"):
+            from pfrl_tpu_torch import convert
+
+            saved = to_saved(convert.load_flax_checkpoint(self.core, path, device=self.device))
+        else:
+            saved = torch.load(path, map_location="cpu", weights_only=True)
+        if self.train_state is None:
+            self.set_train_state(self.core.init(torch.Generator().manual_seed(self.seed), self._example_stack()))
+        with self._learner_lock, self._state_lock:
+            self.train_state = restore_saved(self.train_state, saved, path)
+            copy_param(self._acting.model, self.train_state.model)
 
     # ------------------------------------------------------------------ misc
     def get_statistics(self):

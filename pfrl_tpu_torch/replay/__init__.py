@@ -9,3 +9,9 @@ from pfrl_tpu_torch.replay.prioritized_episodic import (  # noqa: F401
     PrioritizedEpisodicReplayBuffer,
     PrioritizedEpisodicReplayState,
 )
+from pfrl_tpu_torch.replay.persistent import (  # noqa: F401
+    PersistentEpisodicReplayBuffer,
+    PersistentReplayBuffer,
+    load_state,
+    save_state,
+)

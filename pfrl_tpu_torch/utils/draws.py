@@ -21,6 +21,15 @@ class Draws:
         self.generator = generator
         self.device = generator.device
 
+    def state_dict(self) -> dict:
+        """The generator's state (a CUDA generator's seed and offset, or a
+        CPU generator's whole state): what a resumed run needs to draw the
+        same numbers."""
+        return {"generator": self.generator.get_state()}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.generator.set_state(state["generator"])
+
     def uniform(self, n: int) -> torch.Tensor:
         """float32 ``[n]`` in ``[0, 1)``."""
         return torch.rand(n, generator=self.generator, device=self.device)

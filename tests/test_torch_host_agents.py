@@ -439,8 +439,10 @@ def test_port_save_load_round_trip(tmp_path, load_before_first_act):
 
 
 def test_port_loads_a_jax_shell_checkpoint_only_through_the_converter(tmp_path):
-    """A JAX shell's ``save`` (msgpack) restored with flax, then converted:
-    the port shell acts as the JAX shell does."""
+    """A JAX shell's ``save`` (msgpack) restored with flax, then converted,
+    and the same directory given to the port shell's ``load`` (the port's
+    own msgpack reader, then the same converter): both port shells act as
+    the JAX shell does."""
     from flax import serialization
 
     jagent = JaxDQN(JaxFCQ(n_actions=2, n_hidden_channels=HIDDEN, n_hidden_layers=1), optax.adam(1e-2),
@@ -450,11 +452,14 @@ def test_port_loads_a_jax_shell_checkpoint_only_through_the_converter(tmp_path):
     template = jax.device_get(jagent.train_state)
     restored = serialization.from_bytes(template, (tmp_path / "jax" / "train_state.msgpack").read_bytes())
     tagent = convert.dqn_shell_from_flax(_fresh_port_dqn(seed=3), np_tree(restored))
+    loaded = _fresh_port_dqn(seed=3)
+    loaded.load(str(tmp_path / "jax"))  # no train_state.pt: the msgpack is read and converted
     with pytest.raises(FileNotFoundError):
-        _fresh_port_dqn(seed=3).load(str(tmp_path / "jax"))  # no train_state.pt: msgpack is not read
+        _fresh_port_dqn(seed=3).load(str(tmp_path / "none"))
     obs = np.random.RandomState(1).normal(size=(6, 4)).astype(np.float32)
-    with tagent.eval_mode(), jagent.eval_mode():
+    with tagent.eval_mode(), jagent.eval_mode(), loaded.eval_mode():
         np.testing.assert_array_equal(tagent.batch_act(obs), jagent.batch_act(obs))
+        np.testing.assert_array_equal(loaded.batch_act(obs), jagent.batch_act(obs))
 
 
 # --------------------------------------------------------- REINFORCE's core
