@@ -12,8 +12,9 @@ result, without them. Its phases, each raising on failure:
 2. hold each kernel against its plain PyTorch version on the card at the
    main path's shapes, and time the kernel, the plain version and a
    one-call PyTorch yardstick. The prefix sampler is timed at the main
-   path's C = 131,072 leaves and at C = 1,048,576 (a 10**6-slot buffer),
-   B = 32, and at C = 131,072, B = 64 (Rainbow-CartPole's batch), with the
+   path's C = 131,072 leaves, at C = 524,288 (grasping-dqn-batch-1's
+   tree) and at C = 1,048,576 (a 10**6-slot buffer), B = 32, and at
+   C = 131,072, B = 64 (Rainbow-CartPole's batch), with the
    occupancy and shared memory of its one cluster;
 3. check each configuration on a small input: the same run on the card
    (through the kernel, where it samples by priority) and on the CPU
@@ -27,7 +28,8 @@ result, without them. Its phases, each raising on failure:
    replay start, counting the kernel's launches;
 5. drive Rainbow at full width with the recipe's every width and cadence
    (noisy distributional dueling network, 51 atoms, categorical Double
-   DQN, Adam, 3-step prioritized replay, updates from 20,000 on) for 500
+   DQN, Adam, 3-step prioritized replay; updates from 28,000 on, the
+   recipe's 20,000 cut later for the time limit) for 500
    scan steps, through the target sync at 32,000, counting the kernel's
    launches, then its greedy evaluation loop (5 lanes, 500 steps);
 6. drive Nature DQN and Double DQN over the uniform ring at full width for
@@ -46,11 +48,11 @@ result, without them. Its phases, each raising on failure:
 9. on-policy, through ``OnPolicyRunner.run_iterations``: small card-vs-CPU
    runs of PPO, A2C and TRPO (4 lanes, 3 iterations, the same draws and
    weights), then at full width PPO on MujocoSim as ``bench.py`` runs it (8
-   lanes, rollout 256, 320 batch-64 Adam steps per iteration, 8
-   iterations: every lane truncated at its steps 1,000 and 2,000), PPO and
-   TRPO on the time-limited Pendulum (16 lanes, rollout 128, 10 iterations:
-   six truncations per lane, then the evaluation loop, 10 lanes x 201
-   steps) and A2C on the time-limited CartPole (32 lanes, rollout 8, 200
+   lanes, rollout 256, 320 batch-64 Adam steps per iteration, 4
+   iterations: every lane truncated at its step 1,000), PPO and TRPO on
+   the time-limited Pendulum (16 lanes, rollout 128, 5 and 10 iterations:
+   three and six truncations per lane, then the evaluation loop, 10 lanes
+   x 201 steps) and A2C on the time-limited CartPole (32 lanes, rollout 8, 200
    iterations, then 10 lanes x 501 steps); no kernel on these paths;
 10. the discrete value family on the time-limited CartPole
    (``experiments/cartpole_value.py``): small card-vs-CPU runs of the six
@@ -76,7 +78,7 @@ result, without them. Its phases, each raising on failure:
    its kernel launches counted), SAC on Pendulum at bf16
    (``run_sac_pendulum_bf16``: 160 scan steps through burn-in and replay
    start, then 10 lanes x 201 steps of evaluation) and PPO on MujocoSim at
-   bf16 (``bench_ppo``'s widths, 8 iterations);
+   bf16 (``bench_ppo``'s widths, 4 iterations);
 12. the recurrent family (``experiments/recurrent.py``): small card-vs-CPU
    runs of DRQN on PO-ABC and DelayedCue, recurrent IQN, DRQN-AtariSim
    (Nature CNN, LSTM 16, burn-in 2), recurrent PPO and TRPO, and
@@ -126,7 +128,7 @@ result, without them. Its phases, each raising on failure:
    evaluation loop; each path freed before the next. Last the pipeline
    (``train_dqn_pipeline_ale.py --sim``: 3 spawned actor processes x 96
    lanes of ``SyntheticALE``, the 999,936-plane ring, 7.06 GB, bursts of
-   64) through its replay start of 50,000, then 10 s timed and 5 s
+   64) through its replay start of 50,000, then 5 s timed and 3 s
    profiled, then on to the burst of the first target sync: env-steps/s, updates/s, the act round trip (median and p90,
    apart by whether a burst was in flight), burst and commit times, target
    syncs (at least 1), the workers' start-up, the busy share; then a clean
@@ -165,7 +167,7 @@ result, without them. Its phases, each raising on failure:
    replay start and burn-in (cut to 2,000) to t = 2,500, TD3 also over 4 lanes with
    ``--update-burst``; PPO to t = 4,128 (two updates) and TRPO to 5,024
    (one) over ``MujocoSim(11, 3)``; SlimeVolley Rainbow on its CartPole
-   backend to t = 2,100 through the target sync at 2,000 (the target equal
+   backend to t = 2,016 through the target sync at 2,000 (the target equal
    to the online network), its 10**6-transition ring sampled by the
    prefix-sample kernel at C = 2**20 once per update: env-steps/s before
    and after the learning start, updates/s, the median act, env step,
@@ -186,8 +188,8 @@ result, without them. Its phases, each raising on failure:
    actor threads of one ``SyntheticALE`` lane through one batched
    inference server, the poller and the learner over the 10**6-slot ring,
    28.3 GB, a publication every 8 updates) through its replay start (cut
-   to 20,000) to the learner's 384th update, with one ``AsyncEvaluator``
-   evaluation of 10 episodes (``eval_interval`` cut to 25,000):
+   to 4,000) to the learner's 128th update, with one ``AsyncEvaluator``
+   evaluation of 10 episodes (``eval_interval`` cut to 5,000):
    env-steps/s before the replay start and after it (to the learner's
    320th update), updates/s, rows per forward, the act round trip (median, p90; apart by
    whether an update ran during it), the poller's add and the learner's
@@ -227,7 +229,25 @@ result, without them. Its phases, each raising on failure:
    (CartPole and PO-ABC lane by lane, the others' means within 0.01);
    (5) the pipeline: saved at the end of phase 14's run, loaded into a
    fresh pipeline, whose act servers' greedy actions on 256 frames equal
-   the saved pipeline's.
+   the saved pipeline's;
+19. structured observations and NAF: small card-vs-CPU runs of the
+   grasping ``DoubleDQN`` shell over PER with ``(image, steps)``
+   observations (C = 2**14; the ring rows of both leaves, each call's
+   sampled ids against the plain version, the actions and counts equal),
+   of NAF on ``train_dqn_gym.py``'s device runner (Pendulum, MountainCar;
+   4 lanes) and through its host shell on Pendulum, and of the C51 host
+   mode on CartPole; then ``grasping-dqn-batch-1`` (``train_dqn_batch_grasping.py
+   --jax-env`` at its settings through ``experiments/grasping_dqn_batch.py``,
+   one spawned worker each for training and evaluation; the ring cut to
+   400,000 slots, 68.0 GB, C = 2**19, or to 262,144 where the free memory
+   forbids it; the replay start to 1,024; 512 updates, one kernel launch
+   each; 100 evaluation episodes; its PER add, update, act and round
+   trip, kernels per update and busy share), ``naf-pendulum-32``,
+   ``naf-mountaincar-32`` and ``dqn-gym-cartpole-32`` (96 scan steps of
+   32 lanes, the target held to the online net at the sync at 2,048, then
+   ``EvalLoop``) and ``naf-pendulum-host-32`` and
+   ``c51-gym-cartpole-host-1`` (the host modes past their sync at 2,048
+   to t = 2,112, one evaluation), each of these asserting 0 launches.
 
 The kernels' launch counts are set to 0 just before each full-width path
 and read just after it; the kernels' JSON line gives their sum over the
@@ -267,6 +287,7 @@ FULL_STEPS_WARM = 32   # t = 2,048 at the end: the first updates run
 FULL_STEPS_TIMED = 64  # t = 6,144 at the end (the target sync at 10,000 is Rainbow's and the small runs' to cross)
 
 RAINBOW_STEPS = 500     # t = 32,000 at the end: the target sync on the last step
+RAINBOW_REPLAY_START = 28_000  # the recipe's 20,000, later for the time limit: 63 scan steps with updates
 RAINBOW_STEPS_WARM = 4  # the first scan steps with updates, before the timed ones
 UNIFORM_STEPS_TIMED = 32
 
@@ -276,7 +297,8 @@ MUJOCO_EVAL = (5, 1_000)   # lanes, steps: the truncation at step 1,000 is cross
 DDPG_STEPS_WARM = 2
 DDPG_STEPS = 405           # every lane is truncated at its steps 200 and 400
 DDPG_EVAL = (10, 201)
-ONPOLICY_ITERATIONS = {"ppo": 8, "ppo-pendulum": 10, "trpo": 10, "a2c": 200}  # ppo: cut from 10 for the time limit
+# ppo: cut from 10 (PR 14: 8) and ppo-pendulum from 10 for the time limit (PR 15)
+ONPOLICY_ITERATIONS = {"ppo": 4, "ppo-pendulum": 5, "trpo": 10, "a2c": 200}
 ONPOLICY_EVAL = {"ppo-pendulum": (10, 201), "trpo": (10, 201), "a2c": (10, 501)}
 CARTPOLE_STEPS = (32, 64)           # warm, timed: t = 1,024 (first updates), then 3,072
 CARTPOLE_EXAMPLE_STEPS = (8, 16)    # 128 lanes: t = 1,024 (first updates), then 3,072
@@ -316,7 +338,7 @@ ATARI_ONPOLICY_ITERATIONS = {"a2c-atarisim-16": 40, "ppo-atarisim-8": 4}  # time
 # profiled scan steps of 16 updates each.
 EXAMPLE_REPLAY_START = 20_000       # cut from the examples' 50,000 for the time limit
 EXAMPLE_ATARI_STEPS = (313, 8, 4)   # warm, timed, profiled
-PIPELINE_SECONDS = (10.0, 5.0)      # the pipeline after its replay start: timed, profiled
+PIPELINE_SECONDS = (5.0, 3.0)       # the pipeline after its replay start: timed, profiled (10, 5 until PR 15)
 PIPELINE_MIN_UPDATES = 2_560        # then on to the burst holding the first target sync (the 2,500th update)
 
 
@@ -475,9 +497,11 @@ def time_shape(device, c, live, batch) -> dict:
     }
 
 
-def check_prefix_sample(device, tree_leaves: int, batch: int, large_leaves: int) -> dict:
+def check_prefix_sample(device, tree_leaves: int, batch: int, large_leaves: int, grasping_leaves: int) -> dict:
     """The kernel against ``prefix_sample_reference`` on the card, then its
-    times at the main path's shape and at ``large_leaves``.
+    times at the main path's shape, at ``large_leaves`` and at
+    ``grasping_leaves`` (``grasping-dqn-batch-1``'s tree, with the live
+    leaves its run ends with).
 
     Integer-valued priorities sum exactly in any order: the counts must be
     equal. Real-valued ones may differ only where a target lies within
@@ -490,7 +514,7 @@ def check_prefix_sample(device, tree_leaves: int, batch: int, large_leaves: int)
     # (C, B, leading leaves cut off, so the view starts 4 bytes past 16).
     cases = ((tree_leaves, batch, 0), (large_leaves, batch, 0), (3 * 1024 + 517, 5, 0),
              (200_001, 200, 0), (5, 8, 0), (tree_leaves, 1000, 0), (tree_leaves + 3, batch, 1),
-             (tree_leaves, CARTPOLE_BATCH, 0))
+             (tree_leaves, CARTPOLE_BATCH, 0), (grasping_leaves, batch, 0))
     for c, b, cut in cases:
         p, t = _integer_case(rs, c, b, device)
         p = p[cut:]
@@ -520,6 +544,7 @@ def check_prefix_sample(device, tree_leaves: int, batch: int, large_leaves: int)
     main = time_shape(device, tree_leaves, 100_000, batch)
     large = time_shape(device, large_leaves, 1_000_000, batch)
     b64 = time_shape(device, tree_leaves, 100_000, CARTPOLE_BATCH)
+    grasping = time_shape(device, grasping_leaves, GRASPING_REPLAY_START + GRASPING_UPDATES, batch)
     return {
         "name": "prefix_sample",
         "route": "cuda",
@@ -531,6 +556,7 @@ def check_prefix_sample(device, tree_leaves: int, batch: int, large_leaves: int)
         "real_valued_mismatches_within_rounding": real_mismatches,
         "large": large,
         "b64": b64,
+        "grasping": grasping,
     }
 
 
@@ -746,21 +772,22 @@ def run_full_slice(card: str, compute_dtype=None, timed_steps: int = FULL_STEPS_
 
 # --------------------------------------------------------------------- phase 5
 def run_full_rainbow(card: str) -> dict:
-    """Rainbow with the recipe's every value, cut to 500 scan steps: no
-    updates below 20,000 transitions, then 16 per scan step, and the
-    target sync when the last step reaches 32,000."""
+    """Rainbow with the recipe's every value but the replay start
+    (``RAINBOW_REPLAY_START``), cut to 500 scan steps: no updates below
+    28,000 transitions, then 16 per scan step, and the target sync when
+    the last step reaches 32,000."""
     from pfrl_tpu_torch.envs.atari_sim import AtariSim
     from pfrl_tpu_torch.experiments.atari_rainbow import make_rainbow_runner
     from pfrl_tpu_torch.experiments.runner import EvalLoop
     from pfrl_tpu_torch.ops.prefix_sample import prefix_sample
 
-    runner = make_rainbow_runner()  # the CUDA device, the recipe's sizes
+    runner = make_rainbow_runner(replay_start_size=RAINBOW_REPLAY_START)  # the CUDA device
     cfg, buffer, core = runner.config, runner.buffer, runner.core
     state = runner.init(0)
     torch.cuda.synchronize()
     train = state.train_state
     target0 = [p.detach().clone() for p in train.target_model.parameters()]
-    collect_steps = (cfg.replay_start_size - 1) // cfg.num_envs  # the last step with t < 20,000
+    collect_steps = (cfg.replay_start_size - 1) // cfg.num_envs  # the last step with t < the replay start
     warm_end = collect_steps + RAINBOW_STEPS_WARM
 
     prefix_sample.launches = 0
@@ -1335,12 +1362,14 @@ def run_full_onpolicy(card: str, name: str, compute_dtype=None) -> dict:
         checks["Adam's count == n_updates == 320 per iteration"] = (
             train.opt_state.count == train.n_updates == 320 * iterations)
         checks["log_std moved"] = abs(float(head.log_std.detach()) - log_std0) > 1e-4
-    if name == "ppo":  # MujocoSim truncates at 1,000 steps; 2,048 steps per lane
-        checks["every lane truncated at its steps 1,000 and 2,000, never terminated"] = (
-            finished == train_truncations == 2 * lanes and train_terminations == 0)
-    if name in ("ppo-pendulum", "trpo"):  # 1,280 steps per lane: 200, 400, ..., 1,200
-        checks["every lane truncated six times, never terminated"] = (
-            finished == train_truncations == 6 * lanes and train_terminations == 0)
+    if name == "ppo":  # MujocoSim truncates at 1,000 steps; 1,024 steps per lane
+        per_lane = iterations * T // 1_000
+        checks[f"every lane truncated {per_lane} time(s), never terminated"] = (
+            finished == train_truncations == per_lane * lanes > 0 and train_terminations == 0)
+    if name in ("ppo-pendulum", "trpo"):  # Pendulum truncates at 200: 640 and 1,280 steps per lane
+        per_lane = iterations * T // 200
+        checks[f"every lane truncated {per_lane} times, never terminated"] = (
+            finished == train_truncations == per_lane * lanes > 0 and train_terminations == 0)
         checks["finished returns <= 0"] = bool((recent <= 0).all())
     if name == "trpo":
         accepted = aux["step_accepted"] > 0
@@ -1509,10 +1538,13 @@ def check_small_noisy_nature_q(device) -> dict:
 def run_full_cartpole(card: str, name: str) -> dict:
     """One recipe at full width: 96 scan steps of 32 lanes (the example: 24
     of 128), so that t = 3,072. The timed chunks end on the target syncs,
-    where the target must equal the online net; then ``EvalLoop``."""
+    where the target must equal the online net; then ``EvalLoop``. The
+    runners of ``train_dqn_gym.py`` (phase 19, :func:`_gym_recipes`) run
+    the same way: one update per scan step, one sync at 2,048."""
     from pfrl_tpu_torch.ops.prefix_sample import prefix_sample
 
-    runner, evaluator = _cartpole_recipes()[name]()  # the CUDA device, the recipe's sizes
+    gym = name in _gym_recipes()
+    runner, evaluator = {**_cartpole_recipes(), **_gym_recipes()}[name]()  # the CUDA device, the recipe's sizes
     cfg = runner.config
     example = name == "dqn-cartpole-example"
     warm_steps, timed_steps = CARTPOLE_EXAMPLE_STEPS if example else CARTPOLE_STEPS
@@ -1546,7 +1578,7 @@ def run_full_cartpole(card: str, name: str) -> dict:
     loss = torch.cat(losses)
     updates = _updates_in(cfg, 1, steps)
     timed_updates = _updates_in(cfg, warm_steps + 1, steps)
-    per_step = 4 if example else 8
+    per_step = 4 if example else 1 if gym else 8
     expected_launches = updates if name == "rainbow-cartpole" else 0
     t4 = time.perf_counter()
     returns = evaluator.evaluate(train, state.draws)
@@ -1558,7 +1590,7 @@ def run_full_cartpole(card: str, name: str) -> dict:
                                                           if k * cfg.num_envs >= cfg.replay_start_size),
         "losses finite, positive once updates run": bool(torch.isfinite(loss).all())
         and bool((loss[warm_steps - 1:] > 0).all()),
-        "the target equals the online net right after each sync": len(synced_equal) == (1 if example else 2)
+        "the target equals the online net right after each sync": len(synced_equal) == (1 if example or gym else 2)
         and all(synced_equal),
         "prefix-sample launches as expected": launches == expected_launches,
         "evaluation returns finite": bool(np.isfinite(returns).all()) and returns.shape == (evaluator.env.num_envs,),
@@ -3237,8 +3269,8 @@ def _within_nudges(got: float, want: float, nudged: list, rel: float, floor: flo
     return abs(got - want) <= max(rel * abs(want), floor, 4 * nudge)
 
 
-def check_small_shell(name: str, make_agent, make_env, drive, obs_size: int, action_shape, device,
-                      tolerance=None) -> dict:
+def check_small_shell(name: str, make_agent, make_env, drive, obs_size, action_shape, device,
+                      tolerance=None, extra_checks=None) -> dict:
     """One host shell through its driver on the card and on the CPU, from
     the same weights (a CPU generator's) and draws (``SeededDraws``):
     discrete actions, the step, update and target-sync counts and the
@@ -3251,12 +3283,16 @@ def check_small_shell(name: str, make_agent, make_env, drive, obs_size: int, act
     moments 1e-5 of their largest) or 4x what the nudges move it, where
     that is more (C22, C48, C54). ``tolerance`` raises these floors where a
     configuration says why: ``per_update`` (absolute, times the updates). A prioritized ring launches the
-    prefix-sample kernel once per update on the card."""
+    prefix-sample kernel once per update on the card. ``obs_size`` is the
+    observation's width, or ``example(device)`` giving an example batch of
+    a structured observation; ``extra_checks(card_agent, cpu_agent)`` adds
+    named checks."""
     from pfrl_tpu_torch.ops.prefix_sample import prefix_sample
 
     def run(dev, tag, scale=1.0):
         agent = make_agent(dev, SeededDraws(1, dev))
-        agent.train_state = agent.core.init(torch.Generator().manual_seed(0), torch.zeros((1, obs_size), device=dev),
+        example = obs_size(dev) if callable(obs_size) else torch.zeros((1, obs_size), device=dev)
+        agent.train_state = agent.core.init(torch.Generator().manual_seed(0), example,
                                             torch.zeros((1,) + tuple(action_shape), device=dev))
         with torch.no_grad():
             for module in vars(agent.train_state).values():
@@ -3279,6 +3315,8 @@ def check_small_shell(name: str, make_agent, make_env, drive, obs_size: int, act
             agent.core.sync_target = sync_target
         outdir = HOST_SMALL_DIR / name / tag
         drive(agent, make_env(dev, 10), outdir=str(outdir), eval_env=make_env(dev, 20))
+        for saved in [p for p in outdir.iterdir() if p.is_dir()]:  # the saved agents: scores.txt is kept
+            shutil.rmtree(saved)
         return agent, log, _host_scores(outdir)
 
     tol = tolerance or {}
@@ -3321,6 +3359,8 @@ def check_small_shell(name: str, make_agent, make_env, drive, obs_size: int, act
     worst = _learned_differences(card.train_state, cpu.train_state, [n[0].train_state for n in nudged],
                                  tol.get("per_update", 0.0) * card.train_state.n_updates)
     checks["learned tensors within their bounds"] = all(d <= b for d, b in worst.values())
+    if extra_checks is not None:
+        checks.update(extra_checks(card, cpu))
     top = max(worst.items(), key=lambda kv: kv[1][0] / kv[1][1])
     actions = (f"largest action difference {action_diff:.3g} <= {action_bound:.3g}" if continuous
                else f"actions {'equal' if checks['actions'] else 'DIFFER'}")
@@ -3336,15 +3376,19 @@ def check_small_shell(name: str, make_agent, make_env, drive, obs_size: int, act
 # The profiled windows: 32 batch steps from the learning start, or, for the
 # on-policy paths, around their second update (PPO at 4,096, TRPO at 5,000
 # is its first: the run ends on the second at 10,000).
-HOST_PATH_PROFILED = {"ppo-hopper-host-1": (4_080, 32), "trpo-hopper-host-1": (4_984, 32)}
+HOST_PATH_PROFILED = {"ppo-hopper-host-1": (4_080, 32), "trpo-hopper-host-1": (4_984, 32),
+                      "naf-pendulum-host-32": (1_024, 8)}  # 32 lanes: 8 batch steps of 32 updates each
 # Cut for the script's time limit (HOST_PATHS' own: the replay start and burn-in of 10,000, t = 11,000,
 # 2,600, 6,144 and 10,000): the actor-critic paths learn from 2,000 to 2,500 (501 updates, the truncations at
-# steps 1,000 and 2,000 crossed), Rainbow runs to 2,100 (501 updates, its target sync at 2,000 crossed), PPO to
+# steps 1,000 and 2,000 crossed), Rainbow runs to 2,016 (417 updates, its target sync at 2,000 crossed), PPO to
 # 4,128 (two updates) and TRPO to 5,024 (one), each past its profiled window.
 HOST_PATH_REPLAY_START = {name: 2_000 for name in ("sac-halfcheetah-host-1", "td3-halfcheetah-host-1",
                                                    "ddpg-halfcheetah-host-1", "td3-halfcheetah-host-4-burst")}
-HOST_PATH_STEPS = {**{name: 2_500 for name in HOST_PATH_REPLAY_START}, "rainbow-slimevolley-cartpole-1": 2_100,
-                   "ppo-hopper-host-1": 4_128, "trpo-hopper-host-1": 5_024}
+HOST_PATH_STEPS = {**{name: 2_500 for name in HOST_PATH_REPLAY_START}, "rainbow-slimevolley-cartpole-1": 2_016,
+                   "ppo-hopper-host-1": 4_128, "trpo-hopper-host-1": 5_024,
+                   # Phase 19's host modes, cut from HOST_PATHS' 3,072 to the scan
+                   # past their sync at 2,048: 1,120 and 1,089 updates.
+                   "naf-pendulum-host-32": 2_112, "c51-gym-cartpole-host-1": 2_112}
 
 
 def run_full_host_path(card: str, name: str) -> dict:
@@ -3402,10 +3446,12 @@ def run_full_host_path(card: str, name: str) -> dict:
     }
     if prioritized:
         checks["the example's 10^6-transition ring, 2^20 leaves"] = agent.buffer.tree_capacity == 2**20
+    if prioritized or name in PHASE_19_HOST_PATHS:
         checks["the target equals the online network after each hard sync"] = len(synced_equal) >= 1 and all(
             synced_equal)
     if not onpolicy:
-        checks["the scripts' 10^6-slot ring"] = record["ring_slots"] == 10**6
+        slots = PHASE_19_HOST_PATHS.get(name, 10**6)
+        checks[f"the script's {slots:,}-slot ring"] = record["ring_slots"] == slots
     prof = record.get("profiled", {})
     med = lambda k: tm.get(k, {}).get("median_ms", float("nan"))  # noqa: E731
     env_label = "env round trip" if lanes > 1 else "env step"
@@ -3431,10 +3477,10 @@ def run_full_host_path(card: str, name: str) -> dict:
 # -------------------------------------------------------------------- phase 17
 AL_SMALL_TRANSITIONS = 160  # the one actor's transitions, drained by the poller before the learner runs
 AL_SMALL_UPDATES = 31
-AL_FULL_REPLAY_START = 20_000   # cut from the example's 50,000 for the time limit
-AL_FULL_EVAL_INTERVAL = 25_000  # cut from the example's 10^5: one evaluation of 10 episodes
-AL_FULL_UPDATES = 384           # the learner's updates (HOST_PATHS' 640, cut for the time limit)
-AL_FULL_PROFILED = (320, 64)    # the learner's last 64 updates under torch.profiler, after the timed ones
+AL_FULL_REPLAY_START = 4_000    # cut from the example's 50,000 for the time limit (20,000 until PR 15)
+AL_FULL_EVAL_INTERVAL = 5_000   # cut from the example's 10^5: one evaluation of 10 episodes
+AL_FULL_UPDATES = 128           # the learner's updates (HOST_PATHS' 640, cut for the time limit; 384 until PR 15)
+AL_FULL_PROFILED = (64, 64)     # the learner's last 64 updates under torch.profiler, after the timed ones
 A3C_ITERATIONS = 40             # a3c-atarisim-16: timed, after one warm iteration
 
 
@@ -3592,9 +3638,11 @@ def run_full_actor_learner(card: str) -> dict:
     updates_after = (record["learning_to_update"] or 0) - (record["learning_from_update"] or 0)
     checks = {
         "the 10^6-slot ring, 28.288 GB of frames": record["ring_slots"] == 10**6 and record["ring_bytes"] > 28.28e9,
-        "the learner's 384 updates, past the replay start": record["n_updates"] == AL_FULL_UPDATES
+        f"the learner's {AL_FULL_UPDATES} updates, past the replay start": record["n_updates"] == AL_FULL_UPDATES
         and record["t"] >= agent.replay_start_size,
-        "at least 250 timed updates after the replay start": updates_after >= 250,
+        # 250 of 320 until PR 15 cut the run.
+        f"at least {AL_FULL_PROFILED[0] * 3 // 4} timed updates after the replay start":
+            updates_after >= AL_FULL_PROFILED[0] * 3 // 4,
         "a sane profiled window": prof.get("kernels_per_update") is not None and prof["kernels_per_update"] > 100,
         "a publication every 8 updates": record["publications"] == AL_FULL_UPDATES // 8,
         "loss finite": math.isfinite(stats["average_loss"]) and math.isfinite(stats["average_q"]),
@@ -4017,6 +4065,242 @@ def run_persistence(card: str, device) -> dict:
         shutil.rmtree(SNAPSHOT_ROOT, ignore_errors=True)
 
 
+# -------------------------------------------------------------------- phase 19
+# grasping-dqn-batch-1: the ring is cut from the script's 10^6 slots to
+# 400,000 (obs and next_obs images of 84,992 B each: 10^6 slots would take
+# 170 GB, 400,000 take 68.0 GB of the 80 GB card; the PER tree's C = 2^19),
+# or to 262,144 (44.6 GB, C = 2^18) where the free memory after the earlier
+# phases forbids it; the replay start from 5 x 10^4 to 1,024 for the time
+# limit (a batch step before it takes 7-13 ms, most of it the PER add over
+# the 19-level trees). 512 updates past it (one per transition), then one
+# evaluation of the script's 100 episodes.
+GRASPING_CAPACITY = 400_000
+GRASPING_FALLBACK_CAPACITY = 262_144
+GRASPING_REPLAY_START = 1_024
+GRASPING_UPDATES = 512
+GRASPING_PROFILED = (GRASPING_REPLAY_START, 32)  # from t, batch steps under torch.profiler
+GRASPING_SLOT_BYTES = 2 * 21_248 * 4 + 2 * 4 + 4 + 4 + 1 + 1  # both images, both steps, action, reward, flags
+GRASPING_MARGIN_BYTES = 4 * 2**30  # the network, its target, Adam's moments, activations, the trees
+# Host paths of phase 19 -> their rings' slots (phase 16 runs the others).
+PHASE_19_HOST_PATHS = {"naf-pendulum-host-32": 10**5, "c51-gym-cartpole-host-1": 10**5}
+
+
+def _gym_recipes() -> dict:
+    """name -> the device runner of ``train_dqn_gym.py --env`` (``experiments/dqn_gym.py``)."""
+    from pfrl_tpu_torch.experiments.dqn_gym import make_dqn_gym_runner
+
+    return {f"{label}-32": functools.partial(make_dqn_gym_runner, env)
+            for label, env in (("naf-pendulum", "pendulum"), ("naf-mountaincar", "mountaincar"),
+                               ("dqn-gym-cartpole", "cartpole"))}
+
+
+def _small_naf_configs() -> dict:
+    """name -> a 4-lane NAF runner of ``train_dqn_gym.py`` at its widths
+    (FC 2 x 100): a 96-slot ring, 2 batch-16 updates per scan step from 32
+    transitions, a sync at 48, episodes cut to 10 steps."""
+    from pfrl_tpu_torch.envs import MountainCarContinuous, Pendulum, TimeLimit
+    from pfrl_tpu_torch.experiments.dqn_gym import make_dqn_gym_runner
+
+    small = dict(num_envs=4, capacity=96, replay_start_size=32, update_interval=2, target_update_interval=48,
+                 minibatch_size=16)
+    return {
+        f"naf-{name}": (lambda dev, env=env: make_dqn_gym_runner(env=TimeLimit(env(device=dev), 10), **small)[0])
+        for name, env in (("pendulum", Pendulum), ("mountaincar", MountainCarContinuous))
+    }
+
+
+def _sampled_ids_agree(leaves: torch.Tensor, targets: torch.Tensor, got: torch.Tensor, want: torch.Tensor) -> bool:
+    """The kernel's leaves equal the plain version's, or differ only where
+    a target lies within 1e-6 of the total from a cumulative boundary
+    (float64 as judge), as phase 2 holds real-valued priorities."""
+    if torch.equal(got, want):
+        return True
+    cs64 = np.cumsum(leaves.double().cpu().numpy())
+    total = float(cs64[-1])
+    for g, w, t in zip(got.tolist(), want.tolist(), targets.tolist()):
+        if g != w:
+            lo, hi = sorted((g, w))
+            if np.max(np.abs(cs64[lo:hi] - t)) > 1e-6 * total:
+                return False
+    return True
+
+
+def _small_phase19_shells() -> dict:
+    """name -> (agent(device, draws), env(device, seed), driver, example
+    observation or width, action shape, extra checks):
+
+    - ``host-grasping-double-dqn``: the grasping recipe's ``DoubleDQN`` at
+      its widths over PER with a 2^14-slot ring (the prefix-sample kernel
+      once per update on the card, each call's ids held against the plain
+      version on the same tree), ``(image, steps)`` observations of one
+      ``SyntheticGraspingEnv`` lane through the batch driver: replay start
+      64, 31 updates to t = 94, a sync at 80; the ring rows of both leaves
+      of ``obs`` and ``next_obs`` equal the CPU's;
+    - ``host-naf-pendulum``: ``train_dqn_gym.py``'s NAF shell (FC 2 x 100)
+      on the 50-step Pendulum behind ``HostTorchEnv``, cast and normalized
+      as the script wraps it, 61 updates from 100 (over 201 updates the
+      card's and the CPU's continuous actions fed back through the
+      dynamics moved a first moment 3.3x past what the nudges move it);
+    - ``host-c51-cartpole``: ``train_categorical_dqn_gym.py``'s shell (51
+      atoms on [0, 500], FC 2 x 100) on CartPole cut at 50 steps, 61
+      updates."""
+    from pfrl_tpu_torch import spaces
+    from pfrl_tpu_torch.envs import CartPole, HostTorchEnv, Pendulum, SerialVectorEnv, TimeLimit
+    from pfrl_tpu_torch.envs.synthetic_grasping import SyntheticGraspingEnv
+    from pfrl_tpu_torch.experiments import train_agent_batch_with_evaluation, train_agent_with_evaluation
+    from pfrl_tpu_torch.experiments.categorical_dqn_gym import make_c51_agent
+    from pfrl_tpu_torch.experiments.dqn_gym import make_agent, wrapped_env
+    from pfrl_tpu_torch.experiments.grasping_dqn_batch import make_grasping_agent
+    from pfrl_tpu_torch.ops.prefix_sample import prefix_sample_reference
+    from pfrl_tpu_torch.utils.batch_states import leaves
+    from pfrl_tpu_torch.wrappers import CastObservationToFloat32
+
+    def grasping_agent(dev, draws):
+        agent = make_grasping_agent(capacity=2**14, replay_start_size=64, final_exploration_steps=80,
+                                    target_update_interval=80, device=dev, draws=draws)
+        agent.kernel_vs_plain = []
+        if torch.device(dev).type == "cuda":
+            buffer, find = agent.buffer, agent.buffer._find_slots
+
+            def checked(tree, targets):
+                got = find(tree, targets)
+                cap = buffer.tree_capacity
+                want = torch.clamp_max(prefix_sample_reference(tree[cap:], targets), cap - 1)
+                agent.kernel_vs_plain.append(_sampled_ids_agree(tree[cap:], targets, got, want))
+                return got
+
+            buffer._find_slots = checked
+        return agent
+
+    def grasping_checks(card, cpu):
+        rings = [a.replay_state.base.storage for a in (card, cpu)]
+        pairs = [(a.cpu(), b) for k in ("obs", "next_obs") for a, b in zip(leaves(rings[0][k]), leaves(rings[1][k]))]
+        return {
+            "the ring rows of both leaves equal the CPU's": len(pairs) == 4
+            and all(torch.equal(a, b) for a, b in pairs),
+            "the ring's leaves: float32 images of 21,248, int32 steps": [
+                (tuple(x.shape[1:]), x.dtype) for x in leaves(rings[1]["obs"])] == [
+                ((21_248,), torch.float32), ((), torch.int32)],
+            "each sample's ids equal the plain version's": len(card.kernel_vs_plain) == card.optim_t > 0
+            and all(card.kernel_vs_plain),
+            "a 2^14-leaf tree": card.buffer.tree_capacity == 2**14,
+        }
+
+    def grasping_example(dev):
+        return (torch.zeros((1, 84, 84, 3), device=dev), torch.zeros((1,), dtype=torch.int32, device=dev))
+
+    def pendulum(dev, seed):
+        return wrapped_env(lambda s: HostTorchEnv(TimeLimit(Pendulum(device=dev), 50), draws=SeededDraws(s, dev)),
+                           seed)
+
+    def cartpole(dev, seed):
+        return CastObservationToFloat32(HostTorchEnv(TimeLimit(CartPole(device=dev), 500),
+                                                     draws=SeededDraws(seed, dev)))
+
+    serial = functools.partial(train_agent_with_evaluation, eval_n_steps=None, eval_n_episodes=2,
+                               train_max_episode_len=50)
+    small = dict(replay_start_size=100, minibatch_size=32, target_update_interval=100)
+    return {
+        "host-grasping-double-dqn": (
+            grasping_agent, lambda dev, seed: SerialVectorEnv([SyntheticGraspingEnv(seed=seed)]),
+            functools.partial(train_agent_batch_with_evaluation, steps=94, eval_n_steps=None, eval_n_episodes=2,
+                              eval_interval=94),
+            grasping_example, (), grasping_checks),
+        "host-naf-pendulum": (
+            lambda dev, draws: make_agent(3, spaces.box(-2.0, 2.0, (1,)), num_envs=1, buffer_size=10_000,
+                                          device=dev, draws=draws, **small),
+            pendulum, functools.partial(serial, steps=160, eval_interval=80), 3, (1,), None),
+        "host-c51-cartpole": (
+            lambda dev, draws: make_c51_agent(4, 2, device=dev, draws=draws, **small),
+            cartpole, functools.partial(serial, steps=160, eval_interval=80), 4, (), None),
+    }
+
+
+def run_full_grasping(card: str) -> dict:
+    """``grasping-dqn-batch-1`` on the card: ``train_dqn_batch_grasping.py
+    --jax-env`` at the script's settings (``experiments/grasping_dqn_batch.py``:
+    ``DoubleDQN`` over PER, ``(image, steps)`` observations, one spawned
+    worker for training and one for evaluation) but the ring
+    (``GRASPING_CAPACITY``, or the fallback, by the free memory) and the
+    replay start (``GRASPING_REPLAY_START``), one batch step at a time
+    (``profile_host.run_host_batch``) through 512 updates, then one
+    evaluation of 100 episodes. The kernel runs once per update at the
+    tree's C. The ring is freed before the phase ends."""
+    from pfrl_tpu_torch.experiments.grasping_dqn_batch import make_grasping_agent, make_vector_envs
+    from pfrl_tpu_torch.experiments.profile_host import run_host_batch
+    from pfrl_tpu_torch.ops.prefix_sample import prefix_sample
+    from pfrl_tpu_torch.utils.batch_states import leaves
+
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    need = GRASPING_CAPACITY * GRASPING_SLOT_BYTES + GRASPING_MARGIN_BYTES
+    capacity = GRASPING_CAPACITY if need <= free else GRASPING_FALLBACK_CAPACITY
+    why = ("" if capacity == GRASPING_CAPACITY else
+           f" (cut to {capacity:,}: {GRASPING_CAPACITY:,} slots need {need / 1e9:.1f} GB with the margin)")
+    print(f"grasping-dqn-batch-1: {free / 1e9:.1f} of {total / 1e9:.1f} GB free before the ring; "
+          f"{capacity:,} slots{why}")
+    agent = make_grasping_agent(capacity=capacity, replay_start_size=GRASPING_REPLAY_START)
+    env, eval_env = make_vector_envs(1, 0)
+    steps = GRASPING_REPLAY_START + GRASPING_UPDATES - 1
+    prefix_sample.launches = 0
+    try:
+        with tempfile.TemporaryDirectory() as outdir:  # the saved agents: 27 MB each
+            record = run_host_batch(agent, env, eval_env, steps, steps, 100, outdir, profiled=GRASPING_PROFILED)
+    finally:
+        for e in (env, eval_env):
+            if not e.closed:
+                e.close()
+    torch.cuda.synchronize()
+    launches = prefix_sample.launches
+    record["kernel_launches"] = launches
+    record["free_bytes_before"] = free
+    storage = agent.replay_state.base.storage
+    record["leaves"] = {k: [[list(x.shape), str(x.dtype)] for x in leaves(storage[k])] for k in ("obs", "next_obs")}
+    record["tree_leaves"] = agent.buffer.tree_capacity
+    stats, tm = record["statistics"], record["timings"]
+    checks = {
+        f"the {capacity:,}-slot ring on the card": record["ring_slots"] == capacity
+        and record["ring_bytes"] >= capacity * GRASPING_SLOT_BYTES,
+        "a tree of 2^19 (2^18) leaves": agent.buffer.tree_capacity == (2**19 if capacity == GRASPING_CAPACITY
+                                                                       else 2**18),
+        "both leaves stored per field: float32 images of 21,248, int32 steps":
+            all(v == [[[capacity, 21_248], "torch.float32"], [[capacity], "torch.int32"]]
+                for v in record["leaves"].values()),
+        "t and the updates as the shell's gating has them": record["t"] == steps
+        and record["n_updates"] == GRASPING_UPDATES,
+        "512 prefix-sample launches, one per update": launches == record["n_updates"] == GRASPING_UPDATES,
+        "loss finite": math.isfinite(stats["average_loss"]) and math.isfinite(stats["average_q"]),
+        "one evaluation of 100 episodes, finite": len(record["eval"]) == 1
+        and math.isfinite(record["eval"][0]["mean"]),
+        "every worker ended": all(p.exitcode is not None for e in (env, eval_env) for p in e.ps),
+        "a profiled window": "profiled" in record,
+    }
+    prof = record.get("profiled", {})
+    med = lambda k: tm.get(k, {}).get("median_ms", float("nan"))  # noqa: E731
+    after = "ms_per_batch_step_after_replay_start"
+    print(f"grasping-dqn-batch-1: 1 + 1 spawned workers up in {record['worker_startup_s']['train']:.2f} + "
+          f"{record['worker_startup_s']['eval']:.2f} s; ring {record['ring_bytes']:,} B ({capacity:,} slots, "
+          f"C = {agent.buffer.tree_capacity:,}); env-steps/s {record['env_steps_per_s_before_replay_start']:.1f} "
+          f"before the replay start ({GRASPING_REPLAY_START:,}, cut), "
+          f"{record['env_steps_per_s_after_replay_start']:.1f} after it (from t = {record['learning_from_t']:,}), "
+          f"updates/s {record['updates_per_s_after_replay_start']:.1f}; median batch_act {med('batch_act'):.3f} ms, "
+          f"env step (the worker's round trip) {med('env step'):.3f} ms, PER add (batch_observe) "
+          f"{med('batch_observe (ring add)'):.3f} ms, update {med('update'):.3f} ms; past the profiled window "
+          f"{record['batch_step_ms_after_replay_start']:.3f} ms per batch step, of which "
+          f"{', '.join(f'{k} {v[after]:.3f}' for k, v in tm.items() if v.get(after) is not None)}; "
+          f"{record['n_updates']} updates; over {prof.get('batch_steps')} profiled batch steps "
+          f"{prof.get('kernels_per_update') or float('nan'):.1f} kernels per update, device busy "
+          f"{prof.get('device_busy_share', float('nan')) * 100:.1f}%; evaluation mean "
+          f"{record['eval'][0]['mean'] if record['eval'] else float('nan')} over 100 episodes; loss "
+          f"{stats['average_loss']:.5f}; {launches} prefix-sample launches (fp32, no TF32) on {card}")
+    _raise_on_failed("grasping-dqn-batch-1", checks)
+    agent.replay_state = None
+    del agent
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4045,11 +4329,11 @@ def main() -> int:
     record["build"] = phase("build", build_kernels)
     record["frame_ops"] = phase("frame ops", check_frame_ops, card)
     kernel = phase(
-        "kernel checks", check_prefix_sample, device, tree_capacity(100_000), 32, tree_capacity(1_000_000)
+        "kernel checks", check_prefix_sample, device, tree_capacity(100_000), 32, tree_capacity(1_000_000),
+        tree_capacity(GRASPING_CAPACITY),
     )
-    print_shape(kernel, card)
-    print_shape(kernel["large"], card)
-    print_shape(kernel["b64"], card)
+    for shape in (kernel, kernel["large"], kernel["b64"], kernel["grasping"]):
+        print_shape(shape, card)
     record["small_slices"] = {
         name: phase(f"small {name}", check_small_slice, name, build, steps, launches, device)
         for name, (build, steps, launches) in _small_configs().items()
@@ -4119,7 +4403,7 @@ def main() -> int:
     from pfrl_tpu_torch.experiments.profile_host import HOST_PATHS
 
     record["full_host_shells"] = {name: phase(f"full {name}", run_full_host_path, card, name) for name in HOST_PATHS
-                                  if not HOST_PATHS[name].actors}
+                                  if not HOST_PATHS[name].actors and name not in PHASE_19_HOST_PATHS}
     for name, cls_name, prioritized in (("actor-learner-dqn", "DQN", False),
                                         ("actor-learner-per-double-dqn", "DoubleDQN", True)):
         record["small_slices"][name] = phase(f"small {name}", check_small_actor_learner, name, cls_name, prioritized,
@@ -4129,6 +4413,16 @@ def main() -> int:
         "a3c-atarisim-16": phase("full a3c-atarisim-16", run_full_atari_onpolicy, card, "a3c-atarisim-16"),
     }
     record["persistence"] = phase("persistence", run_persistence, card, device)
+    for name, (make_agent, make_env, drive, example, action_shape, extra) in _small_phase19_shells().items():
+        record["small_slices"][name] = phase(f"small {name}", check_small_shell, name, make_agent, make_env, drive,
+                                             example, action_shape, device, None, extra)
+    for name, build in _small_naf_configs().items():
+        record["small_slices"][name] = phase(f"small {name}", check_small_actor_critic, name, build, 30, device)
+    record["full_phase19"] = {"grasping-dqn-batch-1": phase("full grasping-dqn-batch-1", run_full_grasping, card)}
+    for name in _gym_recipes():
+        record["full_phase19"][name] = phase(f"full {name}", run_full_cartpole, card, name)
+    for name in PHASE_19_HOST_PATHS:
+        record["full_phase19"][name] = phase(f"full {name}", run_full_host_path, card, name)
     # Counted over each path that samples by priority, from 0 at its start;
     # every other path asserts a count of 0.
     kernel["launches_by_path"] = {
@@ -4154,6 +4448,11 @@ def main() -> int:
         # The resumed PER run, C = 2^17: 8 scan steps of 16 updates, before (A) and after (B) the reload.
         "resume-A": record["persistence"]["resume"]["launches_a"],
         "resume-B": record["persistence"]["resume"]["launches_b"],
+        # The card's side of the grasping shell's card-vs-CPU run (C = 2^14), then
+        # grasping-dqn-batch-1 (C = 2^19): one launch per update; 0 on the other
+        # paths of phase 19.
+        "host-grasping-double-dqn": record["small_slices"]["host-grasping-double-dqn"]["kernel_launches"],
+        **{name: r["kernel_launches"] for name, r in record["full_phase19"].items()},
     }
     kernel["launches"] = sum(kernel["launches_by_path"].values())
     record["kernels"] = [kernel]

@@ -1,8 +1,10 @@
 """Action values returned by Q-networks (counterpart of
-``pfrl_tpu/action_value.py``; the discrete, the categorical distributional
-and the quantile variants so far)."""
+``pfrl_tpu/action_value.py``): the discrete, the categorical
+distributional and the quantile variants, NAF's quadratic one and the
+per-action :class:`SingleActionValue`."""
 
 import dataclasses
+from typing import Callable, Optional
 
 import torch
 
@@ -88,3 +90,60 @@ class QuantileDiscreteActionValue:
         """The quantiles of the given actions, ``[B, n_taus]``."""
         idx = actions.to(torch.int64).view(-1, 1, 1).expand(-1, self.quantiles.shape[1], 1)
         return torch.gather(self.quantiles, 2, idx).squeeze(2)
+
+
+@dataclasses.dataclass
+class QuadraticActionValue:
+    """NAF's quadratic Q: ``Q(s, a) = v - 1/2 (a - mu)^T mat (a - mu)``.
+
+    ``mu`` ``[B, d]``, ``mat`` ``[B, d, d]`` (positive semi-definite), ``v``
+    ``[B]``; optional bounds ``min_action``/``max_action`` ``[d]`` clip the
+    greedy action, and then ``max()`` evaluates the clipped action (equal
+    to ``v`` only up to rounding where ``mu`` lies inside the bounds), as
+    the JAX class does; without bounds it is ``v``."""
+
+    mu: torch.Tensor
+    mat: torch.Tensor
+    v: torch.Tensor
+    min_action: Optional[torch.Tensor] = None
+    max_action: Optional[torch.Tensor] = None
+
+    def greedy_actions(self) -> torch.Tensor:
+        a = self.mu
+        if self.min_action is not None:
+            a = torch.maximum(a, self.min_action)
+        if self.max_action is not None:
+            a = torch.minimum(a, self.max_action)
+        return a
+
+    def max(self) -> torch.Tensor:
+        if self.min_action is None and self.max_action is None:
+            return self.v
+        return self.evaluate_actions(self.greedy_actions())
+
+    def evaluate_actions(self, actions: torch.Tensor) -> torch.Tensor:
+        d = actions - self.mu
+        return self.v - 0.5 * torch.einsum("bi,bij,bj->b", d, self.mat, d)
+
+
+class SingleActionValue:
+    """Q-values computable only per action, through ``evaluator(actions)``;
+    ``maximizer()`` gives the greedy actions (a continuous actor-critic's
+    policy). Not a dataclass: it wraps callables and is never cast or
+    stacked."""
+
+    def __init__(self, evaluator: Callable[[torch.Tensor], torch.Tensor],
+                 maximizer: Optional[Callable[[], torch.Tensor]] = None):
+        self.evaluator = evaluator
+        self.maximizer = maximizer
+
+    def greedy_actions(self) -> torch.Tensor:
+        if self.maximizer is None:
+            raise RuntimeError("SingleActionValue without maximizer")
+        return self.maximizer()
+
+    def max(self) -> torch.Tensor:
+        return self.evaluator(self.greedy_actions())
+
+    def evaluate_actions(self, actions: torch.Tensor) -> torch.Tensor:
+        return self.evaluator(actions)

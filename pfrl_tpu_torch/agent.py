@@ -114,11 +114,26 @@ def _check_tensor(live: torch.Tensor, saved: Any, where: str) -> None:
             f"{live.dtype}{list(live.shape)}")
 
 
+def _check_equal(live: Any, saved: Any, where: str) -> None:
+    """Raises where plain data (from :func:`to_saved`) first differs."""
+    if isinstance(live, dict) and isinstance(saved, dict) and set(live) == set(saved):
+        for k in live:
+            _check_equal(live[k], saved[k], f"{where}[{k!r}]")
+    elif isinstance(live, list) and isinstance(saved, list) and len(live) == len(saved) and any(
+            isinstance(x, (list, dict)) for x in live):
+        for i, (a, b) in enumerate(zip(live, saved)):
+            _check_equal(a, b, f"{where}[{i}]")
+    elif live != saved:
+        raise CheckpointMismatchError(f"{where}: saved {saved!r:.80} where the live value is {live!r:.80}")
+
+
 def restore_saved(value: Any, saved: Any, where: str = "state") -> Any:
     """Loads ``saved`` (from :func:`to_saved`) into ``value``: modules and
     tensors in place, anything else replaced. Every tensor's shape and
     dtype must equal the live one's, every dict's keys and every list's
-    length; :class:`CheckpointMismatchError` says where they do not. A live
+    length, and the fields a dataclass names in ``strict_fields`` (a
+    ring's item shapes) the live values; :class:`CheckpointMismatchError`
+    says where they do not. A live
     tensor whose storage another live tensor shares (an env's reset may
     hand out one zeros tensor for two fields) is replaced by a copy of its
     saved value instead, so that restoring one never overwrites the other.
@@ -151,6 +166,8 @@ def _restore(value: Any, saved: Any, where: str, written: set) -> Any:
     if dataclasses.is_dataclass(value) and not isinstance(value, type):
         if not isinstance(saved, dict) or set(saved) != {f.name for f in dataclasses.fields(value)}:
             raise CheckpointMismatchError(f"{where}: the saved fields are not {type(value).__name__}'s")
+        for name in getattr(value, "strict_fields", ()):
+            _check_equal(to_saved(getattr(value, name)), saved[name], f"{where}.{name}")
         for f in dataclasses.fields(value):
             setattr(value, f.name, _restore(getattr(value, f.name), saved[f.name], f"{where}.{f.name}", written))
         return value

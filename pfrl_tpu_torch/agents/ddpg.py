@@ -38,6 +38,7 @@ from pfrl_tpu_torch._device import check_same_device, resolve_device, use_full_f
 from pfrl_tpu_torch.agent import AttributeSavingMixin, BatchAgent
 from pfrl_tpu_torch.ops.value_loss import compute_value_loss
 from pfrl_tpu_torch.replay.transition import Transition, TransitionBatch
+from pfrl_tpu_torch.utils.batch_states import to_device_like_jax
 from pfrl_tpu_torch.utils.copy_param import copy_param, soft_copy_param
 from pfrl_tpu_torch.utils.draws import Draws
 from pfrl_tpu_torch.utils.precision import apply_cast, check_compute_dtype
@@ -234,15 +235,6 @@ class DDPGCore(CastApplies):
         return state
 
 
-def host_batch(batch_obs, device: torch.device) -> torch.Tensor:
-    """A batch of host observations on ``device``: one copy, float64 cast
-    to float32 as ``jnp.asarray`` does with x64 off."""
-    x = np.asarray(batch_obs)
-    if x.dtype == np.float64:
-        x = x.astype(np.float32)
-    return torch.from_numpy(np.ascontiguousarray(x)).to(device)
-
-
 class ActorCriticShellAgent(AttributeSavingMixin, BatchAgent):
     """Host shell of the actor-critic cores (``ddpg.py:182-360``).
 
@@ -308,7 +300,7 @@ class ActorCriticShellAgent(AttributeSavingMixin, BatchAgent):
 
     # ------------------------------------------------------------------- act
     def batch_act(self, batch_obs) -> np.ndarray:
-        obs = host_batch(batch_obs, self.device)
+        obs = to_device_like_jax(np.asarray(batch_obs), self.device)
         if self.train_state is None:
             example_action = torch.zeros(
                 (obs.shape[0],) + tuple(self.core_action_space.shape), dtype=torch.float32, device=self.device
@@ -333,7 +325,7 @@ class ActorCriticShellAgent(AttributeSavingMixin, BatchAgent):
             obs=self._last_obs,
             action=self._last_action,
             reward=torch.from_numpy(np.asarray(batch_reward, dtype=np.float32)).to(dev),
-            next_obs=host_batch(batch_obs, dev) if self.buffer.wants_next_obs else None,
+            next_obs=to_device_like_jax(np.asarray(batch_obs), dev) if self.buffer.wants_next_obs else None,
             terminated=torch.from_numpy(done).to(dev),
             done=torch.from_numpy(done | reset).to(dev),
         )

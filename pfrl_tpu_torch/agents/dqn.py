@@ -70,6 +70,7 @@ from pfrl_tpu_torch._device import check_same_device, resolve_device, use_full_f
 from pfrl_tpu_torch.agent import AttributeSavingMixin, BatchAgent
 from pfrl_tpu_torch.ops.value_loss import compute_weighted_value_loss
 from pfrl_tpu_torch.replay.transition import Transition, TransitionBatch
+from pfrl_tpu_torch.utils.batch_states import batch_states, first_leaf, map_structure, to_device_like_jax
 from pfrl_tpu_torch.utils.copy_param import copy_param, soft_copy_param
 from pfrl_tpu_torch.utils.draws import Draws
 from pfrl_tpu_torch.utils.precision import apply_cast, check_compute_dtype
@@ -127,10 +128,11 @@ class DQNCore:
         (state, action) Q-functions of the actor-critic cores need it."""
         model = copy.deepcopy(self.model)
         model.reset_parameters(generator)
-        model.to(example_obs.device)
+        device = first_leaf(example_obs).device
+        model.to(device)
         # Shape check; a noisy model draws noise for it from a source of its
         # own, as the JAX core's init does, never from the run's stream.
-        noise = torch.Generator(device=example_obs.device)
+        noise = torch.Generator(device=device)
         noise.manual_seed(generator.initial_seed())
         with torch.no_grad():
             self.action_value(model, example_obs, Draws(noise))
@@ -209,32 +211,13 @@ class DQNCore:
         return state
 
 
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (tuple, list)):
-        return type(tree)(_tree_map(fn, v) for v in tree)
-    return fn(tree)
-
-
 def _collate_obs(batch_obs):
-    """Driver observations as one numpy batch (``dqn.py:60-77``): a list of
-    structured observations (tuples, lists or dicts of arrays) stacks leaf
-    by leaf, anything else (arrays, ``LazyFrames``) through ``np.asarray``."""
+    """Driver observations as one numpy batch (``dqn.py:60-77``): a numpy
+    batch as it is, else :func:`batch_states` (structured observations leaf
+    by leaf; arrays and ``LazyFrames`` stacked)."""
     if isinstance(batch_obs, np.ndarray):
         return batch_obs
-    if isinstance(batch_obs, (list, tuple)) and batch_obs and isinstance(batch_obs[0], (tuple, list, dict)):
-        first = batch_obs[0]
-        if isinstance(first, dict):
-            return {k: _collate_obs([o[k] for o in batch_obs]) for k in first}
-        return type(first)(_collate_obs([o[i] for o in batch_obs]) for i in range(len(first)))
-    return np.asarray(batch_obs)
-
-
-def to_device(obs, device: torch.device):
-    """A numpy batch (or a structure of them) as tensors on ``device``: one
-    copy per leaf."""
-    return _tree_map(lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device), obs)
+    return batch_states(batch_obs)
 
 
 class DQN(AttributeSavingMixin, BatchAgent):
@@ -325,7 +308,7 @@ class DQN(AttributeSavingMixin, BatchAgent):
 
     # ------------------------------------------------------------------- act
     def batch_act(self, batch_obs) -> np.ndarray:
-        obs = to_device(_collate_obs(batch_obs), self.device)
+        obs = to_device_like_jax(_collate_obs(batch_obs), self.device)
         self._ensure_init(obs)
         actions = self.core.select_action(self.train_state, self.draws, obs, self.t, self.training)
         if self.training:
@@ -346,7 +329,7 @@ class DQN(AttributeSavingMixin, BatchAgent):
             action=self._last_action,
             reward=torch.from_numpy(np.asarray(batch_reward, dtype=np.float32)).to(dev),
             # Read from the successor slot when the ring stores no next_obs.
-            next_obs=to_device(_collate_obs(batch_obs), dev) if self.buffer.wants_next_obs else None,
+            next_obs=to_device_like_jax(_collate_obs(batch_obs), dev) if self.buffer.wants_next_obs else None,
             terminated=torch.from_numpy(done).to(dev),
             done=torch.from_numpy(done | reset).to(dev),
         )
@@ -371,9 +354,9 @@ class DQN(AttributeSavingMixin, BatchAgent):
         if getattr(self.buffer, "num_lanes", 1) != lanes:
             self.buffer = self.buffer.configure_lanes(lanes)
         self.replay_state = self.buffer.init(Transition(
-            obs=_tree_map(lambda x: x[0], transition.obs), action=transition.action[0],
+            obs=map_structure(lambda x: x[0], transition.obs), action=transition.action[0],
             reward=transition.reward[0],
-            next_obs=None if transition.next_obs is None else _tree_map(lambda x: x[0], transition.next_obs),
+            next_obs=None if transition.next_obs is None else map_structure(lambda x: x[0], transition.next_obs),
             terminated=transition.terminated[0], done=transition.done[0],
         ))
 
@@ -435,7 +418,7 @@ class DQN(AttributeSavingMixin, BatchAgent):
         the first call, then one forward of the acting copy at the server's
         ``t``, drawing from the server's own source. ``seed`` (the JAX
         server's key) is not needed."""
-        obs = to_device(obs_batch, self.device)
+        obs = to_device_like_jax(obs_batch, self.device)
         with self._init_lock:
             if self.train_state is None:
                 self._ensure_init(obs)
@@ -456,7 +439,7 @@ class DQN(AttributeSavingMixin, BatchAgent):
             return torch.from_numpy(join([np.asarray(r[key], dtype) for r in rows])).to(dev)
 
         def obs(key):
-            return to_device(_join_rows([r[key] for r in rows], join), dev)
+            return to_device_like_jax(_join_rows([r[key] for r in rows], join), dev)
 
         return Transition(
             obs=obs("obs"),

@@ -44,9 +44,10 @@ from torch import nn
 
 from pfrl_tpu_torch._device import resolve_device, use_full_fp32
 from pfrl_tpu_torch.agent import AttributeSavingMixin, BatchAgent
-from pfrl_tpu_torch.agents.ddpg import _identity, fresh_module, host_batch
+from pfrl_tpu_torch.agents.ddpg import _identity, fresh_module
 from pfrl_tpu_torch.ops.returns import gae_advantages
 from pfrl_tpu_torch.optimizers.clip_by_global_norm import ClipByGlobalNorm
+from pfrl_tpu_torch.utils.batch_states import to_device_like_jax
 from pfrl_tpu_torch.utils.draws import Draws
 from pfrl_tpu_torch.utils.precision import apply_cast, check_compute_dtype
 from pfrl_tpu_torch.utils.stats import RunningStats
@@ -267,7 +268,7 @@ class OnPolicyShellAgent(AttributeSavingMixin, BatchAgent):
 
     # ------------------------------------------------------------------- act
     def batch_act(self, batch_obs) -> np.ndarray:
-        obs = host_batch(batch_obs, self.device)
+        obs = to_device_like_jax(np.asarray(batch_obs), self.device)
         if self.train_state is None:
             self.train_state = self.core.init(torch.Generator().manual_seed(self.seed), obs)
             self._restore_pending()
@@ -305,7 +306,7 @@ class OnPolicyShellAgent(AttributeSavingMixin, BatchAgent):
     def batch_observe(self, batch_obs, batch_reward, batch_done, batch_reset) -> None:
         if not self.training:
             return
-        next_obs = host_batch(batch_obs, self.device)
+        next_obs = to_device_like_jax(np.asarray(batch_obs), self.device)
         b = next_obs.shape[0]
         self._ensure_rollout(b)
         done = np.asarray(batch_done, dtype=bool)

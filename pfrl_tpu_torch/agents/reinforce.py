@@ -22,7 +22,7 @@ from torch import nn
 
 from pfrl_tpu_torch._device import resolve_device, use_full_fp32
 from pfrl_tpu_torch.agent import AttributeSavingMixin, BatchAgent
-from pfrl_tpu_torch.agents.dqn import to_device
+from pfrl_tpu_torch.utils.batch_states import to_device_like_jax
 from pfrl_tpu_torch.utils.draws import Draws
 from pfrl_tpu_torch.utils.precision import apply_cast, check_compute_dtype
 from pfrl_tpu_torch.utils.stats import RunningStats
@@ -157,7 +157,7 @@ class REINFORCE(AttributeSavingMixin, BatchAgent):
 
     def batch_act(self, batch_obs) -> np.ndarray:
         batch_obs = np.asarray(batch_obs)
-        obs = to_device(batch_obs, self.device)
+        obs = to_device_like_jax(batch_obs, self.device)
         if self.train_state is None:
             self.train_state = self.core.init(torch.Generator().manual_seed(self.seed), obs)
             self._restore_pending()
@@ -200,7 +200,7 @@ class REINFORCE(AttributeSavingMixin, BatchAgent):
                 actions[e, t] = a
                 rewards[e, t] = r
                 mask[e, t] = 1.0
-        _, aux = self.core.update(self.train_state, *to_device((obs, actions, rewards, mask), self.device))
+        _, aux = self.core.update(self.train_state, *to_device_like_jax((obs, actions, rewards, mask), self.device))
         self._loss_stats.append(float(aux["loss"]))
 
     def get_statistics(self):

@@ -11,11 +11,13 @@ _EXPORTS = {
     "cartpole": ("CartPole", "CartPoleState"),
     "atari_sim": ("AtariSim", "AtariSimState"),
     "delayed_cue": ("DelayedCue", "DelayedCueState"),
+    "mountain_car": ("MountainCarContinuous", "MCState"),
     "mujoco_sim": ("MujocoSim", "MujocoSimState"),
     "pendulum": ("Pendulum", "PendulumState"),
     "vector_env": ("VecStep", "VectorTorchEnv"),
     "wrappers": ("CastObservationToFloat32", "NormalizeActionSpace", "ScaleReward", "TimeLimit", "TimeLimitState"),
     "synthetic_ale": ("SyntheticALE",),
+    "synthetic_grasping": ("SyntheticGraspingEnv", "make_grasping_env"),
     "host_adapter": ("HostTorchEnv",),
     "serial_vector_env": ("SerialVectorEnv",),
     "multiprocess_vector_env": ("MultiprocessVectorEnv",),

@@ -36,7 +36,10 @@ shells on observations drawn from a normal, at their rings' own sizes
 unless ``--capacity`` cuts them; an on-policy shell's update is one whole
 update over its rollout. ``dqn-actor-learner-ale-8`` counts one server act
 of the padded batch of 8 rows, one poller add of a ring row of 8 frames
-and one update, starting no thread.
+and one update, starting no thread. ``grasping-dqn-batch-1`` counts its
+shell's three calls on ``(image, steps)`` observations (its ring at
+400,000 slots unless ``--capacity`` cuts it); ``naf-pendulum-32``,
+``naf-mountaincar-32`` and ``dqn-gym-cartpole-32`` per scan step.
 ``--bf16`` builds the configuration at ``compute_dtype=torch.bfloat16``.
 ``--capacity`` shrinks the replay ring, which changes no op of a scan step
 (the AtariSim configurations' 100,000 frame slots need 2.8 GB otherwise,
@@ -56,7 +59,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from pfrl_tpu_torch.experiments.cartpole_value import RECIPES
-from pfrl_tpu_torch.experiments.profile_slice import CONFIGS, HOST_PATHS, HOSTS, PIPELINES
+from pfrl_tpu_torch.experiments.profile_slice import CONFIGS, HOST_OBS, HOST_PATHS, HOSTS, PIPELINES
 from pfrl_tpu_torch.utils.draws import Draws
 
 
@@ -118,7 +121,8 @@ def count_ops(config: str, steps: int, device=None, compute_dtype=None, capacity
 
         kw = {} if capacity is None else {"capacity": capacity}
         agent = HOSTS[config](device=device, compute_dtype=compute_dtype, **kw)
-        return {"config": config, "compute_dtype": str(compute_dtype), **count_host_ops(agent)}
+        obs = {"obs": HOST_OBS[config]} if config in HOST_OBS else {}
+        return {"config": config, "compute_dtype": str(compute_dtype), **count_host_ops(agent, **obs)}
     runner = CONFIGS[config](device=device, compute_dtype=compute_dtype, capacity=capacity)
     if hasattr(runner, "run_iterations"):
         state, _ = runner.run_iterations(runner.init(0), 1)

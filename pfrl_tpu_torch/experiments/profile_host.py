@@ -31,8 +31,13 @@ examples (``experiments/mujoco_host.py``, over ``MujocoSim`` at HalfCheetah's
 and Hopper's sizes on the CPU) and of SlimeVolley Rainbow on its CartPole
 backend (``experiments/slimevolley_rainbow.py``), at their scripts'
 settings, each with the length that ``chip_smoke.py`` runs.
+``naf-pendulum-host-32`` and ``c51-gym-cartpole-host-1`` are
+``train_dqn_gym.py``'s and ``train_categorical_dqn_gym.py``'s host modes
+(``experiments/dqn_gym.py``, ``categorical_dqn_gym.py``) over the port's
+Pendulum and CartPole on the CPU behind ``HostTorchEnv``.
 ``profile_slice --config C`` and ``count_ops --config C`` run these for
-``dqn-batch-ale-8`` and each path; ``chip_smoke.py`` runs them uncut.
+``dqn-batch-ale-8``, ``grasping-dqn-batch-1`` and each path;
+``chip_smoke.py`` runs them uncut.
 
 One path of :data:`HOST_PATHS` has actor threads: ``dqn-actor-learner-ale-8``,
 ``train_dqn_batch_ale.py --actor-learner`` (``atari_dqn_batch.run_actor_learner``:
@@ -70,9 +75,11 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from pfrl_tpu_torch.envs import synthetic_ale
-from pfrl_tpu_torch.experiments import atari_dqn_batch, mujoco_host, slimevolley_rainbow
+from pfrl_tpu_torch import spaces
+from pfrl_tpu_torch.experiments import atari_dqn_batch, categorical_dqn_gym, dqn_gym, mujoco_host, slimevolley_rainbow
 from pfrl_tpu_torch.experiments.train_agent import train_agent_with_evaluation
 from pfrl_tpu_torch.experiments.train_agent_batch import train_agent_batch_with_evaluation
+from pfrl_tpu_torch.utils.batch_states import leaves
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,6 +106,25 @@ class HostPath:
 
 
 _CHEETAH, _HOPPER = mujoco_host.HALFCHEETAH, mujoco_host.HOPPER
+
+
+def _pendulum_host_env(seed: int):
+    """``train_dqn_gym.py``'s host env with the port's 200-step Pendulum
+    on the CPU behind ``HostTorchEnv`` in place of gymnasium's."""
+    from pfrl_tpu_torch.envs import HostTorchEnv, Pendulum, TimeLimit
+
+    return dqn_gym.wrapped_env(lambda s: HostTorchEnv(TimeLimit(Pendulum(device="cpu"), 200), seed=s), seed)
+
+
+def _cartpole_host_env(seed: int):
+    """``train_categorical_dqn_gym.py``'s host env with the port's 500-step
+    CartPole on the CPU behind ``HostTorchEnv``."""
+    from pfrl_tpu_torch.envs import CartPole, HostTorchEnv, TimeLimit
+    from pfrl_tpu_torch.wrappers.misc import CastObservationToFloat32
+
+    return CastObservationToFloat32(HostTorchEnv(TimeLimit(CartPole(device="cpu"), 500), seed=seed))
+
+
 HOST_PATHS = {
     # Through the replay start of 10,000 uncut to t = 11,000: 1,001 updates,
     # the truncation at step 1,000 crossed, then 2 evaluation episodes.
@@ -129,6 +155,13 @@ HOST_PATHS = {
     "dqn-actor-learner-ale-8": HostPath(atari_dqn_batch.make_dqn_batch_agent,
                                         functools.partial(synthetic_ale.make_ale_env, 0), 84 * 84 * 4, 10**6, 10,
                                         lanes=8, actors=8, n_updates=640),
+    # train_dqn_gym.py --env Pendulum-v1 (NAF, 32 serial lanes, an update per
+    # transition from 1,024) to t = 3,072: 2,080 updates, the sync at 2,048.
+    "naf-pendulum-host-32": HostPath(functools.partial(dqn_gym.make_agent, 3, spaces.box(-2.0, 2.0, (1,))),
+                                     _pendulum_host_env, 3, 3_072, 10, lanes=32),
+    # train_categorical_dqn_gym.py --env CartPole-v1 to t = 3,072: 2,049 updates.
+    "c51-gym-cartpole-host-1": HostPath(functools.partial(categorical_dqn_gym.make_c51_agent, 4, 2),
+                                        _cartpole_host_env, 4, 3_072, 10),
 }
 
 
@@ -169,7 +202,7 @@ def storage_bytes(agent) -> int:
     """The bytes of a shell's replay ring, or of an on-policy shell's rollout."""
     if getattr(agent, "replay_state", None) is not None:
         storage = getattr(agent.replay_state, "base", agent.replay_state).storage
-        return sum(x.numel() * x.element_size() for x in storage.values())
+        return sum(x.numel() * x.element_size() for x in leaves(storage))
     rollout = getattr(agent, "_rollout", None)
     if rollout is None:
         return 0

@@ -9,6 +9,7 @@
                   acer-continuous-abc-16|a2c-atarisim-16|a3c-atarisim-16|ppo-atarisim-8|
                   dqn-ale-nature-64|dqn-ale-nips-64|dqn-ale-dueling-64|
                   per-dqn-ale-64|c51-atarisim-64|dqn-pipeline-288|dqn-batch-ale-8|
+                  naf-pendulum-32|naf-mountaincar-32|dqn-gym-cartpole-32|grasping-dqn-batch-1|
                   the paths of profile_host.HOST_PATHS, dqn-actor-learner-ale-8 among them]
         [--steps 8] [--bf16] [--out PATH]
 
@@ -133,6 +134,7 @@ Prints a summary and writes the record as JSON to ``--out``.
 import argparse
 import collections
 import contextlib
+import functools
 import json
 import time
 from pathlib import Path
@@ -158,6 +160,8 @@ from pfrl_tpu_torch.experiments import (
     atari_dqn_ale,
     atari_dqn_batch,
     cartpole_value,
+    dqn_gym,
+    grasping_dqn_batch,
     onpolicy,
     recurrent,
 )
@@ -217,12 +221,24 @@ CONFIGS = {
        for arch in atari_dqn_ale.ARCHS},
     "per-dqn-ale-64": _maker(atari_dqn_ale.make_dqn_ale_runner, prioritized=True, replay_start_size=2_048),
     "c51-atarisim-64": _maker(atari_c51.make_c51_atarisim_runner, replay_start_size=2_048),
+    "naf-pendulum-32": _maker(dqn_gym.make_dqn_gym_runner, env_name="pendulum"),
+    "naf-mountaincar-32": _maker(dqn_gym.make_dqn_gym_runner, env_name="mountaincar"),
+    "dqn-gym-cartpole-32": _maker(dqn_gym.make_dqn_gym_runner, env_name="cartpole"),
 }
 # ``--config`` name -> ``build(device=None, compute_dtype=None, capacity=None)``
 # of an actor-learner pipeline (not a runner).
 PIPELINES = {"dqn-pipeline-288": _maker(make_dqn_pipeline)}
 # A host-env object path: a shell over spawned vector envs (not a runner).
-HOSTS = {"dqn-batch-ale-8": atari_dqn_batch.make_dqn_batch_agent}
+# ``grasping-dqn-batch-1``'s ring is cut from the script's 10^6 slots to
+# 400,000 (68.0 GB: 10^6 would take 170 GB), as ``chip_smoke.py`` cuts it.
+HOSTS = {"dqn-batch-ale-8": atari_dqn_batch.make_dqn_batch_agent,
+         "grasping-dqn-batch-1": functools.partial(grasping_dqn_batch.make_grasping_agent,
+                                                   capacity=grasping_dqn_batch.CARD_CAPACITY)}
+# ``HOSTS[config]`` -> its training and evaluation vector envs, given the lanes.
+HOST_ENVS = {"dqn-batch-ale-8": atari_dqn_batch.make_vector_envs,
+             "grasping-dqn-batch-1": grasping_dqn_batch.make_vector_envs}
+# ``HOSTS[config]`` -> ``obs(rs, lanes)``, the observations ``count_ops`` feeds its shell.
+HOST_OBS = {"grasping-dqn-batch-1": grasping_dqn_batch.random_observations}
 HOST_REPLAY_START = 2_048
 
 # Labels that start with two spaces are parts of the phase above them.
@@ -510,7 +526,7 @@ def profile_host_batch(config: str, steps: int, compute_dtype=None) -> dict:
     from pfrl_tpu_torch.experiments.profile_host import run_host_batch
 
     agent = HOSTS[config](replay_start_size=HOST_REPLAY_START, compute_dtype=compute_dtype)
-    env, eval_env = atari_dqn_batch.make_vector_envs(agent.buffer.num_lanes)
+    env, eval_env = HOST_ENVS[config](agent.buffer.num_lanes)
     lanes = env.num_envs
     total = HOST_REPLAY_START + 2 * steps * lanes
     try:

@@ -21,6 +21,7 @@ from pfrl_tpu_torch.ops.prefix_sample import prefix_sample
 from pfrl_tpu_torch.replay import sum_tree
 from pfrl_tpu_torch.replay.transition import Transition
 from pfrl_tpu_torch.replay.uniform import ReplayBuffer, ReplayState
+from pfrl_tpu_torch.utils.batch_states import first_leaf
 
 
 @dataclasses.dataclass
@@ -104,7 +105,7 @@ class PrioritizedReplayBuffer(ReplayBuffer):
 
     # ------------------------------------------------------------------- add
     def add(self, state: PrioritizedReplayState, batch: Transition) -> PrioritizedReplayState:
-        lanes = batch.obs.shape[0]
+        lanes = first_leaf(batch.obs).shape[0]
         lane = torch.arange(lanes, dtype=torch.int32, device=self.device)
         cursor = state.base.cursor.clone()  # super().add bumps it in place
         super().add(state.base, batch)

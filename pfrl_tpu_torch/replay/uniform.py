@@ -10,17 +10,25 @@ updated **in place**: the ring is gigabytes at Atari sizes and must never
 be copied per step. ``add`` writes rows into the existing storage and bumps
 the cursor tensor; it returns the same state object.
 
+An observation (``obs``, and ``next_obs`` where it is stored) may be a
+tensor or a structure of them (a tuple, list or dict, as the grasping
+example's ``(image, elapsed_steps)``): each leaf is stored as one tensor of
+its own dtype, ``[capacity, padded width]`` or ``[capacity]`` for a 0-d
+item, as the JAX ring stores each leaf of its pytree, and the gather
+reshapes each back.
+
 The row gather stays plain tensor indexing, as in the JAX package, where
 it is an XLA gather outside any Pallas kernel.
 """
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from pfrl_tpu_torch._device import resolve_device
 from pfrl_tpu_torch.replay.transition import Transition, TransitionBatch
+from pfrl_tpu_torch.utils.batch_states import first_leaf, map_structure
 
 
 def _padded_width(d: int) -> int:
@@ -40,13 +48,18 @@ def _numel(shape: Tuple[int, ...]) -> int:
 
 @dataclasses.dataclass
 class ReplayState:
-    storage: Dict[str, torch.Tensor]  # [capacity] or [capacity, padded width]
-    cursor: torch.Tensor              # int32 0-d: items written so far
-    item_shapes: Dict[str, Tuple[int, ...]]
+    storage: Dict[str, Any]  # field -> [capacity] or [capacity, padded width], or a structure of them
+    cursor: torch.Tensor     # int32 0-d: items written so far
+    item_shapes: Dict[str, Any]  # field -> item shape, or a structure of them
+
+    #: A snapshot loads only into a ring of the same item shapes
+    #: (:func:`~pfrl_tpu_torch.agent.restore_saved`): two shapes can pad to
+    #: one stored width.
+    strict_fields = ("item_shapes",)
 
     @property
     def size(self) -> torch.Tensor:
-        capacity = next(iter(self.storage.values())).shape[0]
+        capacity = first_leaf(self.storage).shape[0]
         return torch.clamp_max(self.cursor, capacity)
 
 
@@ -122,14 +135,13 @@ class ReplayBuffer:
     # ------------------------------------------------------------------ init
     def init(self, example: Transition) -> ReplayState:
         """Allocate storage from one example transition (no batch dim)."""
-        storage, shapes = {}, {}
-        for name, x in self._leaves(example).items():
-            shapes[name] = tuple(x.shape)
-            if x.dim() >= 1:
-                shape = (self.capacity, _padded_width(x.numel()))
-            else:
-                shape = (self.capacity,)
-            storage[name] = torch.zeros(shape, dtype=x.dtype, device=self.device)
+        def alloc(x):
+            shape = (self.capacity, _padded_width(x.numel())) if x.dim() >= 1 else (self.capacity,)
+            return torch.zeros(shape, dtype=x.dtype, device=self.device)
+
+        fields = self._leaves(example)
+        storage = {name: map_structure(alloc, x) for name, x in fields.items()}
+        shapes = {name: map_structure(lambda x: tuple(x.shape), x) for name, x in fields.items()}
         return ReplayState(
             storage=storage,
             cursor=torch.zeros((), dtype=torch.int32, device=self.device),
@@ -139,15 +151,18 @@ class ReplayBuffer:
     # ------------------------------------------------------------------- add
     def add(self, state: ReplayState, batch: Transition) -> ReplayState:
         """Insert one transition per lane, in place."""
-        lanes = batch.obs.shape[0]
+        lanes = first_leaf(batch.obs).shape[0]
         idx = (state.cursor + torch.arange(lanes, dtype=torch.int32, device=self.device)) % self.capacity
-        for name, x in self._leaves(batch).items():
-            s = state.storage[name]
+
+        def write(x, s):
             if s.dim() == 2:
                 x = x.reshape(lanes, -1)
                 s[idx, : x.shape[1]] = x  # the 128-lane pad stays zero
             else:
                 s[idx] = x
+
+        for name, x in self._leaves(batch).items():
+            map_structure(write, x, state.storage[name])
         state.cursor += lanes
         return state
 
@@ -209,12 +224,15 @@ class ReplayBuffer:
         last = win[torch.arange(win.shape[0], device=ids.device), k - 1]
 
         shapes = state.item_shapes
-        obs = self._take(st["obs"], first, shapes["obs"], dequant=True)
+
+        def take_obs(name, ids):
+            return map_structure(lambda x, shape: self._take(x, ids, shape, dequant=True), st[name], shapes[name])
+
+        obs = take_obs("obs", first)
         if self.store_next_obs:
-            next_obs = self._take(st["next_obs"], last, shapes["next_obs"], dequant=True)
+            next_obs = take_obs("next_obs", last)
         else:
-            nxt = (last + stride) % self.capacity
-            next_obs = self._take(st["obs"], nxt, shapes["obs"], dequant=True)
+            next_obs = take_obs("obs", (last + stride) % self.capacity)
         return TransitionBatch(
             obs=obs,
             action=self._take(st["action"], first, shapes["action"]),
