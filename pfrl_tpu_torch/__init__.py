@@ -42,7 +42,15 @@ Ported so far, each through ``experiments.OffPolicyRunner`` or
   learner thread), ``experiments.train_agent_async`` with
   ``AsyncEvaluator``, and ``train_dqn_batch_ale.py --actor-learner``
   (``atari_dqn_batch.run_actor_learner``) and ``train_a3c.py --sim``
-  (``atari_a3c.py``) at their own settings.
+  (``atari_a3c.py``) at their own settings;
+- the remaining example recipes: ``train_iqn.py --sim`` (``atari_iqn.py``),
+  ``train_ppo.py --jax-env pendulum`` and ``train_ppo_pendulum.py``
+  (``ppo_pendulum.py``), the atlas SAC (``sac_atlas.py``) and the
+  quickstart (``quickstart.py``);
+- multi-device training over ``torch.distributed`` (:mod:`.parallel.mesh`,
+  :mod:`.parallel.data_parallel`, :mod:`.parallel.multihost`,
+  :mod:`.parallel.lane_sharding`): both runners take a mesh, and
+  ``train_dqn_batch_ale.py --multihost`` is ``atari_dqn_batch.run_multihost``.
 
 Every first-order core takes ``compute_dtype`` (bf16 compute over float32
 masters, see :mod:`.utils.precision`); TRPO refuses it, as in JAX.
@@ -56,7 +64,8 @@ collections (:mod:`.collections_`, also ``collections``). A JAX checkpoint
 (flax msgpack) loads through the port's own reader
 (:mod:`.utils.flax_msgpack`) and :mod:`.convert`, with no JAX installed.
 
-Not ported yet: ``make_atari`` (a real ALE) and device meshes.
+Not ported yet: ``make_atari`` (a real ALE), and under a mesh the
+episodic buffers, recurrent cores, TRPO and updates that draw.
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; without a card they raise (see :mod:`._device`). Kernels

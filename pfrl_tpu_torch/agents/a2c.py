@@ -20,6 +20,7 @@ import torch
 from pfrl_tpu_torch.agents.ddpg import _identity
 from pfrl_tpu_torch.agents.ppo import OnPolicyShellAgent, PPOCore, PPOState, Rollout, flat
 from pfrl_tpu_torch.ops.returns import discounted_returns, gae_advantages
+from pfrl_tpu_torch.parallel.mesh import shard_batch
 
 
 class A2CCore(PPOCore):
@@ -73,6 +74,8 @@ class A2CCore(PPOCore):
 
     def update(self, state: PPOState, draws, rollout: Rollout):
         advs, v_targets = self.targets(state.model, rollout)
+        if self.mesh is not None:  # this rank's lanes: the loss is a mean over its share
+            rollout, advs, v_targets = shard_batch(self.mesh, (rollout, advs, v_targets), dim=1)
         params = list(state.model.parameters())
         loss, (pg, vl, ent) = self.loss(state.model, rollout, advs, v_targets)
         grads = torch.autograd.grad(loss, params)

@@ -47,6 +47,7 @@ from pfrl_tpu_torch.agent import AttributeSavingMixin, BatchAgent
 from pfrl_tpu_torch.agents.ddpg import _identity, fresh_module
 from pfrl_tpu_torch.ops.returns import gae_advantages
 from pfrl_tpu_torch.optimizers.clip_by_global_norm import ClipByGlobalNorm
+from pfrl_tpu_torch.parallel.mesh import local_rows
 from pfrl_tpu_torch.utils.batch_states import to_device_like_jax
 from pfrl_tpu_torch.utils.draws import Draws
 from pfrl_tpu_torch.utils.precision import apply_cast, check_compute_dtype
@@ -91,7 +92,15 @@ def standardize(x: torch.Tensor) -> torch.Tensor:
 
 class PPOCore:
     """``model`` is a template: ``init`` copies it and draws the copy's
-    weights (``model.reset_parameters(generator)``)."""
+    weights (``model.reset_parameters(generator)``).
+
+    Under a mesh (``mesh`` set by ``parallel.data_parallel_core``) each
+    minibatch's rows are split over the ranks: each rank's loss is the
+    mean over its share, and the optimizer averages the gradients."""
+
+    #: The on-policy runner may split this core's minibatches over a mesh.
+    splits_over_mesh = True
+    mesh = None
 
     def __init__(
         self,
@@ -204,6 +213,8 @@ class PPOCore:
         for _ in range(self.epochs):
             ids = draws.permutation(n)[: n_mb * mb].reshape(n_mb, mb)
             for idx in ids:
+                if self.mesh is not None:
+                    idx = idx[local_rows(self.mesh, mb)]
                 loss, parts = self._minibatch_loss(
                     state.model, obs[idx], action[idx], old_lp[idx], old_v[idx], adv[idx], v_target[idx]
                 )

@@ -16,6 +16,7 @@ loads torch and so never touches the card. A script run as ``__main__`` is
 re-imported by every spawned process, as Python's ``spawn`` does.
 """
 
+import concurrent.futures
 import multiprocessing as mp
 import pickle
 import time
@@ -154,3 +155,23 @@ class MultiprocessVectorEnv(VectorEnv):
                 p.join()
         for remote in self.remotes:
             remote.close()
+
+
+def make_together(*makers):
+    """Call each of ``makers`` (functions that build a vector env) in a
+    thread of its own, so that their spawned workers start at once; returns
+    the envs in order. If any fails, the ones built are closed and its
+    error is raised."""
+    with concurrent.futures.ThreadPoolExecutor(len(makers)) as pool:
+        futures = [pool.submit(make) for make in makers]
+    envs, errors = [], []
+    for future in futures:
+        try:
+            envs.append(future.result())
+        except BaseException as e:  # noqa: B902 -- raised below, after the others are closed
+            errors.append(e)
+    if errors:
+        for env in envs:
+            env.close()
+        raise errors[0]
+    return tuple(envs)

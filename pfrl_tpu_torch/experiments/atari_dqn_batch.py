@@ -29,10 +29,14 @@ publications every 8 updates) driven by ``train_agent_async``; actor ``i``
 builds its training env (seed ``seed + i``) and its evaluation env (seed
 ``seed + i + 10**6``, ``RandomizeAction(0.05)``) in its own thread, with
 the same one cut, ``episode_life=False``.
+
+:func:`run_multihost` is the example's ``--multihost`` mode (``:153-224``):
+the device runner over a ``dp`` mesh of the joined processes, the lanes and
+the ring's rows split over them (``parallel/``).
 """
 
 import functools
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -40,7 +44,7 @@ from pfrl_tpu_torch import runtime
 from pfrl_tpu_torch._device import resolve_device
 from pfrl_tpu_torch.agents.dqn import DQN
 from pfrl_tpu_torch.envs import synthetic_ale
-from pfrl_tpu_torch.envs.multiprocess_vector_env import MultiprocessVectorEnv
+from pfrl_tpu_torch.envs.multiprocess_vector_env import MultiprocessVectorEnv, make_together
 from pfrl_tpu_torch.experiments.atari_per_dqn import NatureQ
 from pfrl_tpu_torch.experiments.evaluator import eval_performance
 from pfrl_tpu_torch.experiments.train_agent_async import train_agent_async
@@ -93,17 +97,14 @@ def make_dqn_batch_agent(
 def make_vector_envs(num_envs: int = 8, seed: int = 0) -> Tuple[MultiprocessVectorEnv, MultiprocessVectorEnv]:
     """The training and the evaluation ``MultiprocessVectorEnv``
     (``train_dqn_batch_ale.py:93-99``) of ``synthetic_ale.make_ale_env(seed,
-    idx, test)``. The frame ops are built here, before any worker spawns:
-    the workers load the library and never build it."""
+    idx, test)``, their workers started together. The frame ops are built
+    here, before any worker spawns: the workers load the library and never
+    build it."""
     runtime.build()
     make = synthetic_ale.make_ale_env
-    env = MultiprocessVectorEnv([functools.partial(make, seed, i, False) for i in range(num_envs)])
-    try:
-        eval_env = MultiprocessVectorEnv([functools.partial(make, seed, i, True) for i in range(num_envs)])
-    except BaseException:
-        env.close()
-        raise
-    return env, eval_env
+    return make_together(*(functools.partial(MultiprocessVectorEnv, [functools.partial(make, seed, i, test)
+                                                                     for i in range(num_envs)])
+                           for test in (False, True)))
 
 
 def run_batch(
@@ -186,3 +187,78 @@ def run_actor_learner(
         if agent.actor_learner_errors:  # the cause, before what the actors raised after it
             raise agent.actor_learner_errors[0]
     return agent
+
+
+def run_multihost(argv: Optional[Sequence[str]] = None, device=None, keep_job: bool = False) -> dict:
+    """``train_dqn_batch_ale.py --multihost HOST:PORT --num-processes N
+    --process-id I`` (``run_multihost``, ``:153-224``): every process runs
+    this same call with its own ``--process-id``. They join one job
+    (``parallel.initialize_multihost``: NCCL on the card, Gloo with
+    ``device="cpu"``) and one ``dp`` mesh; the device runner trains DQN on
+    the Nature Q-network (Adam(``--lr``, eps 1.5e-4), the ``"sum"``
+    accumulator, epsilon 1 -> 0.01 over 10^6 transitions, ``atari_phi``)
+    over ``--num-envs`` (8) AtariSim lanes, split over the processes, and
+    the uniform ring of ``--replay-capacity`` (10^6) slots, dequantized by
+    1/255 in the gather, its rows split with the lanes; batch-32 updates
+    every 4 transitions from 50,000 on, hard syncs every 10^4. It runs in
+    chunks of 500 scan steps until ``--steps`` transitions; only the
+    primary process prints. The job is left at the end, or on a failure
+    (``keep_job``: kept after a run that ended well, for the caller to
+    drive the runner further and then call ``parallel.multihost.shutdown``).
+    Returns ``{"runner", "state", "mesh", "chunks"}``, ``chunks`` a list of
+    ``(t, global env-steps/s, last loss)``."""
+    import argparse
+    import time
+
+    from pfrl_tpu_torch.agents.dqn import DQNCore
+    from pfrl_tpu_torch.envs.atari_sim import AtariSim
+    from pfrl_tpu_torch.experiments.runner import OffPolicyRunner, RunnerConfig
+    from pfrl_tpu_torch.parallel.multihost import global_mesh, initialize_multihost, is_primary, shutdown
+
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--multihost", required=True, metavar="HOST:PORT")
+    parser.add_argument("--num-processes", type=int, default=1)
+    parser.add_argument("--process-id", type=int, default=0)
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--bf16", action="store_true", help="bf16 network compute over fp32 master params")
+    parser.add_argument("--steps", type=int, default=5 * 10**7)
+    parser.add_argument("--lr", type=float, default=2.5e-4)
+    parser.add_argument("--batch-size", type=int, default=32)
+    parser.add_argument("--num-envs", type=int, default=8)
+    parser.add_argument("--replay-capacity", type=int, default=10**6)
+    parser.add_argument("--replay-start-size", type=int, default=5 * 10**4)
+    parser.add_argument("--update-interval", type=int, default=4)
+    parser.add_argument("--target-update-interval", type=int, default=10**4)
+    args = parser.parse_args(argv)
+    device = initialize_multihost(args.multihost, args.num_processes, args.process_id, device=device)
+    try:
+        mesh = global_mesh(("dp",))
+        n_actions = 6
+        core = DQNCore(
+            model=NatureQ(n_actions), optimizer=Adam(args.lr, eps=1.5e-4),
+            explorer=LinearDecayEpsilonGreedy(1.0, 0.01, 10**6, n_actions), gamma=0.99, batch_accumulator="sum",
+            phi=atari_phi, compute_dtype=torch.bfloat16 if args.bf16 else None,
+        )
+        config = RunnerConfig(num_envs=args.num_envs, replay_start_size=args.replay_start_size,
+                              update_interval=args.update_interval,
+                              target_update_interval=args.target_update_interval, minibatch_size=args.batch_size)
+        buffer = ReplayBuffer(args.replay_capacity, gamma=0.99, num_lanes=args.num_envs, store_next_obs=False,
+                              fused_dequant_scale=1.0 / 255.0, device=device)
+        runner = OffPolicyRunner(AtariSim(n_actions=n_actions, device=device), core, buffer, config, device=device,
+                                 mesh=mesh)
+        state = runner.init(args.seed)
+        chunk, chunks = 500, []
+        while state.t < args.steps:
+            t0 = time.time()
+            state, metrics = runner.run_chunk(state, chunk)
+            loss = float(metrics["loss"][-1])
+            sps = chunk * args.num_envs / (time.time() - t0)
+            chunks.append((state.t, sps, loss))
+            if is_primary():
+                print(f"step {state.t} | {sps:,.0f} env-steps/s global | loss {loss:.4f}", flush=True)
+    except BaseException:
+        shutdown()
+        raise
+    if not keep_job:
+        shutdown()
+    return {"runner": runner, "state": state, "mesh": mesh, "chunks": chunks}

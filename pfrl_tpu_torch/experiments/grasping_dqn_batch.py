@@ -160,13 +160,11 @@ def make_batch_env(num_envs: int = 1, seed: int = 0, test: bool = False, serial:
 
 def make_vector_envs(num_envs: int = 1, seed: int = 0):
     """The training and the evaluation ``MultiprocessVectorEnv`` of
-    ``--jax-env``'s synthetic env, as :func:`run` builds them."""
-    env = make_batch_env(num_envs, seed, test=False)
-    try:
-        return env, make_batch_env(num_envs, seed, test=True)
-    except BaseException:
-        env.close()
-        raise
+    ``--jax-env``'s synthetic env, as :func:`run` builds them, their
+    workers started together."""
+    from pfrl_tpu_torch.envs.multiprocess_vector_env import make_together
+
+    return make_together(*(functools.partial(make_batch_env, num_envs, seed, test=test) for test in (False, True)))
 
 
 def random_observations(rs: np.random.RandomState, lanes: int, max_episode_steps: int = 8) -> list:

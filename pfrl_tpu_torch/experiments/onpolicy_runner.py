@@ -22,7 +22,19 @@ A recurrent core (``core.recurrent``) acts from the carry in
 the carry after the step (``Rollout.next_value``), then resets the carry's
 rows where the episode ended.
 
-Not ported yet, raising ``NotImplementedError`` by name: device meshes.
+**A mesh** (``mesh=``) changes the layout, not the result, as in the JAX
+package and in :class:`~pfrl_tpu_torch.experiments.runner.OffPolicyRunner`:
+each rank steps and acts for its lanes only, from its lanes' part of every
+per-lane draw (``LaneDraws``); at the end of the ``T`` collect steps the
+rollout is all-gathered along the lanes, so every rank holds the whole
+``[T, L]`` rollout and draws the same global minibatch permutation; each
+minibatch's rows are split over the ranks, each rank differentiates its
+share and the gradients are averaged with an all-reduce before the
+identical optimizer step (a core's ``splits_over_mesh``: PPO and A2C).
+The finished lanes' rewards and flags are all-gathered every step for the
+returns ring. Over one rank the run equals the run without a mesh to the
+bit. Not ported under a mesh, raising ``NotImplementedError`` by name:
+TRPO and the recurrent cores.
 """
 
 import dataclasses
@@ -34,6 +46,9 @@ from pfrl_tpu_torch._device import check_same_device, resolve_device, use_full_f
 from pfrl_tpu_torch.agents.ppo import Rollout
 from pfrl_tpu_torch.envs.vector_env import VectorTorchEnv
 from pfrl_tpu_torch.experiments.runner import record_returns, recent_return_mean
+from pfrl_tpu_torch.parallel.data_parallel import data_parallel_core, reduce_aux
+from pfrl_tpu_torch.parallel.lane_sharding import LaneDraws
+from pfrl_tpu_torch.parallel.mesh import all_gather_rows, local_rows, replicate
 from pfrl_tpu_torch.utils.draws import Draws
 from pfrl_tpu_torch.utils.recurrent import tree_map
 
@@ -63,15 +78,21 @@ class OnPolicyRunner:
         device=None,
         mesh=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError("the mesh (multi-device) branch is not ported")
         self.device = check_same_device(runner=resolve_device(device), env=env.device)
-        self.env = VectorTorchEnv(env, num_envs)
-        self.core = core
         self.num_envs = num_envs
         self.rollout_len = rollout_len
         self.return_window = return_window
         self.recurrent = getattr(core, "recurrent", False)
+        self.mesh = mesh
+        lanes = num_envs
+        if mesh is not None:
+            if self.recurrent or not getattr(core, "splits_over_mesh", False):
+                raise NotImplementedError(f"{type(core).__name__} under a mesh is not ported")
+            mine = local_rows(mesh, num_envs)  # raises unless the lanes divide evenly
+            lanes = mine.stop - mine.start
+            core = data_parallel_core(core, mesh)
+        self.env = VectorTorchEnv(env, lanes)
+        self.core = core
         if self.device.type == "cuda":
             use_full_fp32()
 
@@ -83,8 +104,10 @@ class OnPolicyRunner:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(seed)
             draws = Draws(gen)
-        env_states, obs = self.env.reset(draws)
+        env_states, obs = self.env.reset(self._lane_draws(draws))
         train_state = self.core.init(torch.Generator().manual_seed(seed), obs)
+        if self.mesh is not None:
+            replicate(self.mesh, train_state)
         return OnPolicyRunnerState(
             env_states=env_states,
             obs=obs,
@@ -97,12 +120,15 @@ class OnPolicyRunner:
             act_state=self.core.init_act_state(self.num_envs, self.device) if self.recurrent else (),
         )
 
+    def _lane_draws(self, draws):
+        return draws if self.mesh is None else LaneDraws(draws, self.mesh)
+
     # ------------------------------------------------------------- iteration
     def _allocate(self, state, action, aux) -> Rollout:
         def empty(like):
             return torch.empty((self.rollout_len,) + tuple(like.shape), dtype=like.dtype, device=self.device)
 
-        flags = torch.zeros(self.num_envs, dtype=torch.bool, device=self.device)
+        flags = torch.zeros(self.env.num_envs, dtype=torch.bool, device=self.device)
         if self.recurrent:
             recurrent = dict(carry=tree_map(empty, state.act_state), next_value=empty(aux["value"]))
         else:
@@ -113,7 +139,7 @@ class OnPolicyRunner:
             action=empty(action),
             log_prob=empty(aux["log_prob"]),
             value=empty(aux["value"]),
-            reward=empty(state.episode_return),
+            reward=empty(flags.to(torch.float32)),
             terminated=empty(flags),
             done=empty(flags),
             next_obs=empty(state.obs),
@@ -124,13 +150,14 @@ class OnPolicyRunner:
             tree_map(lambda dst, src: dst[i].copy_(src), getattr(rollout, name), value)
 
     def _collect_step(self, state: OnPolicyRunnerState, i: int) -> None:
+        draws = self._lane_draws(state.draws)
         if self.recurrent:
             pre_act_carry = state.act_state
             action, aux, act_state = self.core.act_with_aux_recurrent(
-                state.train_state, state.draws, state.obs, True, state.act_state)
+                state.train_state, draws, state.obs, True, state.act_state)
         else:
-            action, aux = self.core.act_with_aux(state.train_state, state.draws, state.obs, True)
-        env_states, vec = self.env.step(state.draws, state.env_states, action)
+            action, aux = self.core.act_with_aux(state.train_state, draws, state.obs, True)
+        env_states, vec = self.env.step(draws, state.env_states, action)
         ts = vec.ts
         if state.rollout is None:
             state.rollout = self._allocate(state, action, aux)
@@ -143,14 +170,20 @@ class OnPolicyRunner:
             state.rollout, i, obs=state.obs, action=action, log_prob=aux["log_prob"], value=aux["value"],
             reward=ts.reward, terminated=ts.terminated, done=ts.done, next_obs=ts.obs, **recurrent,
         )
-        record_returns(state, ts.reward, ts.done, self.return_window)
+        reward, done = (ts.reward, ts.done) if self.mesh is None else all_gather_rows(self.mesh, (ts.reward, ts.done))
+        record_returns(state, reward, done, self.return_window)
         state.env_states = env_states
         state.obs = vec.obs
 
     def _iteration(self, state: OnPolicyRunnerState) -> Dict[str, torch.Tensor]:
         for i in range(self.rollout_len):
             self._collect_step(state, i)
-        _, aux = self.core.update(state.train_state, state.draws, state.rollout)
+        if self.mesh is None:
+            _, aux = self.core.update(state.train_state, state.draws, state.rollout)
+        else:
+            rollout = all_gather_rows(self.mesh, state.rollout, dim=1)
+            _, aux = self.core.update(state.train_state, state.draws, rollout)
+            aux = reduce_aux(self.mesh, aux)
         state.t += self.rollout_len * self.num_envs
         return aux
 

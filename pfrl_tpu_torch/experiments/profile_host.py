@@ -76,7 +76,16 @@ from torch.profiler import ProfilerActivity, profile
 
 from pfrl_tpu_torch.envs import synthetic_ale
 from pfrl_tpu_torch import spaces
-from pfrl_tpu_torch.experiments import atari_dqn_batch, categorical_dqn_gym, dqn_gym, mujoco_host, slimevolley_rainbow
+from pfrl_tpu_torch.experiments import (
+    atari_dqn_batch,
+    categorical_dqn_gym,
+    dqn_gym,
+    mujoco_host,
+    ppo_pendulum,
+    quickstart,
+    sac_atlas,
+    slimevolley_rainbow,
+)
 from pfrl_tpu_torch.experiments.train_agent import train_agent_with_evaluation
 from pfrl_tpu_torch.experiments.train_agent_batch import train_agent_batch_with_evaluation
 from pfrl_tpu_torch.utils.batch_states import leaves
@@ -162,6 +171,16 @@ HOST_PATHS = {
     # train_categorical_dqn_gym.py --env CartPole-v1 to t = 3,072: 2,049 updates.
     "c51-gym-cartpole-host-1": HostPath(functools.partial(categorical_dqn_gym.make_c51_agent, 4, 2),
                                         _cartpole_host_env, 4, 3_072, 10),
+    # gym/train_ppo_pendulum.py: 8 serial lanes, three updates of 2,048
+    # transitions (320 Adam steps each), 10 evaluation episodes.
+    "ppo-pendulum-host-8": HostPath(ppo_pendulum.make_agent, ppo_pendulum.pendulum_env, 3, 6_144, 10, lanes=8),
+    # atlas/train_soft_actor_critic_atlas.py --torch-env --serial-envs: 4
+    # lanes, an update per transition from the replay start of 10,000 uncut
+    # to t = 11,000 (1,001 updates), 20 evaluation episodes.
+    "sac-atlas-pendulum-host-4": HostPath(sac_atlas.make_agent, ppo_pendulum.pendulum_env, 3, 11_000, 20, lanes=4),
+    # quickstart.py --hostloop, through the serial driver: an update per
+    # transition from 500 to t = 3,000 (2,501 updates), 10 evaluation episodes.
+    "quickstart-dqn-cartpole-host-1": HostPath(quickstart.make_hostloop_agent, quickstart.cartpole_env, 4, 3_000, 10),
 }
 
 

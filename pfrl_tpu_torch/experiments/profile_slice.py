@@ -159,10 +159,13 @@ from pfrl_tpu_torch.experiments import (
     atari_c51,
     atari_dqn_ale,
     atari_dqn_batch,
+    atari_iqn,
     cartpole_value,
     dqn_gym,
     grasping_dqn_batch,
     onpolicy,
+    ppo_pendulum,
+    quickstart,
     recurrent,
 )
 from pfrl_tpu_torch.experiments.atari_pipeline import make_dqn_pipeline
@@ -224,6 +227,9 @@ CONFIGS = {
     "naf-pendulum-32": _maker(dqn_gym.make_dqn_gym_runner, env_name="pendulum"),
     "naf-mountaincar-32": _maker(dqn_gym.make_dqn_gym_runner, env_name="mountaincar"),
     "dqn-gym-cartpole-32": _maker(dqn_gym.make_dqn_gym_runner, env_name="cartpole"),
+    "iqn-atarisim-64": _maker(atari_iqn.make_iqn_atarisim_runner, replay_start_size=2_048),
+    "ppo-pendulum-device-64": _maker(ppo_pendulum.make_ppo_pendulum_device_runner, None),
+    "quickstart-dqn-cartpole-32": _maker(quickstart.make_device_runner),
 }
 # ``--config`` name -> ``build(device=None, compute_dtype=None, capacity=None)``
 # of an actor-learner pipeline (not a runner).

@@ -25,7 +25,28 @@ with extras (``select_action_with_extras``, ACER's behaviour
 distribution) stores them with each transition; ``init`` sizes the
 buffer's extras from one call of it. A core without ``sync_target`` (ACER)
 is never synced. :class:`EvalLoop` is the counterpart of ``JaxEvalLoop``.
-Not ported yet, raising ``NotImplementedError`` by name: device meshes.
+
+**A mesh** (``mesh=``, :func:`pfrl_tpu_torch.parallel.mesh.make_mesh`: one rank
+per process) changes the layout, not the result, as in the JAX package.
+Each rank steps, acts for and stores only its lanes
+(:func:`~pfrl_tpu_torch.parallel.mesh.local_rows` of ``num_envs``), and
+keeps those lanes' ring rows (``parallel/lane_sharding.py``): the ring's
+bytes divide by the ranks. Every draw is global: every rank draws each
+draw whole from an equally seeded source and takes its lanes' part of the
+per-lane ones. The replicated state (weights, optimizer state, cursor,
+PER's trees and beta, the returns ring) is replicated exactly: the sampled
+ids are global, the batch is all-gathered from its rows' owners, each rank
+differentiates its ``B / size`` share and the gradients are all-reduced
+before the identical optimizer step (``parallel/data_parallel.py``: the
+mean, or the sum for a ``"sum"`` core); PER's new priorities are
+all-gathered before the tree update, so the prefix-sample kernel runs on
+every rank over the replicated tree. The finished lanes' rewards and flags
+are all-gathered every step, so the returns ring and the metrics are the
+whole run's. Over one rank the run equals the run without a mesh to the
+bit. Not ported under a mesh, raising ``NotImplementedError`` by name: the
+episodic buffers, recurrent cores, noisy networks (their act noise is per
+parameter, not per lane), and updates that draw (IQN's taus, SAC's and
+TD3's noise).
 """
 
 import dataclasses
@@ -36,6 +57,10 @@ import torch
 
 from pfrl_tpu_torch._device import check_same_device, resolve_device, use_full_fp32
 from pfrl_tpu_torch.envs.vector_env import VectorTorchEnv
+from pfrl_tpu_torch.models.noisy_linear import FactorizedNoisyLinear
+from pfrl_tpu_torch.parallel.data_parallel import accumulator, data_parallel_core, data_parallel_update
+from pfrl_tpu_torch.parallel.lane_sharding import LaneDraws, LaneShardedBuffer
+from pfrl_tpu_torch.parallel.mesh import all_gather_rows, local_rows, replicate
 from pfrl_tpu_torch.replay.transition import Transition
 from pfrl_tpu_torch.utils.draws import Draws
 from pfrl_tpu_torch.utils.recurrent import tree_map
@@ -97,22 +122,35 @@ class OffPolicyRunner:
         device=None,
         mesh=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError("the mesh (multi-device) branch is not ported")
         self.device = check_same_device(
             runner=resolve_device(device), env=env.device, buffer=buffer.device
         )
         if buffer.num_lanes != config.num_envs:
             raise ValueError("buffer num_lanes must equal runner num_envs")
         config.updates_per_step  # validates the cadence
-        self.env = VectorTorchEnv(env, config.num_envs)
-        self.core = core
-        self.buffer = buffer
         self.config = config
         self.return_window = return_window
         self.recurrent = hasattr(core, "select_action_recurrent")
         self.store_carries = self.recurrent and getattr(buffer, "stores_carries", False)
         self.acts_with_extras = not self.recurrent and hasattr(core, "select_action_with_extras")
+        self.mesh = mesh
+        lanes = config.num_envs
+        self._dp_update = None
+        if mesh is not None:
+            if self.recurrent or self.acts_with_extras:
+                raise NotImplementedError(f"{type(core).__name__} under a mesh is not ported")
+            if _noisy(core):  # its act noise is per parameter, not per lane
+                raise NotImplementedError("a noisy network under a mesh is not ported")
+            mine = local_rows(mesh, config.num_envs)  # raises unless the lanes divide evenly
+            lanes = mine.stop - mine.start
+            if config.minibatch_size % mesh.size:
+                raise ValueError(f"minibatch {config.minibatch_size} does not divide over {mesh.size} ranks")
+            buffer = LaneShardedBuffer(buffer, mesh)
+            core = data_parallel_core(core, mesh)
+            self._dp_update = data_parallel_update(mesh, core.update, accumulator(core))
+        self.env = VectorTorchEnv(env, lanes)
+        self.core = core
+        self.buffer = buffer
         if self.device.type == "cuda":
             use_full_fp32()
 
@@ -125,12 +163,14 @@ class OffPolicyRunner:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(seed)
             draws = Draws(gen)
-        env_states, obs = self.env.reset(draws)
+        env_states, obs = self.env.reset(self._lane_draws(draws))
         example_action = self._example_action()
         L = self.config.num_envs
         train_state = self.core.init(
-            torch.Generator().manual_seed(seed), obs, torch.stack([example_action] * L)
+            torch.Generator().manual_seed(seed), obs, torch.stack([example_action] * self.env.num_envs)
         )
+        if self.mesh is not None:
+            replicate(self.mesh, train_state)
         zeros = lambda dtype: torch.zeros((), dtype=dtype, device=self.device)  # noqa: E731
         act_state = self.core.init_act_state(L, self.device) if self.recurrent else ()
         extras = None
@@ -165,6 +205,22 @@ class OffPolicyRunner:
             act_state=act_state,
         )
 
+    def _lane_draws(self, draws):
+        """The source of the act's and the env's draws: this rank's lanes'
+        part of each under a mesh."""
+        return draws if self.mesh is None else LaneDraws(draws, self.mesh)
+
+    def _global_lanes(self, *xs):
+        """Every lane's values of this rank's ``xs`` (all-gathered under a
+        mesh)."""
+        return xs if self.mesh is None else all_gather_rows(self.mesh, xs)
+
+    def _update(self, train, batch, draws):
+        """The core's update, or under a mesh its data-parallel update."""
+        if self._dp_update is None:
+            return self.core.update(train, batch, draws)
+        return self._dp_update(train, batch, draws)
+
     def _example_action(self) -> torch.Tensor:
         """int32 0-d for a discrete action space, else float32 of its shape."""
         space = self.env.action_space
@@ -177,15 +233,16 @@ class OffPolicyRunner:
         cfg = self.config
         L = cfg.num_envs
         extras = None
+        draws = self._lane_draws(state.draws)
         if self.recurrent:
             actions, act_state = self.core.select_action_recurrent(
-                state.train_state, state.draws, state.obs, state.t, True, state.act_state)
+                state.train_state, draws, state.obs, state.t, True, state.act_state)
         elif self.acts_with_extras:
             actions, extras = self.core.select_action_with_extras(
-                state.train_state, state.draws, state.obs, state.t, True)
+                state.train_state, draws, state.obs, state.t, True)
         else:
-            actions = self.core.select_action(state.train_state, state.draws, state.obs, state.t, True)
-        env_states, vec = self.env.step(state.draws, state.env_states, actions)
+            actions = self.core.select_action(state.train_state, draws, state.obs, state.t, True)
+        env_states, vec = self.env.step(draws, state.env_states, actions)
         ts = vec.ts
         if self.recurrent:
             if self.store_carries:
@@ -207,7 +264,8 @@ class OffPolicyRunner:
             ),
         )
         t_prev, t = state.t, state.t + L
-        n_finished = record_returns(state, ts.reward, ts.done, self.return_window)
+        reward, done = self._global_lanes(ts.reward, ts.done)
+        n_finished = record_returns(state, reward, done, self.return_window)
 
         loss = self._maybe_update(state, t)
 
@@ -220,7 +278,7 @@ class OffPolicyRunner:
         state.env_states = env_states
         state.obs = vec.obs
         state.t = t
-        return {"reward_mean": torch.mean(ts.reward), "loss": loss, "done_count": n_finished}
+        return {"reward_mean": torch.mean(reward), "loss": loss, "done_count": n_finished}
 
     def _maybe_update(self, state: RunnerState, t: int) -> torch.Tensor:
         """``updates_per_step`` gradient steps once ``t >= replay_start_size``;
@@ -247,11 +305,11 @@ class OffPolicyRunner:
                 replay, draws, cfg.updates_per_step * cfg.minibatch_size
             ).reshape(cfg.updates_per_step, cfg.minibatch_size)
             for ids in all_ids:
-                _, aux = self.core.update(train, self.buffer.gather(replay, ids), draws)
+                _, aux = self._update(train, self.buffer.gather(replay, ids), draws)
             return aux["loss"]
         for _ in range(cfg.updates_per_step):
             batch, _ = self.buffer.sample(replay, draws, cfg.minibatch_size)
-            _, aux = self.core.update(train, batch, draws)
+            _, aux = self._update(train, batch, draws)
             self.buffer.update_priorities(replay, batch.indices, aux["errors"])
         return aux["loss"]
 
@@ -265,6 +323,12 @@ class OffPolicyRunner:
 
     def recent_return_mean(self, state: RunnerState) -> float:
         return recent_return_mean(state, self.return_window)
+
+
+def _noisy(core) -> bool:
+    """Whether any network of ``core`` has a factorized noisy layer."""
+    return any(isinstance(m, FactorizedNoisyLinear) for net in vars(core).values()
+               if isinstance(net, torch.nn.Module) for m in net.modules())
 
 
 def record_returns(state, reward: torch.Tensor, done: torch.Tensor, window: int) -> torch.Tensor:

@@ -94,9 +94,13 @@ class PrioritizedReplayBuffer(ReplayBuffer):
 
     # ------------------------------------------------------------------ init
     def init(self, example: Transition) -> PrioritizedReplayState:
+        return PrioritizedReplayState(base=super().init(example), **self.init_trees())
+
+    def init_trees(self) -> dict:
+        """The replicated part of the state: the trees, ``max_priority`` and
+        ``beta``."""
         dev = self.device
-        return PrioritizedReplayState(
-            base=super().init(example),
+        return dict(
             tree=sum_tree.init_tree(self.tree_capacity, dev),
             min_tree=sum_tree.init_min_tree(self.tree_capacity, dev),
             max_priority=torch.ones((), dtype=torch.float32, device=dev),
@@ -106,9 +110,14 @@ class PrioritizedReplayBuffer(ReplayBuffer):
     # ------------------------------------------------------------------- add
     def add(self, state: PrioritizedReplayState, batch: Transition) -> PrioritizedReplayState:
         lanes = first_leaf(batch.obs).shape[0]
-        lane = torch.arange(lanes, dtype=torch.int32, device=self.device)
         cursor = state.base.cursor.clone()  # super().add bumps it in place
         super().add(state.base, batch)
+        return self.admit(state, cursor, lanes)
+
+    def admit(self, state: PrioritizedReplayState, cursor: torch.Tensor, lanes: int) -> PrioritizedReplayState:
+        """The trees' side of an add of ``lanes`` rows at ``cursor`` (the
+        cursor before the add), in place."""
+        lane = torch.arange(lanes, dtype=torch.int32, device=self.device)
         written = (cursor + lane) % self.capacity
 
         hold = (self.num_steps - 1 + (0 if self.store_next_obs else 1)) * self.num_lanes
@@ -147,6 +156,16 @@ class PrioritizedReplayBuffer(ReplayBuffer):
 
     def sample(self, state: PrioritizedReplayState, draws, batch_size: int):
         """Returns ``(batch, state)``; beta anneals per call, in place."""
+        ids, slots, weights = self.draw(state, draws, batch_size)
+        batch = self.gather(state.base, ids)
+        batch.weight = weights
+        batch.indices = slots
+        return batch, state
+
+    def draw(self, state: PrioritizedReplayState, draws, batch_size: int):
+        """The trees' side of a sample: ``(ids, slots, weights)``, the
+        monotonic ids to gather, the slots to feed back and the importance
+        weights; beta anneals, in place."""
         total = sum_tree.total(state.tree)
         targets = sum_tree.stratified_targets(total, draws.uniform(batch_size))
         slots = self._find_slots(state.tree, targets)
@@ -168,12 +187,8 @@ class PrioritizedReplayBuffer(ReplayBuffer):
         lo = torch.clamp_min(cursor - self.capacity, 0)
         gen = (cursor - 1 - slots) // self.capacity  # how many wraps back
         ids = torch.maximum(slots + gen * self.capacity, lo)
-
-        batch = self.gather(state.base, ids)
-        batch.weight = weights
-        batch.indices = slots
         state.beta = torch.clamp_max(state.beta + self.beta_add, 1.0)
-        return batch, state
+        return ids, slots, weights
 
     # ------------------------------------------------------------- priorities
     def priority_from_errors(self, errors: torch.Tensor) -> torch.Tensor:

@@ -59,6 +59,7 @@ from pfrl_tpu_torch.agents import A2CCore, PPOCore, TRPOCore
 from pfrl_tpu_torch.experiments import onpolicy as onp
 from pfrl_tpu_torch.experiments.onpolicy_runner import OnPolicyRunner
 from pfrl_tpu_torch.experiments.runner import EvalLoop
+from pfrl_tpu_torch.parallel.mesh import Mesh
 
 torch.set_num_threads(1)
 
@@ -305,8 +306,13 @@ def test_recipes_hold_the_published_widths_and_need_a_card_or_an_explicit_cpu(mo
 def test_unported_branches_raise_by_name():
     env = tenvs.CartPole(device="cpu")
     core = onp.make_a2c_cartpole_runner(device="cpu").core
-    with pytest.raises(NotImplementedError, match="mesh"):
-        OnPolicyRunner(env, core, 4, 8, device="cpu", mesh=object())
+    # The mesh branch is ported: the runner takes a mesh over one rank with
+    # a core that splits its minibatches; TRPO under a mesh raises by name.
+    mesh = Mesh(("dp",), (1,), 0)
+    runner = OnPolicyRunner(env, core, 4, 8, device="cpu", mesh=mesh)
+    assert runner.mesh is mesh and runner.env.num_envs == 4 and runner.core.mesh is mesh
+    with pytest.raises(NotImplementedError, match="TRPOCore under a mesh"):
+        OnPolicyRunner(env, onp.make_trpo_pendulum_runner(device="cpu").core, 4, 8, device="cpu", mesh=mesh)
 
     class Recurrent:
         recurrent = True

@@ -40,6 +40,8 @@ from pfrl_tpu_torch.experiments.atari_per_dqn import NatureQ, make_dqn_runner
 from pfrl_tpu_torch.experiments.runner import EvalLoop, OffPolicyRunner, RunnerConfig
 from pfrl_tpu_torch.explorers import LinearDecayEpsilonGreedy
 from pfrl_tpu_torch.optimizers import RMSprop
+from pfrl_tpu_torch.parallel.lane_sharding import LaneShardedBuffer
+from pfrl_tpu_torch.parallel.mesh import Mesh
 from pfrl_tpu_torch.replay import PrioritizedReplayBuffer, ReplayBuffer
 from pfrl_tpu_torch.utils import atari_phi
 from pfrl_tpu_torch.utils.draws import Draws
@@ -265,24 +267,44 @@ class _Extras:
         raise AssertionError("not reached")
 
 
+class _Plain:
+    batch_accumulator = "mean"
+
+    def update(self, *args):
+        raise AssertionError("not reached")
+
+
+ONE_RANK = Mesh(("dp",), (1,), 0)
+
+
 @pytest.mark.parametrize(
     "branch,core,buffer_cls,mesh",
     [
-        ("mesh", None, ReplayBuffer, object()),
+        ("mesh", _Plain(), ReplayBuffer, ONE_RANK),
         ("episodic", None, _Episodic, None),
         ("recurrent", _Recurrent(), ReplayBuffer, None),
         ("extras", _Extras(), ReplayBuffer, None),
+        ("episodic buffers under a mesh", _Plain(), _Episodic, ONE_RANK),
+        ("a noisy network under a mesh", "noisy", ReplayBuffer, ONE_RANK),
     ],
 )
 def test_runner_names_the_branch_it_has_not_ported(branch, core, buffer_cls, mesh):
-    """The mesh branch raises by name; the episodic, recurrent and extras
-    branches are ported, and the runner takes them."""
+    """The mesh, episodic, recurrent and extras branches are ported, and the
+    runner takes them (a mesh: each rank's lanes, the ring's rows sharded,
+    the core's optimizers all-reducing); the episodic buffers and a noisy
+    network under a mesh raise by name."""
     env = AtariSim(N_ACTIONS, device="cpu")
     buffer = buffer_cls(64, num_lanes=4, device="cpu")
-    if branch in ("episodic", "recurrent", "extras"):
+    if core == "noisy":
+        core = make_dqn_runner(noisy_net_sigma=0.5, device="cpu", num_envs=4, capacity=64).core
+    if branch in ("mesh", "episodic", "recurrent", "extras"):
         runner = OffPolicyRunner(env, core, buffer, RunnerConfig(num_envs=4), device="cpu", mesh=mesh)
         assert runner.recurrent == (branch == "recurrent")
         assert runner.acts_with_extras == (branch == "extras")
+        assert runner.mesh is mesh
+        if branch == "mesh":
+            assert isinstance(runner.buffer, LaneShardedBuffer) and runner.buffer.buffer is buffer
+            assert runner.env.num_envs == 4 and runner.core.mesh is mesh and runner.core is not core
         return
     with pytest.raises(NotImplementedError, match=branch):
         OffPolicyRunner(env, core, buffer, RunnerConfig(num_envs=4), device="cpu", mesh=mesh)
