@@ -28,7 +28,7 @@ result, without them. Its phases, each raising on failure:
    replay start, counting the kernel's launches;
 5. drive Rainbow at full width with the recipe's every width and cadence
    (noisy distributional dueling network, 51 atoms, categorical Double
-   DQN, Adam, 3-step prioritized replay; updates from 30,016 on, the
+   DQN, Adam, 3-step prioritized replay; updates from 31,040 on, the
    recipe's 20,000 cut later for the time limit) for 500
    scan steps, through the target sync at 32,000, counting the kernel's
    launches, then its greedy evaluation loop (5 lanes, 500 steps);
@@ -128,7 +128,7 @@ result, without them. Its phases, each raising on failure:
    evaluation loop; each path freed before the next. Last the pipeline
    (``train_dqn_pipeline_ale.py --sim``: 3 spawned actor processes x 96
    lanes of ``SyntheticALE``, the 999,936-plane ring, 7.06 GB, bursts of
-   64) through its replay start of 50,000, then 5 s timed and 3 s
+   64) through its replay start of 50,000, then 4 s timed and 2 s
    profiled, then on to the burst of the first target sync: env-steps/s, updates/s, the act round trip (median and p90,
    apart by whether a burst was in flight), burst and commit times, target
    syncs (at least 1), the workers' start-up, the busy share; then a clean
@@ -257,9 +257,16 @@ result, without them. Its phases, each raising on failure:
    the atlas SAC shell (4 lanes, 104 updates) and the quickstart's host-loop
    DQN shell, their envs stepped on the CPU. Then the mesh: a mesh of one
    NCCL rank on the card against no mesh, Nature DQN over the uniform ring
-   and over PER (13 kernel launches each run) and PPO, every learned tensor,
-   metric and tree equal to the bit; two spawned Gloo ranks on the host CPU
-   (DQN on CartPole) with every learned tensor equal to the bit. Then at full width
+   and over PER (13 kernel launches each run) and PPO, and every core of
+   the mesh's later branches at its small run's sizes (DRQN on PO-ABC,
+   recurrent IQN on DelayedCue and ACER on ABC over the episodic buffers,
+   continuous ACER, IQN-CartPole, SAC and TD3, Rainbow-CartPole's noisy
+   net over PER at B = 64 with 18 kernel launches each run, TRPO,
+   recurrent PPO and TRPO), every learned tensor, metric, tree, episodic
+   table and carry equal to the bit, and a runner snapshot saved and
+   resumed on the mesh equal to the uninterrupted run; two spawned Gloo
+   ranks on the host CPU (DQN and IQN on CartPole, DRQN on DelayedCue
+   over the episodic buffer) with every learned tensor equal to the bit. Then at full width
    ``iqn-atarisim-64`` (the 10^5-slot ring, 2.83 GB; the replay start cut to
    9,216, 304 updates through the target sync at 10,000, the target equal
    to the online net after it; ``EvalLoop`` 5 x 500),
@@ -276,6 +283,16 @@ result, without them. Its phases, each raising on failure:
    replay start cut to 2,000, one chunk of 500 scan steps, 502 updates),
    each printing env-steps/s, updates/s, its phases' ms and the device's
    busy share; none launches the kernel.
+21. ``drqn-atarisim-32-mesh``: ``train_drqn_ale.py --sim`` at full width
+   (LSTM 512 over single 84x84 frames, 32 lanes, the 5.85 GB episodic
+   buffer with its carries stored, 8 batch-32 updates per scan step) on a
+   mesh of one NCCL rank on the card against the same recipe without a
+   mesh, both with cuDNN's deterministic algorithms, from the same weights
+   and draws, one after the other: every learned tensor, metric, the
+   carry, the buffer's tables and storage equal to the bit through the
+   target sync at 10,000 (the replay start cut to 9,600: 112 updates);
+   the mesh run's scan step and its busy share under
+   ``torch.profiler``. It launches no kernel.
 
 The kernels' launch counts are set to 0 just before each full-width path
 and read just after it; the kernels' JSON line gives their sum over the
@@ -315,7 +332,9 @@ FULL_STEPS_WARM = 32   # t = 2,048 at the end: the first updates run
 FULL_STEPS_TIMED = 64  # t = 6,144 at the end (the target sync at 10,000 is Rainbow's and the small runs' to cross)
 
 RAINBOW_STEPS = 500     # t = 32,000 at the end: the target sync on the last step
-RAINBOW_REPLAY_START = 30_016  # the recipe's 20,000, later for the time limit: 32 scan steps with updates
+# The recipe's 20,000, later for the time limit: 16 scan steps and 256 updates
+# before the sync (30,016 gave 32 and 512).
+RAINBOW_REPLAY_START = 31_040
 RAINBOW_STEPS_WARM = 4  # the first scan steps with updates, before the timed ones
 UNIFORM_STEPS_TIMED = 32
 
@@ -366,7 +385,7 @@ ATARI_ONPOLICY_ITERATIONS = {"a2c-atarisim-16": 40, "ppo-atarisim-8": 4}  # time
 # profiled scan steps of 16 updates each.
 EXAMPLE_REPLAY_START = 20_000       # cut from the examples' 50,000 for the time limit
 EXAMPLE_ATARI_STEPS = (313, 8, 4)   # warm, timed, profiled
-PIPELINE_SECONDS = (5.0, 3.0)       # the pipeline after its replay start: timed, profiled (10, 5 until PR 15)
+PIPELINE_SECONDS = (4.0, 2.0)       # the pipeline after its replay start: timed, profiled (cut from 10, 5)
 PIPELINE_MIN_UPDATES = 2_560        # then on to the burst holding the first target sync (the 2,500th update)
 
 
@@ -802,7 +821,7 @@ def run_full_slice(card: str, compute_dtype=None, timed_steps: int = FULL_STEPS_
 def run_full_rainbow(card: str) -> dict:
     """Rainbow with the recipe's every value but the replay start
     (``RAINBOW_REPLAY_START``), cut to 500 scan steps: no updates below
-    30,016 transitions, then 16 per scan step, and the target sync when
+    31,040 transitions, then 16 per scan step, and the target sync when
     the last step reaches 32,000."""
     from pfrl_tpu_torch.envs.atari_sim import AtariSim
     from pfrl_tpu_torch.experiments.atari_rainbow import make_rainbow_runner
@@ -4557,50 +4576,118 @@ def _free_port() -> int:
 
 def _run_state(runner, state, metrics) -> dict:
     """Every tensor of a run that a mesh must leave as it is: the learned
-    tensors, the metrics, the returns ring and a prioritized ring's trees."""
+    tensors, the metrics, the returns ring, a prioritized ring's trees, an
+    episodic buffer's tables (and its tree) and a recurrent core's carry."""
     out = {f"learned {k}": v for k, v in _learned_tensors(state.train_state).items()}
     out.update({f"metric {k}": v for k, v in metrics.items()})
     out.update(recent_returns=state.recent_returns, recent_count=state.recent_count, obs=state.obs)
     replay = getattr(state, "replay_state", None)
-    if hasattr(replay, "tree"):
+    if hasattr(replay, "min_tree"):
         out.update(tree=replay.tree, min_tree=replay.min_tree, beta=replay.beta, max_priority=replay.max_priority)
+    if hasattr(replay, "ep_len"):
+        out.update(ep_len=replay.ep_len, finished=replay.finished, lane_row=replay.lane_row,
+                   n_started=replay.n_started)
+        if hasattr(replay, "tree"):
+            out.update(tree=replay.tree, max_priority=replay.max_priority)
+    out.update({f"carry {i}": leaf for i, leaf in enumerate(_leaves(state.act_state))})
     return {k: v.detach().cpu() for k, v in out.items()}
+
+
+# The small runs of the mesh check over an episodic buffer: 4 lanes of 3
+# rows each (the buffer's rows split into equal blocks per lane).
+MESH_CUE = dict(num_envs=4, max_episodes=12, max_episode_len=12, subseq_len=4, replay_start_size=52,
+                update_interval=4, target_update_interval=32, minibatch_size=4)
+MESH_SNAPSHOT_STEPS = 13  # scan steps before and after the snapshot of the mesh check
 
 
 def _mesh_configs() -> dict:
     """name -> (function making a small runner on a device with a mesh or
     none, scan steps or iterations, kernel launches on each run): phase 3's
     Nature DQN over the uniform ring and over PER (4 lanes) and phase 9's
-    PPO on MujocoSim (4 lanes, 3 iterations)."""
-    from pfrl_tpu_torch.experiments.onpolicy_runner import OnPolicyRunner
-    from pfrl_tpu_torch.experiments.runner import OffPolicyRunner
+    PPO on MujocoSim (4 lanes, 3 iterations); every core of the mesh's
+    later branches at the sizes of its phase's small run: DRQN on PO-ABC,
+    recurrent IQN on DelayedCue (12 rows) and ACER on ABC over the
+    episodic buffers, continuous ACER, IQN-CartPole, SAC and TD3 (their
+    updates draw), Rainbow-CartPole (a noisy network over PER) at the
+    kernel's B = 64 (a 256-slot ring, 2 updates per scan step from 64
+    transitions: 18 updates, 18 launches), TRPO, recurrent PPO and TRPO."""
+    from pfrl_tpu_torch.envs import CartPole, TimeLimit
+    from pfrl_tpu_torch.experiments import recurrent as rec
+    from pfrl_tpu_torch.experiments.profile_slice import on_mesh
 
-    small = _small_configs()
-    ppo = _small_onpolicy_configs()["ppo"]
+    small, onpolicy, recurrent = _small_configs(), _small_onpolicy_configs(), _small_recurrent_configs()
+    acer, cartpole, actor_critic = _small_acer_configs(), _small_cartpole_configs(), _small_actor_critic_configs()
 
-    def off(build):
-        def make(dev, mesh):
-            r = build(dev)
-            return r if mesh is None else OffPolicyRunner(r.env.env, r.core, r.buffer, r.config, device=dev, mesh=mesh)
-        return make
+    def meshed(build):
+        return lambda dev, mesh: build(dev) if mesh is None else on_mesh(build(dev), mesh)
 
-    def on(dev, mesh):
-        r = ppo(dev)
-        return r if mesh is None else OnPolicyRunner(r.env.env, r.core, r.num_envs, r.rollout_len, device=dev,
-                                                     mesh=mesh)
+    def rainbow(dev):
+        return _cartpole_recipes()["rainbow-cartpole"](
+            env=TimeLimit(CartPole(device=dev), 10), num_envs=4, capacity=256, replay_start_size=64,
+            update_interval=2, target_update_interval=48, minibatch_size=CARTPOLE_BATCH)[0]
 
-    return {"dqn": (off(small["dqn"][0]), small["dqn"][1], 0),
-            "per-dqn": (off(small["per-dqn"][0]), small["per-dqn"][1], small["per-dqn"][2]),
-            "ppo": (on, 3, 0)}
+    return {"dqn": (meshed(small["dqn"][0]), small["dqn"][1], 0),
+            "per-dqn": (meshed(small["per-dqn"][0]), small["per-dqn"][1], small["per-dqn"][2]),
+            "ppo": (meshed(onpolicy["ppo"]), 3, 0),
+            "drqn-po-abc": (meshed(recurrent["drqn-po-abc"][0]), 14, 0),
+            "riqn-delayedcue": (meshed(lambda dev: rec.make_riqn_delayed_cue_runner(
+                hidden=16, n_taus=4, device=dev, **MESH_CUE)[0]), 26, 0),
+            "acer-abc": (meshed(acer["acer-abc"][0]), 14, 0),
+            "acer-continuous-abc": (meshed(acer["acer-continuous-abc"][0]), 14, 0),
+            "iqn-cartpole": (meshed(cartpole["iqn-cartpole"][0]), 11, 0),
+            "sac": (meshed(actor_critic["sac"]), 30, 0),
+            "td3": (meshed(actor_critic["td3"]), 30, 0),
+            "rainbow-cartpole": (meshed(rainbow), 24, 18),
+            "trpo": (meshed(onpolicy["trpo"]), 3, 0),
+            "rppo-delayedcue": (meshed(recurrent["rppo-delayedcue"][0]), 3, 0),
+            "rtrpo-delayedcue": (meshed(recurrent["rtrpo-delayedcue"][0]), 3, 0)}
+
+
+def _mesh_snapshot(device, mesh) -> dict:
+    """DRQN on DelayedCue over the sharded episodic buffer on the mesh, from
+    a seeded generator on the card: 26 scan steps uninterrupted, and 13, a
+    runner snapshot, a fresh runner built from other seeds loading it, 13
+    more; the names of the tensors that differ."""
+    from pfrl_tpu_torch.agents.snapshot import load_runner_snapshot, save_runner_snapshot
+    from pfrl_tpu_torch.experiments import recurrent as rec
+    from pfrl_tpu_torch.experiments.profile_slice import on_mesh
+    from pfrl_tpu_torch.utils.draws import Draws
+
+    def fresh(seed):
+        runner = on_mesh(rec.make_drqn_delayed_cue_runner(hidden=16, device=device, **MESH_CUE)[0], mesh)
+        return runner, runner.init(seed, draws=Draws(torch.Generator(device=device).manual_seed(seed)))
+
+    runner, state = fresh(0)
+    state, metrics = runner.run_chunk(state, 2 * MESH_SNAPSHOT_STEPS)
+    whole = _run_state(runner, state, {k: v[MESH_SNAPSHOT_STEPS:] for k, v in metrics.items()})
+    runner, state = fresh(0)
+    state, _ = runner.run_chunk(state, MESH_SNAPSHOT_STEPS)
+    tmp = tempfile.mkdtemp()
+    try:
+        save_runner_snapshot(state, tmp, mesh)
+        runner, template = fresh(1)
+        state = load_runner_snapshot(template, tmp, mesh)
+        files = sorted(os.listdir(tmp))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    state, metrics = runner.run_chunk(state, MESH_SNAPSHOT_STEPS)
+    resumed = _run_state(runner, state, metrics)
+    unequal = [k for k in whole if not torch.equal(whole[k], resumed[k])]
+    return {"tensors": len(whole), "unequal": unequal, "files": files,
+            "n_updates": state.train_state.n_updates}
 
 
 def _gloo_rank(rank: int, port: int, out_path: str) -> None:
     """One of two Gloo ranks on the CPU (a spawned process: it never
-    touches the card): DQN on CartPole over the uniform ring at 4 lanes
-    split 2 + 2; saves every learned tensor."""
+    touches the card): DQN and IQN on CartPole over the uniform ring at 4
+    lanes split 2 + 2 (IQN's taus drawn per row in the update), and DRQN
+    on DelayedCue over the episodic buffer with stored carries (12 rows,
+    each rank keeping its lanes' 6); saves every learned tensor and the
+    episodic buffer's tables."""
     from pfrl_tpu_torch.envs import CartPole, TimeLimit
-    from pfrl_tpu_torch.experiments.cartpole_value import make_dqn_cartpole_runner
-    from pfrl_tpu_torch.experiments.runner import OffPolicyRunner
+    from pfrl_tpu_torch.experiments import recurrent as rec
+    from pfrl_tpu_torch.experiments.cartpole_value import make_dqn_cartpole_runner, make_iqn_cartpole_runner
+    from pfrl_tpu_torch.experiments.profile_slice import on_mesh
     from pfrl_tpu_torch.parallel.mesh import make_mesh
     from pfrl_tpu_torch.parallel.multihost import initialize_multihost
     from pfrl_tpu_torch.parallel.multihost import shutdown
@@ -4609,14 +4696,24 @@ def _gloo_rank(rank: int, port: int, out_path: str) -> None:
     initialize_multihost(f"localhost:{port}", 2, rank, device="cpu", timeout_s=120)
     try:
         mesh = make_mesh(("dp",))
-        env = TimeLimit(CartPole(device="cpu"), 10)
-        r, _ = make_dqn_cartpole_runner(env=env, device="cpu", num_envs=4, capacity=40, replay_start_size=12,
-                                        update_interval=2, target_update_interval=24, minibatch_size=8)
-        runner = OffPolicyRunner(env, r.core, r.buffer, r.config, device="cpu", mesh=mesh)
-        state = runner.init(0, draws=SeededDraws(0, "cpu"))
-        state, _ = runner.run_chunk(state, 11)
-        out = {f"dqn {k}": v for k, v in _learned_tensors(state.train_state).items()}
-        out["updates"] = torch.tensor([state.train_state.n_updates])
+        small = dict(device="cpu", num_envs=4, capacity=40, replay_start_size=12, update_interval=2,
+                     target_update_interval=24, minibatch_size=8)
+        runs = {
+            "dqn": (make_dqn_cartpole_runner(env=TimeLimit(CartPole(device="cpu"), 10), **small)[0], 11),
+            "iqn": (make_iqn_cartpole_runner(env=TimeLimit(CartPole(device="cpu"), 10), hidden=16, feature_size=8,
+                                             n_taus=8, decay_steps=40, **small)[0], 11),
+            "drqn": (rec.make_drqn_delayed_cue_runner(hidden=16, device="cpu", **MESH_CUE)[0], 26),
+        }
+        out = {}
+        for name, (plain, steps) in runs.items():
+            runner = on_mesh(plain, mesh)
+            state = runner.init(0, draws=SeededDraws(0, "cpu"))
+            state, _ = runner.run_chunk(state, steps)
+            out.update({f"{name} {k}": v for k, v in _learned_tensors(state.train_state).items()})
+            out[f"{name} updates"] = torch.tensor([state.train_state.n_updates])
+        replay = state.replay_state
+        out.update({f"drqn {k}": getattr(replay, k) for k in ("ep_len", "finished", "lane_row", "n_started")})
+        out["updates"] = torch.tensor([out[f"{name} updates"].item() for name in runs])
         torch.save(out, out_path)
     finally:
         shutdown()
@@ -4629,10 +4726,13 @@ def check_mesh_on_card(card: str, device) -> dict:
     :func:`_mesh_configs` runs without a mesh and with one, from the same
     weights and draws, with cuDNN's deterministic algorithms (two runs of
     the Nature CNN without a mesh differ otherwise), and every
-    learned tensor, metric, the returns ring and a prioritized ring's
-    trees and beta must be **equal to the bit**,
+    learned tensor, metric, the returns ring, a prioritized ring's
+    trees and beta, an episodic buffer's tables and a recurrent core's
+    carry must be **equal to the bit**,
     the prefix-sample kernel launched as often on both runs (once per
-    update over PER). (2) Two Gloo ranks on the card's host CPU
+    update over PER); then a runner snapshot saved and resumed on the
+    mesh (:func:`_mesh_snapshot`) must equal the uninterrupted run to the
+    bit. (2) Two Gloo ranks on the card's host CPU
     (:func:`_gloo_rank`, spawned before (1) and joined after it, each
     under a 300 s timeout): their learned tensors equal to the bit."""
     import multiprocessing as mp
@@ -4662,7 +4762,7 @@ def check_mesh_on_card(card: str, device) -> dict:
                 runner = make(device, m)
                 state = runner.init(0, draws=SeededDraws(0, device))
                 before = prefix_sample.launches
-                if name == "ppo":
+                if hasattr(runner, "run_iterations"):
                     state, metrics = runner.run_iterations(state, steps)
                 else:
                     state, metrics = runner.run_chunk(state, steps)
@@ -4675,6 +4775,12 @@ def check_mesh_on_card(card: str, device) -> dict:
             record[name] = {"tensors": len(plain), "unequal": unequal, "launches": [plain_launches, mesh_launches]}
             print(f"mesh {name}: one NCCL rank on the card against no mesh, {len(plain)} tensors, "
                   f"{len(unequal)} unequal {unequal[:4]}; prefix-sample launches {plain_launches} and {mesh_launches}")
+        snap = record["snapshot"] = _mesh_snapshot(device, mesh)
+        checks["a runner snapshot resumed on the mesh equals the uninterrupted run to the bit"] = (
+            not snap["unequal"] and snap["files"] == ["runner_state.rank0.pt"])
+        print(f"mesh snapshot: DRQN-DelayedCue on one NCCL rank resumed after {MESH_SNAPSHOT_STEPS} scan steps "
+              f"against the uninterrupted run, {snap['tensors']} tensors, {len(snap['unequal'])} unequal "
+              f"{snap['unequal'][:4]}; files {snap['files']}")
     finally:
         shutdown()
         torch.backends.cudnn.deterministic = deterministic
@@ -4698,7 +4804,7 @@ def check_mesh_on_card(card: str, device) -> dict:
     print(f"mesh: two Gloo ranks on the host CPU exited {codes}; {record['gloo']['tensors']} tensors, "
           f"{len(unequal)} unequal; updates {record['gloo']['updates']}; done {record['gloo']['seconds']:.1f} s "
           f"after they started, beside the NCCL checks' {record['nccl_s']:.1f} s on {card}")
-    record["kernel_launches"] = record["per-dqn"]["launches"][0] + record["per-dqn"]["launches"][1]
+    record["kernel_launches"] = sum(sum(record[name]["launches"]) for name in ("per-dqn", "rainbow-cartpole"))
     _raise_on_failed("mesh", checks)
     return record
 
@@ -4910,6 +5016,125 @@ def run_full_multihost(card: str) -> dict:
     return result
 
 
+# -------------------------------------------------------------------- phase 21
+# drqn-atarisim-32 on a mesh and without one: the replay start cut further than
+# phase 12's 9,024, to 9,600, for the time limit (the sync at 10,000 kept):
+# 299 scan steps acting, then 14 updating (112 updates) through t = 10,016.
+DRQN_MESH_REPLAY_START = 9_600
+DRQN_MESH_STEPS = (299, 14)  # warm (through replay start), timed
+DRQN_MESH_PROFILED = 2  # the mesh run's scan steps under torch.profiler, after the comparison
+
+
+def _storage_leaves(storage, prefix="storage") -> dict:
+    """name -> tensor of an episodic buffer's storage (its carries too)."""
+    out = {}
+    for name, value in storage.items():
+        if isinstance(value, dict):
+            out.update(_storage_leaves(value, f"{prefix} {name}"))
+        elif isinstance(value, torch.Tensor):
+            out[f"{prefix} {name}"] = value
+        else:
+            out.update({f"{prefix} {name} {i}": leaf for i, leaf in enumerate(_leaves(value))})
+    return out
+
+
+def run_full_drqn_atarisim_mesh(card: str) -> dict:
+    """``drqn-atarisim-32-mesh``: ``train_drqn_ale.py --sim`` at full width
+    (32 lanes, LSTM 512 over single 84x84 frames, the 5.85 GB episodic
+    buffer with its carries stored, 8 batch-32 updates per scan step) on a
+    mesh of one NCCL rank on the card, against the same recipe without a
+    mesh. Both runs take cuDNN's deterministic algorithms, start from the
+    same weights and draws (seed 0) and run one after the other, the
+    allocator's cache emptied between them, through the target sync at
+    10,000 transitions (the replay start cut to ``DRQN_MESH_REPLAY_START``,
+    9,600: 299 + 14 scan steps, 112 updates). Every
+    learned tensor, metric, the carry, the buffer's tables and its whole
+    storage (frames and stored carries, compared on the card) must be equal
+    to the bit. The mesh run's timed chunk gives its scan step and, over
+    ``DRQN_MESH_PROFILED`` more scan steps under ``torch.profiler``, its
+    device busy share; the run without a mesh's scan step is printed
+    beside it (one call, one card)."""
+    from pfrl_tpu_torch.experiments.profile_slice import _profiled, on_mesh, one_rank_mesh
+    from pfrl_tpu_torch.experiments.recurrent import make_drqn_atarisim_runner
+    from pfrl_tpu_torch.ops.prefix_sample import prefix_sample
+
+    warm_steps, timed_steps = DRQN_MESH_STEPS
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs = {}
+    prefix_sample.launches = 0
+    try:
+        with one_rank_mesh() as mesh:
+            for label, m in (("no mesh", None), ("mesh", mesh)):
+                runner = make_drqn_atarisim_runner(replay_start_size=DRQN_MESH_REPLAY_START)[0]
+                if m is not None:
+                    runner = on_mesh(runner, m)
+                state = runner.init(0)
+                t0 = time.perf_counter()
+                state, warm = runner.run_chunk(state, warm_steps)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                state, timed = runner.run_chunk(state, timed_steps)
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                metrics = {k: torch.cat([warm[k], timed[k]]) for k in warm}
+                runs[label] = {"runner": runner, "state": state, "metrics": metrics, "warm_s": t1 - t0,
+                               "timed_s": t2 - t1}
+                torch.cuda.empty_cache()
+            plain, meshed = runs["no mesh"], runs["mesh"]
+            a = _run_state(plain["runner"], plain["state"], plain["metrics"])
+            b = _run_state(meshed["runner"], meshed["state"], meshed["metrics"])
+            unequal = [k for k in a if not torch.equal(a[k], b[k])]
+            sa, sb = (_storage_leaves(r["state"].replay_state.storage) for r in (plain, meshed))
+            unequal += [k for k in sa if not torch.equal(sa[k], sb[k])]
+            train = meshed["state"].train_state
+            synced = all(torch.equal(x, y) for x, y in zip(train.model.parameters(), train.target_model.parameters()))
+            runner, state = meshed["runner"], meshed["state"]
+            (state, _), profiled_s, kernels, busy_us, top = _profiled(
+                lambda: runner.run_chunk(state, DRQN_MESH_PROFILED))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    cfg = meshed["runner"].config
+    updates = _updates_in(cfg, 1, warm_steps + timed_steps)
+    launches = prefix_sample.launches
+    storage_bytes = sum(x.numel() * x.element_size() for x in sb.values())
+    checks = {
+        "every learned tensor, metric, carry, buffer table and the storage equal to the bit": not unequal
+        and a.keys() == b.keys() and sa.keys() == sb.keys(),
+        "n_updates as expected on both runs": plain["state"].train_state.n_updates == train.n_updates - (
+            cfg.updates_per_step * DRQN_MESH_PROFILED) == updates,
+        "the target equals the online net right after the sync at 10,000": synced,
+        "the buffer of 5.9 GB": 5.5e9 < storage_bytes < 6.5e9,
+        "no prefix-sample launch": launches == 0,
+    }
+    result = {
+        "t": plain["state"].t, "n_updates": updates, "tensors_compared": len(a) + len(sa), "unequal": unequal,
+        "storage_bytes": storage_bytes, "kernel_launches": launches,
+        "scan_step_ms": {k: r["timed_s"] / timed_steps * 1e3 for k, r in runs.items()},
+        "warm_chunk_s": {k: r["warm_s"] for k, r in runs.items()},
+        "profiled_scan_step_ms": profiled_s / DRQN_MESH_PROFILED * 1e3,
+        "device_launches_per_step": kernels / DRQN_MESH_PROFILED,
+        "device_busy_ms_per_step": busy_us / DRQN_MESH_PROFILED / 1e3,
+        "device_busy_share": busy_us / 1e6 / profiled_s,
+        "top_device_ops": [{"name": n, "ms_per_step": us / DRQN_MESH_PROFILED / 1e3,
+                            "launches_per_step": k / DRQN_MESH_PROFILED} for n, (us, k) in top[:8]],
+    }
+    del runs, plain, meshed, runner, state, train, sa, sb
+    torch.cuda.empty_cache()
+    _raise_on_failed("drqn-atarisim-32-mesh", checks)
+    print(
+        f"drqn-atarisim-32-mesh: one NCCL rank on the card against no mesh through the sync at 10,000 "
+        f"(t = {result['t']}, {updates} updates), {result['tensors_compared']} tensors with the "
+        f"{storage_bytes / 1e9:.3f} GB storage, {len(unequal)} unequal {unequal[:4]}; scan step (8 updates) "
+        f"{result['scan_step_ms']['mesh']:.2f} ms on the mesh, {result['scan_step_ms']['no mesh']:.2f} ms without "
+        f"(cuDNN deterministic); over {DRQN_MESH_PROFILED} profiled scan steps of {result['profiled_scan_step_ms']:.2f} ms, "
+        f"device busy {result['device_busy_ms_per_step']:.2f} ms per scan step "
+        f"({result['device_busy_share'] * 100:.1f}%), {result['device_launches_per_step']:.1f} kernels per scan step "
+        f"on {card}"
+    )
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5044,6 +5269,8 @@ def main() -> int:
         **{name: phase(f"full {name}", run_full_host_path, card, name) for name in PHASE_20_HOST_PATHS},
         "dqn-multihost-ale-8": phase("full dqn-multihost-ale-8", run_full_multihost, card),
     }
+    record["full_phase21"] = {
+        "drqn-atarisim-32-mesh": phase("full drqn-atarisim-32-mesh", run_full_drqn_atarisim_mesh, card)}
     # Counted over each path that samples by priority, from 0 at its start;
     # every other path asserts a count of 0.
     kernel["launches_by_path"] = {
@@ -5074,10 +5301,12 @@ def main() -> int:
         # paths of phase 19.
         "host-grasping-double-dqn": record["small_slices"]["host-grasping-double-dqn"]["kernel_launches"],
         **{name: r["kernel_launches"] for name, r in record["full_phase19"].items()},
-        # Phase 20: the PER run on the card without a mesh and with a mesh of one
-        # NCCL rank (13 launches each), then the full-width paths (0 each).
-        "mesh per-dqn (both runs)": record["mesh"]["kernel_launches"],
+        # Phase 20: the PER runs on the card without a mesh and with a mesh of one
+        # NCCL rank (per-dqn 13 launches each, rainbow-cartpole at B = 64 18
+        # each), then the full-width paths (0 each).
+        "mesh per-dqn and rainbow-cartpole (both runs each)": record["mesh"]["kernel_launches"],
         **{name: r["kernel_launches"] for name, r in record["full_phase20"].items()},
+        **{name: r["kernel_launches"] for name, r in record["full_phase21"].items()},
     }
     kernel["launches"] = sum(kernel["launches_by_path"].values())
     record["kernels"] = [kernel]

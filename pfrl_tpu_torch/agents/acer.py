@@ -23,7 +23,11 @@ through the padded steps before it (the mask removes them only at the
 end), the truncated policy gradient with its bias correction, and the
 trust region in the policy's statistics against the average model. The
 loss is the masked mean over ``max(sum(mask), 1)``; ``aux["errors"]`` is
-``zeros(1)``: ACER feeds no priorities back.
+``zeros(1)``: ACER feeds no priorities back. In a data-parallel update each
+rank takes its share of the rows and divides by the whole batch's
+``sum(mask)`` (``EpisodeBatch.whole_mask``), and the ranks' gradients and
+masked-mean metrics are summed (``global_denominator``); the trust
+region's ``g`` and ``k`` are per step and need no collective.
 
 Discrete trust region: ``g`` is minus the gradient of the masked policy
 loss with respect to the normalised log-probabilities taken as free
@@ -118,6 +122,10 @@ class ACERCore:
     """``model``: obs -> ``(Categorical, DiscreteActionValue)``; V = E_pi[Q].
     ``model`` is a template: ``init`` copies it and draws the copy's
     weights (``model.reset_parameters(generator)``)."""
+
+    #: A rank's share of the masked means divides by the whole batch's count.
+    global_denominator = True
+    summed_metrics = ("loss", "pi_loss", "q_loss", "kl", "entropy")
 
     def __init__(
         self,
@@ -216,7 +224,7 @@ class ACERCore:
             trunc_rho = torch.clamp_max(rho_a, self.c)
             corr_w = torch.relu(1.0 - self.c / torch.clamp_min(rho_all, 1e-10)) * torch.exp(lg)
             corr_adv = q_sg - v_sg[..., None]
-            denom = torch.clamp_min(torch.sum(mask), 1.0)
+            denom = torch.clamp_min(batch.valid_steps(), 1.0)
 
         if self.use_trust_region:
             with torch.no_grad():
@@ -286,6 +294,9 @@ class ACERSDNModel(nn.Module):
 class ACERContinuousCore:
     """Continuous-action ACER over an :class:`ACERSDNModel`; ``use_Q_opc``
     defaults to True, as in the JAX core."""
+
+    global_denominator = True
+    summed_metrics = ACERCore.summed_metrics
 
     def __init__(
         self,
@@ -381,7 +392,9 @@ class ACERContinuousCore:
             return self.advantage(state.model, obs, actions.reshape(-1, d)).reshape(lead + (B, T))
 
         # SDN: Q(s, a) = V + A(s, a) - mean_i A(s, a_i), a_i ~ pi.
-        samples = mean_sg + std_sg * normal(draws, (self.n_sdn, B, T, d))
+        # A per-row draw whose rows lie on axis 1: a rank's share keeps
+        # ``[:, its rows]``, not a flat block of the draw.
+        samples = mean_sg + std_sg * normal(draws, (self.n_sdn, B, T, d), row_axis=1)
         exp_adv = torch.mean(adv_of(samples), dim=0)
         q_a = v + adv_of(a) - exp_adv
 
@@ -394,10 +407,10 @@ class ACERContinuousCore:
                                    q_a_sg, batch.lengths, self.gamma, self.use_Q_opc)
             adv_ret = (q_opc if self.use_Q_opc else q_ret) - v_sg
             # The sampled bias correction's action and advantage.
-            a_corr = mean_sg + std_sg * normal(draws, (B, T, d))
+            a_corr = mean_sg + std_sg * normal(draws, (B, T, d))  # per row, on axis 0
             corr_adv = (v_sg + adv_of(a_corr) - exp_adv.detach()) - v_sg
             trunc_rho = torch.clamp_max(rho, self.c)
-            denom = torch.clamp_min(torch.sum(mask), 1.0)
+            denom = torch.clamp_min(batch.valid_steps(), 1.0)
 
         def pi_loss_of(mean_, std_):
             p = Normal(loc=mean_, scale=std_)

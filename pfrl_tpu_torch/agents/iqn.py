@@ -21,11 +21,12 @@ import torch
 from pfrl_tpu_torch.agents.dqn import DQN, DQNCore
 from pfrl_tpu_torch.ops.quantile import eltwise_huber_quantile_loss
 from pfrl_tpu_torch.replay.transition import TransitionBatch
+from pfrl_tpu_torch.utils.draws import uniform
 from pfrl_tpu_torch.utils.precision import apply_cast
 
 
 def _taus(draws, batch: int, n: int) -> torch.Tensor:
-    return draws.uniform(batch * n).reshape(batch, n)
+    return uniform(draws, (batch, n))  # a per-row draw
 
 
 class IQNCore(DQNCore):

@@ -15,6 +15,11 @@ error, summed over valid steps and divided by their count (``"mean"``) or
 by the batch (``"sum"``); ``aux["errors"]`` is one masked mean |TD| per
 window, the prioritized episodic buffer's feedback.
 
+In a data-parallel update each rank updates on its share of the windows:
+the count of valid steps (or, for ``"sum"``, the batch size) it divides by
+is the whole batch's (``EpisodeBatch.whole_mask``), and the ranks'
+gradients are summed (``global_denominator``).
+
 An update unrolls each window in one call,
 ``model(xs [T, B, ...], carry, sequence=True)``, the recurrent modules'
 sequence form (:mod:`pfrl_tpu_torch.models.recurrent`).
@@ -47,6 +52,8 @@ class RecurrentDQNCore(DQNCore):
     recurrent = True
     #: ``update_episodic``'s ``aux["errors"]`` is one |TD| per window.
     reports_window_errors = True
+    #: A rank's share of the masked mean divides by the whole batch's count.
+    global_denominator = True
 
     def __init__(self, *args, burn_in: int = 0, **kwargs):
         super().__init__(*args, **kwargs)
@@ -95,6 +102,15 @@ class RecurrentDQNCore(DQNCore):
             carry0 = self.initial_carry(batch_size, xs.device)
         return apply_cast(model, self.compute_dtype, self.phi(xs), carry0, uncast_argnums=(1,), sequence=True)
 
+    def denominator(self, batch: EpisodeBatch, start: int = 0):
+        """What the masked sum of a loss over the windows' steps from
+        ``start`` divides by: the count of valid steps (at least 1;
+        ``"mean"``) or the number of windows (``"sum"``), the whole
+        batch's where ``batch`` is a rank's share."""
+        if self.batch_accumulator == "mean":
+            return torch.clamp_min(batch.valid_steps(start), 1.0)
+        return batch.whole_rows
+
     def update_episodic(self, state: DQNState, batch: EpisodeBatch, draws=None):
         """One gradient step on a batch of windows, in place."""
         tr = batch.transitions
@@ -118,10 +134,7 @@ class RecurrentDQNCore(DQNCore):
         diff = q - target
         per = huber_loss(diff) if self.clip_delta else 0.5 * diff * diff
         m = tail(batch.mask)
-        if self.batch_accumulator == "mean":
-            loss = torch.sum(per * m) / torch.clamp_min(torch.sum(m), 1.0)
-        else:
-            loss = torch.sum(per * m) / B
+        loss = torch.sum(per * m) / self.denominator(batch, K)
         params = list(state.model.parameters())
         grads = torch.autograd.grad(loss, params)
         self.optimizer.update(params, grads, state.opt_state)

@@ -20,6 +20,7 @@ from pfrl_tpu_torch.agents.dqn import DQNState
 from pfrl_tpu_torch.agents.recurrent_dqn import RecurrentDQNCore, time_major
 from pfrl_tpu_torch.ops.quantile import eltwise_huber_quantile_loss
 from pfrl_tpu_torch.replay.episodic import EpisodeBatch
+from pfrl_tpu_torch.utils.draws import uniform
 from pfrl_tpu_torch.utils.precision import apply_cast
 from pfrl_tpu_torch.utils.recurrent import stack
 
@@ -53,7 +54,7 @@ class RecurrentIQNCore(RecurrentDQNCore):
         if not training:
             av, new_carry = self.step(state.model, obs, carry)
             return av.greedy_actions(), new_carry
-        taus = draws.uniform(obs.shape[0] * self.K).reshape(obs.shape[0], self.K)
+        taus = uniform(draws, (obs.shape[0], self.K))  # a per-row (per-lane) draw
         av, new_carry = self.step(state.model, obs, carry, taus)
         return self.explorer.select_action(draws, t, av.greedy_actions(), av), new_carry
 
@@ -63,7 +64,8 @@ class RecurrentIQNCore(RecurrentDQNCore):
         xs = time_major(obs_seq)
         if carry0 is None:
             carry0 = self.initial_carry(batch_size, xs.device)
-        taus = stack([draws.uniform(batch_size * n_taus).reshape(batch_size, n_taus) for _ in range(xs.shape[0])])
+        # T per-row draws, each ``[B, n_taus]``.
+        taus = stack([uniform(draws, (batch_size, n_taus)) for _ in range(xs.shape[0])])
         av, _ = apply_cast(model, self.compute_dtype, self.phi(xs), taus, carry0, uncast_argnums=(1, 2), sequence=True)
         return av.quantiles, taus
 
@@ -84,10 +86,7 @@ class RecurrentIQNCore(RecurrentDQNCore):
             y.reshape(T * B, self.N), target.reshape(T * B, self.N_prime), taus.reshape(T * B, self.N))
         per = torch.sum(torch.mean(el, dim=2), dim=1).reshape(T, B)
         m = time_major(batch.mask)
-        if self.batch_accumulator == "mean":
-            loss = torch.sum(per * m) / torch.clamp_min(torch.sum(m), 1.0)
-        else:
-            loss = torch.sum(per * m) / B
+        loss = torch.sum(per * m) / self.denominator(batch)
         params = list(state.model.parameters())
         grads = torch.autograd.grad(loss, params)
         self.optimizer.update(params, grads, state.opt_state)

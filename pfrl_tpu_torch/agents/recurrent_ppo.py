@@ -14,6 +14,12 @@ whole minibatches, as :class:`~pfrl_tpu_torch.agents.ppo.PPOCore`.
 
 ``compute_dtype`` casts the weights and the observation features, never
 the carry, as :class:`~pfrl_tpu_torch.agents.recurrent_dqn.RecurrentDQNCore`.
+
+Under a mesh (``mesh`` set by ``parallel.data_parallel_core``) each
+minibatch's chunks are split over the ranks, as PPO splits its rows: every
+chunk is ``chunk_len`` valid steps and every rank holds ``mb / size``
+chunks, so the mean of the ranks' mean losses is the whole minibatch's and
+the optimizer averages the gradients; no global denominator is needed.
 """
 
 import torch
@@ -21,6 +27,7 @@ import torch
 from pfrl_tpu_torch.agents.ddpg import fresh_module
 from pfrl_tpu_torch.agents.ppo import PPOCore, PPOState, Rollout, explained_variance, standardize
 from pfrl_tpu_torch.ops.returns import gae_advantages
+from pfrl_tpu_torch.parallel.mesh import local_rows
 from pfrl_tpu_torch.utils.precision import apply_cast
 from pfrl_tpu_torch.utils.recurrent import mask_recurrent_state_at, stack, tree_map
 
@@ -116,6 +123,8 @@ class RecurrentPPOCore(PPOCore):
         metrics = []
         for _ in range(self.epochs):
             for idx in draws.permutation(n)[: n_mb * mb].reshape(n_mb, mb):
+                if self.mesh is not None:
+                    idx = idx[local_rows(self.mesh, mb)]
                 loss, parts = self._chunk_loss(
                     state.model, tree_map(lambda x: x[idx], carry0), *(x[idx] for x in data))
                 grads = torch.autograd.grad(loss, params)

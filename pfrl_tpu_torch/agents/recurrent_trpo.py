@@ -19,6 +19,9 @@ over all ``max_backtrack`` candidates. Its ``entropy`` metric is the
 entropy at the accepted parameters. The value function is fit by
 ``vf_epochs`` epochs over shuffled chunks, one ``draws.permutation(n)`` per
 epoch. There is no ``compute_dtype``: the recipe refuses one.
+
+Under a mesh it runs whole on every rank over the all-gathered rollout,
+as :class:`~pfrl_tpu_torch.agents.trpo.TRPOCore` does.
 """
 
 import torch

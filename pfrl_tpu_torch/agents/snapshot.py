@@ -12,12 +12,26 @@ recurrent core's carry (``act_state``) and the draw source's generator
 state (a CUDA generator's seed and offset too), so a resumed run draws the
 numbers the uninterrupted one draws, as the JAX ``RunnerState`` carries its
 key.
+
+A runner under a mesh (``mesh=``) holds its lanes' env states, carry and
+buffer rows and the replicated rest. Each rank writes its own
+``runner_state.rank<r>.pt``: its rows, the replicated state, the shared
+draw source's state, and its rank and the world size. Each rank reads
+back only its own file, so the ranks may save to directories of their own.
+Loading checks the rank and the world size and raises
+:class:`~pfrl_tpu_torch.agent.CheckpointMismatchError` naming them where
+they differ or where the rank's file is missing (the rows would belong to
+other lanes), and where a snapshot saved with a mesh is loaded without one
+or the other way round (``runner_state.pt`` against the rank files).
 """
 
 import json
 import os
-from typing import Any
+from typing import Any, Optional
 
+import torch
+
+from pfrl_tpu_torch.agent import CheckpointMismatchError, restore_saved
 from pfrl_tpu_torch.replay.persistent import load_state, save_state
 
 
@@ -55,15 +69,42 @@ def _check_draws(runner_state: Any) -> None:
         raise TypeError(f"the draw source {type(runner_state.draws).__name__} has no state_dict: it cannot be saved")
 
 
-def save_runner_snapshot(runner_state: Any, dirname: str) -> None:
+def _rank_file(dirname: str, rank: int) -> str:
+    return os.path.join(dirname, f"runner_state.rank{rank}.pt")
+
+
+def save_runner_snapshot(runner_state: Any, dirname: str, mesh: Optional[Any] = None) -> None:
     """Snapshot a whole ``RunnerState`` (or ``OnPolicyRunnerState``), its
-    draw source's generator state included."""
+    draw source's generator state included; under ``mesh``, this rank's
+    part (see the module's note)."""
     _check_draws(runner_state)
-    save_state(runner_state, os.path.join(dirname, "runner_state.pt"))
+    if mesh is None:
+        save_state(runner_state, os.path.join(dirname, "runner_state.pt"))
+        return
+    save_state({"rank": mesh.rank, "world": mesh.size, "state": runner_state}, _rank_file(dirname, mesh.rank))
 
 
-def load_runner_snapshot(template: Any, dirname: str) -> Any:
+def load_runner_snapshot(template: Any, dirname: str, mesh: Optional[Any] = None) -> Any:
     """Loads a runner snapshot into ``template`` (``runner.init(seed)`` of a
-    runner built like the saved one), in place; returns it."""
+    runner built like the saved one, under the same ``mesh``), in place;
+    returns it."""
     _check_draws(template)
-    return load_state(template, os.path.join(dirname, "runner_state.pt"))
+    whole = os.path.join(dirname, "runner_state.pt")
+    if mesh is None:
+        if not os.path.exists(whole) and os.path.exists(_rank_file(dirname, 0)):
+            raise CheckpointMismatchError(f"{dirname}: the snapshot was saved under a mesh; load it under one")
+        return load_state(template, whole)
+    path = _rank_file(dirname, mesh.rank)
+    if not os.path.exists(path):
+        if os.path.exists(whole):
+            raise CheckpointMismatchError(f"{dirname}: the snapshot was saved without a mesh; load it without one")
+        raise CheckpointMismatchError(f"{dirname}: no {os.path.basename(path)} for rank {mesh.rank} of a world size "
+                                      f"of {mesh.size}")
+    saved = torch.load(path, map_location="cpu", weights_only=True)
+    if saved["world"] != mesh.size:
+        raise CheckpointMismatchError(f"{dirname}: saved by a world size of {saved['world']}, loaded by one of "
+                                      f"{mesh.size}")
+    if saved["rank"] != mesh.rank:
+        raise CheckpointMismatchError(f"{dirname}: {os.path.basename(path)} was saved by rank {saved['rank']}, "
+                                      f"loaded by rank {mesh.rank}")
+    return restore_saved(template, saved["state"], os.path.basename(path))

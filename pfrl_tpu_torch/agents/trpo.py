@@ -27,6 +27,15 @@ standardized with the population standard deviation, then
 Draws, in order: the distribution's sample while acting; ``update`` takes
 one ``permutation(n)`` per value-function epoch and nothing else.
 
+**Under a mesh** the on-policy runner all-gathers the rollout and runs
+this update *whole on every rank*: the conjugate gradient, the line search
+with its float32 accept test, and the value fit, on the whole rollout and
+the shared draws. The replicated weights then equal the single-process
+run's to the bit. Splitting the batch would need every CG dot product
+all-reduced, and ten CG iterations over reduced dot products round apart
+from the single-process step (ROADMAP C21, C44), so the core does not
+split (no ``splits_over_mesh``).
+
 :class:`TRPO` is the host shell (``trpo.py:251-292``) over
 :class:`~.ppo.OnPolicyShellAgent`. It takes no ``compute_dtype``, as the
 JAX shell takes none.

@@ -26,15 +26,18 @@ rows where the episode ended.
 package and in :class:`~pfrl_tpu_torch.experiments.runner.OffPolicyRunner`:
 each rank steps and acts for its lanes only, from its lanes' part of every
 per-lane draw (``LaneDraws``); at the end of the ``T`` collect steps the
-rollout is all-gathered along the lanes, so every rank holds the whole
-``[T, L]`` rollout and draws the same global minibatch permutation; each
-minibatch's rows are split over the ranks, each rank differentiates its
-share and the gradients are averaged with an all-reduce before the
-identical optimizer step (a core's ``splits_over_mesh``: PPO and A2C).
-The finished lanes' rewards and flags are all-gathered every step for the
-returns ring. Over one rank the run equals the run without a mesh to the
-bit. Not ported under a mesh, raising ``NotImplementedError`` by name:
-TRPO and the recurrent cores.
+rollout is all-gathered along the lanes (a recurrent core's stored
+carries too), so every rank holds the whole ``[T, L]`` rollout and draws
+the same global minibatch permutation. A core with ``splits_over_mesh``
+(PPO, A2C, recurrent PPO) splits each minibatch's rows (or chunks) over
+the ranks, each rank differentiates its share and the gradients are
+averaged with an all-reduce before the identical optimizer step. TRPO and
+recurrent TRPO do not split: every rank runs the whole update on the
+whole rollout (the conjugate gradient, the line search, the value fit),
+so the replicated state equals the single-process run's to the bit
+(``agents/trpo.py``). The finished lanes' rewards and flags are
+all-gathered every step for the returns ring. Over one rank the run
+equals the run without a mesh to the bit.
 """
 
 import dataclasses
@@ -85,12 +88,12 @@ class OnPolicyRunner:
         self.recurrent = getattr(core, "recurrent", False)
         self.mesh = mesh
         lanes = num_envs
+        self.splits = mesh is not None and getattr(core, "splits_over_mesh", False)
         if mesh is not None:
-            if self.recurrent or not getattr(core, "splits_over_mesh", False):
-                raise NotImplementedError(f"{type(core).__name__} under a mesh is not ported")
             mine = local_rows(mesh, num_envs)  # raises unless the lanes divide evenly
             lanes = mine.stop - mine.start
-            core = data_parallel_core(core, mesh)
+            if self.splits:
+                core = data_parallel_core(core, mesh)
         self.env = VectorTorchEnv(env, lanes)
         self.core = core
         if self.device.type == "cuda":
@@ -117,7 +120,7 @@ class OnPolicyRunner:
             episode_return=torch.zeros(self.num_envs, dtype=torch.float32, device=self.device),
             recent_returns=torch.zeros(self.return_window, dtype=torch.float32, device=self.device),
             recent_count=torch.zeros((), dtype=torch.int32, device=self.device),
-            act_state=self.core.init_act_state(self.num_envs, self.device) if self.recurrent else (),
+            act_state=self.core.init_act_state(self.env.num_envs, self.device) if self.recurrent else (),
         )
 
     def _lane_draws(self, draws):
@@ -183,7 +186,8 @@ class OnPolicyRunner:
         else:
             rollout = all_gather_rows(self.mesh, state.rollout, dim=1)
             _, aux = self.core.update(state.train_state, state.draws, rollout)
-            aux = reduce_aux(self.mesh, aux)
+            if self.splits:  # else every rank computed the whole update
+                aux = reduce_aux(self.mesh, aux)
         state.t += self.rollout_len * self.num_envs
         return aux
 

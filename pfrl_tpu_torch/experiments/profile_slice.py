@@ -11,7 +11,7 @@
                   per-dqn-ale-64|c51-atarisim-64|dqn-pipeline-288|dqn-batch-ale-8|
                   naf-pendulum-32|naf-mountaincar-32|dqn-gym-cartpole-32|grasping-dqn-batch-1|
                   the paths of profile_host.HOST_PATHS, dqn-actor-learner-ale-8 among them]
-        [--steps 8] [--bf16] [--out PATH]
+        [--steps 8] [--bf16] [--mesh] [--out PATH]
 
 Runs one configuration at full width on the CUDA device. On 64 lanes of
 84x84x4 uint8 AtariSim frames, 16 batch-32 updates per scan step:
@@ -73,6 +73,12 @@ recurrent collect (act, V on the next observations with the carry after
 the step, env step, store) and the update, split into GAE and the chunk
 unrolls with backward and optimizer (PPO), or the policy step (of which CG
 and the line search) and the value function's fit over chunks (TRPO).
+
+``--mesh`` runs a runner config over a mesh of one NCCL rank on the card
+(the port's mesh branch: the lanes' rows of the buffer, the
+data-parallel update, the collectives, each over one rank):
+``--config drqn-atarisim-32 --mesh`` is DRQN-AtariSim through the sharded
+episodic buffer and the carry. The record names the mesh's ranks.
 
 ACER (``experiments/acer.py``): ``acer-atarisim-16``
 (``make_acer_atarisim_runner()``: 16 lanes of 84x84x4 AtariSim frames,
@@ -359,10 +365,41 @@ def _wrap(acc, label, fn):
     return timed
 
 
-def profile_config(config: str, steps: int, compute_dtype=None) -> dict:
+def on_mesh(runner, mesh):
+    """The same runner with its lanes split over ``mesh``."""
+    from pfrl_tpu_torch.experiments.onpolicy_runner import OnPolicyRunner
+    from pfrl_tpu_torch.experiments.runner import OffPolicyRunner
+
+    if hasattr(runner, "run_iterations"):
+        return OnPolicyRunner(runner.env.env, runner.core, runner.num_envs, runner.rollout_len,
+                              device=runner.device, mesh=mesh)
+    return OffPolicyRunner(runner.env.env, runner.core, runner.buffer, runner.config, device=runner.device, mesh=mesh)
+
+
+@contextlib.contextmanager
+def one_rank_mesh():
+    """A mesh of one NCCL rank on the card (a process group of one, on a
+    free local port), left at the end."""
+    import socket
+
+    from pfrl_tpu_torch.parallel.mesh import make_mesh
+    from pfrl_tpu_torch.parallel.multihost import initialize_multihost, shutdown
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    initialize_multihost(f"localhost:{port}", 1, 0)
+    try:
+        yield make_mesh(("dp",))
+    finally:
+        shutdown()
+
+
+def profile_config(config: str, steps: int, compute_dtype=None, mesh=None) -> dict:
     """Builds ``config`` on the card and profiles it: per scan step through
     an off-policy runner, per iteration through an on-policy one, per
-    second through a pipeline."""
+    second through a pipeline. ``mesh``: the runner's lanes split over it
+    (a runner config only)."""
     if config in PIPELINES:
         return profile_pipeline(PIPELINES[config](compute_dtype=compute_dtype), config, steps, compute_dtype)
     if config in HOSTS:
@@ -370,8 +407,12 @@ def profile_config(config: str, steps: int, compute_dtype=None) -> dict:
     if config in HOST_PATHS:
         return profile_host_path(config, steps, compute_dtype)
     runner = CONFIGS[config](compute_dtype=compute_dtype)
+    if mesh is not None:
+        runner = on_mesh(runner, mesh)
     measure = profile_onpolicy if hasattr(runner, "run_iterations") else profile_slice
-    return measure(runner, config, steps, compute_dtype)
+    record = measure(runner, config, steps, compute_dtype)
+    record["mesh_ranks"] = None if mesh is None else mesh.size
+    return record
 
 
 def profile_slice(runner, config: str, steps: int, compute_dtype=None) -> dict:
@@ -387,6 +428,9 @@ def profile_slice(runner, config: str, steps: int, compute_dtype=None) -> dict:
             + (ACTOR_CRITIC_PHASES if actor_critic else DQN_PHASES)
             + (UNIFORM_PHASES if runner.buffer.iid_samples else PRIORITIZED_PHASES)
         )
+    if runner.mesh is not None:  # the data-parallel update holds the core's bound method: time the runner's call
+        phases = tuple(("runner", "_update", label) if owner == "core" and attr in ("update", "update_episodic")
+                       else (owner, attr, label) for owner, attr, label in phases)
     state = runner.init(0)
     warm = -(-cfg.replay_start_size // cfg.num_envs) + 2  # past replay start
     state, _ = runner.run_chunk(state, warm)
@@ -394,7 +438,7 @@ def profile_slice(runner, config: str, steps: int, compute_dtype=None) -> dict:
     (state, _), plain_s = _synced(lambda: runner.run_chunk(state, steps))
 
     owners = {
-        "core": runner.core, "env": runner.env, "buffer": runner.buffer,
+        "core": runner.core, "env": runner.env, "buffer": runner.buffer, "runner": runner,
         "autograd": torch.autograd, "optimizer": getattr(runner.core, "optimizer", None), "acer": acer_module,
     }
     with _phase_timers(phases, owners) as acc:
@@ -638,13 +682,23 @@ def main() -> None:
                         help="scan steps, iterations of an on-policy config, seconds of a pipeline, "
                              "or batch steps of a host path")
     parser.add_argument("--bf16", action="store_true", help="bf16 compute over float32 masters")
+    parser.add_argument("--mesh", action="store_true",
+                        help="the runner over a mesh of one NCCL rank on the card (a runner config only)")
     parser.add_argument("--out", default=None, help="default: chiprun_out/profile_<config>[_bf16].json")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice: needs a CUDA device")
+    if args.mesh and args.config not in CONFIGS:
+        raise SystemExit(f"profile_slice: --mesh takes a runner config, not {args.config}")
     dtype = torch.bfloat16 if args.bf16 else None
-    record = profile_config(args.config, args.steps, dtype)
+    if args.mesh:
+        with one_rank_mesh() as mesh:
+            record = profile_config(args.config, args.steps, dtype, mesh)
+    else:
+        record = profile_config(args.config, args.steps, dtype)
     out = Path(args.out or f"chiprun_out/profile_{args.config}{'_bf16' if args.bf16 else ''}.json")
+    if args.mesh and args.out is None:
+        out = out.with_name(f"{out.stem}_mesh.json")
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(record, indent=1))
     print(json.dumps({k: v for k, v in record.items() if k != "top_device_ops"}, indent=1))

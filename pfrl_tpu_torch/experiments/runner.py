@@ -27,26 +27,28 @@ buffer's extras from one call of it. A core without ``sync_target`` (ACER)
 is never synced. :class:`EvalLoop` is the counterpart of ``JaxEvalLoop``.
 
 **A mesh** (``mesh=``, :func:`pfrl_tpu_torch.parallel.mesh.make_mesh`: one rank
-per process) changes the layout, not the result, as in the JAX package.
-Each rank steps, acts for and stores only its lanes
-(:func:`~pfrl_tpu_torch.parallel.mesh.local_rows` of ``num_envs``), and
-keeps those lanes' ring rows (``parallel/lane_sharding.py``): the ring's
-bytes divide by the ranks. Every draw is global: every rank draws each
-draw whole from an equally seeded source and takes its lanes' part of the
-per-lane ones. The replicated state (weights, optimizer state, cursor,
-PER's trees and beta, the returns ring) is replicated exactly: the sampled
-ids are global, the batch is all-gathered from its rows' owners, each rank
-differentiates its ``B / size`` share and the gradients are all-reduced
-before the identical optimizer step (``parallel/data_parallel.py``: the
-mean, or the sum for a ``"sum"`` core); PER's new priorities are
-all-gathered before the tree update, so the prefix-sample kernel runs on
-every rank over the replicated tree. The finished lanes' rewards and flags
-are all-gathered every step, so the returns ring and the metrics are the
-whole run's. Over one rank the run equals the run without a mesh to the
-bit. Not ported under a mesh, raising ``NotImplementedError`` by name: the
-episodic buffers, recurrent cores, noisy networks (their act noise is per
-parameter, not per lane), and updates that draw (IQN's taus, SAC's and
-TD3's noise).
+per process) changes the layout, not the result, as in the JAX package,
+for every core and buffer. Each rank steps, acts for and stores only its
+lanes (:func:`~pfrl_tpu_torch.parallel.mesh.local_rows` of ``num_envs``),
+holds those lanes' act-time carry (reset per local lane) and keeps those
+lanes' rows of whichever buffer it holds, a ring's slots or an episodic
+buffer's rows with their stored carries or ACER's extras
+(``parallel/lane_sharding.py``): the buffer's bytes divide by the ranks.
+Every draw is global: every rank draws each draw whole from an equally
+seeded source, takes its lanes' part of the per-lane ones and its rows'
+part of an update's per-row ones, and uses a noisy layer's per-parameter
+noise whole. The replicated state (weights, optimizer state, cursor, PER's
+trees and beta, an episodic buffer's tables, the returns ring) is
+replicated exactly: the sampled ids or rows are global, the batch is
+all-gathered from its rows' owners, each rank differentiates its ``B /
+size`` share and the gradients are all-reduced before the identical
+optimizer step (``parallel/data_parallel.py``: the mean, or the sum for a
+``"sum"`` core and for a masked loss over the whole batch's count of valid
+steps); per-row or per-window errors are all-gathered before the
+priorities are updated, so the prefix-sample kernel runs on every rank
+over the replicated tree. The finished lanes' rewards and flags are
+all-gathered every step, so the returns ring and the metrics are the whole
+run's. Over one rank the run equals the run without a mesh to the bit.
 """
 
 import dataclasses
@@ -57,9 +59,8 @@ import torch
 
 from pfrl_tpu_torch._device import check_same_device, resolve_device, use_full_fp32
 from pfrl_tpu_torch.envs.vector_env import VectorTorchEnv
-from pfrl_tpu_torch.models.noisy_linear import FactorizedNoisyLinear
-from pfrl_tpu_torch.parallel.data_parallel import accumulator, data_parallel_core, data_parallel_update
-from pfrl_tpu_torch.parallel.lane_sharding import LaneDraws, LaneShardedBuffer
+from pfrl_tpu_torch.parallel.data_parallel import data_parallel_core, data_parallel_update, summed_metrics
+from pfrl_tpu_torch.parallel.lane_sharding import LaneDraws, LaneShardedBuffer, LaneShardedEpisodicBuffer
 from pfrl_tpu_torch.parallel.mesh import all_gather_rows, local_rows, replicate
 from pfrl_tpu_torch.replay.transition import Transition
 from pfrl_tpu_torch.utils.draws import Draws
@@ -137,17 +138,15 @@ class OffPolicyRunner:
         lanes = config.num_envs
         self._dp_update = None
         if mesh is not None:
-            if self.recurrent or self.acts_with_extras:
-                raise NotImplementedError(f"{type(core).__name__} under a mesh is not ported")
-            if _noisy(core):  # its act noise is per parameter, not per lane
-                raise NotImplementedError("a noisy network under a mesh is not ported")
             mine = local_rows(mesh, config.num_envs)  # raises unless the lanes divide evenly
             lanes = mine.stop - mine.start
             if config.minibatch_size % mesh.size:
                 raise ValueError(f"minibatch {config.minibatch_size} does not divide over {mesh.size} ranks")
-            buffer = LaneShardedBuffer(buffer, mesh)
+            episodic = hasattr(buffer, "sample_episodes")
+            buffer = (LaneShardedEpisodicBuffer if episodic else LaneShardedBuffer)(buffer, mesh)
             core = data_parallel_core(core, mesh)
-            self._dp_update = data_parallel_update(mesh, core.update, accumulator(core))
+            update = core.update_episodic if episodic else core.update
+            self._dp_update = data_parallel_update(mesh, update, summed_metrics(core))
         self.env = VectorTorchEnv(env, lanes)
         self.core = core
         self.buffer = buffer
@@ -172,7 +171,7 @@ class OffPolicyRunner:
         if self.mesh is not None:
             replicate(self.mesh, train_state)
         zeros = lambda dtype: torch.zeros((), dtype=dtype, device=self.device)  # noqa: E731
-        act_state = self.core.init_act_state(L, self.device) if self.recurrent else ()
+        act_state = self.core.init_act_state(self.env.num_envs, self.device) if self.recurrent else ()
         extras = None
         if self.store_carries:
             one = tree_map(lambda x: x[0], act_state)
@@ -216,10 +215,13 @@ class OffPolicyRunner:
         return xs if self.mesh is None else all_gather_rows(self.mesh, xs)
 
     def _update(self, train, batch, draws):
-        """The core's update, or under a mesh its data-parallel update."""
-        if self._dp_update is None:
-            return self.core.update(train, batch, draws)
-        return self._dp_update(train, batch, draws)
+        """The core's update (``update_episodic`` over an episodic buffer),
+        or under a mesh its data-parallel update."""
+        if self._dp_update is not None:
+            return self._dp_update(train, batch, draws)
+        if hasattr(self.buffer, "sample_episodes"):
+            return self.core.update_episodic(train, batch, draws)
+        return self.core.update(train, batch, draws)
 
     def _example_action(self) -> torch.Tensor:
         """int32 0-d for a discrete action space, else float32 of its shape."""
@@ -293,7 +295,7 @@ class OffPolicyRunner:
                 self.core, "reports_window_errors", False)
             for _ in range(cfg.updates_per_step):
                 batch = self.buffer.sample_episodes(replay, draws, cfg.minibatch_size)
-                _, aux = self.core.update_episodic(train, batch, draws)
+                _, aux = self._update(train, batch, draws)
                 if feedback:
                     self.buffer.update_episode_priorities(replay, batch.rows, aux["errors"])
             return aux["loss"]
@@ -323,12 +325,6 @@ class OffPolicyRunner:
 
     def recent_return_mean(self, state: RunnerState) -> float:
         return recent_return_mean(state, self.return_window)
-
-
-def _noisy(core) -> bool:
-    """Whether any network of ``core`` has a factorized noisy layer."""
-    return any(isinstance(m, FactorizedNoisyLinear) for net in vars(core).values()
-               if isinstance(net, torch.nn.Module) for m in net.modules())
 
 
 def record_returns(state, reward: torch.Tensor, done: torch.Tensor, window: int) -> torch.Tensor:
@@ -371,11 +367,21 @@ class EvalLoop:
     reset where an episode ends. A core that acts with extras acts through
     ``select_action`` here, as ``JaxEvalLoop`` does (ACER: the policy's
     mode).
+
+    Under a mesh (``mesh=``) each rank evaluates its lanes' episodes, from
+    its lanes' part of every per-lane draw, on the replicated weights, and
+    the returns are all-gathered: every rank gets the returns the loop
+    without a mesh gives.
     """
 
-    def __init__(self, env, core, num_episodes: int, max_steps: int, device=None):
+    def __init__(self, env, core, num_episodes: int, max_steps: int, device=None, mesh=None):
         self.device = check_same_device(runner=resolve_device(device), env=env.device)
-        self.env = VectorTorchEnv(env, num_episodes)
+        lanes = num_episodes
+        if mesh is not None:
+            mine = local_rows(mesh, num_episodes)  # raises unless the episodes divide evenly
+            lanes = mine.stop - mine.start
+        self.env = VectorTorchEnv(env, lanes)
+        self.mesh = mesh
         self.core = core
         self.max_steps = max_steps
         if self.device.type == "cuda":
@@ -386,6 +392,8 @@ class EvalLoop:
         """float32 ``[num_episodes]`` returns, on the host. Each step draws
         the act noise first, then the env's resets."""
         L = self.env.num_envs
+        if self.mesh is not None:
+            draws = LaneDraws(draws, self.mesh)
         env_states, obs = self.env.reset(draws)
         ep_ret = torch.zeros(L, dtype=torch.float32, device=self.device)
         final_ret = torch.zeros_like(ep_ret)
@@ -405,4 +413,7 @@ class EvalLoop:
             final_ret = torch.where(newly, ep_ret, final_ret)
             finished = finished | vec.ts.done
             obs = vec.obs
-        return torch.where(finished, final_ret, ep_ret).cpu().numpy()
+        returns = torch.where(finished, final_ret, ep_ret)
+        if self.mesh is not None:
+            returns = all_gather_rows(self.mesh, returns)
+        return returns.cpu().numpy()

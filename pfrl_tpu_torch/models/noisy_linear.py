@@ -4,7 +4,8 @@
 The flax layer draws its noise from the ``'noise'`` rng stream on every
 call. Here the noise comes from the draw source handed down the forward
 (:mod:`pfrl_tpu_torch.utils.draws`): ``eps_in`` first, then ``eps_out``,
-fresh on every forward.
+fresh on every forward, both per-parameter draws (under a mesh every rank
+takes the same noise, at act time and in the update).
 
 The noise is float32, as the JAX layer draws it. Under bf16 parameters
 ``w_mu + w_sigma * outer(...)`` therefore promotes to float32, and so does
@@ -19,6 +20,7 @@ import torch
 from torch import nn
 
 from pfrl_tpu_torch.models.layers import promoted
+from pfrl_tpu_torch.utils.draws import per_parameter
 
 
 def _f(x: torch.Tensor) -> torch.Tensor:
@@ -61,8 +63,9 @@ class FactorizedNoisyLinear(nn.Module):
             return x @ w_mu.T + b_mu
         if draws is None:
             raise ValueError("a noisy layer needs a draw source unless deterministic=True")
-        eps_in = _f(draws.normal(self.in_features))
-        eps_out = _f(draws.normal(self.out_features))
+        # Per-parameter draws: every rank of a mesh takes the same noise.
+        eps_in = _f(per_parameter(draws, "normal", self.in_features))
+        eps_out = _f(per_parameter(draws, "normal", self.out_features))
         w = self.w_mu + self.w_sigma * torch.outer(eps_out, eps_in)
         b = self.b_mu + self.b_sigma * eps_out
         x, w, b = promoted(x, w, b)

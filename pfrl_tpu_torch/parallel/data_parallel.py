@@ -19,17 +19,31 @@ is summed too. Either way the result equals the single-process update up
 to the order of the reduction (ROADMAP C22, C54); over one rank it is the
 single-process update to the bit.
 
-An update that draws from the draw source (IQN's taus, a noisy net's
-noise) is refused by name under a mesh: each rank would draw the whole
-batch's draws and use its share, which the cores do not do yet.
+**Masked means** (a core with ``global_denominator``: the recurrent
+value cores and ACER). A mean over a window's valid steps is not the mean
+of the ranks' means where their shares hold different numbers of valid
+steps. Every rank holds the whole batch of windows before it takes its
+share (the episodic buffers gather them), so :func:`data_parallel_update`
+hands the share the whole batch's mask (``EpisodeBatch.whole_mask``); the
+core divides its share's sum by the whole batch's count, and its
+gradients are **summed**: the sum of the ranks' partial losses is the
+whole batch's loss. So are the metrics it names in ``summed_metrics``.
+
+**Draws inside the update.** The update draws from :class:`~.lane_sharding.RowDraws`
+over the shared source: every draw is drawn whole on every rank, a
+per-row draw (IQN's taus, SAC's and TD3's noise, ACER's) keeps this rank's
+rows on the rows' axis and a per-parameter draw (a noisy layer's) is used
+whole, so the draws equal the single-process update's.
 """
 
 import copy
+import dataclasses
 from typing import Any, Callable, Optional
 
 import torch
 import torch.distributed as dist
 
+from pfrl_tpu_torch.parallel.lane_sharding import RowDraws
 from pfrl_tpu_torch.parallel.mesh import Mesh, all_gather_rows, shard_batch
 
 
@@ -66,20 +80,18 @@ class AllReduceGradients:
         return self.inner.update(params, pmean_grads(grads, self.mesh, self.op), state)
 
 
-class _NoDraws:
-    """The draw source of an update under a mesh: any draw raises."""
-
-    def __init__(self, core):
-        self.core = type(core).__name__
-
-    def __getattr__(self, name):
-        raise NotImplementedError(f"{self.core}'s update draws ({name}); draws inside a data-parallel "
-                                  "update are not ported")
-
-
 def accumulator(core) -> str:
-    """``"sum"`` for a core whose loss sums over the batch, else ``"mean"``."""
-    return "sum" if getattr(core, "batch_accumulator", "mean") == "sum" else "mean"
+    """``"sum"`` for a core whose loss sums over the batch or divides by the
+    whole batch's count (``global_denominator``), else ``"mean"``."""
+    summing = getattr(core, "global_denominator", False) or getattr(core, "batch_accumulator", "mean") == "sum"
+    return "sum" if summing else "mean"
+
+
+def summed_metrics(core) -> tuple:
+    """The metrics of ``core``'s update that the ranks' shares sum to."""
+    if getattr(core, "global_denominator", False):
+        return tuple(getattr(core, "summed_metrics", ("loss",)))
+    return ("loss",) if accumulator(core) == "sum" else ()
 
 
 def data_parallel_core(core, mesh: Mesh):
@@ -97,11 +109,11 @@ def data_parallel_core(core, mesh: Mesh):
     return dp
 
 
-def reduce_aux(mesh: Mesh, aux: dict, op: str = "mean", share_rows: Optional[int] = None) -> dict:
+def reduce_aux(mesh: Mesh, aux: dict, summed=(), share_rows: Optional[int] = None) -> dict:
     """The metrics of the ranks' updates made whole: a tensor of
-    ``share_rows`` rows (a per-sample quantity: ``errors``) is gathered in
-    rank order; any other floating tensor is averaged over the ranks, the
-    ``loss`` of a ``"sum"`` core summed; the rest is kept."""
+    ``share_rows`` rows (a per-sample or per-window quantity: ``errors``)
+    is gathered in rank order; any other floating tensor is averaged over
+    the ranks, or summed where its name is in ``summed``; the rest is kept."""
     out = {}
     for k, v in aux.items():
         if not isinstance(v, torch.Tensor) or not v.is_floating_point():
@@ -109,21 +121,32 @@ def reduce_aux(mesh: Mesh, aux: dict, op: str = "mean", share_rows: Optional[int
         elif share_rows is not None and v.dim() >= 1 and v.shape[0] == share_rows:
             out[k] = all_gather_rows(mesh, v)
         else:
-            out[k] = _reduce(mesh, [v], "sum" if (op == "sum" and k == "loss") else "mean")[0]
+            out[k] = _reduce(mesh, [v], "sum" if k in summed else "mean")[0]
     return out
 
 
-def data_parallel_update(mesh: Mesh, update_fn: Callable, op: str = "mean") -> Callable:
-    """Wrap ``update_fn(state, batch, draws) -> (state, aux)``: it runs on
-    this rank's rows of ``batch`` (whose leading axis splits evenly over
-    the mesh) with a draw source that refuses to draw, and its metrics are
-    made whole (:func:`reduce_aux`). ``update_fn`` must all-reduce its
-    gradients itself: pass the update of a :func:`data_parallel_core`."""
+def _rows(batch) -> Optional[int]:
+    """The rows of a transition batch (``reward [B]``) or of a batch of
+    windows (``mask [B, T]``)."""
+    if hasattr(batch, "mask"):
+        return batch.mask.shape[0]
+    return batch.reward.shape[0] if hasattr(batch, "reward") else None
+
+
+def data_parallel_update(mesh: Mesh, update_fn: Callable, summed=()) -> Callable:
+    """Wrap ``update_fn(state, batch, draws) -> (state, aux)`` (a core's
+    ``update`` or ``update_episodic``): it runs on this rank's rows of
+    ``batch`` (whose leading axis splits evenly over the mesh; a batch of
+    windows carries the whole batch's mask too) with
+    :class:`~.lane_sharding.RowDraws` over ``draws``, and its metrics are
+    made whole (:func:`reduce_aux`, the names in ``summed`` summed).
+    ``update_fn`` must all-reduce its gradients itself: pass the update of
+    a :func:`data_parallel_core`."""
     def wrapped(state, batch, draws=None) -> Any:
         share = shard_batch(mesh, batch)
-        rows = share.reward.shape[0] if hasattr(share, "reward") else None
-        owner = getattr(update_fn, "__self__", update_fn)
-        state, aux = update_fn(state, share, _NoDraws(owner))
-        return state, reduce_aux(mesh, aux, op, rows)
+        if hasattr(batch, "whole_mask"):  # a batch of windows: its masked means divide by the whole batch's count
+            share = dataclasses.replace(share, whole_mask=batch.mask)
+        state, aux = update_fn(state, share, RowDraws(draws, mesh))
+        return state, reduce_aux(mesh, aux, summed, _rows(share))
 
     return wrapped

@@ -1,21 +1,29 @@
-"""The runners' lanes split over a :class:`~.mesh.Mesh`: a draw source that
-hands each rank its lanes' part of every per-lane draw, and a replay ring
-whose rows each rank keeps for its own lanes.
+"""The runners' lanes split over a :class:`~.mesh.Mesh`: draw sources that
+hand each rank its share of every draw, a replay ring whose rows each rank
+keeps for its own lanes, and the episodic buffers' counterpart.
 
 The JAX runner under a mesh places the lane-major arrays (env states,
-observations, the ring's storage) sharded over the data axis and every
-other array (weights, optimizer state, cursor, priority trees, the key)
-replicated, and XLA computes the same numbers as on one device. The port
-does by hand what keeps that contract:
+observations, the act-time carry, the storage of whichever buffer it
+holds) sharded over the data axis and every other array (weights,
+optimizer state, cursor, priority trees, an episodic buffer's tables, the
+key) replicated, and XLA computes the same numbers as on one device. The
+port does by hand what keeps that contract:
 
-- **Draws are global.** Every rank holds an equally seeded draw source and
-  draws every draw whole, so the sources stay in lockstep and equal the
-  single-process run's. :class:`LaneDraws` serves the act and the env: a
-  draw of ``n`` numbers for this rank's lanes draws ``n * size`` and keeps
-  this rank's ``n``, which is its lanes' part where the draw is lane-major
-  (every env's resets and every explorer's and distribution's samples
-  are). Draws that are not per lane (the sampled ids, PER's targets, the
-  minibatch permutation) come from the shared source itself.
+- **Draws are global, and each names its kind.** Every rank holds an
+  equally seeded draw source and draws every draw whole, so the sources
+  stay in lockstep and equal the single-process run's. A per-row draw
+  (``utils.draws.per_row``: IQN's taus, SAC's and TD3's noise, ACER's
+  ``[n_sdn, B, T, d]`` normal whose rows lie on axis 1, a distribution's
+  sample) keeps this rank's rows *on the rows' axis*; a per-parameter draw
+  (``utils.draws.per_parameter``: a noisy layer's ``eps_in`` and
+  ``eps_out``) is used whole. :class:`RowDraws` is the source of a
+  data-parallel update: a flat draw that names no kind raises there.
+  :class:`LaneDraws` serves the act and the env, where a flat draw of
+  ``n`` numbers for this rank's lanes is per lane (every env's resets and
+  every explorer's draws are lane-major): it draws ``n * size`` and keeps
+  this rank's ``n``. Draws that are not per lane (the sampled ids and
+  rows, PER's targets, the minibatch permutation) come from the shared
+  source itself.
 - **The ring's rows are sharded; its bookkeeping is replicated.**
   :class:`LaneShardedBuffer` keeps a plain ring of this rank's
   ``lanes / size`` lanes and ``capacity / size`` slots; the cursor, the
@@ -23,23 +31,71 @@ does by hand what keeps that contract:
   on every rank. A gather maps each global id to its owner's local slot,
   gathers on every rank, all-gathers and keeps each row from its owner:
   every rank sees the whole batch, as the single-process ring gives it.
+- **The episodic buffers likewise.** :class:`LaneShardedEpisodicBuffer`:
+  lane ``l`` writes its own block of ``E / num_lanes`` rows, so this
+  rank's lanes' blocks are ``E / size`` consecutive rows, with their
+  stored carries; the row lengths, seals, each lane's row, the count of
+  rows started and the prioritized buffer's tree are the whole buffer's,
+  advanced on every rank from every lane's ``done``. The sampled rows,
+  their offsets and PER's mixture are drawn on every rank from the shared
+  source; each window is read from its owner's rows and all-gathered.
 """
 
 import dataclasses
+import math
 
 import torch
 
-from pfrl_tpu_torch.parallel.mesh import Mesh, all_gather, map_tensors
+from pfrl_tpu_torch.parallel.mesh import Mesh, all_gather, all_gather_rows, local_rows, map_tensors
+from pfrl_tpu_torch.replay.episodic import take_rows
 from pfrl_tpu_torch.replay.prioritized import PrioritizedReplayState
 from pfrl_tpu_torch.replay.uniform import ReplayBuffer, ReplayState
 
 
-class LaneDraws:
-    """This rank's part of every draw of ``draws`` (see the module's note)."""
+class RowDraws:
+    """This rank's share of every draw of ``draws`` that names its kind
+    (see the module's note): the source of a data-parallel update."""
 
     def __init__(self, draws, mesh: Mesh):
         self.draws, self.mesh = draws, mesh
         self.device = getattr(draws, "device", None)
+
+    def rows(self, kind: str, shape, row_axis: int = 0) -> torch.Tensor:
+        """A per-row draw: the whole draw of ``shape`` with ``shape[row_axis]``
+        rows on every rank, of which this rank keeps its own on that axis."""
+        whole = list(shape)
+        n = whole[row_axis]
+        whole[row_axis] = n * self.mesh.size
+        x = getattr(self.draws, kind)(math.prod(whole)).reshape(whole)
+        return x.narrow(row_axis, self.mesh.rank * n, n).contiguous()
+
+    def whole(self, kind: str, n: int) -> torch.Tensor:
+        """A per-parameter draw, the same on every rank."""
+        return getattr(self.draws, kind)(n)
+
+    def _flat(self, name: str):
+        raise TypeError(f"a flat draw ({name}) in a data-parallel update names no kind: draw it with "
+                        "utils.draws.per_row or per_parameter")
+
+    def uniform(self, n: int) -> torch.Tensor:
+        self._flat("uniform")
+
+    def normal(self, n: int) -> torch.Tensor:
+        self._flat("normal")
+
+    def randint(self, high: int, n: int) -> torch.Tensor:
+        self._flat("randint")
+
+    def randint_below(self, high, n: int) -> torch.Tensor:
+        self._flat("randint_below")
+
+    def permutation(self, n: int) -> torch.Tensor:
+        self._flat("permutation")
+
+
+class LaneDraws(RowDraws):
+    """The act's and the env's source: this rank's lanes' part of every
+    flat draw (per lane), and the kinds of :class:`RowDraws`."""
 
     def _part(self, x: torch.Tensor, n: int) -> torch.Tensor:
         return x[self.mesh.rank * n:(self.mesh.rank + 1) * n]
@@ -93,8 +149,6 @@ class LaneShardedBuffer:
     take and give the whole ring's ids and the whole batch."""
 
     def __init__(self, buffer, mesh: Mesh):
-        if hasattr(buffer, "sample_episodes"):
-            raise NotImplementedError("the episodic buffers under a mesh are not ported")
         if buffer.num_lanes % mesh.size:
             raise ValueError(f"{buffer.num_lanes} lanes do not divide over {mesh.size} ranks")
         self.buffer, self.mesh = buffer, mesh
@@ -155,3 +209,54 @@ class LaneShardedBuffer:
     def update_priorities(self, state, slots, errors):
         """The whole batch's feedback into the replicated trees."""
         return self.buffer.update_priorities(state, slots, errors)
+
+
+class LaneShardedEpisodicBuffer:
+    """``buffer`` (an :class:`~pfrl_tpu_torch.replay.episodic.EpisodicReplayBuffer`
+    or its prioritized subclass over all lanes) with its storage rows split
+    over ``mesh`` by lane (see the module's note). ``add`` takes this
+    rank's lanes; ``sample_episodes`` and ``update_episode_priorities``
+    take and give the whole batch."""
+
+    def __init__(self, buffer, mesh: Mesh):
+        if buffer.num_lanes % mesh.size:
+            raise ValueError(f"{buffer.num_lanes} lanes do not divide over {mesh.size} ranks")
+        if buffer.max_episodes % buffer.num_lanes:
+            raise ValueError(f"{buffer.max_episodes} rows do not split into equal blocks for "
+                             f"{buffer.num_lanes} lanes")
+        self.buffer, self.mesh = buffer, mesh
+        self.lanes = local_rows(mesh, buffer.num_lanes)
+        self.storage_rows = buffer.max_episodes // mesh.size
+        self.offset = mesh.rank * self.storage_rows
+        for name in ("num_lanes", "max_episodes", "max_episode_len", "subseq_len", "gamma", "stores_carries",
+                     "device"):
+            setattr(self, name, getattr(buffer, name))
+        if hasattr(buffer, "update_episode_priorities"):
+            self.update_episode_priorities = buffer.update_episode_priorities
+
+    def init(self, example):
+        return self.buffer.init(example, storage_rows=self.storage_rows)
+
+    def add(self, state, batch):
+        """This rank's lanes' step into their rows, in place; every lane's
+        bookkeeping from the all-gathered ``done``."""
+        rows = state.lane_row
+        pos = state.ep_len[rows]
+        self.buffer.write(state.storage, rows[self.lanes] - self.offset, pos[self.lanes], batch)
+        return self.buffer.advance(state, all_gather_rows(self.mesh, batch.done))
+
+    def take(self, s: torch.Tensor, idx: torch.Tensor, t_idx: torch.Tensor) -> torch.Tensor:
+        """The windows ``s[idx, t_idx]`` of the whole buffer: each rank reads
+        the rows it owns (others' rows clamped into its own), all-gathers,
+        and keeps each window from its row's owner."""
+        owner = (idx // self.storage_rows).long()
+        local = torch.clamp(idx - self.offset, 0, self.storage_rows - 1)
+        gathered = all_gather(self.mesh, take_rows(s, local, t_idx))
+        return gathered[owner, torch.arange(idx.shape[0], device=idx.device)]
+
+    def sample_episodes(self, state, draws, n_episodes: int, max_len=None):
+        """The buffer's draw on the replicated tables, windows from their
+        owners: the whole batch on every rank."""
+        idx = self.buffer.draw_rows(state, draws, n_episodes)
+        return self.buffer.gather_windows(state, draws.uniform(n_episodes), idx,
+                                          self.buffer._window_len(max_len), take=self.take)

@@ -26,7 +26,7 @@ then one ``uniform(n)`` for the window offsets, ``int32(u * (max_off +
 """
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
@@ -36,6 +36,12 @@ from pfrl_tpu_torch.utils.draws import categorical
 from pfrl_tpu_torch.utils.recurrent import tree_map
 
 _LEAVES = ("obs", "action", "reward", "next_obs", "terminated", "done")
+
+
+def take_rows(s: torch.Tensor, idx: torch.Tensor, t_idx: torch.Tensor) -> torch.Tensor:
+    """``s[idx, t_idx]``: windows ``[B, T, ...]`` of rows ``idx [B]`` at
+    steps ``t_idx [B, T]``."""
+    return s[idx[:, None], t_idx]
 
 
 @dataclasses.dataclass
@@ -61,6 +67,20 @@ class EpisodeBatch:
     lengths: torch.Tensor  # [B] int32
     rows: torch.Tensor     # [B] int32
     offsets: torch.Tensor  # [B] int32
+    #: The whole batch's mask where this batch is one rank's share of it
+    #: (a data-parallel update sets it); None where this is the whole batch.
+    whole_mask: Optional[torch.Tensor] = None
+
+    def valid_steps(self, start: int = 0) -> torch.Tensor:
+        """The whole batch's count of valid steps from step ``start`` of its
+        windows: what a masked mean over the batch divides by."""
+        mask = self.mask if self.whole_mask is None else self.whole_mask
+        return torch.sum(mask[:, start:])
+
+    @property
+    def whole_rows(self) -> int:
+        """The whole batch's number of windows."""
+        return (self.mask if self.whole_mask is None else self.whole_mask).shape[0]
 
     def _first(self, name: str) -> Optional[Any]:
         ex = self.transitions.extras or {}
@@ -103,12 +123,16 @@ class EpisodicReplayBuffer:
         self.device = resolve_device(device)
 
     # ------------------------------------------------------------------ init
-    def init(self, example: Transition) -> EpisodicReplayState:
-        """Allocate storage from one example transition (no batch dim)."""
+    def init(self, example: Transition, storage_rows: Optional[int] = None) -> EpisodicReplayState:
+        """Allocate storage from one example transition (no batch dim).
+        ``storage_rows`` (default ``max_episodes``) is the storage's number
+        of rows: a rank of a mesh keeps only its lanes' rows
+        (``parallel.lane_sharding``); the bookkeeping is the whole buffer's."""
         E, L, dev = self.max_episodes, self.max_episode_len, self.device
+        R = E if storage_rows is None else storage_rows
 
         def alloc(x):
-            return torch.zeros((E, L) + tuple(x.shape), dtype=x.dtype, device=dev)
+            return torch.zeros((R, L) + tuple(x.shape), dtype=x.dtype, device=dev)
 
         storage = {name: alloc(getattr(example, name)) for name in _LEAVES}
         storage["extras"] = {k: tree_map(alloc, v) for k, v in (example.extras or {}).items()}
@@ -125,20 +149,30 @@ class EpisodicReplayBuffer:
         """Append one step per lane, in place; seal and rotate a lane's row
         on episode end or when the row fills."""
         rows = state.lane_row
-        pos = state.ep_len[rows]
+        self.write(state.storage, rows, state.ep_len[rows], batch)
+        return self.advance(state, batch.done)
+
+    def write(self, storage: Dict[str, Any], rows: torch.Tensor, pos: torch.Tensor, batch: Transition) -> None:
+        """Writes each lane's step of ``batch`` at its storage row ``rows``
+        and step ``pos``, in place."""
         safe_pos = torch.clamp_max(pos, self.max_episode_len - 1)  # rows rotate on fill
 
         def write(s, x):
             s[rows, safe_pos] = x.to(s.dtype)  # a sampled action may come as int64
 
         for name in _LEAVES:
-            write(state.storage[name], getattr(batch, name))
+            write(storage[name], getattr(batch, name))
         for name, carry in (batch.extras or {}).items():
-            if name in state.storage["extras"]:
-                tree_map(write, state.storage["extras"][name], carry)
-        new_pos = pos + 1
+            if name in storage["extras"]:
+                tree_map(write, storage["extras"][name], carry)
+
+    def advance(self, state: EpisodicReplayState, done: torch.Tensor) -> EpisodicReplayState:
+        """The bookkeeping of one step of every lane (``done`` ``[num_lanes]``),
+        in place: lengths, seals, each lane's next row."""
+        rows = state.lane_row
+        new_pos = state.ep_len[rows] + 1
         state.ep_len[rows] = new_pos
-        seal = batch.done | (new_pos >= self.max_episode_len)
+        seal = done | (new_pos >= self.max_episode_len)
         state.finished[rows] = state.finished[rows] | seal
         rpl = self.max_episodes // self.num_lanes
         base = torch.arange(self.num_lanes, dtype=torch.int32, device=rows.device) * rpl
@@ -159,19 +193,25 @@ class EpisodicReplayBuffer:
         logits = torch.log(weights + 1e-20).expand(n, -1)
         return categorical(draws, logits).to(torch.int32)
 
-    def gather_windows(self, state: EpisodicReplayState, u: torch.Tensor, idx: torch.Tensor, T: int) -> EpisodeBatch:
+    def draw_rows(self, state: EpisodicReplayState, draws, n: int) -> torch.Tensor:
+        """int32 ``[n]`` sampled rows: uniform over the sealed rows."""
+        return self._sealed_rows(draws, n, state.finished.to(torch.float32))
+
+    def gather_windows(self, state: EpisodicReplayState, u: torch.Tensor, idx: torch.Tensor, T: int,
+                       take: Optional[Callable] = None) -> EpisodeBatch:
         """Windows of ``T`` steps from rows ``idx`` at offsets drawn from
         ``u`` ``[B]`` uniformly over ``[0, max(0, len - T)]``; a shorter row
-        is returned whole from offset 0, its tail masked."""
+        is returned whole from offset 0, its tail masked. ``take(s, idx,
+        t_idx)`` reads a storage leaf (default: :func:`take_rows`)."""
         full_len = state.ep_len[idx]
         max_off = torch.clamp_min(full_len - T, 0)
         off = torch.minimum((u * (max_off + 1).to(torch.float32)).to(torch.int32), max_off)
         steps = torch.arange(T, dtype=torch.int32, device=idx.device)
         t_idx = torch.clamp_max(off[:, None] + steps[None, :], self.max_episode_len - 1)
-        rows = idx[:, None]
+        read = take or take_rows
 
         def take(s):
-            return s[rows, t_idx]
+            return read(s, idx, t_idx)
 
         st = state.storage
         transitions = Transition(
@@ -186,7 +226,7 @@ class EpisodicReplayBuffer:
                         max_len: Optional[int] = None) -> EpisodeBatch:
         """Uniform over sealed rows, then a random-offset window of
         ``max_len`` (default ``subseq_len``, else whole rows) from each."""
-        idx = self._sealed_rows(draws, n_episodes, state.finished.to(torch.float32))
+        idx = self.draw_rows(state, draws, n_episodes)
         return self.gather_windows(state, draws.uniform(n_episodes), idx, self._window_len(max_len))
 
     def sample(self, state: EpisodicReplayState, draws, n: int) -> TransitionBatch:

@@ -19,7 +19,7 @@ import dataclasses
 import torch
 
 from pfrl_tpu_torch.replay import sum_tree
-from pfrl_tpu_torch.replay.episodic import EpisodeBatch, EpisodicReplayBuffer, EpisodicReplayState
+from pfrl_tpu_torch.replay.episodic import EpisodicReplayBuffer, EpisodicReplayState
 from pfrl_tpu_torch.replay.transition import Transition
 
 
@@ -49,30 +49,30 @@ class PrioritizedEpisodicReplayBuffer(EpisodicReplayBuffer):
         self.eps = eps
         self.tree_capacity = sum_tree.tree_capacity(max_episodes)
 
-    def init(self, example: Transition) -> PrioritizedEpisodicReplayState:
-        base = super().init(example)
+    def init(self, example: Transition, storage_rows=None) -> PrioritizedEpisodicReplayState:
+        base = super().init(example, storage_rows)
         return PrioritizedEpisodicReplayState(
             **{f.name: getattr(base, f.name) for f in dataclasses.fields(EpisodicReplayState)},
             tree=sum_tree.init_tree(self.tree_capacity, self.device),
             max_priority=torch.ones((), dtype=torch.float32, device=self.device),
         )
 
-    def add(self, state: PrioritizedEpisodicReplayState, batch: Transition) -> PrioritizedEpisodicReplayState:
+    def advance(self, state: PrioritizedEpisodicReplayState, done: torch.Tensor) -> PrioritizedEpisodicReplayState:
         rows = state.lane_row
-        super().add(state, batch)
+        super().advance(state, done)
         tree = state.tree
-        sum_tree.update(tree, rows, torch.where(batch.done, state.max_priority, sum_tree.get(tree, rows)))
+        sum_tree.update(tree, rows, torch.where(done, state.max_priority, sum_tree.get(tree, rows)))
         next_rows = state.lane_row
         sum_tree.update(tree, next_rows, torch.where(next_rows != rows, 0.0, sum_tree.get(tree, next_rows)))
         return state
 
-    def sample_episodes(self, state: PrioritizedEpisodicReplayState, draws, n_episodes: int,
-                        max_len=None) -> EpisodeBatch:
-        prioritized = sum_tree.stratified_sample(state.tree, draws, n_episodes)
-        uniform = self._sealed_rows(draws, n_episodes, state.finished.to(torch.float32))
-        use_uniform = draws.uniform(n_episodes) < self.uniform_ratio
-        idx = torch.where(use_uniform, uniform, prioritized)
-        return self.gather_windows(state, draws.uniform(n_episodes), idx, self._window_len(max_len))
+    def draw_rows(self, state: PrioritizedEpisodicReplayState, draws, n: int) -> torch.Tensor:
+        """The mixture: the stratified tree draw, or uniform over the sealed
+        rows below ``uniform_ratio``."""
+        prioritized = sum_tree.stratified_sample(state.tree, draws, n)
+        uniform = self._sealed_rows(draws, n, state.finished.to(torch.float32))
+        use_uniform = draws.uniform(n) < self.uniform_ratio
+        return torch.where(use_uniform, uniform, prioritized)
 
     def update_episode_priorities(self, state: PrioritizedEpisodicReplayState, rows, errors):
         prio = (torch.abs(errors) + self.eps) ** self.alpha

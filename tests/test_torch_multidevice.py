@@ -67,6 +67,7 @@ from pfrl_tpu_torch.parallel.data_parallel import (AllReduceGradients, data_para
                                                    pmean_grads)
 from pfrl_tpu_torch.parallel.mesh import all_gather, all_gather_rows, make_mesh, replicate, shard_batch
 from pfrl_tpu_torch.parallel.multihost import global_mesh, initialize_multihost, is_primary, local_lane_slice, shutdown
+from pfrl_tpu_torch.utils.draws import per_parameter, per_row
 
 torch.set_num_threads(1)
 
@@ -149,17 +150,23 @@ def test_data_parallel_update_reduces_the_metrics_and_refuses_draws(one_rank):
     seen = {}
 
     def update(state, batch, draws):
+        # A flat draw that names no kind is refused; a per-row and a
+        # per-parameter draw are drawn whole from the shared source.
         seen["rows"] = batch.reward.shape[0]
-        with pytest.raises(NotImplementedError, match="draws inside a data-parallel update"):
+        with pytest.raises(TypeError, match="in a data-parallel update names no kind"):
             draws.uniform(3)
+        seen["row"] = per_row(draws, "uniform", (4, 2))
+        seen["param"] = per_parameter(draws, "normal", 3)
         return state, {"loss": batch.reward.sum(), "errors": batch.reward * 2, "count": 7}
 
     batch = type("Batch", (), {})()
     batch.reward = torch.arange(4.0)
     wrapped = data_parallel_update(mesh, update)
-    _, aux = wrapped(None, batch)
+    _, aux = wrapped(None, batch, NumpyDraws(3))
     assert seen["rows"] == 4 and float(aux["loss"]) == 6.0 and aux["count"] == 7
     assert torch.equal(aux["errors"], torch.arange(4.0) * 2)
+    want = NumpyDraws(3)
+    assert torch.equal(seen["row"], want.uniform(8).reshape(4, 2)) and torch.equal(seen["param"], want.normal(3))
 
 
 @pytest.mark.parametrize("scenario", SCENARIOS)

@@ -60,6 +60,7 @@ from pfrl_tpu_torch.experiments import onpolicy as onp
 from pfrl_tpu_torch.experiments.onpolicy_runner import OnPolicyRunner
 from pfrl_tpu_torch.experiments.runner import EvalLoop
 from pfrl_tpu_torch.parallel.mesh import Mesh
+from pfrl_tpu_torch.utils.draws import Draws
 
 torch.set_num_threads(1)
 
@@ -303,16 +304,55 @@ def test_recipes_hold_the_published_widths_and_need_a_card_or_an_explicit_cpu(mo
     assert [tuple(layer.weight.shape) for layer in core.model.out] == [(2, 64), (1, 64)]
 
 
+def _trpo_runs_on_one_rank():
+    """TRPO on Pendulum, 4 lanes, two iterations of 32 transitions, without a
+    mesh and on a mesh of one Gloo rank."""
+    import socket
+
+    from pfrl_tpu_torch.parallel.mesh import make_mesh
+    from pfrl_tpu_torch.parallel.multihost import initialize_multihost, shutdown
+
+    def run(mesh):
+        env = tenvs.TimeLimit(tenvs.Pendulum(device="cpu"), PENDULUM_LIMIT)
+        recipe = onp.make_trpo_pendulum_runner(num_envs=4, rollout_len=8, vf_epochs=1, vf_batch_size=8,
+                                               hidden=HIDDEN, env=env)
+        runner = OnPolicyRunner(env, recipe.core, 4, 8, device="cpu", mesh=mesh)
+        state = runner.init(0, draws=Draws(torch.Generator().manual_seed(0)))
+        state, aux = runner.run_iterations(state, 2)
+        return state.train_state, aux
+
+    plain, plain_aux = run(None)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    initialize_multihost(f"localhost:{port}", 1, 0, device="cpu", timeout_s=60)
+    try:
+        meshed, aux = run(make_mesh(("dp",)))
+    finally:
+        shutdown()
+    assert plain.n_updates == meshed.n_updates > 0
+    for module in ("policy", "vf"):
+        for (name, a), b in zip(getattr(plain, module).named_parameters(), getattr(meshed, module).parameters()):
+            assert torch.equal(a, b), name
+    for key, value in plain_aux.items():
+        assert torch.equal(value, aux[key]), key
+
+
 def test_unported_branches_raise_by_name():
     env = tenvs.CartPole(device="cpu")
     core = onp.make_a2c_cartpole_runner(device="cpu").core
     # The mesh branch is ported: the runner takes a mesh over one rank with
-    # a core that splits its minibatches; TRPO under a mesh raises by name.
+    # a core that splits its minibatches, and TRPO, which does not split:
+    # every rank runs its whole update; on a mesh of one Gloo rank its run
+    # equals the run without one to the bit.
     mesh = Mesh(("dp",), (1,), 0)
     runner = OnPolicyRunner(env, core, 4, 8, device="cpu", mesh=mesh)
     assert runner.mesh is mesh and runner.env.num_envs == 4 and runner.core.mesh is mesh
-    with pytest.raises(NotImplementedError, match="TRPOCore under a mesh"):
-        OnPolicyRunner(env, onp.make_trpo_pendulum_runner(device="cpu").core, 4, 8, device="cpu", mesh=mesh)
+    trpo = onp.make_trpo_pendulum_runner(device="cpu", num_envs=4, rollout_len=8, vf_epochs=1, vf_batch_size=8,
+                                         hidden=HIDDEN).core
+    runner = OnPolicyRunner(env, trpo, 4, 8, device="cpu", mesh=mesh)
+    assert runner.mesh is mesh and runner.core is trpo and not runner.splits
+    _trpo_runs_on_one_rank()
 
     class Recurrent:
         recurrent = True

@@ -40,9 +40,10 @@ from pfrl_tpu_torch.experiments.atari_per_dqn import NatureQ, make_dqn_runner
 from pfrl_tpu_torch.experiments.runner import EvalLoop, OffPolicyRunner, RunnerConfig
 from pfrl_tpu_torch.explorers import LinearDecayEpsilonGreedy
 from pfrl_tpu_torch.optimizers import RMSprop
-from pfrl_tpu_torch.parallel.lane_sharding import LaneShardedBuffer
+from pfrl_tpu_torch.parallel.lane_sharding import LaneShardedBuffer, LaneShardedEpisodicBuffer
 from pfrl_tpu_torch.parallel.mesh import Mesh
 from pfrl_tpu_torch.replay import PrioritizedReplayBuffer, ReplayBuffer
+from pfrl_tpu_torch.replay.episodic import EpisodicReplayBuffer
 from pfrl_tpu_torch.utils import atari_phi
 from pfrl_tpu_torch.utils.draws import Draws
 
@@ -252,7 +253,10 @@ def test_uniform_and_double_runners_need_a_card_or_an_explicit_cpu(monkeypatch):
     assert type(runner.core) is DQNCore and isinstance(runner.buffer, PrioritizedReplayBuffer)
 
 
-class _Episodic(ReplayBuffer):
+class _Episodic(EpisodicReplayBuffer):
+    def __init__(self, max_episodes, num_lanes, device):
+        super().__init__(max_episodes, 8, num_lanes, device=device)
+
     def sample_episodes(self, state, draws, n):
         raise AssertionError("not reached")
 
@@ -273,6 +277,9 @@ class _Plain:
     def update(self, *args):
         raise AssertionError("not reached")
 
+    def update_episodic(self, *args):
+        raise AssertionError("not reached")
+
 
 ONE_RANK = Mesh(("dp",), (1,), 0)
 
@@ -290,21 +297,55 @@ ONE_RANK = Mesh(("dp",), (1,), 0)
 )
 def test_runner_names_the_branch_it_has_not_ported(branch, core, buffer_cls, mesh):
     """The mesh, episodic, recurrent and extras branches are ported, and the
-    runner takes them (a mesh: each rank's lanes, the ring's rows sharded,
-    the core's optimizers all-reducing); the episodic buffers and a noisy
-    network under a mesh raise by name."""
+    runner takes them (a mesh: each rank's lanes, the buffer's rows
+    sharded, the core's optimizers all-reducing); the episodic buffers and
+    a noisy network run under a mesh too: a noisy network's run on a mesh
+    of one Gloo rank equals its run without one to the bit."""
     env = AtariSim(N_ACTIONS, device="cpu")
     buffer = buffer_cls(64, num_lanes=4, device="cpu")
     if core == "noisy":
-        core = make_dqn_runner(noisy_net_sigma=0.5, device="cpu", num_envs=4, capacity=64).core
-    if branch in ("mesh", "episodic", "recurrent", "extras"):
-        runner = OffPolicyRunner(env, core, buffer, RunnerConfig(num_envs=4), device="cpu", mesh=mesh)
-        assert runner.recurrent == (branch == "recurrent")
-        assert runner.acts_with_extras == (branch == "extras")
-        assert runner.mesh is mesh
-        if branch == "mesh":
-            assert isinstance(runner.buffer, LaneShardedBuffer) and runner.buffer.buffer is buffer
-            assert runner.env.num_envs == 4 and runner.core.mesh is mesh and runner.core is not core
+        _noisy_runs_on_one_rank(env)
         return
-    with pytest.raises(NotImplementedError, match=branch):
-        OffPolicyRunner(env, core, buffer, RunnerConfig(num_envs=4), device="cpu", mesh=mesh)
+    runner = OffPolicyRunner(env, core, buffer, RunnerConfig(num_envs=4), device="cpu", mesh=mesh)
+    assert runner.recurrent == (branch == "recurrent")
+    assert runner.acts_with_extras == (branch == "extras")
+    assert runner.mesh is mesh
+    if branch == "mesh":
+        assert isinstance(runner.buffer, LaneShardedBuffer) and runner.buffer.buffer is buffer
+        assert runner.env.num_envs == 4 and runner.core.mesh is mesh and runner.core is not core
+    if branch == "episodic buffers under a mesh":
+        assert isinstance(runner.buffer, LaneShardedEpisodicBuffer) and runner.buffer.buffer is buffer
+        assert runner.buffer.storage_rows == 64 and runner.core.mesh is mesh
+
+
+def _noisy_runs_on_one_rank(env):
+    """Noisy-net DQN on AtariSim over a ring of 64 slots: 6 scan steps (the
+    last 3 updating) without a mesh and on one Gloo rank."""
+    import socket
+
+    from pfrl_tpu_torch.parallel.mesh import make_mesh
+    from pfrl_tpu_torch.parallel.multihost import initialize_multihost, shutdown
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+
+    def run(mesh):
+        recipe = make_dqn_runner(noisy_net_sigma=0.5, device="cpu", num_envs=4, capacity=64, replay_start_size=12,
+                                 minibatch_size=4)
+        runner = OffPolicyRunner(env, recipe.core, recipe.buffer, recipe.config, device="cpu", mesh=mesh)
+        state = runner.init(0, draws=Draws(torch.Generator().manual_seed(0)))
+        state, metrics = runner.run_chunk(state, 6)
+        return state.train_state, metrics
+
+    plain, plain_metrics = run(None)
+    initialize_multihost(f"localhost:{port}", 1, 0, device="cpu", timeout_s=60)
+    try:
+        meshed, metrics = run(make_mesh(("dp",)))
+    finally:
+        shutdown()
+    assert plain.n_updates == meshed.n_updates > 0
+    for (name, a), b in zip(plain.model.named_parameters(), meshed.model.parameters()):
+        assert torch.equal(a, b), name
+    for key, value in plain_metrics.items():
+        assert torch.equal(value, metrics[key]), key
