@@ -293,6 +293,22 @@ result, without them. Its phases, each raising on failure:
    target sync at 10,000 (the replay start cut to 9,600: 112 updates);
    the mesh run's scan step and its busy share under
    ``torch.profiler``. It launches no kernel.
+22. ``train_dqn_ale.py``'s host path (``atari_dqn_ale.run_ale``) over the
+   ALE stand-in of ``tests/torch_ale_standin.py`` (ALE and its ROMs are not
+   installed). Without gymnasium, ``make_atari`` must raise naming it, and
+   the runs build ``make_atari``'s chain over the stand-in through its own
+   helper. A small card-vs-CPU run of ``--prioritized`` at the example's
+   Nature network (the ring cut to 512 slots, 49 updates; the same draws
+   and weights): actions, counts and the ring equal, each sample's slots
+   equal to the plain version's on the card's own tree, the learned
+   tensors within 3e-6 or 4x the nudges, one kernel launch per update; the
+   same run without ``--prioritized`` launches none. Then
+   ``dqn-ale-host-per-1``: ``--prioritized`` at full width (Nature CNN,
+   84x84x4 frames, batch 32, the 10^6-slot PER ring, 28.3 GB, C = 2**20),
+   the replay start cut to 600 and the run to 1,600 steps (251 updates),
+   its env-steps/s, updates/s, kernel launches and, over 16 profiled
+   steps, the device's busy share and the kernel's device time; the kernel
+   held against its plain version on the run's final tree.
 
 The kernels' launch counts are set to 0 just before each full-width path
 and read just after it; the kernels' JSON line gives their sum over the
@@ -3105,12 +3121,13 @@ def run_full_host_batch(card: str) -> dict:
     evaluation of 10 episodes. The run's length and its replay start are
     its cuts.
     The ring is freed before the phase ends."""
+    from pfrl_tpu_torch.envs import synthetic_ale
     from pfrl_tpu_torch.experiments.atari_dqn_batch import make_dqn_batch_agent, make_vector_envs
     from pfrl_tpu_torch.experiments.profile_host import run_host_batch
     from pfrl_tpu_torch.ops.prefix_sample import prefix_sample
 
     agent = make_dqn_batch_agent(replay_start_size=HOST_BATCH_REPLAY_START)
-    env, eval_env = make_vector_envs(8, 0)
+    env, eval_env = make_vector_envs(8, 0, make_env=synthetic_ale.make_ale_env)
     prefix_sample.launches = 0
     try:
         with tempfile.TemporaryDirectory() as outdir:  # the saved agents: 27 MB each
@@ -5135,6 +5152,299 @@ def run_full_drqn_atarisim_mesh(card: str) -> dict:
     return result
 
 
+# -------------------------------------------------------------------- phase 22
+# dqn-ale-host-per-1: the example's replay start of 50,000 cut to 600 and the
+# run to 1,600 steps for the time limit: 251 updates, one kernel launch each
+# at C = 2^20. 16 steps from t = 700 (4 updates) run under the profiler (64
+# took 10 s: ~1,170 kernels per step); the rates after the replay start are
+# taken past that window.
+ALE_REPLAY_START = 600
+ALE_STEPS = 1_600
+ALE_PROFILED = (700, 16)
+# Host paths of HOST_PATHS that phase 22 runs through run_ale itself.
+PHASE_22_HOST_PATHS = ("dqn-ale-host-per-1",)
+ALE_SMALL_ARGS = ["--replay-capacity", "512", "--replay-start-size", "48", "--steps", "240",
+                  "--target-update-interval", "64", "--max-frames", "400"]
+
+
+def ale_make_atari():
+    """``make_atari`` for phase 22 over the ALE stand-in
+    (``profile_host.standin_make_atari``), and whether gymnasium is
+    installed. Without it ``make_atari`` itself must raise, naming it."""
+    from pfrl_tpu_torch.experiments.profile_host import ALE_STANDIN_ID, standin_make_atari
+    from pfrl_tpu_torch.wrappers import atari_wrappers
+
+    make = standin_make_atari()
+    gymnasium = make is atari_wrappers.make_atari
+    if not gymnasium:
+        try:
+            atari_wrappers.make_atari(ALE_STANDIN_ID)
+        except RuntimeError as e:
+            if "gymnasium" not in str(e):
+                raise AssertionError(f"make_atari raised without naming gymnasium: {e}") from e
+        else:
+            raise AssertionError("make_atari built an env where gymnasium is not installed")
+    return make, gymnasium
+
+
+def _run_ale(argv, device, make_atari, draws=None, step_hooks=(), scale=1.0, log=None) -> dict:
+    """``atari_dqn_ale.run_ale(argv)`` on ``device``; with ``log``, the
+    shell's weights times ``scale`` at their init, and ``log`` gets every
+    action, target sync and sampled slot."""
+    from pfrl_tpu_torch.experiments import atari_dqn_ale
+
+    if log is None:
+        return atari_dqn_ale.run_ale(argv, device=device, make_atari=make_atari, draws=draws, step_hooks=step_hooks)
+    base = atari_dqn_ale.DQN
+
+    class Shell(base):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            sync, find = self.core.sync_target, getattr(self.buffer, "_find_slots", None)
+
+            def sync_target(state):
+                log["syncs"] += 1
+                return sync(state)
+
+            def find_slots(tree, targets):
+                slots = find(tree, targets)
+                log["slots"].append(slots.cpu().numpy().copy())
+                leaves = tree[self.buffer.tree_capacity:]
+                log["samples"].append((leaves.to("cpu", copy=True), targets.to("cpu", copy=True)))
+                return slots
+
+            self.core.sync_target = sync_target
+            if find is not None:
+                self.buffer._find_slots = find_slots
+
+        def _ensure_init(self, obs):
+            fresh = self.train_state is None
+            super()._ensure_init(obs)
+            if fresh:
+                with torch.no_grad():
+                    for p in [*self.train_state.model.parameters(), *self.train_state.target_model.parameters()]:
+                        p.mul_(scale)
+
+        def batch_act(self, batch_obs):
+            out = super().batch_act(batch_obs)
+            log["actions"].append(np.asarray(out).copy())
+            return out
+
+    atari_dqn_ale.DQN = Shell
+    try:
+        out = atari_dqn_ale.run_ale(argv, device=device, make_atari=make_atari, draws=draws, step_hooks=step_hooks)
+    finally:
+        atari_dqn_ale.DQN = base
+    return out
+
+
+def check_small_dqn_ale(device) -> dict:
+    """``run_ale --prioritized`` small (``ALE_SMALL_ARGS``: the Nature
+    network at its widths, the ring cut to 512 slots, 49 updates) on the
+    card and on the CPU from the same weights (the shell draws its initial
+    weights from a CPU generator seeded ``--seed``) and draws
+    (``SeededDraws``): every action, sync and count equal, the ring's frames
+    equal, the statistics within 1e-4 or 4x the nudges, every learned
+    tensor within 3e-6 (1e-5 of the largest second moment) or 4x what 1 +-
+    2**-23 nudges of the weights move it; one kernel launch per update on
+    the card. Each sample's slots on the card equal the plain version's on
+    the same leaves and targets (on the CPU), but where a target lies within
+    rounding of a cumulative boundary; they equal the CPU run's wherever the
+    two runs' priorities are equal (the first sample, all at the maximum:
+    later priorities come from TD errors an ulp apart, ROADMAP C87). The
+    same run without ``--prioritized`` on the card launches none."""
+    from pfrl_tpu_torch.experiments.profile_host import ALE_STANDIN_ID
+    from pfrl_tpu_torch.ops.prefix_sample import prefix_sample, prefix_sample_reference
+
+    make, gymnasium = ale_make_atari()
+    argv = ["--env", ALE_STANDIN_ID, "--prioritized", "--eval-interval", str(10**6), *ALE_SMALL_ARGS]
+
+    def run(dev, tag, scale=1.0, prioritized=True):
+        log = {"actions": [], "syncs": 0, "slots": [], "samples": []}
+        with tempfile.TemporaryDirectory() as outdir:
+            args = argv if prioritized else [a for a in argv if a != "--prioritized"]
+            agent = _run_ale(args + ["--outdir", outdir], dev, make, SeededDraws(1, dev), scale=scale,
+                             log=log)["agent"]
+        return agent, log
+
+    prefix_sample.launches = 0
+    card, card_log = run(device, "card")
+    torch.cuda.synchronize()
+    launches = prefix_sample.launches
+    cpu, cpu_log = run("cpu", "cpu")
+    nudged = [run("cpu", f"nudged{i}", s) for i, s in enumerate(ACER_NUDGES)]
+    prefix_sample.launches = 0
+    uniform, _ = run(device, "uniform", prioritized=False)
+    torch.cuda.synchronize()
+    uniform_launches = prefix_sample.launches
+    storage = [a.replay_state.base.storage["obs"].cpu() for a in (card, cpu)]
+    worst = _learned_differences(card.train_state, cpu.train_state, [n[0].train_state for n in nudged])
+    # The card's every sample against the plain version on the CPU, on the
+    # card's own leaves and targets; and the card's slots against the CPU
+    # run's, whose priorities (from TD errors an ulp apart) may part them.
+    plain = [prefix_sample_reference(leaves, targets).numpy() for leaves, targets in card_log["samples"]]
+    kernel_vs_plain = [_sampled_ids_agree(leaves, targets, torch.from_numpy(got), torch.from_numpy(want))
+                       for (leaves, targets), got, want in zip(card_log["samples"], card_log["slots"], plain)]
+    unequal_slots = sum(int((a != b).sum()) for a, b in zip(card_log["slots"], cpu_log["slots"]))
+    first_unequal = next((i for i, (a, b) in enumerate(zip(card_log["slots"], cpu_log["slots"]))
+                          if not np.array_equal(a, b)), None)
+    equal_priorities = [torch.equal(a[0], b[0]) for a, b in zip(card_log["samples"], cpu_log["samples"])]
+    checks = {
+        "actions": len(card_log["actions"]) == len(cpu_log["actions"]) == 240 and all(
+            np.array_equal(a, b) for a, b in zip(card_log["actions"], cpu_log["actions"])),
+        "every sampled slot of the card's kernel equals the plain version's on its tree": len(kernel_vs_plain) == 49
+        and all(kernel_vs_plain) and sum(np.array_equal(a, b) for a, b in zip(card_log["slots"], plain)) >= 1,
+        "the card's and the CPU's slots equal wherever their priorities are": len(cpu_log["slots"]) == 49 and all(
+            np.array_equal(a, b) for a, b, same in zip(card_log["slots"], cpu_log["slots"], equal_priorities)
+            if same) and equal_priorities[0],
+        "equal step, update and sync counts": card.t == cpu.t == 240 and card.optim_t == cpu.optim_t == 49
+        and card_log["syncs"] == cpu_log["syncs"] >= 3,
+        "the ring's frames": torch.equal(*storage),
+        "statistics within 1e-4, or 4x the nudges": all(
+            _within_nudges(float(a), float(b), [float(dict(n[0].get_statistics())[k]) for n in nudged], 1e-4, 5e-5)
+            for (k, a), (_, b) in zip(card.get_statistics(), cpu.get_statistics())),
+        "learned tensors within their bounds": all(d <= b for d, b in worst.values()),
+        "one prefix-sample launch per update": launches == card.optim_t == 49,
+        "no launch without --prioritized": uniform_launches == 0 and uniform.optim_t == 49,
+    }
+    top = max(worst.items(), key=lambda kv: kv[1][0] / kv[1][1])
+    print(f"small dqn-ale-host-per: run_ale over the ALE stand-in ({'gymnasium' if gymnasium else 'no gymnasium: '
+          'make_atari raised by name, the chain built through its helper'}), card vs CPU over {card.t} steps, "
+          f"{card.optim_t} updates, {card_log['syncs']} syncs, {len(card_log['slots'])} samples of 32 slots "
+          f"({sum(kernel_vs_plain)} equal to the plain version's on the card's trees; {unequal_slots} slots unequal "
+          f"to the CPU run's, the first in sample {first_unequal}; priorities equal in {sum(equal_priorities)} "
+          f"samples), actions "
+          f"{'equal' if checks['actions'] else 'DIFFER'}; largest difference against its bound {top[0]} "
+          f"{top[1][0]:.3g} <= {top[1][1]:.3g}; {launches} prefix-sample launches, {uniform_launches} without "
+          f"--prioritized")
+    _raise_on_failed("small dqn-ale-host-per", checks)
+    result = {"gymnasium": gymnasium, "host_steps": card.t, "updates": card.optim_t, "kernel_launches": launches,
+              "samples_equal_to_plain": sum(kernel_vs_plain), "slots_unequal_to_cpu": unequal_slots,
+              "first_sample_unequal_to_cpu": first_unequal, "samples_with_equal_priorities": sum(equal_priorities),
+              "uniform_kernel_launches": uniform_launches, "largest_differences": {k: v[0] for k, v in worst.items()},
+              "bounds": {k: v[1] for k, v in worst.items()}}
+    del card, cpu, nudged, uniform
+    return result
+
+
+def _held_against_plain(tree: torch.Tensor, tree_capacity: int, targets: torch.Tensor) -> dict:
+    """The kernel against ``prefix_sample_reference`` on a run's own sum
+    tree: equal counts, but where a target lies within ``1e-6 * total`` of
+    a cumulative boundary (float64 cumsum as judge; the two add in another
+    order); raises otherwise."""
+    from pfrl_tpu_torch.ops import prefix_sample as ps
+
+    leaves = tree[tree_capacity:].contiguous()
+    got = ps.prefix_sample(leaves, targets).cpu().numpy()
+    want = ps.prefix_sample_reference(leaves, targets).cpu().numpy()
+    prio = leaves.cpu().numpy().astype(np.float64)
+    cs64, total = np.cumsum(prio), float(prio.sum())
+    mismatches = 0
+    for g, w, tb in zip(got, want, targets.cpu().numpy()):
+        if g != w:
+            mismatches += 1
+            lo, hi = sorted((int(g), int(w)))
+            if np.max(np.abs(cs64[lo:hi] - tb)) > 1e-6 * total:
+                raise AssertionError(f"prefix_sample on the run's tree: {g} vs {w} at target {tb}")
+    return {"max_abs_err": int(np.max(np.abs(got.astype(np.int64) - want.astype(np.int64)))),
+            "mismatches_within_rounding": mismatches}
+
+
+def run_full_dqn_ale(card: str) -> dict:
+    """``dqn-ale-host-per-1``: ``train_dqn_ale.py --prioritized``'s host path
+    through ``atari_dqn_ale.run_ale`` at the example's widths and settings
+    (Nature CNN over 84x84x4 uint8 stacks of the ALE stand-in, batch 32,
+    Adam, the 10^6-slot PER ring on the card, 28.3 GB, C = 2^20, the
+    kernel once per update; one env stepped per act), but the replay start
+    (``ALE_REPLAY_START``) and the run's length (``ALE_STEPS``): 251
+    updates, no evaluation. A step hook marks each step's time and update
+    count and records ``ALE_PROFILED`` steps under ``torch.profiler``: the
+    device's busy share and the kernel's device time per launch. Then the
+    kernel is held against its plain version on the run's final tree."""
+    from pfrl_tpu_torch.experiments.profile_host import ALE_STANDIN_ID, device_kernels
+    from pfrl_tpu_torch.ops.prefix_sample import prefix_sample
+    from pfrl_tpu_torch.replay import sum_tree
+
+    make, gymnasium = ale_make_atari()
+    marks, window = [], {}
+    prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+
+    def hook(env, agent, t):
+        marks.append((t, time.perf_counter(), agent.optim_t))
+        if t == ALE_PROFILED[0] or t == ALE_PROFILED[0] + ALE_PROFILED[1]:
+            torch.cuda.synchronize()
+            window["start" if t == ALE_PROFILED[0] else "end"] = (time.perf_counter(), agent.optim_t)
+            (prof.start if t == ALE_PROFILED[0] else prof.stop)()
+
+    argv = ["--env", ALE_STANDIN_ID, "--prioritized", "--replay-start-size", str(ALE_REPLAY_START),
+            "--steps", str(ALE_STEPS), "--eval-interval", str(10**6)]
+    prefix_sample.launches = 0
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as outdir:  # the finished agent
+        out = _run_ale(argv + ["--outdir", outdir], None, make, step_hooks=[hook])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = prefix_sample.launches
+    agent = out["agent"]
+    by_name = device_kernels(prof)
+    (s0, u0), (s1, u1) = window["start"], window["end"]
+    busy_us = sum(v[0] for v in by_name.values())
+    kernel = [v for n, v in by_name.items() if "prefix_sample" in n]
+    kernel_us, kernel_n = (sum(v[0] for v in kernel), sum(v[1] for v in kernel)) if kernel else (0.0, 0)
+
+    def rate(lo, hi):
+        inside = [m for m in marks if lo <= m[0] <= hi]
+        (ta, sa, ua), (tb, sb, ub) = inside[0], inside[-1]
+        return (tb - ta) / (sb - sa), (ub - ua) / (sb - sa)
+
+    acting, _ = rate(1, ALE_REPLAY_START - 1)
+    learning, updates_per_s = rate(ALE_PROFILED[0] + ALE_PROFILED[1] + 1, ALE_STEPS)
+    buffer = agent.buffer
+    ring_bytes = sum(x.numel() * x.element_size() for x in agent.replay_state.base.storage.values())
+    targets = sum_tree.stratified_targets(sum_tree.total(agent.replay_state.tree),
+                                          SeededDraws(3, agent.device).uniform(32))
+    held = _held_against_plain(agent.replay_state.tree, buffer.tree_capacity, targets)
+    stats = dict(agent.get_statistics())
+    expected_updates = (ALE_STEPS - ALE_REPLAY_START) // 4 + 1
+    checks = {
+        "t and the updates as the shell's gating has them": agent.t == ALE_STEPS
+        and agent.optim_t == expected_updates,
+        "one prefix-sample launch per update, at C = 2^20": launches == expected_updates
+        and buffer.tree_capacity == 2**20 and (buffer.capacity, buffer.num_lanes) == (10**6, 1),
+        "the 28.3 GB ring": 28.0e9 < ring_bytes < 28.6e9,
+        "statistics finite": all(math.isfinite(float(v)) for v in stats.values()),
+        "the profiled window launched the kernel": kernel_n == u1 - u0 > 0,
+    }
+    result = {
+        "gymnasium": gymnasium, "t": agent.t, "n_updates": agent.optim_t, "kernel_launches": launches,
+        "wall_s": wall_s, "ring_bytes": ring_bytes, "tree_capacity": buffer.tree_capacity,
+        "env_steps_per_s_before_replay_start": acting, "env_steps_per_s_after_replay_start": learning,
+        "updates_per_s_after_replay_start": updates_per_s,
+        "profiled": {"steps": ALE_PROFILED[1], "updates": u1 - u0, "seconds": s1 - s0,
+                     "kernels_per_step": sum(v[1] for v in by_name.values()) / ALE_PROFILED[1],
+                     "device_busy_ms_per_step": busy_us / 1e3 / ALE_PROFILED[1],
+                     "device_busy_share": busy_us / 1e6 / (s1 - s0),
+                     "prefix_sample_us_per_launch": kernel_us / kernel_n if kernel_n else None,
+                     "top_device_ops": [{"name": n[:120], "ms_per_step": us / 1e3 / ALE_PROFILED[1]}
+                                        for n, (us, _) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]]},
+        "kernel_on_the_runs_tree": held, "statistics": stats,
+    }
+    print(f"dqn-ale-host-per-1: run_ale --prioritized over the ALE stand-in, Nature CNN, 84x84x4, batch 32, "
+          f"ring {ring_bytes / 1e9:.2f} GB, C = {buffer.tree_capacity:,}; env-steps/s {acting:.1f} before the replay "
+          f"start ({ALE_REPLAY_START:,}), {learning:.1f} after it, updates/s {updates_per_s:.2f}; {agent.optim_t} "
+          f"updates, {launches} prefix-sample launches; over {ALE_PROFILED[1]} profiled steps ({u1 - u0} updates, "
+          f"{(s1 - s0) * 1e3:.1f} ms) {result['profiled']['kernels_per_step']:.1f} kernels per step, device busy "
+          f"{result['profiled']['device_busy_share'] * 100:.1f}%, prefix_sample "
+          f"{result['profiled']['prefix_sample_us_per_launch'] or float('nan'):.2f} us per launch; the kernel on the "
+          f"run's tree: {held}; {wall_s:.1f} s (fp32, no TF32) on {card}")
+    _raise_on_failed("dqn-ale-host-per-1", checks)
+    agent.replay_state = None
+    del agent, out
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5238,7 +5548,7 @@ def main() -> int:
 
     record["full_host_shells"] = {name: phase(f"full {name}", run_full_host_path, card, name) for name in HOST_PATHS
                                   if not HOST_PATHS[name].actors and name not in PHASE_19_HOST_PATHS
-                                  and name not in PHASE_20_HOST_PATHS}
+                                  and name not in PHASE_20_HOST_PATHS and name not in PHASE_22_HOST_PATHS}
     for name, cls_name, prioritized in (("actor-learner-dqn", "DQN", False),
                                         ("actor-learner-per-double-dqn", "DoubleDQN", True)):
         record["small_slices"][name] = phase(f"small {name}", check_small_actor_learner, name, cls_name, prioritized,
@@ -5271,6 +5581,8 @@ def main() -> int:
     }
     record["full_phase21"] = {
         "drqn-atarisim-32-mesh": phase("full drqn-atarisim-32-mesh", run_full_drqn_atarisim_mesh, card)}
+    record["small_slices"]["dqn-ale-host-per"] = phase("small dqn-ale-host-per", check_small_dqn_ale, device)
+    record["full_phase22"] = {"dqn-ale-host-per-1": phase("full dqn-ale-host-per-1", run_full_dqn_ale, card)}
     # Counted over each path that samples by priority, from 0 at its start;
     # every other path asserts a count of 0.
     kernel["launches_by_path"] = {
@@ -5307,6 +5619,11 @@ def main() -> int:
         "mesh per-dqn and rainbow-cartpole (both runs each)": record["mesh"]["kernel_launches"],
         **{name: r["kernel_launches"] for name, r in record["full_phase20"].items()},
         **{name: r["kernel_launches"] for name, r in record["full_phase21"].items()},
+        # Phase 22: the card's side of run_ale's card-vs-CPU run over PER (C = 512,
+        # one launch per update; 0 without --prioritized), then dqn-ale-host-per-1
+        # at C = 2^20, one launch per update.
+        "small dqn-ale-host-per": record["small_slices"]["dqn-ale-host-per"]["kernel_launches"],
+        **{name: r["kernel_launches"] for name, r in record["full_phase22"].items()},
     }
     kernel["launches"] = sum(kernel["launches_by_path"].values())
     record["kernels"] = [kernel]

@@ -50,7 +50,17 @@ Ported so far, each through ``experiments.OffPolicyRunner`` or
 - multi-device training over ``torch.distributed`` (:mod:`.parallel.mesh`,
   :mod:`.parallel.data_parallel`, :mod:`.parallel.multihost`,
   :mod:`.parallel.lane_sharding`): both runners take a mesh, and
-  ``train_dqn_batch_ale.py --multihost`` is ``atari_dqn_batch.run_multihost``.
+  ``train_dqn_batch_ale.py --multihost`` is ``atari_dqn_batch.run_multihost``;
+- the real-ALE host paths: ``atari_wrappers.make_atari`` (gymnasium's ALE
+  game under ``ContinuingTimeLimit``, no-ops and frame skip) and the six
+  example entry points over it (``atari_dqn_ale.run_ale``,
+  ``atari_dqn_batch.run_batch`` and ``run_actor_learner``,
+  ``atari_pipeline.run`` without ``--sim``, ``atari_onpolicy_ale``,
+  ``atari_dqn_reproduction``), the host wrappers ``Monitor``, ``Render``,
+  ``VectorFrameStack`` and the MJPEG video writer (:mod:`.wrappers`), the
+  small utilities of :mod:`.utils` (reward filters, env modifiers,
+  ``evaluating``, ``set_random_seed``, ``sample_n_k``, ``clip_l2_grad_norm``,
+  ``mode_of_distribution``) and :mod:`.testing`.
 
 Every first-order core takes ``compute_dtype`` (bf16 compute over float32
 masters, see :mod:`.utils.precision`); TRPO refuses it, as in JAX.
@@ -64,8 +74,12 @@ collections (:mod:`.collections_`, also ``collections``). A JAX checkpoint
 (flax msgpack) loads through the port's own reader
 (:mod:`.utils.flax_msgpack`) and :mod:`.convert`, with no JAX installed.
 
-Not ported yet: ``make_atari`` (a real ALE), and under a mesh the
-episodic buffers, recurrent cores, TRPO and updates that draw.
+Not ported yet: the models and Q-functions with no example (``MLPBN``,
+``EmpiricalNormalization``, ``Branched``, ``Lambda``, the BN and LSTM
+(state, action) Q-functions), ``synchronize_parameters``, the RMSprop with
+eps inside the root as an optimizer of its own, a checkpoint the JAX
+package reads, ``utils/profiling.py`` and the command-line entry points
+(ROADMAP A.4-A.5).
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; without a card they raise (see :mod:`._device`). Kernels

@@ -11,15 +11,19 @@ the card (``store_next_obs=False``, dequantized by 1/255 in the gather:
 4 transitions from 50,000 on, and a hard target sync every 10^4.
 
 The envs (:func:`make_vector_envs`) are two ``MultiprocessVectorEnv`` of 8
-spawned workers each, one for training and one for evaluation, over
-``envs.synthetic_ale.make_ale_env``: ``wrap_deepmind`` around
-``MaxAndSkipEnv(SyntheticALE(seed), skip=4)`` in place of
-``make_atari(args.env)`` (ALE is not installed). SyntheticALE has no lives,
-so training runs with ``episode_life=False``: the one change from the
-example. :func:`run_batch` drives them through
-``train_agent_batch_with_evaluation`` with 10 evaluation episodes, one
-batch step at a time: observations go up to the card and actions come
-down on every step. Sizes are arguments, so that tests run it small.
+spawned workers each, one for training and one for evaluation, over the
+example's ``make_ale_env`` (``:76-89``):
+``wrap_deepmind(make_atari(env_id))`` (84x84x4 uint8 stacks, hwc; lives
+end training episodes and rewards are clipped in training), seeded ``seed +
+idx`` (``+ 10**6`` for an evaluation env), and an evaluation env takes a
+random action 5% of the time. A factory ``make_env(seed, idx, test)`` may
+be passed in its place: ``envs.synthetic_ale.make_ale_env``, over
+``SyntheticALE`` (which has no lives, so its training runs with
+``episode_life=False``), is the one that runs where ALE is not installed.
+:func:`run_batch` drives them through ``train_agent_batch_with_evaluation``
+with 10 evaluation episodes, one batch step at a time: observations go up
+to the card and actions come down on every step. Sizes are arguments, so
+that tests run it small.
 
 :func:`run_actor_learner` is the example's ``--actor-learner`` mode
 (``:126-152``) at the same settings: the same agent, its actor-learner half
@@ -27,8 +31,8 @@ down on every step. Sizes are arguments, so that tests run it small.
 env, one batched inference server, the poller and the learner threads,
 publications every 8 updates) driven by ``train_agent_async``; actor ``i``
 builds its training env (seed ``seed + i``) and its evaluation env (seed
-``seed + i + 10**6``, ``RandomizeAction(0.05)``) in its own thread, with
-the same one cut, ``episode_life=False``.
+``seed + i + 10**6``, ``RandomizeAction(0.05)``) in its own thread, of the
+same ``env_id`` or ``make_env``.
 
 :func:`run_multihost` is the example's ``--multihost`` mode (``:153-224``):
 the device runner over a ``dp`` mesh of the joined processes, the lanes and
@@ -36,14 +40,13 @@ the ring's rows split over them (``parallel/``).
 """
 
 import functools
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
 from pfrl_tpu_torch import runtime
 from pfrl_tpu_torch._device import resolve_device
 from pfrl_tpu_torch.agents.dqn import DQN
-from pfrl_tpu_torch.envs import synthetic_ale
 from pfrl_tpu_torch.envs.multiprocess_vector_env import MultiprocessVectorEnv, make_together
 from pfrl_tpu_torch.experiments.atari_per_dqn import NatureQ
 from pfrl_tpu_torch.experiments.evaluator import eval_performance
@@ -53,6 +56,9 @@ from pfrl_tpu_torch.explorers.epsilon_greedy import LinearDecayEpsilonGreedy
 from pfrl_tpu_torch.optimizers import Adam
 from pfrl_tpu_torch.replay.uniform import ReplayBuffer
 from pfrl_tpu_torch.utils.batch_states import atari_phi
+from pfrl_tpu_torch.wrappers import atari_wrappers
+
+ENV_ID = "BreakoutNoFrameskip-v4"  # the example's --env
 
 
 def make_dqn_batch_agent(
@@ -94,15 +100,29 @@ def make_dqn_batch_agent(
     )
 
 
-def make_vector_envs(num_envs: int = 8, seed: int = 0) -> Tuple[MultiprocessVectorEnv, MultiprocessVectorEnv]:
+def _env_factory(env_id: str, make_env: Optional[Callable], seed: int, idx: int, test: bool) -> Callable:
+    """A picklable factory of env ``idx``: ``make_env(seed, idx, test)``
+    where given, else the example's ``make_ale_env(args, idx, test)``
+    (``train_dqn_batch_ale.py:76-89``), ``atari_wrappers.make_atari_deepmind``
+    of ``env_id`` seeded ``seed + idx`` (``+ 10**6`` for an evaluation env)
+    with 5% random actions in evaluation. Its module imports no torch, so a
+    spawned worker that builds it loads none."""
+    if make_env is not None:
+        return functools.partial(make_env, seed, idx, test)
+    return functools.partial(atari_wrappers.make_atari_deepmind, env_id, test, seed + idx + (10**6 if test else 0),
+                             randomize_action=0.05)
+
+
+def make_vector_envs(num_envs: int = 8, seed: int = 0, env_id: str = ENV_ID,
+                     make_env: Optional[Callable] = None) -> Tuple[MultiprocessVectorEnv, MultiprocessVectorEnv]:
     """The training and the evaluation ``MultiprocessVectorEnv``
-    (``train_dqn_batch_ale.py:93-99``) of ``synthetic_ale.make_ale_env(seed,
-    idx, test)``, their workers started together. The frame ops are built
-    here, before any worker spawns: the workers load the library and never
-    build it."""
+    (``train_dqn_batch_ale.py:93-99``) of the example's env of ``env_id``
+    or, where given, of ``make_env(seed, idx,
+    test)`` (``synthetic_ale.make_ale_env``), their workers started
+    together. The frame ops are built here, before any worker spawns: the
+    workers load the library and never build it."""
     runtime.build()
-    make = synthetic_ale.make_ale_env
-    return make_together(*(functools.partial(MultiprocessVectorEnv, [functools.partial(make, seed, i, test)
+    return make_together(*(functools.partial(MultiprocessVectorEnv, [_env_factory(env_id, make_env, seed, i, test)
                                                                      for i in range(num_envs)])
                            for test in (False, True)))
 
@@ -117,6 +137,8 @@ def run_batch(
     device=None,
     load: Optional[str] = None,
     demo: bool = False,
+    env_id: str = ENV_ID,
+    make_env: Optional[Callable] = None,
     **agent_kwargs,
 ):
     """``train_dqn_batch_ale.py``'s ``run_batch``: builds the agent and the
@@ -124,12 +146,17 @@ def run_batch(
     a JAX shell's ``train_state.msgpack``) where given, then with ``demo``
     evaluates 10 episodes, prints the example's line and returns ``(agent,
     stats)``; else trains through ``train_agent_batch_with_evaluation`` and
-    returns ``(agent, history)``. Closes the envs."""
-    agent = make_dqn_batch_agent(num_envs=num_envs, seed=seed, device=device, **agent_kwargs)
-    if load:
-        agent.load(load)
-    env, eval_env = make_vector_envs(num_envs, seed)
+    returns ``(agent, history)``. The envs are ``make_vector_envs(num_envs,
+    seed, env_id, make_env)``'s, and the agent takes its action count from
+    them, as the example's ``build_agent(env.action_space.n, ...)``; it
+    closes them."""
+    device = resolve_device(device)  # before any worker spawns
+    env, eval_env = make_vector_envs(num_envs, seed, env_id=env_id, make_env=make_env)
     try:
+        agent = make_dqn_batch_agent(num_envs=num_envs, seed=seed, device=device,
+                                     **{"n_actions": env.action_space.n, **agent_kwargs})
+        if load:
+            agent.load(load)
         if demo:
             stats = eval_performance(env=eval_env, agent=agent, n_steps=None, n_episodes=10)
             print(f"n_episodes: {stats['episodes']} mean: {stats['mean']} "
@@ -157,16 +184,25 @@ def run_actor_learner(
     global_step_hooks=(),
     learner_step_hooks=(),
     n_updates: Optional[int] = None,
+    env_id: str = ENV_ID,
+    make_env: Optional[Callable] = None,
     **agent_kwargs,
 ) -> DQN:
     """``train_dqn_batch_ale.py``'s ``run_actor_learner``: builds the agent
     (or takes ``agent``), starts the poller and the learner, drives
     ``num_envs`` actor threads through ``train_agent_async``, then stops and
-    joins the learner and the poller (which stops the server). A failure of
-    any of these threads is raised here after the join. Returns the
-    learner agent."""
+    joins the learner and the poller (which stops the server). Actor ``i``
+    builds the example's env of ``env_id`` or ``make_env(seed, i, test)``;
+    a built agent takes its action count from a probe env, as the example's.
+    A failure of any of these threads is raised here after the join.
+    Returns the learner agent."""
     if agent is None:
-        agent = make_dqn_batch_agent(num_envs=num_envs, seed=seed, device=device, **agent_kwargs)
+        device = resolve_device(device)
+        probe = _env_factory(env_id, make_env, seed, 0, False)()
+        n_actions = probe.action_space.n
+        probe.close()
+        agent = make_dqn_batch_agent(num_envs=num_envs, seed=seed, device=device,
+                                     **{"n_actions": n_actions, **agent_kwargs})
     runtime.build()  # the frame ops, once, before the actor threads load them
     make_actor, learner, poller, exception_event = agent.setup_actor_learner_training(
         n_actors=num_envs, n_updates=n_updates, step_hooks=learner_step_hooks)
@@ -174,7 +210,8 @@ def run_actor_learner(
     learner.start()
     try:
         train_agent_async(
-            outdir=outdir, processes=num_envs, make_env=functools.partial(synthetic_ale.make_ale_env, seed),
+            outdir=outdir, processes=num_envs,
+            make_env=lambda idx, test: _env_factory(env_id, make_env, seed, idx, test)(),
             steps=steps, eval_interval=eval_interval, eval_n_steps=None, eval_n_episodes=eval_n_episodes,
             make_agent=make_actor, stop_event=learner.stop_event, exception_event=exception_event,
             global_step_hooks=global_step_hooks,

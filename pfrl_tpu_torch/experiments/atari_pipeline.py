@@ -1,4 +1,4 @@
-"""``examples/atari/train_dqn_pipeline_ale.py --sim``: Nature DQN through the
+"""``examples/atari/train_dqn_pipeline_ale.py``: Nature DQN through the
 actor-learner pipeline (:mod:`pfrl_tpu_torch.parallel.atari_pipeline`) at
 the example's own settings.
 
@@ -15,8 +15,12 @@ one per 4 transitions from 50,000 on, target syncs every 10^4 (in
 transitions of updates x 4). Sizes are arguments, so that tests run it
 small; the example's values are the defaults.
 
-:func:`run` is the example's ``--sim`` command line
-(``train_dqn_pipeline_ale.py:106-123,159``): with ``--load`` or ``--demo``
+:func:`run` is the example's command line
+(``train_dqn_pipeline_ale.py:106-123,159``). Without ``--sim`` the actors
+step ``--env`` through ``atari_wrappers.make_ale_plane_env`` (the example's
+``make_ale_plane_env``: ``make_atari``, then a second MaxAndSkip, ClipReward
+and WarpFrame, so that each action spans 16 raw frames, as in the
+example), and the action count comes from a probe env. With ``--load`` or ``--demo``
 it builds the core's train state, loads the saved one into it (the port's
 ``train_state.pt`` or a JAX ``train_state.msgpack``) and, with
 ``--demo``, evaluates it on ``EvalLoop(AtariSim(6), 5 x 500)`` and
@@ -26,6 +30,7 @@ and ``--save-to``s the train state.
 """
 
 import argparse
+import functools
 import time
 from typing import Callable, Optional, Sequence
 
@@ -38,12 +43,13 @@ from pfrl_tpu_torch.explorers.epsilon_greedy import LinearDecayEpsilonGreedy
 from pfrl_tpu_torch.optimizers import RMSprop
 from pfrl_tpu_torch.parallel.atari_pipeline import AtariActorLearnerPipeline
 from pfrl_tpu_torch.utils.batch_states import atari_phi
+from pfrl_tpu_torch.wrappers import atari_wrappers
 
 
-def make_pipeline_core(n_actions: int = 6, compute_dtype: Optional[torch.dtype] = None) -> DQNCore:
+def make_pipeline_core(n_actions: int = 6, compute_dtype: Optional[torch.dtype] = None, lr: float = 2.5e-4) -> DQNCore:
     return DQNCore(
         model=NatureQ(n_actions),
-        optimizer=RMSprop(2.5e-4, decay=0.95, eps=1e-2),
+        optimizer=RMSprop(lr, decay=0.95, eps=1e-2),
         explorer=LinearDecayEpsilonGreedy(1.0, 0.1, 10**6, n_actions),
         gamma=0.99,
         batch_accumulator="sum",
@@ -65,11 +71,13 @@ def make_dqn_pipeline(
     replay_start_size: int = 5 * 10**4,
     burst: int = 64,
     seed: int = 0,
+    n_actions: int = 6,
+    lr: float = 2.5e-4,
 ) -> AtariActorLearnerPipeline:
-    """``train_dqn_pipeline_ale.py --sim [--bf16]`` on ``device`` (default:
+    """``train_dqn_pipeline_ale.py [--sim] [--bf16]`` on ``device`` (default:
     the CUDA device)."""
     return AtariActorLearnerPipeline(
-        core=make_pipeline_core(compute_dtype=compute_dtype),
+        core=make_pipeline_core(n_actions, compute_dtype=compute_dtype, lr=lr),
         env_factory=env_factory,
         n_workers=n_workers,
         lanes_per_worker=lanes_per_worker,
@@ -85,14 +93,16 @@ def make_dqn_pipeline(
 
 
 def build_parser() -> argparse.ArgumentParser:
-    """``train_dqn_pipeline_ale.py``'s flags that the ``--sim`` path reads."""
+    """``train_dqn_pipeline_ale.py``'s flags."""
     from pfrl_tpu_torch.experiments.demo_cli import add_demo_args
 
     parser = argparse.ArgumentParser()
-    parser.add_argument("--sim", action="store_true", help="SyntheticALE frames (the only mode ported)")
+    parser.add_argument("--env", default="BreakoutNoFrameskip-v4")
+    parser.add_argument("--sim", action="store_true", help="SyntheticALE frames instead of ALE (no ROMs)")
     parser.add_argument("--steps", type=int, default=5 * 10**7)
     parser.add_argument("--workers", type=int, default=3)
     parser.add_argument("--lanes", type=int, default=96)
+    parser.add_argument("--lr", type=float, default=2.5e-4)
     parser.add_argument("--batch-size", type=int, default=32)
     parser.add_argument("--replay-capacity", type=int, default=10**6)
     parser.add_argument("--replay-start-size", type=int, default=5 * 10**4)
@@ -106,11 +116,13 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def run(argv: Optional[Sequence[str]] = None, device=None, env_factory: Callable = make_warped) -> dict:
-    """``train_dqn_pipeline_ale.py --sim`` with ``argv``'s flags on
-    ``device`` (default: the CUDA device). With ``--demo`` returns
-    ``{"train_state", "demo_returns"}``; after training ``{"train_state",
-    "pipeline"`` (stopped) ``, "saved_to"}``."""
+def run(argv: Optional[Sequence[str]] = None, device=None, env_factory: Optional[Callable] = None) -> dict:
+    """``train_dqn_pipeline_ale.py`` with ``argv``'s flags on ``device``
+    (default: the CUDA device). The actors' ``env_factory(seed)`` is, unless
+    given, ``make_warped`` with ``--sim`` and ``make_ale_plane_env`` of
+    ``--env`` without. With ``--demo`` returns ``{"train_state",
+    "demo_returns"}``; after training ``{"train_state", "pipeline"``
+    (stopped) ``, "saved_to"}``."""
     from pfrl_tpu_torch.envs.atari_sim import AtariSim
     from pfrl_tpu_torch.experiments.demo_cli import (
         demo_returns,
@@ -121,12 +133,18 @@ def run(argv: Optional[Sequence[str]] = None, device=None, env_factory: Callable
     from pfrl_tpu_torch.experiments.runner import EvalLoop
 
     args = build_parser().parse_args(argv)
-    if not args.sim:
-        raise NotImplementedError("the real ALE (make_atari) is not ported: pass --sim")
+    if args.sim:
+        env_factory = env_factory or make_warped
+        n_actions = 6
+    else:
+        env_factory = env_factory or functools.partial(atari_wrappers.make_ale_plane_env, args.env)
+        probe = env_factory(0)
+        n_actions = probe.action_space.n
+        probe.close()
     compute_dtype = torch.bfloat16 if args.bf16 else None
     if args.demo:
-        core = make_pipeline_core(compute_dtype=compute_dtype)
-        eval_loop = EvalLoop(AtariSim(n_actions=6, device=device), core, 5, 500, device=device)
+        core = make_pipeline_core(n_actions, compute_dtype=compute_dtype, lr=args.lr)
+        eval_loop = EvalLoop(AtariSim(n_actions=n_actions, device=device), core, 5, 500, device=device)
         example = torch.zeros((1, 84, 84, 4), dtype=torch.uint8, device=eval_loop.device)
         train_state = core.init(torch.Generator().manual_seed(0), example)
         if args.load:
@@ -138,7 +156,8 @@ def run(argv: Optional[Sequence[str]] = None, device=None, env_factory: Callable
         compute_dtype=compute_dtype, device=device, env_factory=env_factory, n_workers=args.workers,
         lanes_per_worker=args.lanes, capacity=args.replay_capacity, minibatch_size=args.batch_size,
         update_interval=args.update_interval, target_update_interval=args.target_update_interval,
-        replay_start_size=args.replay_start_size, burst=args.burst, seed=args.seed,
+        replay_start_size=args.replay_start_size, burst=args.burst, seed=args.seed, n_actions=n_actions,
+        lr=args.lr,
     )
     if args.load:
         pipe.load(args.load)  # kept by ``start``

@@ -35,6 +35,11 @@ settings, each with the length that ``chip_smoke.py`` runs.
 ``train_dqn_gym.py``'s and ``train_categorical_dqn_gym.py``'s host modes
 (``experiments/dqn_gym.py``, ``categorical_dqn_gym.py``) over the port's
 Pendulum and CartPole on the CPU behind ``HostTorchEnv``.
+``dqn-ale-host-per-1`` is ``train_dqn_ale.py --prioritized``'s host path
+(``atari_dqn_ale.make_ale_agent``, ``make_ale_env``) over the ALE stand-in
+of the repository's tests (``tests/torch_ale_standin.py``), built through
+``make_atari`` where gymnasium is installed and through its chain helper
+otherwise (:func:`standin_make_atari`).
 ``profile_slice --config C`` and ``count_ops --config C`` run these for
 ``dqn-batch-ale-8``, ``grasping-dqn-batch-1`` and each path;
 ``chip_smoke.py`` runs them uncut.
@@ -77,6 +82,7 @@ from torch.profiler import ProfilerActivity, profile
 from pfrl_tpu_torch.envs import synthetic_ale
 from pfrl_tpu_torch import spaces
 from pfrl_tpu_torch.experiments import (
+    atari_dqn_ale,
     atari_dqn_batch,
     categorical_dqn_gym,
     dqn_gym,
@@ -101,7 +107,9 @@ class HostPath:
     with ``actors`` runs the actor-learner mode instead
     (:func:`run_actor_learner_path`): that many actor threads of one lane,
     ``make_env(idx, test)`` each, to ``steps`` transitions or ``n_updates``
-    updates, whichever comes first."""
+    updates, whichever comes first. ``obs(rs, lanes)`` makes the
+    observations :func:`count_host_path_ops` feeds the shell (default:
+    float32 normals of ``obs_size``)."""
 
     make_agent: Callable
     make_env: Callable
@@ -112,6 +120,7 @@ class HostPath:
     agent_kwargs: Tuple = ()
     actors: int = 0
     n_updates: Optional[int] = None
+    obs: Optional[Callable] = None
 
 
 _CHEETAH, _HOPPER = mujoco_host.HALFCHEETAH, mujoco_host.HOPPER
@@ -123,6 +132,45 @@ def _pendulum_host_env(seed: int):
     from pfrl_tpu_torch.envs import HostTorchEnv, Pendulum, TimeLimit
 
     return dqn_gym.wrapped_env(lambda s: HostTorchEnv(TimeLimit(Pendulum(device="cpu"), 200), seed=s), seed)
+
+
+def _atari_frames(rs, lanes):
+    return rs.randint(0, 256, (lanes, 84, 84, 4)).astype(np.uint8)
+
+
+# ``dqn-ale-host-per-1`` runs ``train_dqn_ale.py``'s host path over the
+# ALE stand-in of the repository's tests (``tests/torch_ale_standin.py``):
+# ALE and its ROMs are not installed.
+ALE_STANDIN_ID = "torch_ale_standin:ALEStandIn-v0"
+
+
+def standin_make_atari() -> Callable:
+    """``make_atari`` for the ALE stand-in: ``atari_wrappers.make_atari``
+    (the stand-in's gymnasium id) where gymnasium is installed, else the
+    stand-in's ``make_standin_atari``, the same chain through ``make_atari``'s
+    own helper over the stand-in built directly. Puts the repository's
+    ``tests/`` on ``sys.path``, where the stand-in lives."""
+    import sys
+    from pathlib import Path
+
+    tests = Path(__file__).resolve().parents[2] / "tests"
+    if not (tests / "torch_ale_standin.py").is_file():
+        raise FileNotFoundError(f"the ALE stand-in is not at {tests}: run from a checkout of the repository")
+    if str(tests) not in sys.path:
+        sys.path.insert(0, str(tests))
+    import torch_ale_standin
+
+    if torch_ale_standin.gymnasium is not None:
+        from pfrl_tpu_torch.wrappers.atari_wrappers import make_atari
+
+        return make_atari
+    return torch_ale_standin.make_standin_atari
+
+
+def _ale_standin_env(seed: int):
+    """``train_dqn_ale.py``'s training env (seed 0) or evaluation env (seed
+    100, and any other) over the ALE stand-in, unseeded as in the example."""
+    return atari_dqn_ale.make_ale_env(ALE_STANDIN_ID, test=seed != 0, make_atari=standin_make_atari())
 
 
 def _cartpole_host_env(seed: int):
@@ -181,6 +229,12 @@ HOST_PATHS = {
     # quickstart.py --hostloop, through the serial driver: an update per
     # transition from 500 to t = 3,000 (2,501 updates), 10 evaluation episodes.
     "quickstart-dqn-cartpole-host-1": HostPath(quickstart.make_hostloop_agent, quickstart.cartpole_env, 4, 3_000, 10),
+    # train_dqn_ale.py --prioritized (the host path, run_ale) over the ALE
+    # stand-in's 4 actions: one env stepped per act, a batch-32 update per 4
+    # transitions from the replay start of 50,000, the 10^6-slot PER ring
+    # (C = 2^20, the prefix-sample kernel once per update), to t = 51,000.
+    "dqn-ale-host-per-1": HostPath(functools.partial(atari_dqn_ale.make_ale_agent, 4, prioritized=True),
+                                   _ale_standin_env, 84 * 84 * 4, 51_000, 1, obs=_atari_frames),
 }
 
 
@@ -424,7 +478,7 @@ def run_actor_learner_path(agent, make_env, steps: int, eval_interval: int, eval
         atari_dqn_batch.run_actor_learner(outdir, steps=steps, eval_interval=eval_interval,
                                           eval_n_episodes=eval_n_episodes, num_envs=actors, agent=agent,
                                           global_step_hooks=[mark], learner_step_hooks=[profile_window],
-                                          n_updates=n_updates)
+                                          n_updates=n_updates, make_env=lambda _seed, idx, test: make_env(idx, test))
     finally:
         del agent.core.sync_target
         if "start" in window and "end" not in window:
@@ -531,10 +585,6 @@ def count_actor_learner_ops(agent, actors: int = 8, rows: int = 16) -> dict:
     }
 
 
-def _atari_frames(rs, lanes):
-    return rs.randint(0, 256, (lanes, 84, 84, 4)).astype(np.uint8)
-
-
 def count_host_ops(agent, batch_steps: int = 16, lanes: Optional[int] = None, obs: Callable = _atari_frames) -> dict:
     """Aten ops of one ``batch_act``, one ``batch_observe`` without an
     update and one update of ``agent`` (an on-policy shell's update over
@@ -582,7 +632,7 @@ def count_host_path_ops(name: str, device=None, compute_dtype=None, capacity: Op
         return count_actor_learner_ops(agent, path.actors)
     size = path.obs_size
     return count_host_ops(agent, lanes=path.lanes,
-                          obs=lambda rs, lanes: rs.normal(size=(lanes, size)).astype(np.float32))
+                          obs=path.obs or (lambda rs, lanes: rs.normal(size=(lanes, size)).astype(np.float32)))
 
 
 def _keywords(fn) -> set:

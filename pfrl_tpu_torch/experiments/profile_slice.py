@@ -10,7 +10,8 @@
                   dqn-ale-nature-64|dqn-ale-nips-64|dqn-ale-dueling-64|
                   per-dqn-ale-64|c51-atarisim-64|dqn-pipeline-288|dqn-batch-ale-8|
                   naf-pendulum-32|naf-mountaincar-32|dqn-gym-cartpole-32|grasping-dqn-batch-1|
-                  the paths of profile_host.HOST_PATHS, dqn-actor-learner-ale-8 among them]
+                  the paths of profile_host.HOST_PATHS, dqn-actor-learner-ale-8 and
+                  dqn-ale-host-per-1 among them]
         [--steps 8] [--bf16] [--mesh] [--out PATH]
 
 Runs one configuration at full width on the CUDA device. On 64 lanes of
@@ -119,8 +120,10 @@ step at a time by ``train_agent_batch_with_evaluation``
 ``batch_observe`` and update), then one evaluation of 10 episodes. The
 host paths of ``profile_host.HOST_PATHS`` (the MuJoCo reproduction
 examples' shells over ``MujocoSim`` at HalfCheetah's and Hopper's sizes,
-and SlimeVolley Rainbow on CartPole) run the same way through their
-scripts' drivers: an off-policy shell's replay start cut to 2,048, then
+SlimeVolley Rainbow on CartPole, and ``dqn-ale-host-per-1``,
+``train_dqn_ale.py --prioritized``'s host path over the ALE stand-in of
+``tests/torch_ale_standin.py``, the 10^6-slot PER ring at C = 2^20) run the
+same way through their scripts' drivers: an off-policy shell's replay start cut to 2,048, then
 ``--steps`` batch steps profiled and ``--steps`` more timed; an on-policy
 shell over two updates, ``--steps`` batch steps profiled around the second.
 ``dqn-actor-learner-ale-8`` (``train_dqn_batch_ale.py --actor-learner``:
@@ -159,6 +162,7 @@ from pfrl_tpu_torch.agents.ppo import PPOCore
 from pfrl_tpu_torch.agents.recurrent_ppo import RecurrentPPOCore
 from pfrl_tpu_torch.agents.recurrent_trpo import RecurrentTRPOCore
 from pfrl_tpu_torch.agents.trpo import TRPOCore
+from pfrl_tpu_torch.envs import synthetic_ale
 from pfrl_tpu_torch.experiments import (
     acer,
     atari_a3c,
@@ -247,7 +251,8 @@ HOSTS = {"dqn-batch-ale-8": atari_dqn_batch.make_dqn_batch_agent,
          "grasping-dqn-batch-1": functools.partial(grasping_dqn_batch.make_grasping_agent,
                                                    capacity=grasping_dqn_batch.CARD_CAPACITY)}
 # ``HOSTS[config]`` -> its training and evaluation vector envs, given the lanes.
-HOST_ENVS = {"dqn-batch-ale-8": atari_dqn_batch.make_vector_envs,
+HOST_ENVS = {"dqn-batch-ale-8": functools.partial(atari_dqn_batch.make_vector_envs,
+                                                  make_env=synthetic_ale.make_ale_env),
              "grasping-dqn-batch-1": grasping_dqn_batch.make_vector_envs}
 # ``HOSTS[config]`` -> ``obs(rs, lanes)``, the observations ``count_ops`` feeds its shell.
 HOST_OBS = {"grasping-dqn-batch-1": grasping_dqn_batch.random_observations}

@@ -4,15 +4,16 @@ pfrl/wrappers/atari_wrappers.py:23-325).
 
 Fork-of-Baselines stack: NoopReset, FireReset, EpisodicLife, MaxAndSkip,
 ClipReward, WarpFrame (84x84 grayscale), FrameStack with LazyFrames,
-ScaledFloatFrame, FlickerFrame, and ``wrap_deepmind``. They wrap a *host*
-env with the gym 4-tuple step API (``SyntheticALE`` in the port so far).
-WarpFrame and MaxAndSkip run on the native C++ frame ops
-(:mod:`pfrl_tpu_torch.runtime`), which raise when they cannot be built:
-no numpy fallback on this path.
+ScaledFloatFrame, FlickerFrame, and the ``make_atari``/``wrap_deepmind``
+factories. They wrap a *host* env with the gym 4-tuple step API: an ALE
+game through gymnasium (``make_atari``), or ``SyntheticALE``. WarpFrame and
+MaxAndSkip run on the native C++ frame ops (:mod:`pfrl_tpu_torch.runtime`),
+which raise when they cannot be built: no numpy fallback on this path.
 
-The module imports no torch: the Atari pipeline's actor processes run it.
-``make_atari`` (a real ALE through gymnasium) comes with the host-env
-path.
+The module imports no torch: the Atari pipeline's actor processes and the
+workers of ``MultiprocessVectorEnv`` run it. The examples' env factories
+(:func:`make_atari_deepmind`, :func:`make_ale_plane_env`) live here, at
+module level, so that they pickle into spawned workers.
 """
 
 from collections import deque
@@ -250,6 +251,41 @@ class FlickerFrame(_GymWrapper):
         return obs, reward, done, info
 
 
+MAX_FRAMES = 30 * 60 * 60  # 108,000 raw frames: 30 minutes at 60 frames per second
+
+
+def _atari_chain(env, max_frames=MAX_FRAMES):
+    """``make_atari``'s wrappers around an ALE-shaped host env (a
+    ``GymnasiumEnv`` from ``make_gymnasium_env``, or any env with its
+    surface: ``unwrapped.get_action_meanings()``, ``unwrapped.np_random``,
+    ``seed``): the time limit on raw frames (before the skip), 1 to 30
+    no-ops after each reset, each action repeated 4 times and the last two
+    frames maxed."""
+    from pfrl_tpu_torch.wrappers.continuing_time_limit import ContinuingTimeLimit
+
+    if max_frames:
+        env = ContinuingTimeLimit(env, max_episode_steps=max_frames)
+    env = NoopResetEnv(env, noop_max=30)
+    return MaxAndSkipEnv(env, skip=4)
+
+
+def make_atari(env_id, max_frames=MAX_FRAMES):
+    """``pfrl_tpu/wrappers/atari_wrappers.py:234-248`` (reference:
+    pfrl/wrappers/atari_wrappers.py:288-301): the ALE game ``env_id``
+    through gymnasium (no frame skip, no sticky actions, the minimal action
+    set) under :func:`_atari_chain`. Without ``ale_py`` and its ROMs (or
+    without gymnasium) it raises the ``RuntimeError`` of
+    ``make_gymnasium_env``, which names gymnasium's error; it never stands
+    in a simulator of its own."""
+    from pfrl_tpu_torch.envs.gymnasium_env import make_gymnasium_env
+
+    env = make_gymnasium_env(
+        env_id, obs_type="image", frameskip=1,
+        repeat_action_probability=0.0, full_action_space=False,
+    )
+    return _atari_chain(env, max_frames)
+
+
 def wrap_deepmind(
     env,
     episode_life=True,
@@ -275,3 +311,39 @@ def wrap_deepmind(
     if frame_stack:
         env = FrameStack(env, 4, channel_order=channel_order)
     return env
+
+
+def make_atari_deepmind(env_id, test=False, seed=None, max_frames=MAX_FRAMES, randomize_action=0.0,
+                        make=make_atari):
+    """The Atari examples' env: ``wrap_deepmind(make(env_id, max_frames),
+    episode_life=not test, clip_rewards=not test, channel_order="hwc")``
+    (84x84x4 uint8 stacks), seeded with ``seed`` where one is given (it
+    reaches ``GymnasiumEnv.seed`` and takes effect at the next reset), and,
+    for an evaluation env with ``randomize_action`` > 0, a random action
+    that often (``RandomizeAction``, unseeded as in the examples).
+    ``make`` builds the chain (``make_atari``, or one over another
+    ALE-shaped env). Module level, so that a ``functools.partial`` of it
+    pickles into a spawned worker."""
+    env = wrap_deepmind(make(env_id, max_frames=max_frames), episode_life=not test, clip_rewards=not test,
+                        channel_order="hwc")
+    if seed is not None:
+        env.seed(seed)
+    if test and randomize_action:
+        from pfrl_tpu_torch.wrappers.misc import RandomizeAction
+
+        env = RandomizeAction(env, randomize_action)
+    return env
+
+
+def make_ale_plane_env(env_id, seed=0):
+    """``examples/atari/train_dqn_pipeline_ale.py``'s ``make_ale_plane_env``
+    (``:27-43``): ``make_atari(env_id)`` seeded with ``seed``, then
+    MaxAndSkip -> ClipReward -> WarpFrame: [84, 84, 1] uint8 planes (the
+    pipeline stacks frames on the device). As in the example, the second
+    ``MaxAndSkipEnv`` sits over the one ``make_atari`` already ends in, so
+    each action spans 16 raw frames."""
+    env = make_atari(env_id)
+    env.seed(seed)
+    env = MaxAndSkipEnv(env, skip=4)
+    env = ClipRewardEnv(env)
+    return WarpFrame(env, channel_order="hwc")

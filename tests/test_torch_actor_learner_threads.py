@@ -44,7 +44,7 @@ import torch
 
 from pfrl_tpu_torch import agents as tagents
 from pfrl_tpu_torch.agents.state_q_function_actor import StateQFunctionActor, VectorStateQFunctionActor
-from pfrl_tpu_torch.envs import ABC, HostTorchEnv
+from pfrl_tpu_torch.envs import ABC, HostTorchEnv, synthetic_ale
 from pfrl_tpu_torch.experiments import AsyncEvaluator, atari_a3c, atari_dqn_batch, train_agent_async
 from pfrl_tpu_torch.experiments.cartpole_value import ReLUMLP
 from pfrl_tpu_torch.explorers import ConstantEpsilonGreedy
@@ -768,7 +768,8 @@ def test_run_actor_learner_trains_the_example_small_and_evaluates(tmp_path):
     slots, on the CPU: the run ends at its steps with one evaluation."""
     with time_limit(300):
         agent = atari_dqn_batch.run_actor_learner(str(tmp_path), steps=600, eval_interval=500, eval_n_episodes=1,
-                                                  num_envs=4, device="cpu", **RECIPE_KW)
+                                                  num_envs=4, device="cpu", make_env=synthetic_ale.make_ale_env,
+                                                  **RECIPE_KW)
     # The poller stops with what it has drained: the actors' last steps may
     # still be queued.
     assert 200 < agent.cumulative_steps <= 604 and agent.optim_t > 0 and agent.update_counter.value >= 1
@@ -790,7 +791,8 @@ def test_a_failing_thread_fails_run_actor_learner(tmp_path, where):
     target = {"learner": "_update_once", "poller": "_rows_to_transition", "server": "_actor_act_fn"}[where]
     setattr(agent, target, fail)
     with time_limit(300), pytest.raises(RuntimeError, match=f"{where} failed"):
-        atari_dqn_batch.run_actor_learner(str(tmp_path), steps=10**6, eval_interval=None, num_envs=2, agent=agent)
+        atari_dqn_batch.run_actor_learner(str(tmp_path), steps=10**6, eval_interval=None, num_envs=2, agent=agent,
+                                          make_env=synthetic_ale.make_ale_env)
     assert not any(t.name in ("learner", "poller", "inference-server") and t.is_alive() for t in threading.enumerate())
 
 

@@ -156,7 +156,7 @@ def test_small_run_matches_the_examples_shell(tmp_path):
 
 
 def test_recipe_vector_envs_spawn_the_examples_stack():
-    env, eval_env = atari_dqn_batch.make_vector_envs(num_envs=2, seed=3)
+    env, eval_env = atari_dqn_batch.make_vector_envs(num_envs=2, seed=3, make_env=synthetic_ale.make_ale_env)
     try:
         assert env.num_envs == eval_env.num_envs == 2 and env.action_space.n == 6
         obs = env.reset()

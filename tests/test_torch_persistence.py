@@ -463,7 +463,7 @@ def test_train_dqn_ale_sim_saves_loads_and_demos(tmp_path, capsys):
     assert line.startswith("n_episodes: 5 mean: ")
     with pytest.raises(CheckpointMismatchError):  # another network's state does not load
         atari_dqn_ale.run_sim(small + ["--arch", "nips", "--load", str(tmp_path), "--demo"], device="cpu")
-    with pytest.raises(NotImplementedError, match="--sim"):
+    with pytest.raises(RuntimeError, match="BreakoutNoFrameskip-v4"):  # without --sim: run_ale, ALE not installed
         atari_dqn_ale.run_sim(small[1:], device="cpu")
 
 
@@ -481,7 +481,7 @@ def test_run_batch_loads_and_demos(tmp_path, monkeypatch, capsys):
         env = atari_wrappers.MaxAndSkipEnv(SyntheticALE(seed, mean_len=40), skip=4)
         return atari_wrappers.wrap_deepmind(env, episode_life=False, clip_rewards=False, channel_order="hwc")
 
-    def small_envs(num_envs, seed):
+    def small_envs(num_envs, seed, **_):
         envs = SerialVectorEnv([make(seed + i) for i in range(num_envs)]), \
             SerialVectorEnv([make(seed + 100 + i) for i in range(num_envs)])
         for e in envs:

@@ -303,15 +303,24 @@ def test_a_burst_is_the_same_when_acting_and_committing_are_hammered_during_it()
 
 # ------------------------------------------------------------- the package
 def test_actor_processes_import_no_torch():
-    """Unpickling the shipped factory and running the worker's module load
-    no torch (and so can never touch the card)."""
+    """Unpickling the shipped factories and running the worker's module load
+    no torch (and so can never touch the card): ``make_warped``, and
+    ``make_atari``'s chain under ``wrap_deepmind`` over the ALE stand-in;
+    nor do the host wrappers ``Monitor``, ``video`` and ``VectorFrameStack``."""
     code = (
-        "import pickle, sys\n"
+        "import functools, pickle, sys\n"
+        "sys.path.insert(0, 'tests')\n"
         "from pfrl_tpu_torch.envs.synthetic_ale import make_warped\n"
         "from pfrl_tpu_torch.parallel import env_worker\n"
         "env = pickle.loads(pickle.dumps(make_warped))(3)\n"
         "obs = env.reset(); obs, r, d, _ = env.step(1)\n"
         "assert obs.shape == (84, 84, 1) and callable(env_worker._env_worker)\n"
+        "from pfrl_tpu_torch.wrappers import atari_wrappers\n"
+        "factory = functools.partial(atari_wrappers.make_atari_deepmind, 'torch_ale_standin:ALEStandIn-v0', False, 3)\n"
+        "env = pickle.loads(pickle.dumps(factory))()\n"
+        "obs = env.reset(); obs, r, d, _ = env.step(1)\n"
+        "assert obs.__array__().shape == (84, 84, 4)\n"
+        "from pfrl_tpu_torch.wrappers import Monitor, Render, VectorFrameStack, video\n"
         "assert 'torch' not in sys.modules, 'torch was imported'\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
