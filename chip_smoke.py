@@ -309,6 +309,26 @@ result, without them. Its phases, each raising on failure:
    its env-steps/s, updates/s, kernel launches and, over 16 profiled
    steps, the device's busy share and the kernel's device time; the kernel
    held against its plain version on the run's final tree.
+23. Siblings and JAX checkpoints (``run_siblings_and_checkpoints``), each
+   on the card against the CPU and against the CPU with the weights and
+   inputs nudged by 1 +- 2^-23 (every tensor within 4x the larger nudge,
+   or 3e-6 where that is more): the batch-norm critics
+   ``FCBNLateActionSAQFunction`` and ``FCBNSAQFunction`` at the DDPG
+   example's widths (HalfCheetah's 17 observations and 6 actions, 400
+   channels, 2 layers, batch 100; ``experiments/bn_critic.py``), 200
+   train-mode Adam steps toward a fixed target, then an evaluation forward
+   on the running statistics (weights, running statistics, Q-values; ms
+   per train step); ``FCLSTMSAQFunction`` at 400 channels, batch 100,
+   unrolled 100 steps from ``initial_carry`` (Q-values and carry);
+   ``EmpiricalNormalization`` over 50 batches of 2,048 x 17 with ``until``
+   100,000, the 50th update frozen (state, ``normalize``, ``inverse``);
+   ``RMSpropEpsInsideSqrt`` at the Nature DQN settings, momentum 0 and 0.9,
+   100 steps over the Nature CNN's parameters (parameters and state; ms
+   per step); and the Nature-CNN DQN core of ``train_dqn_ale.py --sim``
+   after 80 Adam updates, written in the JAX package's layout
+   (``convert.save_flax_checkpoint``), read back by the port's reader into
+   a fresh core and compared to the bit (bytes, write and read seconds).
+   No path of it launches the kernel.
 
 The kernels' launch counts are set to 0 just before each full-width path
 and read just after it; the kernels' JSON line gives their sum over the
@@ -5445,6 +5465,264 @@ def run_full_dqn_ale(card: str) -> dict:
     return result
 
 
+# -------------------------------------------------------------------- phase 23
+SIBLING_NUDGES = (1.0 + 2.0**-23, 1.0 - 2.0**-23)
+SIBLING_FLOOR = 3e-6      # C22's floor, where 4x the nudges is less
+BN_CRITIC_STEPS = 200     # Adam(1e-3) steps of each batch-norm critic in train mode
+LSTM_Q_UNROLL = 100       # FCLSTMSAQFunction's steps from initial_carry
+NORMALIZER = (17, 2_048, 50, 100_000)  # width, batch, updates, until: the 50th update is frozen
+RMSPROP_STEPS = 100
+CHECKPOINT_SCAN_STEPS = 20  # the Nature-CNN DQN's runner, 64 lanes, replay start 1,024: 64 updates
+
+
+def _held(card_t, cpu_t, nudged, what: str, out: dict) -> None:
+    """The card's tensor against the CPU's: within ``SIBLING_FLOOR`` or 4x
+    the larger of what the CPU's two nudged runs move it."""
+    c, w = card_t.detach().cpu().double(), cpu_t.detach().cpu().double()
+    diff = float((c - w).abs().max()) if c.numel() else 0.0
+    nudge = max(float((n.detach().cpu().double() - w).abs().max()) if w.numel() else 0.0 for n in nudged)
+    bound = max(SIBLING_FLOOR, 4 * nudge)
+    out[what] = {"diff": diff, "nudge": nudge, "bound": bound}
+    if not diff <= bound:
+        raise AssertionError(f"phase 23 {what}: card - CPU {diff:.3e} > {bound:.3e} (4x nudges {nudge:.3e})")
+
+
+def _worst(held: dict) -> dict:
+    name = max(held, key=lambda k: held[k]["diff"] / held[k]["bound"])
+    return {"tensors": len(held), "worst": name, **held[name]}
+
+
+def _nudge_(module: torch.nn.Module, factor: float) -> torch.nn.Module:
+    with torch.no_grad():
+        for p in module.parameters():
+            p.mul_(factor)
+    return module
+
+
+def check_bn_critic(kind: str, device, card: str) -> dict:
+    """The batch-norm critic ``kind`` at the DDPG example's widths
+    (``experiments/bn_critic.py``): ``BN_CRITIC_STEPS`` train-mode Adam steps
+    toward a fixed target on the card, on the CPU and on the CPU with the
+    weights and inputs nudged by 1 +- 2^-23; then an evaluation forward on
+    the running statistics. Every weight, running statistic and Q-value
+    held; then the card's ms per train step."""
+    from pfrl_tpu_torch.experiments import bn_critic
+
+    arrays = bn_critic.make_batches(BN_CRITIC_STEPS + 1, seed=23)
+    runs = {}
+    for side, dev, f in (("card", device, 1.0), ("cpu", "cpu", 1.0),
+                         ("nudged+", "cpu", SIBLING_NUDGES[0]), ("nudged-", "cpu", SIBLING_NUDGES[1])):
+        critic = _nudge_(bn_critic.make_critic(kind, seed=23, device="cpu"), f).to(dev)
+        optimizer, opt_state = bn_critic.make_optimizer(critic)
+        obs, act, target = (torch.from_numpy(x * (f if i < 2 else 1.0)).to(dev) for i, x in enumerate(arrays))
+        for i in range(BN_CRITIC_STEPS):
+            bn_critic.train_step(critic, optimizer, opt_state, obs[i], act[i], target[i])
+        with torch.no_grad():
+            q = critic(obs[-1], act[-1], train=False)
+        runs[side] = (critic, q, (optimizer, opt_state, obs[0], act[0], target[0]))
+    held = {}
+    states = {side: r[0].state_dict() for side, r in runs.items()}
+    for name, value in states["cpu"].items():
+        _held(states["card"][name], value, [states["nudged+"][name], states["nudged-"][name]], name, held)
+    _held(runs["card"][1], runs["cpu"][1], [runs["nudged+"][1], runs["nudged-"][1]], "eval q", held)
+    critic, _, (optimizer, opt_state, obs, act, target) = runs["card"]
+    ms = time_ms(lambda: bn_critic.train_step(critic, optimizer, opt_state, obs, act, target), iters=100, warmup=5)
+    result = {"steps": BN_CRITIC_STEPS, "widths": [bn_critic.OBS, bn_critic.ACT, bn_critic.CHANNELS,
+                                                   bn_critic.LAYERS, bn_critic.BATCH],
+              "ms_per_step": ms, **_worst(held)}
+    print(f"phase 23 bn critic {kind}: {BN_CRITIC_STEPS} steps held ({result['tensors']} tensors, worst "
+          f"{result['worst']} {result['diff']:.3e} <= {result['bound']:.3e}); {ms:.3f} ms/train step ({card})")
+    return result
+
+
+def check_lstm_q(device, card: str) -> dict:
+    """``FCLSTMSAQFunction`` at 400 channels (2 layers; HalfCheetah's 17
+    observations and 6 actions), batch 100, unrolled ``LSTM_Q_UNROLL``
+    steps from ``initial_carry`` in its sequence form: the Q-values and the
+    final carry held, then the card's ms per unroll."""
+    import copy
+
+    from pfrl_tpu_torch.q_functions import FCLSTMSAQFunction
+
+    base = FCLSTMSAQFunction(17, 6, 400, 2)
+    base.reset_parameters(torch.Generator().manual_seed(24))
+    rs = np.random.RandomState(24)
+    obs = (rs.normal(size=(LSTM_Q_UNROLL, 100, 17)) * 2.0).astype(np.float32)
+    act = np.tanh(rs.normal(size=(LSTM_Q_UNROLL, 100, 6))).astype(np.float32)
+    outs = {}
+    with torch.no_grad():
+        for side, dev, f in (("card", device, 1.0), ("cpu", "cpu", 1.0),
+                             ("nudged+", "cpu", SIBLING_NUDGES[0]), ("nudged-", "cpu", SIBLING_NUDGES[1])):
+            m = _nudge_(copy.deepcopy(base), f).to(dev)
+            o, a = torch.from_numpy(obs * f).to(dev), torch.from_numpy(act * f).to(dev)
+            q, (carry,) = m(o, a, m.initial_carry(100), sequence=True)
+            outs[side] = (q, carry, m, o, a)
+        held = {}
+        nudged = [outs["nudged+"], outs["nudged-"]]
+        _held(outs["card"][0], outs["cpu"][0], [n[0] for n in nudged], "q", held)
+        for i, leaf in enumerate(("c", "h")):
+            _held(outs["card"][1][i], outs["cpu"][1][i], [n[1][i] for n in nudged], f"carry {leaf}", held)
+        _, _, m, o, a = outs["card"]
+        ms = time_ms(lambda: m(o, a, m.initial_carry(100), sequence=True), iters=10, warmup=2)
+    result = {"unroll": LSTM_Q_UNROLL, "ms_per_unroll": ms, **_worst(held)}
+    print(f"phase 23 FCLSTMSAQFunction: {LSTM_Q_UNROLL} steps x 100 held (worst {result['worst']} "
+          f"{result['diff']:.3e} <= {result['bound']:.3e}); {ms:.3f} ms per unroll ({card})")
+    return result
+
+
+def check_empirical_normalization(device, card: str) -> dict:
+    """``EmpiricalNormalization`` over 17-wide batches of 2,048 (the PPO
+    example's update interval), 50 updates with ``until`` 100,000: the 50th
+    finds the count at 100,352 and leaves the state. The state,
+    ``normalize`` (clipped) and ``inverse`` held; the inputs nudged on the
+    CPU (the normalizer has no weights)."""
+    from pfrl_tpu_torch.models import EmpiricalNormalization
+
+    width, batch, updates, until = NORMALIZER
+    rs = np.random.RandomState(26)
+    scale, offset = np.exp(rs.normal(size=width)), rs.normal(size=width) * 5
+    data = [(rs.normal(size=(batch, width)) * scale + offset).astype(np.float32) for _ in range(updates)]
+    en = EmpiricalNormalization((width,), until=until)
+    outs = {}
+    for side, dev, f in (("card", device, 1.0), ("cpu", "cpu", 1.0),
+                         ("nudged+", "cpu", SIBLING_NUDGES[0]), ("nudged-", "cpu", SIBLING_NUDGES[1])):
+        state = en.init(dev)
+        for b in data:
+            state = en.update(state, torch.from_numpy(b * f).to(dev))
+        x = torch.from_numpy(data[0] * 2 * f).to(dev)
+        y = en.normalize(state, x)
+        outs[side] = (state, y, en.inverse(state, y))
+    card_state = outs["card"][0]
+    if not float(card_state.count) == float(outs["cpu"][0].count) == (updates - 1) * batch:
+        raise AssertionError(f"phase 23 EmpiricalNormalization: count {float(card_state.count)}, "
+                             f"not {(updates - 1) * batch} (the 50th update frozen)")
+    if not float(outs["card"][1].abs().max()) == en.clip_threshold:
+        raise AssertionError("phase 23 EmpiricalNormalization: the clip was not reached")
+    held = {}
+    nudged = [outs["nudged+"], outs["nudged-"]]
+    for field in ("mean", "var"):
+        _held(getattr(card_state, field), getattr(outs["cpu"][0], field), [getattr(n[0], field) for n in nudged],
+              field, held)
+    _held(outs["card"][1], outs["cpu"][1], [n[1] for n in nudged], "normalize", held)
+    _held(outs["card"][2], outs["cpu"][2], [n[2] for n in nudged], "inverse", held)
+    b = torch.from_numpy(data[0]).to(device)
+    ms = time_ms(lambda: en.update(en.init(device), b), iters=50, warmup=5)
+    result = {"updates": updates, "batch": batch, "count": float(card_state.count), "ms_per_update": ms,
+              **_worst(held)}
+    print(f"phase 23 EmpiricalNormalization: {updates} updates of {batch} x {width} held (worst {result['worst']} "
+          f"{result['diff']:.3e} <= {result['bound']:.3e}); {ms:.3f} ms per update ({card})")
+    return result
+
+
+def check_rmsprop_eps_inside_sqrt(device, card: str) -> dict:
+    """``RMSpropEpsInsideSqrt`` at the Nature DQN settings (centered, alpha
+    0.95, eps 1e-2, lr 2.5e-4), momentum 0 and 0.9: ``RMSPROP_STEPS`` steps
+    over the Nature CNN's parameters (6 actions) from seeded gradients, on
+    the card, on the CPU and on the CPU with the parameters and gradients
+    nudged; the parameters and every tree of the state held, then the
+    card's ms per step."""
+    from pfrl_tpu_torch.experiments.atari_dqn_ale import build_model
+    from pfrl_tpu_torch.optimizers import RMSpropEpsInsideSqrt
+
+    model = build_model("nature", 6)
+    model.reset_parameters(torch.Generator().manual_seed(25))
+    base = [p.detach().clone() for p in model.parameters()]
+    sides = (("card", device, 1.0), ("cpu", "cpu", 1.0),
+             ("nudged+", "cpu", SIBLING_NUDGES[0]), ("nudged-", "cpu", SIBLING_NUDGES[1]))
+    runs = {}
+    for momentum in (0.0, 0.9):
+        opt = RMSpropEpsInsideSqrt(2.5e-4, alpha=0.95, eps=1e-2, momentum=momentum, centered=True)
+        for side, dev, f in sides:
+            params = [(p * f).to(dev) for p in base]
+            runs[(momentum, side)] = (opt, params, opt.init(params))
+    factors = {side: f for side, _, f in sides}
+    gen = torch.Generator().manual_seed(26)
+    for _ in range(RMSPROP_STEPS):
+        grads = [torch.randn(p.shape, generator=gen) * 0.01 for p in base]
+        for (momentum, side), (opt, params, state) in runs.items():
+            f = factors[side]
+            opt.update(params, [(g * f).to(params[0].device) for g in grads], state)
+    result = {"steps": RMSPROP_STEPS, "parameters": sum(p.numel() for p in base)}
+    for momentum in (0.0, 0.9):
+        held = {}
+        on_card, on_cpu = runs[(momentum, "card")], runs[(momentum, "cpu")]
+        nudged = [runs[(momentum, "nudged+")], runs[(momentum, "nudged-")]]
+        for i, p in enumerate(on_cpu[1]):
+            _held(on_card[1][i], p, [n[1][i] for n in nudged], f"param {i}", held)
+        for field in ("square_avg", "momentum_buf", "grad_avg"):
+            for i, t in enumerate(getattr(on_cpu[2], field)):
+                _held(getattr(on_card[2], field)[i], t, [getattr(n[2], field)[i] for n in nudged], f"{field} {i}",
+                      held)
+        bitwise = all(h["diff"] == 0.0 for h in held.values())
+        opt, params, state = on_card
+        grads = [g.to(device) for g in (torch.randn(p.shape, generator=gen) * 0.01 for p in base)]
+        ms = time_ms(lambda: opt.update(params, grads, state), iters=50, warmup=5)
+        worst = _worst(held)
+        result[f"momentum {momentum}"] = {"ms_per_step": ms, "bitwise": bitwise, **worst}
+        how = "to the bit" if bitwise else f"worst {worst['worst']} {worst['diff']:.3e} <= {worst['bound']:.3e}"
+        print(f"phase 23 RMSpropEpsInsideSqrt momentum {momentum}: {RMSPROP_STEPS} steps over "
+              f"{result['parameters']:,} parameters held ({how}); {ms:.3f} ms/step ({card})")
+    return result
+
+
+def check_flax_checkpoint(device, card: str) -> dict:
+    """The Nature-CNN DQN core of ``train_dqn_ale.py --sim`` (Adam) after
+    ``CHECKPOINT_SCAN_STEPS`` scan steps of 64 lanes (its ring cut to 8,192
+    slots, the replay start to 1,024): written with
+    ``convert.save_flax_checkpoint`` in the JAX package's layout, read back
+    through the port's reader and ``load_flax_checkpoint`` into a fresh
+    core's state, every tensor equal to the bit; the file's bytes and the
+    write and read seconds."""
+    from pfrl_tpu_torch import convert
+    from pfrl_tpu_torch.experiments.atari_dqn_ale import make_dqn_ale_runner
+    from pfrl_tpu_torch.utils import flax_msgpack
+
+    runner, _ = make_dqn_ale_runner(device=device, capacity=8_192, replay_start_size=1_024)
+    state = runner.init(23)
+    state, _ = runner.run_chunk(state, CHECKPOINT_SCAN_STEPS)
+    ts = state.train_state
+    if not ts.n_updates > 0:
+        raise AssertionError("phase 23 checkpoint: the core took no update")
+    path = os.path.join(_snapshot_dir("flax-checkpoint"), "train_state.msgpack")
+    _, write_s = _timed(lambda: convert.save_flax_checkpoint(runner.core, ts, path))
+    size = os.path.getsize(path)
+    fresh, _ = make_dqn_ale_runner(device=device, capacity=1_024, replay_start_size=1_024)
+    loaded, read_s = _timed(lambda: convert.load_flax_checkpoint(fresh.core, path, device=device))
+    cmp = _compare(_plain(loaded), _plain(ts))
+    with open(path, "rb") as f:
+        again = flax_msgpack.msgpack_serialize(convert.state_to_flax(fresh.core, loaded)) == f.read()
+    shutil.rmtree(os.path.dirname(path), ignore_errors=True)
+    if cmp["differing"] or not again:
+        raise AssertionError(f"phase 23 checkpoint: {cmp}; written again the same: {again}")
+    result = {"n_updates": ts.n_updates, "bytes": size, "write_s": write_s, "read_s": read_s, **cmp}
+    print(f"phase 23 JAX-layout checkpoint of the Nature-CNN DQN after {ts.n_updates} updates: {size:,} bytes, "
+          f"written in {write_s:.3f} s, read and converted in {read_s:.3f} s, {cmp['tensors']} tensors equal "
+          f"to the bit ({card})")
+    return result
+
+
+def run_siblings_and_checkpoints(card: str, device) -> dict:
+    """Phase 23: the batch-norm critics, the LSTM critic, the normalizer,
+    RMSpropEpsInsideSqrt and a JAX-layout checkpoint, each on the card
+    against the CPU. No kernel of the port lies on them: the prefix-sample
+    kernel's count is set to 0 before and must read 0 after."""
+    from pfrl_tpu_torch.ops.prefix_sample import prefix_sample
+
+    prefix_sample.launches = 0
+    record = {
+        "bn-late-action-q-halfcheetah-100": check_bn_critic("late-action", device, card),
+        "bn-q-halfcheetah-100": check_bn_critic("concat", device, card),
+        "lstm-q-400-100": check_lstm_q(device, card),
+        "empirical-normalization-17x2048": check_empirical_normalization(device, card),
+        "rmsprop-eps-inside-sqrt-nature": check_rmsprop_eps_inside_sqrt(device, card),
+        "flax-checkpoint-nature-dqn": check_flax_checkpoint(device, card),
+    }
+    record["kernel_launches"] = prefix_sample.launches
+    if record["kernel_launches"]:
+        raise AssertionError(f"phase 23 launched the prefix-sample kernel {record['kernel_launches']} times")
+    return record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5583,6 +5861,7 @@ def main() -> int:
         "drqn-atarisim-32-mesh": phase("full drqn-atarisim-32-mesh", run_full_drqn_atarisim_mesh, card)}
     record["small_slices"]["dqn-ale-host-per"] = phase("small dqn-ale-host-per", check_small_dqn_ale, device)
     record["full_phase22"] = {"dqn-ale-host-per-1": phase("full dqn-ale-host-per-1", run_full_dqn_ale, card)}
+    record["phase23"] = phase("siblings and JAX checkpoints", run_siblings_and_checkpoints, card, device)
     # Counted over each path that samples by priority, from 0 at its start;
     # every other path asserts a count of 0.
     kernel["launches_by_path"] = {
@@ -5624,6 +5903,8 @@ def main() -> int:
         # at C = 2^20, one launch per update.
         "small dqn-ale-host-per": record["small_slices"]["dqn-ale-host-per"]["kernel_launches"],
         **{name: r["kernel_launches"] for name, r in record["full_phase22"].items()},
+        # Phase 23: the sibling modules and the JAX-layout checkpoint (0).
+        "siblings and JAX checkpoints": record["phase23"]["kernel_launches"],
     }
     kernel["launches"] = sum(kernel["launches_by_path"].values())
     record["kernels"] = [kernel]

@@ -1,4 +1,4 @@
-"""JAX (flax/optax) parameters, as numpy arrays, to the port's.
+"""JAX (flax/optax) train states to the port's, and the port's back.
 
 Layouts: conv kernels go from flax's HWIO to torch's OIHW, Dense kernels
 and a noisy layer's ``w_mu``/``w_sigma`` from ``[in, out]`` to
@@ -12,22 +12,37 @@ its leaf and is copied as it is. A list of paths is one fused layer: the
 Dense kernels are concatenated along their output axis, and the biases if
 every scope has one, as flax's ``OptimizedLSTMCell`` concatenates its
 gates' kernels before its one matmul. A Dense without a bias
-(``use_bias=False``) maps to a layer without one.
+(``use_bias=False``) maps to a layer without one. A
+:class:`~pfrl_tpu_torch.models.batch_norm.BatchNorm` scope holds ``scale``
+and ``bias`` in ``params`` and its running ``mean`` and ``var`` in the
+``batch_stats`` collection, which map to the module's buffers.
 
-The ``*_state_from_flax`` functions take a whole train state whose leaves
-are numpy arrays, as ``jax.tree.map(np.asarray, state)`` gives it; its
-fields are read by name. An optimizer state converts by the port
-optimizer's kind: optax's Adam (``mu``, ``nu``, ``count``), RMSprop
-(``nu``), or the ``(clip_by_global_norm, inner)`` chain's inner state.
-Like every entry point of the port, they build on the CUDA device unless
-given ``device="cpu"`` (:func:`~pfrl_tpu_torch._device.resolve_device`).
-
-Takes nested dicts of numpy arrays (``jax.tree.map(np.asarray, tree)`` on
-the JAX side) or a checkpoint read by the port's own reader
+From JAX: the ``*_state_from_flax`` functions take a whole train state
+whose leaves are numpy arrays, as ``jax.tree.map(np.asarray, state)``
+gives it, or a checkpoint read by the port's own reader
 (:func:`pfrl_tpu_torch.utils.flax_msgpack.load`, whose view offers the
-same fields and indices); imports nothing of JAX. :func:`state_from_flax`
+same fields and indices); its fields are read by name. An optimizer state
+converts by the port optimizer's kind: optax's Adam (``mu``, ``nu``,
+``count``), RMSprop (``nu``), the ``(clip_by_global_norm, inner)`` chain's
+inner state, or ``rmsprop_eps_inside_sqrt``'s (``square_avg``,
+``momentum_buf``, ``grad_avg``). Like every entry point of the port, they
+build on the CUDA device unless given ``device="cpu"``
+(:func:`~pfrl_tpu_torch._device.resolve_device`). :func:`state_from_flax`
 picks the converter by the core's class, and :func:`load_flax_checkpoint`
 reads a ``train_state.msgpack`` and converts it in one call.
+
+To JAX: :func:`flax_arrays` runs the layouts in reverse (a fused layer is
+split back into its gates' scopes along the output axis), and
+:func:`state_to_flax` builds, by the same class dispatch, the state dict
+that ``flax.serialization.to_state_dict`` gives of the JAX core's state:
+its dataclass fields in order, each optimizer state in optax's layout
+(Adam ``{"0": {count, mu, nu}, "1": {}}``, RMSprop ``{"0": {nu}, "1":
+{}, "2": {}}``, the clip chain ``{"0": {}, "1": inner}``, an optax ``EmptyState``
+and an unused tree as ``{}``), ``n_updates`` and Adam's ``count`` as 0-d
+int32 arrays. :func:`save_flax_checkpoint` writes it with the port's own
+msgpack writer, so that the JAX package's ``load_state`` (flax's
+``from_bytes`` against its core's template) reads it. Imports nothing of
+JAX.
 """
 
 import copy
@@ -46,7 +61,8 @@ from pfrl_tpu_torch.agents.reinforce import ReinforceCore, ReinforceState
 from pfrl_tpu_torch.agents.soft_actor_critic import SACCore, SACState
 from pfrl_tpu_torch.agents.td3 import TD3Core, TD3State
 from pfrl_tpu_torch.agents.trpo import TRPOCore, TRPOState
-from pfrl_tpu_torch.optimizers import Adam, ClipByGlobalNorm, RMSprop
+from pfrl_tpu_torch.models.batch_norm import BatchNorm
+from pfrl_tpu_torch.optimizers import Adam, ClipByGlobalNorm, RMSprop, RMSpropEpsInsideSqrt
 
 
 def _to_torch_layout(kernel: np.ndarray) -> np.ndarray:
@@ -81,6 +97,9 @@ def torch_arrays(module: nn.Module, flax_tree: Mapping) -> Dict[str, np.ndarray]
         node = _scope(_strip(flax_tree), path)
         if not isinstance(node, Mapping):  # a bare parameter leaf (``log_std``)
             out[sub] = np.asarray(node)
+        elif "scale" in node and "kernel" not in node:  # a BatchNorm's scale and bias
+            for leaf in ("scale", "bias"):
+                out[f"{sub}.{leaf}"] = np.asarray(node[leaf])
         elif "w_mu" in node:  # a factorized noisy layer's four leaves
             for leaf in ("w_mu", "w_sigma"):
                 out[f"{sub}.{leaf}"] = _to_torch_layout(np.asarray(node[leaf]))
@@ -96,12 +115,35 @@ def torch_arrays(module: nn.Module, flax_tree: Mapping) -> Dict[str, np.ndarray]
     return out
 
 
+def _batch_norms(module: nn.Module):
+    return [(name, m) for name, m in module.named_modules() if isinstance(m, BatchNorm)]
+
+
+def torch_batch_stats(module: nn.Module, flax_tree: Mapping) -> Dict[str, np.ndarray]:
+    """Buffer name -> array for every BatchNorm's running ``mean`` and
+    ``var``, from the tree's ``batch_stats`` collection."""
+    names = module.flax_names()
+    return {
+        f"{name}.{leaf}": np.asarray(_scope(flax_tree["batch_stats"], names[name])[leaf])
+        for name, _ in _batch_norms(module) for leaf in ("mean", "var")
+    }
+
+
 def load_flax_params(module: nn.Module, flax_tree: Mapping) -> nn.Module:
-    """Copy flax parameters into ``module``'s, in place."""
+    """Copy flax parameters into ``module``'s, in place, and a BatchNorm's
+    running statistics from the tree's ``batch_stats`` (which a module with
+    a BatchNorm requires)."""
     arrays = torch_arrays(module, flax_tree)
+    if _batch_norms(module):
+        if "batch_stats" not in flax_tree:
+            raise ValueError(f"{type(module).__name__} has BatchNorms and the tree no batch_stats")
+        arrays.update(torch_batch_stats(module, flax_tree))
     with torch.no_grad():
         for name, p in module.named_parameters():
             p.copy_(torch.from_numpy(np.array(arrays[name])))
+        for name, b in module.named_buffers():
+            if name in arrays:
+                b.copy_(torch.from_numpy(np.array(arrays[name])))
     return module
 
 
@@ -226,9 +268,9 @@ def sac_state_from_flax(core: SACCore, flax_state, device=None) -> SACState:
 def _load_optimizer(optimizer, opt_state, module: nn.Module, flax_opt_state) -> None:
     """An optax state into the port's optimizer state, by the port
     optimizer's kind: ``optax.adam``'s, ``optax.rmsprop``'s (``nu`` of its
-    first element) or, for a :class:`ClipByGlobalNorm`, the chain
-    ``(EmptyState(), inner)``'s inner state (Adam's moments then sit at
-    ``opt_state[1][0]``)."""
+    first element), ``rmsprop_eps_inside_sqrt``'s or, for a
+    :class:`ClipByGlobalNorm`, the chain ``(EmptyState(), inner)``'s inner
+    state (Adam's moments then sit at ``opt_state[1][0]``)."""
     if isinstance(optimizer, ClipByGlobalNorm):
         _load_optimizer(optimizer.inner, opt_state, module, flax_opt_state[1])
     elif isinstance(optimizer, Adam):
@@ -236,6 +278,16 @@ def _load_optimizer(optimizer, opt_state, module: nn.Module, flax_opt_state) -> 
     elif isinstance(optimizer, RMSprop):
         arrays = torch_arrays(module, flax_opt_state[0].nu)
         optimizer.load_state(opt_state, [arrays[name] for name, _ in module.named_parameters()])
+    elif isinstance(optimizer, RMSpropEpsInsideSqrt):
+        trees = {}
+        for k in ("square_avg", "momentum_buf", "grad_avg"):
+            tree = getattr(flax_opt_state, k)
+            if len(tree) == 0:  # unused: () in JAX, {} in a checkpoint
+                trees[k] = ()
+            else:
+                arrays = torch_arrays(module, tree)
+                trees[k] = [arrays[name] for name, _ in module.named_parameters()]
+        optimizer.load_state(opt_state, **trees)
     else:
         raise NotImplementedError(f"no conversion for {type(optimizer).__name__}")
 
@@ -343,3 +395,215 @@ def load_flax_checkpoint(core, path: str, device=None):
     from pfrl_tpu_torch.utils import flax_msgpack
 
     return state_from_flax(core, flax_msgpack.load(path), device=device)
+
+
+# ------------------------------------------------------------ port -> JAX
+def _array(t: torch.Tensor):
+    """A tensor as the writer takes it: a numpy array, or a CPU
+    ``torch.bfloat16`` tensor (numpy has no bfloat16)."""
+    t = t.detach().cpu().contiguous()
+    return t if t.dtype == torch.bfloat16 else t.numpy()
+
+
+def _to_flax_layout(weight: torch.Tensor) -> torch.Tensor:
+    if weight.dim() == 4:  # OIHW -> HWIO
+        return weight.permute(2, 3, 1, 0)
+    if weight.dim() == 2:  # [out, in] -> [in, out]
+        return weight.t()
+    raise ValueError(f"no layout rule for a weight of shape {tuple(weight.shape)}")
+
+
+def _put(tree: dict, path: str, leaf: str, value) -> None:
+    for part in path.split("/"):
+        tree = tree.setdefault(part, {})
+    tree[leaf] = value
+
+
+def _sorted(tree):
+    """Every map's keys in sorted order, as ``jax.device_get`` (a tree map)
+    hands flax a params tree."""
+    if isinstance(tree, dict):
+        return {k: _sorted(tree[k]) for k in sorted(tree)}
+    return tree
+
+
+def _flax_params(module: nn.Module, values: Optional[Mapping[str, torch.Tensor]] = None) -> dict:
+    """:func:`torch_arrays` in reverse: the flax ``params`` tree (without
+    the ``"params"`` key) of ``module``'s parameters or of ``values``."""
+    tensors = dict(module.named_parameters()) if values is None else dict(values)
+    tree, used = {}, set()
+    for sub, path in module.flax_names().items():
+        if isinstance(path, (list, tuple)):  # one fused layer, split into its scopes
+            parts = _to_flax_layout(tensors[f"{sub}.weight"]).chunk(len(path), dim=-1)
+            biases = tensors[f"{sub}.bias"].chunk(len(path)) if f"{sub}.bias" in tensors else None
+            for i, p in enumerate(path):
+                _put(tree, p, "kernel", _array(parts[i]))
+                if biases is not None:
+                    _put(tree, p, "bias", _array(biases[i]))
+            used.update({f"{sub}.weight", f"{sub}.bias"})
+        elif sub in tensors:  # a bare parameter leaf (``log_std``)
+            scope, _, leaf = path.rpartition("/")
+            if scope:
+                _put(tree, scope, leaf, _array(tensors[sub]))
+            else:
+                tree[leaf] = _array(tensors[sub])
+            used.add(sub)
+        elif f"{sub}.w_mu" in tensors:  # a factorized noisy layer's four leaves
+            for leaf in ("w_mu", "w_sigma"):
+                _put(tree, path, leaf, _array(_to_flax_layout(tensors[f"{sub}.{leaf}"])))
+            for leaf in ("b_mu", "b_sigma"):
+                _put(tree, path, leaf, _array(tensors[f"{sub}.{leaf}"]))
+            used.update(f"{sub}.{leaf}" for leaf in ("w_mu", "w_sigma", "b_mu", "b_sigma"))
+        elif f"{sub}.scale" in tensors:  # a BatchNorm's scale and bias
+            for leaf in ("scale", "bias"):
+                _put(tree, path, leaf, _array(tensors[f"{sub}.{leaf}"]))
+            used.update({f"{sub}.scale", f"{sub}.bias"})
+        else:
+            _put(tree, path, "kernel", _array(_to_flax_layout(tensors[f"{sub}.weight"])))
+            if f"{sub}.bias" in tensors:  # flax's ``use_bias=False`` stores none
+                _put(tree, path, "bias", _array(tensors[f"{sub}.bias"]))
+            used.update({f"{sub}.weight", f"{sub}.bias"})
+    missing = set(tensors) - used
+    if missing:
+        raise ValueError(f"no flax scope for parameters {sorted(missing)}")
+    return _sorted(tree)
+
+
+def _flax_batch_stats(module: nn.Module) -> dict:
+    names = module.flax_names()
+    tree = {}
+    for name, bn in _batch_norms(module):
+        for leaf in ("mean", "var"):
+            _put(tree, names[name], leaf, _array(getattr(bn, leaf)))
+    return _sorted(tree)
+
+
+def flax_arrays(module: nn.Module, values: Optional[Mapping[str, torch.Tensor]] = None) -> dict:
+    """``module``'s flax variables, ``{"params": ...}`` and, where it has
+    BatchNorms, ``"batch_stats"``; with ``values`` (parameter name ->
+    tensor of its shape: an optimizer's moments, gradients) the
+    ``{"params": ...}`` tree of those."""
+    out = {"params": _flax_params(module, values)}
+    if values is None and _batch_norms(module):
+        out["batch_stats"] = _flax_batch_stats(module)
+    return _sorted(out)
+
+
+def _int32(n) -> np.ndarray:
+    return np.asarray(int(n), np.int32)
+
+
+def optimizer_to_flax(optimizer, opt_state, module: Optional[nn.Module]) -> dict:
+    """The port optimizer's state in optax's layout for ``module``'s
+    parameters (``module`` None: one 0-d parameter, SAC's temperature, whose
+    moments are the leaves themselves): :func:`_load_optimizer` in
+    reverse."""
+    names = [name for name, _ in module.named_parameters()] if module is not None else None
+
+    def tree(tensors):
+        if module is None:
+            (t,) = tensors
+            return _array(t)
+        return flax_arrays(module, dict(zip(names, tensors)))
+
+    if isinstance(optimizer, ClipByGlobalNorm):
+        return {"0": {}, "1": optimizer_to_flax(optimizer.inner, opt_state, module)}
+    if isinstance(optimizer, Adam):
+        return {"0": {"count": _int32(opt_state.count), "mu": tree(opt_state.mu), "nu": tree(opt_state.nu)}, "1": {}}
+    if isinstance(optimizer, RMSprop):
+        # optax.rmsprop chains scale_by_rms, the learning rate and, with no
+        # momentum, an identity: three states, the last two empty.
+        return {"0": {"nu": tree(opt_state)}, "1": {}, "2": {}}
+    if isinstance(optimizer, RMSpropEpsInsideSqrt):
+        return {k: tree(getattr(opt_state, k)) if len(getattr(opt_state, k)) else {}
+                for k in ("square_avg", "momentum_buf", "grad_avg")}
+    raise NotImplementedError(f"no conversion for {type(optimizer).__name__}")
+
+
+def _twin_to_flax(core, state) -> dict:
+    return {
+        "policy_opt_state": optimizer_to_flax(core.policy_optimizer, state.policy_opt_state, state.policy),
+        "q1_opt_state": optimizer_to_flax(core.q_func1_optimizer, state.q1_opt_state, state.q_func1),
+        "q2_opt_state": optimizer_to_flax(core.q_func2_optimizer, state.q2_opt_state, state.q_func2),
+    }
+
+
+def state_to_flax(core, state) -> dict:
+    """The port's train ``state`` of ``core`` as the state dict flax makes
+    of the JAX core's state (``flax.serialization.to_state_dict``), numpy
+    leaves, by the class dispatch of :func:`state_from_flax`."""
+    n_updates = _int32(state.n_updates)
+    if isinstance(core, DQNCore):
+        return {
+            "params": flax_arrays(state.model),
+            "target_params": flax_arrays(state.target_model),
+            "opt_state": optimizer_to_flax(core.optimizer, state.opt_state, state.model),
+            "n_updates": n_updates,
+        }
+    if isinstance(core, SACCore):
+        twin = _twin_to_flax(core, state)
+        return {
+            "policy_params": flax_arrays(state.policy),
+            "q1_params": flax_arrays(state.q_func1),
+            "q2_params": flax_arrays(state.q_func2),
+            "target_q1_params": flax_arrays(state.target_q_func1),
+            "target_q2_params": flax_arrays(state.target_q_func2),
+            **twin,
+            "log_temperature": _array(state.log_temperature),
+            "temperature_opt_state": optimizer_to_flax(
+                core.temperature_optimizer, state.temperature_opt_state, None),
+            "n_updates": n_updates,
+        }
+    if isinstance(core, TD3Core):
+        return {
+            "policy_params": flax_arrays(state.policy),
+            "q1_params": flax_arrays(state.q_func1),
+            "q2_params": flax_arrays(state.q_func2),
+            "target_policy_params": flax_arrays(state.target_policy),
+            "target_q1_params": flax_arrays(state.target_q_func1),
+            "target_q2_params": flax_arrays(state.target_q_func2),
+            **_twin_to_flax(core, state),
+            "n_updates": n_updates,
+        }
+    if isinstance(core, DDPGCore):
+        return {
+            "policy_params": flax_arrays(state.policy),
+            "q_params": flax_arrays(state.q_func),
+            "target_policy_params": flax_arrays(state.target_policy),
+            "target_q_params": flax_arrays(state.target_q_func),
+            "policy_opt_state": optimizer_to_flax(core.policy_optimizer, state.policy_opt_state, state.policy),
+            "q_opt_state": optimizer_to_flax(core.q_optimizer, state.q_opt_state, state.q_func),
+            "n_updates": n_updates,
+            "extras": None,
+        }
+    if isinstance(core, TRPOCore):
+        return {
+            "policy_params": flax_arrays(state.policy),
+            "vf_params": flax_arrays(state.vf),
+            "vf_opt_state": optimizer_to_flax(core.vf_optimizer, state.vf_opt_state, state.vf),
+            "n_updates": n_updates,
+        }
+    if isinstance(core, (PPOCore, ReinforceCore)):
+        return {
+            "params": flax_arrays(state.model),
+            "opt_state": optimizer_to_flax(core.optimizer, state.opt_state, state.model),
+            "n_updates": n_updates,
+        }
+    if isinstance(core, (ACERCore, ACERContinuousCore)):
+        return {
+            "params": flax_arrays(state.model),
+            "avg_params": flax_arrays(state.avg_model),
+            "opt_state": optimizer_to_flax(core.optimizer, state.opt_state, state.model),
+            "n_updates": n_updates,
+        }
+    raise TypeError(f"no JAX state for {type(core).__name__}")
+
+
+def save_flax_checkpoint(core, state, path: str) -> str:
+    """Write the port's train ``state`` of ``core`` to ``path`` as the JAX
+    package's ``train_state.msgpack`` (:func:`state_to_flax`, then the
+    port's msgpack writer; atomic). Returns ``path``."""
+    from pfrl_tpu_torch.utils import flax_msgpack
+
+    flax_msgpack.write(path, state_to_flax(core, state))
+    return path

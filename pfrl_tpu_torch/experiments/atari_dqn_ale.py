@@ -230,7 +230,7 @@ def run_sim(argv: Optional[Sequence[str]] = None, device=None) -> dict:
         print(f"step {state.t:>9} | {state.t / (time.time() - t0):>8.0f} env-steps/s"
               f" | loss {float(metrics['loss'][-1]):.4f}")
     print(f"done: {state.t} transitions in {time.time() - t0:.1f}s")
-    out["saved_to"] = save_train_state_if_requested(state.train_state, args.save_to)
+    out["saved_to"] = save_train_state_if_requested(state.train_state, args.save_to, runner.core)
     return out
 
 

@@ -135,5 +135,5 @@ def run_sim(argv: Optional[Sequence[str]] = None, device=None) -> dict:
         state, metrics = runner.run_chunk(state, 500)
         print(f"step {state.t:>10d} | {state.t / (time.time() - t0):>8.0f} steps/s | "
               f"loss {float(metrics['loss'][-1]):.4f} | recent R {runner.recent_return_mean(state):.1f}")
-    out["saved_to"] = save_train_state_if_requested(state.train_state, args.save_to)
+    out["saved_to"] = save_train_state_if_requested(state.train_state, args.save_to, runner.core)
     return out

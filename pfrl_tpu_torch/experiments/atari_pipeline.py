@@ -176,5 +176,5 @@ def run(argv: Optional[Sequence[str]] = None, device=None, env_factory: Optional
             last_t, last_steps = now, steps
     finally:
         pipe.stop()
-    saved_to = save_train_state_if_requested(pipe.train_state, args.save_to)
+    saved_to = save_train_state_if_requested(pipe.train_state, args.save_to, pipe.core)
     return {"train_state": pipe.train_state, "pipeline": pipe, "saved_to": saved_to}

@@ -9,14 +9,19 @@ examples/atari/reproduction/dqn/train_dqn.py:83-88,200-214).
     if run_demo_if_requested(args, eval_loop, state.train_state, seed):
         return
     ... training ...
-    save_train_state_if_requested(state.train_state, args.save_to)
+    save_train_state_if_requested(state.train_state, args.save_to, runner.core)
 
-The port writes ``train_state.pt`` (:func:`~pfrl_tpu_torch.replay.persistent.save_state`).
-It loads that, or a JAX ``train_state.msgpack`` (a ``zoo/`` entry, a JAX
-run's ``--save-to``) through the port's own msgpack reader and the
-converter of the runner's core, with no JAX installed. Either way the
-runner's freshly initialised train state is the template: a leaf of another
-shape or dtype raises, and nothing is left half loaded in its place.
+``--save-to`` writes ``train_state.pt``
+(:func:`~pfrl_tpu_torch.replay.persistent.save_state`) and, where the recipe
+passes its core, ``train_state.msgpack`` beside it: the JAX package's
+layout (:func:`pfrl_tpu_torch.convert.save_flax_checkpoint`), which a JAX
+run's ``--load`` reads. ``--load`` takes either, or a JAX
+``train_state.msgpack`` (a ``zoo/`` entry, a JAX run's ``--save-to``)
+through the port's own msgpack reader and the converter of the runner's
+core, with no JAX installed; ``train_state.pt`` is preferred where both are
+present. Either way the runner's freshly initialised train state is the
+template: a leaf of another shape or dtype raises, and nothing is left half
+loaded in its place.
 """
 
 import os
@@ -58,7 +63,7 @@ def add_demo_args(parser, save: bool = True):
             "--save-to",
             metavar="PATH",
             default=None,
-            help="directory to save the final train_state.pt into",
+            help="directory to save the final train_state.pt (and the JAX package's train_state.msgpack) into",
         )
     return parser
 
@@ -136,7 +141,10 @@ def print_demo_line(returns) -> None:
     )
 
 
-def save_train_state_if_requested(train_state, save_dir: Optional[str]) -> Optional[str]:
+def save_train_state_if_requested(train_state, save_dir: Optional[str], core=None) -> Optional[str]:
+    """Writes ``train_state.pt`` into ``save_dir`` and, given the core,
+    ``train_state.msgpack`` in the JAX package's layout beside it; nothing
+    when ``save_dir`` is empty. Returns the ``.pt`` path."""
     if not save_dir:
         return None
     from pfrl_tpu_torch.replay.persistent import save_state
@@ -144,4 +152,9 @@ def save_train_state_if_requested(train_state, save_dir: Optional[str]) -> Optio
     path = os.path.join(save_dir, _STATE_FILE)
     save_state(train_state, path)
     print(f"saved train_state to {path}")
+    if core is not None:
+        from pfrl_tpu_torch import convert
+
+        flax_path = convert.save_flax_checkpoint(core, train_state, os.path.join(save_dir, _FLAX_STATE_FILE))
+        print(f"saved the JAX package's train_state to {flax_path}")
     return path

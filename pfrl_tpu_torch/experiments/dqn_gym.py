@@ -235,7 +235,7 @@ def run_device(args, device=None, make_runner: Callable = make_dqn_gym_runner):
             print(f"step {state.t:>8} | {state.t / (time.time() - t0):>10.0f} env-steps/s"
                 f" | eval mean R {returns.mean():7.1f} | recent train R {runner.recent_return_mean(state):7.1f}")
     print(f"done: {state.t} transitions in {time.time() - t0:.1f}s")
-    save_train_state_if_requested(state.train_state, args.save_to)
+    save_train_state_if_requested(state.train_state, args.save_to, runner.core)
     return runner, state
 
 

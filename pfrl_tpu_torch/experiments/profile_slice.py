@@ -10,6 +10,7 @@
                   dqn-ale-nature-64|dqn-ale-nips-64|dqn-ale-dueling-64|
                   per-dqn-ale-64|c51-atarisim-64|dqn-pipeline-288|dqn-batch-ale-8|
                   naf-pendulum-32|naf-mountaincar-32|dqn-gym-cartpole-32|grasping-dqn-batch-1|
+                  bn-late-action-q-halfcheetah-100|
                   the paths of profile_host.HOST_PATHS, dqn-actor-learner-ale-8 and
                   dqn-ale-host-per-1 among them]
         [--steps 8] [--bf16] [--mesh] [--out PATH]
@@ -133,6 +134,16 @@ the 10^6-slot ring) runs from a thread of its own: its replay start cut to
 ``torch.profiler`` (env-steps/s before the replay start and after it, updates/s, rows per forward, act round trips, poller add and
 learner update ms, kernels per update, the busy share).
 
+``bn-late-action-q-halfcheetah-100`` is no runner: the batch-norm
+late-action critic at the DDPG example's widths (``experiments/bn_critic.py``:
+HalfCheetah's 17 observations and 6 actions, 400 channels, 2 layers, batch
+100, Adam(1e-3) toward a fixed target in train mode). After two warm steps
+it times ``--steps`` train steps (synchronized once at the end), then
+``--steps`` more with the forward (with the running statistics' update),
+the backward and the optimizer each behind a synchronizing timer, then
+``--steps`` under ``torch.profiler``: kernels per step and the device's
+busy share of the first timing. It is float32 only.
+
 ``--bf16`` builds the configuration at ``compute_dtype=torch.bfloat16``
 (bf16 compute over float32 masters, as the examples' ``--bf16``); TRPO
 refuses it by name.
@@ -170,6 +181,7 @@ from pfrl_tpu_torch.experiments import (
     atari_dqn_ale,
     atari_dqn_batch,
     atari_iqn,
+    bn_critic,
     cartpole_value,
     dqn_gym,
     grasping_dqn_batch,
@@ -257,6 +269,9 @@ HOST_ENVS = {"dqn-batch-ale-8": functools.partial(atari_dqn_batch.make_vector_en
 # ``HOSTS[config]`` -> ``obs(rs, lanes)``, the observations ``count_ops`` feeds its shell.
 HOST_OBS = {"grasping-dqn-batch-1": grasping_dqn_batch.random_observations}
 HOST_REPLAY_START = 2_048
+# A module's train step (not a runner): ``--config`` name -> the critic's kind
+# in ``bn_critic.CRITICS``.
+MODULE_STEPS = {"bn-late-action-q-halfcheetah-100": "late-action"}
 
 # Labels that start with two spaces are parts of the phase above them.
 COMMON_PHASES = (
@@ -411,6 +426,8 @@ def profile_config(config: str, steps: int, compute_dtype=None, mesh=None) -> di
         return profile_host_batch(config, steps, compute_dtype)
     if config in HOST_PATHS:
         return profile_host_path(config, steps, compute_dtype)
+    if config in MODULE_STEPS:
+        return profile_module_step(config, steps, compute_dtype)
     runner = CONFIGS[config](compute_dtype=compute_dtype)
     if mesh is not None:
         runner = on_mesh(runner, mesh)
@@ -635,6 +652,48 @@ def profile_actor_learner(config: str, steps: int, compute_dtype=None) -> dict:
     return {"config": config, "compute_dtype": str(compute_dtype), **record}
 
 
+def profile_module_step(config: str, steps: int, compute_dtype=None) -> dict:
+    """A module's train step on the card (``MODULE_STEPS``; see the module
+    docstring): step time, its forward / backward / optimizer split, and
+    kernels per step and the busy share under ``torch.profiler``."""
+    if compute_dtype is not None:
+        raise SystemExit(f"profile_slice: {config} runs in float32 only")
+    critic = bn_critic.make_critic(MODULE_STEPS[config])
+    optimizer, opt_state = bn_critic.make_optimizer(critic)
+    device = next(critic.parameters()).device
+    obs, act, target = (torch.from_numpy(a).to(device) for a in bn_critic.make_batches(3 * steps + 2))
+    params = list(critic.parameters())
+
+    def run(lo, hi):
+        for i in range(lo, hi):
+            bn_critic.train_step(critic, optimizer, opt_state, obs[i], act[i], target[i])
+
+    run(0, 2)
+    _, timed_s = _synced(lambda: run(2, 2 + steps))
+    acc = collections.defaultdict(float)
+    for i in range(2 + steps, 2 + 2 * steps):
+        value, s_fwd = _synced(lambda: bn_critic.loss(critic, obs[i], act[i], target[i]))
+        grads, s_bwd = _synced(lambda: torch.autograd.grad(value, params))
+        _, s_opt = _synced(lambda: optimizer.update(params, grads, opt_state))
+        acc["forward (loss, running statistics)"] += s_fwd
+        acc["backward"] += s_bwd
+        acc["optimizer (Adam)"] += s_opt
+    _, profiled_s, launches, busy_us, top = _profiled(lambda: run(2 + 2 * steps, 2 + 3 * steps))
+    return {
+        "config": config, "compute_dtype": "None", "card": torch.cuda.get_device_name(0),
+        "widths": {"obs": bn_critic.OBS, "action": bn_critic.ACT, "channels": bn_critic.CHANNELS,
+                   "layers": bn_critic.LAYERS, "batch": bn_critic.BATCH},
+        "steps": steps,
+        "step_ms": timed_s / steps * 1e3,
+        "phase_ms_per_step": {k: v / steps * 1e3 for k, v in acc.items()},
+        "kernels_per_step": launches / steps,
+        "device_busy_ms_per_step": busy_us / steps / 1e3,
+        "device_busy_share": busy_us / 1e6 / timed_s,
+        "profiled_step_ms": profiled_s / steps * 1e3,
+        "top_device_ops": _top(top, steps),
+    }
+
+
 @contextlib.contextmanager
 def _phase_timers(phases, owners):
     """Wraps each ``(owner, attribute, label)`` in a synchronizing timer that
@@ -682,10 +741,10 @@ def _top(top, steps: int) -> list:
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--config", choices=sorted([*CONFIGS, *PIPELINES, *HOSTS, *HOST_PATHS]), default="per-dqn")
+    parser.add_argument("--config", choices=sorted([*CONFIGS, *PIPELINES, *HOSTS, *HOST_PATHS, *MODULE_STEPS]), default="per-dqn")
     parser.add_argument("--steps", type=int, default=8,
                         help="scan steps, iterations of an on-policy config, seconds of a pipeline, "
-                             "or batch steps of a host path")
+                             "batch steps of a host path, or train steps of a module")
     parser.add_argument("--bf16", action="store_true", help="bf16 compute over float32 masters")
     parser.add_argument("--mesh", action="store_true",
                         help="the runner over a mesh of one NCCL rank on the card (a runner config only)")

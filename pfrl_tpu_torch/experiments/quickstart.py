@@ -85,7 +85,7 @@ def run_device(steps: int, seed: int, args=None, device=None) -> dict:
     out["returns"] = evaluator.evaluate(state.train_state, Draws(torch.Generator(device=runner.device).manual_seed(1)))
     print("final eval returns:", out["returns"])
     if args is not None:
-        save_train_state_if_requested(state.train_state, args.save_to)
+        save_train_state_if_requested(state.train_state, args.save_to, runner.core)
     return out
 
 

@@ -7,7 +7,10 @@ from pfrl_tpu_torch.q_functions.quantile_q_functions import (  # noqa: F401
     RecurrentImplicitQuantileQFunction,
 )
 from pfrl_tpu_torch.q_functions.state_action_q_functions import (  # noqa: F401
+    FCBNLateActionSAQFunction,
+    FCBNSAQFunction,
     FCLateActionSAQFunction,
+    FCLSTMSAQFunction,
     FCSAQFunction,
     SingleModelStateActionQFunction,
 )
