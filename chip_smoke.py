@@ -24,35 +24,35 @@ result, without them. Its phases, each raising on failure:
    for continuous control;
 4. drive prioritized-replay Nature DQN at full width (64 lanes of 84x84x4
    uint8 AtariSim frames, a 100,000-slot ring on the card, batch-32
-   updates every 4 transitions from 2,000 on) for 96 scan steps, past
+   updates every 4 transitions from 2,000 on) for 48 scan steps, past
    replay start, counting the kernel's launches;
 5. drive Rainbow at full width with the recipe's every width and cadence
    (noisy distributional dueling network, 51 atoms, categorical Double
-   DQN, Adam, 3-step prioritized replay; updates from 31,040 on, the
-   recipe's 20,000 cut later for the time limit) for 500
-   scan steps, through the target sync at 32,000, counting the kernel's
+   DQN, Adam, 3-step prioritized replay; updates from 7,680 on and the
+   target sync at 8,192, moved from the recipe's 20,000 and 32,000 for the
+   time limit) for 128 scan steps, through the sync, counting the kernel's
    launches, then its greedy evaluation loop (5 lanes, 500 steps);
 6. drive Nature DQN and Double DQN over the uniform ring at full width for
-   32 scan steps past replay start; this path launches no kernel;
+   16 scan steps past replay start; this path launches no kernel;
 7. drive SAC and TD3 at full width (32 lanes of MujocoSim, obs 17, action
    6, 256 x 256 networks, a 100,000-slot float32 ring that stores
    ``next_obs``, one batch-256 update per transition from 1,000 on): 31
-   scan steps of collection, then 28 with 32 updates each, then the
+   scan steps of collection, then 12 with 32 updates each, then the
    greedy evaluation loop (5 lanes, 1,000 steps, through the truncation at
    step 1,000); these paths launch no kernel;
 8. drive DDPG at full width (16 lanes of the time-limited,
    action-normalized Pendulum, 64 x 64 networks, batch-128 updates every 4
-   transitions) through its 1,000 burn-in transitions and on to 405 scan
-   steps, so that every lane crosses the 200-step time limit twice, then
+   transitions) through its 1,000 burn-in transitions and on to 205 scan
+   steps, so that every lane crosses the 200-step time limit, then
    its evaluation loop (10 lanes, 201 steps); no kernel either;
 9. on-policy, through ``OnPolicyRunner.run_iterations``: small card-vs-CPU
    runs of PPO, A2C and TRPO (4 lanes, 3 iterations, the same draws and
    weights), then at full width PPO on MujocoSim as ``bench.py`` runs it (8
    lanes, rollout 256, 320 batch-64 Adam steps per iteration, 4
    iterations: every lane truncated at its step 1,000), PPO and TRPO on
-   the time-limited Pendulum (16 lanes, rollout 128, 5 and 10 iterations:
-   three and six truncations per lane, then the evaluation loop, 10 lanes
-   x 201 steps) and A2C on the time-limited CartPole (32 lanes, rollout 8, 200
+   the time-limited Pendulum (16 lanes, rollout 128, 2 iterations each:
+   one truncation per lane, then the evaluation loop, 10 lanes
+   x 201 steps) and A2C on the time-limited CartPole (32 lanes, rollout 8, 100
    iterations, then 10 lanes x 501 steps); no kernel on these paths;
 10. the discrete value family on the time-limited CartPole
    (``experiments/cartpole_value.py``): small card-vs-CPU runs of the six
@@ -60,9 +60,9 @@ result, without them. Its phases, each raising on failure:
    PAL, DoublePAL, DPP and DoubleIQN cores on the AL and IQN recipes, of
    Boltzmann and exponential-decay exploration, and one forward and one
    update of the noisy ``NatureQ`` at 84x84x4; then each recipe at full
-   width through 96 scan steps (t = 3,072; the example: 24 steps of 128
-   lanes), holding the target to the online net right after each sync,
-   counting 520 kernel launches on Rainbow-CartPole's 3-step PER (B = 64)
+   width through 64 scan steps (t = 2,048; the example: 16 steps of 128
+   lanes), holding the target to the online net right after the sync,
+   counting 264 kernel launches on Rainbow-CartPole's 3-step PER (B = 64)
    and 0 elsewhere, then its evaluation loop;
 11. bf16 compute over float32 masters (``compute_dtype=torch.bfloat16``):
    small card-vs-CPU runs at bf16 of Nature DQN and PER DQN on AtariSim
@@ -74,11 +74,11 @@ result, without them. Its phases, each raising on failure:
    every update; then at full width ``bench.py``'s ``bench_dqn`` A/B (fp32
    and bf16 uniform-ring Nature DQN, 64 lanes, interleaved rounds: both
    env-steps/s, their ratio, the spread and the achieved TFLOP/s by
-   ``bench.py``'s 18.67 MFLOP per forward), PER DQN at bf16 (64 scan steps,
+   ``bench.py``'s 18.67 MFLOP per forward), PER DQN at bf16 (40 scan steps,
    its kernel launches counted), SAC on Pendulum at bf16
-   (``run_sac_pendulum_bf16``: 160 scan steps through burn-in and replay
+   (``run_sac_pendulum_bf16``: 96 scan steps through burn-in and replay
    start, then 10 lanes x 201 steps of evaluation) and PPO on MujocoSim at
-   bf16 (``bench_ppo``'s widths, 4 iterations);
+   bf16 (``bench_ppo``'s widths, 2 iterations);
 12. the recurrent family (``experiments/recurrent.py``): small card-vs-CPU
    runs of DRQN on PO-ABC and DelayedCue, recurrent IQN, DRQN-AtariSim
    (Nature CNN, LSTM 16, burn-in 2), recurrent PPO and TRPO, and
@@ -87,8 +87,8 @@ result, without them. Its phases, each raising on failure:
    width (``train_drqn_ale.py --sim``: 32 lanes of 84x84x1 frames, Nature
    CNN -> LSTM 512 -> 6, the 2,048 x 128 episodic buffer with the carries,
    about 5.9 GB on the card, its bytes printed; 8 batch-32 updates of
-   32-step windows per scan step) through replay start (cut to 9,024) and
-   the target sync at 10,000, printing env-steps/s, updates/s and the
+   32-step windows per scan step) through replay start and the target
+   sync (moved to 4,160 and 4,224), printing env-steps/s, updates/s and the
    device's busy share over profiled scan steps, then 5 x 500 steps of
    evaluation; then the five ``tools/record_curves.py`` recipes at their
    widths (16 lanes, LSTM 32) with their evaluation loops. No path of this
@@ -102,11 +102,11 @@ result, without them. Its phases, each raising on failure:
    bf16 ulps; then ACER-AtariSim at full width (``train_acer_ale.py
    --sim``: 16 lanes of 84x84x4 frames, the 2,048 x 50 episodic buffer,
    5.78 GB, with the behaviour's log-probs, its bytes printed; the
-   example's replay start of 10,000, then 100 timed scan steps of one
+   replay start cut to 832, then 40 timed scan steps of one
    batch-16 update each; env-steps/s, updates/s, kernels per scan step and
    the device's busy share over 4 profiled scan steps; evaluation 5 x 500),
-   and A2C (16 lanes, rollout 5, 40 iterations) and PPO (8 lanes, rollout
-   128, 4 iterations) on AtariSim at the examples' widths, each with its
+   and A2C (16 lanes, rollout 5, 20 iterations) and PPO (8 lanes, rollout
+   128, 2 iterations) on AtariSim at the examples' widths, each with its
    kernels per iteration and evaluation 5 x 500. No path of this phase
    launches the prefix-sample kernel, and each asserts 0;
 14. the Atari examples at their own settings and the actor-learner
@@ -123,13 +123,14 @@ result, without them. Its phases, each raising on failure:
    ``--arch nature``, ``nips`` and ``dueling``, with ``--prioritized``
    (the prefix-sample kernel at C = 2**20, B = 32, once per update) and
    ``train_categorical_dqn_ale.py --sim``: 64 lanes, the 10**6-slot ring
-   (28.3 GB, its bytes printed), through the replay start (cut to 20,000:
-   313 scan steps), 8 timed and 4 profiled scan steps of 16 updates, the
+   (28.3 GB, its bytes printed), through the replay start (cut to 4,096:
+   64 scan steps), 8 timed and 4 profiled scan steps of 16 updates, the
    evaluation loop; each path freed before the next. Last the pipeline
    (``train_dqn_pipeline_ale.py --sim``: 3 spawned actor processes x 96
    lanes of ``SyntheticALE``, the 999,936-plane ring, 7.06 GB, bursts of
-   64) through its replay start of 50,000, then 4 s timed and 2 s
-   profiled, then on to the burst of the first target sync: env-steps/s, updates/s, the act round trip (median and p90,
+   64) through its replay start (cut to 10,000), then 2 s timed and 1 s
+   profiled, then on to the burst of the first target sync (its interval
+   moved to 2,048 transitions): env-steps/s, updates/s, the act round trip (median and p90,
    apart by whether a burst was in flight), burst and commit times, target
    syncs (at least 1), the workers' start-up, the busy share; then a clean
    stop;
@@ -145,8 +146,8 @@ result, without them. Its phases, each raising on failure:
    (``train_dqn_batch_ale.py``'s ``run_batch`` at its settings,
    ``experiments/atari_dqn_batch.py``: the ``DQN`` shell over the
    10**6-slot ring, 28.3 GB, and 8 + 8 spawned ``SyntheticALE`` workers)
-   one batch step at a time through its replay start (cut to 10,000) to
-   t = 10,368, then one evaluation of 10 episodes: env-steps/s
+   one batch step at a time through its replay start (cut to 2,000) and
+   its target sync (moved to 2,048) to t = 2,368, then one evaluation of 3 episodes: env-steps/s
    before the replay start and after it (past the 32 profiled batch steps
    that follow it), updates/s, the median ``batch_act``,
    env round trip, ``batch_observe`` and update ms, the workers' start-up,
@@ -164,10 +165,10 @@ result, without them. Its phases, each raising on failure:
    ``profile_host.HOST_PATHS`` at their scripts' widths and settings, each
    through its ``make_*_agent``, ``HostTorchEnv`` (the env on the CPU) and
    its driver, then one evaluation: SAC, TD3 and DDPG over ``MujocoSim(17, 6)`` through the
-   replay start and burn-in (cut to 2,000) to t = 2,200, TD3 also over 4 lanes with
+   replay start and burn-in (cut to 1,000) to t = 1,200, TD3 also over 4 lanes with
    ``--update-burst``; PPO to t = 2,080 (one update) and TRPO to 5,024
    (one) over ``MujocoSim(11, 3)``; SlimeVolley Rainbow on its CartPole
-   backend from a replay start cut to 1,800 to t = 2,016 through the target sync at 2,000 (the target equal
+   backend from a replay start cut to 128 to t = 192 through the target sync moved to 160 (the target equal
    to the online network), its 10**6-transition ring sampled by the
    prefix-sample kernel at C = 2**20 once per update: env-steps/s before
    and after the learning start, updates/s, the median act, env step,
@@ -188,16 +189,16 @@ result, without them. Its phases, each raising on failure:
    actor threads of one ``SyntheticALE`` lane through one batched
    inference server, the poller and the learner over the 10**6-slot ring,
    28.3 GB, a publication every 8 updates) through its replay start (cut
-   to 4,000) to the learner's 128th update, with one ``AsyncEvaluator``
-   evaluation of 10 episodes (``eval_interval`` cut to 5,000):
+   to 400) to the learner's 32nd update, with one ``AsyncEvaluator``
+   evaluation of 3 episodes (``eval_interval`` cut to 800):
    env-steps/s before the replay start and after it (to the learner's
-   320th update), updates/s, rows per forward, the act round trip (median, p90; apart by
+   32nd update), updates/s, rows per forward, the act round trip (median, p90; apart by
    whether an update ran during it), the poller's add and the learner's
    update ms, publications and target syncs, kernels per update and the
-   busy share over the last 64 updates (profiled from the learner's
+   busy share over the last 16 updates (profiled from the learner's
    thread); 0 kernel launches; the ring freed. Last
    ``a3c-atarisim-16`` (``train_a3c.py --sim``: 16 AtariSim lanes, t_max
-   5, 40 timed iterations, kernels and busy share over one, evaluation
+   5, 20 timed iterations, kernels and busy share over one, evaluation
    5 x 500).
 18. persistence and checkpoints, with no JAX: (1) per-dqn-ale-64's train
    state at the end of phase 14's run ``--save-to``'d (``train_state.pt``,
@@ -207,14 +208,14 @@ result, without them. Its phases, each raising on failure:
    bit (moments and ``n_updates`` too), the demo's 5 returns equal to an
    evaluation of the state in memory on the same draws; (2) a resume
    through the kernel: the same recipe with the ring cut to 131,072 slots
-   (C = 2**17) and the replay start to 4,096, 63 scan steps through it,
-   8 with updates, ``save_runner_snapshot`` (a 3.7 GB file), 8 more (run
+   (C = 2**17) and the replay start to 1,024, 15 scan steps through it,
+   3 with updates, ``save_runner_snapshot`` (a 3.7 GB file), 3 more (run
    A); a fresh runner loads the snapshot (equal to the saved state to the
-   bit: ring, cursor, trees, generator state, ``t``) and runs the same 8
+   bit: ring, cursor, trees, generator state, ``t``) and runs the same 3
    (run B): the first resumed step's kernel draws the same slots in A and
    B, B is held to A to the bit where two uninterrupted runs repeat to the
    bit on the card and within their spread where they do not, and A and B
-   each launch the kernel 8 x 16 = 128 times; (3) ``PersistentReplayBuffer``
+   each launch the kernel 3 x 16 = 48 times; (3) ``PersistentReplayBuffer``
    at the cut size: one snapshot through ``snapshot_interval``, restored
    into a new buffer, equal to the bit; (4) the 26 ``zoo/`` checkpoints
    read by the port's msgpack reader and converted onto the card: greedy
@@ -240,14 +241,14 @@ result, without them. Its phases, each raising on failure:
    --jax-env`` at its settings through ``experiments/grasping_dqn_batch.py``,
    one spawned worker each for training and evaluation; the ring cut to
    400,000 slots, 68.0 GB, C = 2**19, or to 262,144 where the free memory
-   forbids it; the replay start to 256; 256 updates, one kernel launch
-   each; 100 evaluation episodes; its PER add, update, act and round
+   forbids it; the replay start to 256; 64 updates, one kernel launch
+   each; 20 evaluation episodes; its PER add, update, act and round
    trip, kernels per update and busy share), ``naf-pendulum-32``,
-   ``naf-mountaincar-32`` and ``dqn-gym-cartpole-32`` (96 scan steps of
+   ``naf-mountaincar-32`` and ``dqn-gym-cartpole-32`` (64 scan steps of
    32 lanes, the target held to the online net at the sync at 2,048, then
    ``EvalLoop``) and ``naf-pendulum-host-32`` and
    ``c51-gym-cartpole-host-1`` (the host modes past their sync at 2,048
-   from a replay start cut to 1,536 to t = 2,112, one evaluation), each of these asserting 0 launches.
+   from a replay start cut to 896 to t = 1,088 through the sync moved to 1,024, one evaluation), each of these asserting 0 launches.
 
 20. the five example recipes and the mesh. Small card-vs-CPU runs of
    ``train_iqn.py --sim``'s IQN at its widths (4 lanes, in float32 ulps
@@ -268,19 +269,19 @@ result, without them. Its phases, each raising on failure:
    ranks on the host CPU (DQN and IQN on CartPole, DRQN on DelayedCue
    over the episodic buffer) with every learned tensor equal to the bit. Then at full width
    ``iqn-atarisim-64`` (the 10^5-slot ring, 2.83 GB; the replay start cut to
-   9,216, 304 updates through the target sync at 10,000, the target equal
+   2,048, the target sync moved to 3,000, the target equal
    to the online net after it; ``EvalLoop`` 5 x 500),
    ``ppo-pendulum-device-64`` (two iterations of 8,192 transitions and 1,280
    Adam steps, the busy share over the second's collect and first epoch;
    ``EvalLoop`` 10 x 200), ``quickstart-dqn-cartpole-32`` (as phase 10's
    recipes), ``ppo-pendulum-host-8`` (to t = 2,304, its first update),
    ``sac-atlas-pendulum-host-4`` (4 spawned workers each for training and
-   evaluation, started together; the replay start cut to 1,000, 204
-   updates, 20 evaluation episodes), ``quickstart-dqn-cartpole-host-1`` (to
+   evaluation, started together; the replay start cut to 512, 132
+   updates, 4 evaluation episodes), ``quickstart-dqn-cartpole-host-1`` (to
    t = 800) and
    ``dqn-multihost-ale-8`` (``train_dqn_batch_ale.py --multihost`` at world
    size 1 over NCCL, the 10^6-slot ring sharded over the mesh, 28.3 GB; the
-   replay start cut to 2,000, one chunk of 500 scan steps, 502 updates),
+   replay start cut to 400, one chunk of 100 scan steps, 102 updates),
    each printing env-steps/s, updates/s, its phases' ms and the device's
    busy share; none launches the kernel.
 21. ``drqn-atarisim-32-mesh``: ``train_drqn_ale.py --sim`` at full width
@@ -290,7 +291,7 @@ result, without them. Its phases, each raising on failure:
    mesh, both with cuDNN's deterministic algorithms, from the same weights
    and draws, one after the other: every learned tensor, metric, the
    carry, the buffer's tables and storage equal to the bit through the
-   target sync at 10,000 (the replay start cut to 9,600: 112 updates);
+   target sync (moved with phase 12's to 4,224; the replay start cut to 4,160: 24 updates);
    the mesh run's scan step and its busy share under
    ``torch.profiler``. It launches no kernel.
 22. ``train_dqn_ale.py``'s host path (``atari_dqn_ale.run_ale``) over the
@@ -305,7 +306,7 @@ result, without them. Its phases, each raising on failure:
    same run without ``--prioritized`` launches none. Then
    ``dqn-ale-host-per-1``: ``--prioritized`` at full width (Nature CNN,
    84x84x4 frames, batch 32, the 10^6-slot PER ring, 28.3 GB, C = 2**20),
-   the replay start cut to 600 and the run to 1,600 steps (251 updates),
+   the replay start cut to 200 and the run to 400 steps (51 updates),
    its env-steps/s, updates/s, kernel launches and, over 16 profiled
    steps, the device's busy share and the kernel's device time; the kernel
    held against its plain version on the run's final tree.
@@ -315,7 +316,7 @@ result, without them. Its phases, each raising on failure:
    or 3e-6 where that is more): the batch-norm critics
    ``FCBNLateActionSAQFunction`` and ``FCBNSAQFunction`` at the DDPG
    example's widths (HalfCheetah's 17 observations and 6 actions, 400
-   channels, 2 layers, batch 100; ``experiments/bn_critic.py``), 200
+   channels, 2 layers, batch 100; ``experiments/bn_critic.py``), 60
    train-mode Adam steps toward a fixed target, then an evaluation forward
    on the running statistics (weights, running statistics, Q-values; ms
    per train step); ``FCLSTMSAQFunction`` at 400 channels, batch 100,
@@ -323,12 +324,36 @@ result, without them. Its phases, each raising on failure:
    ``EmpiricalNormalization`` over 50 batches of 2,048 x 17 with ``until``
    100,000, the 50th update frozen (state, ``normalize``, ``inverse``);
    ``RMSpropEpsInsideSqrt`` at the Nature DQN settings, momentum 0 and 0.9,
-   100 steps over the Nature CNN's parameters (parameters and state; ms
+   40 steps over the Nature CNN's parameters (parameters and state; ms
    per step); and the Nature-CNN DQN core of ``train_dqn_ale.py --sim``
    after 80 Adam updates, written in the JAX package's layout
    (``convert.save_flax_checkpoint``), read back by the port's reader into
    a fresh core and compared to the bit (bytes, write and read seconds).
-   No path of it launches the kernel.
+   No path of it launches the kernel;
+24. the command lines of ``examples/``, each through its port module's
+   ``run(argv)`` at its example's widths (default lanes, ring and batch)
+   with explicit small depth flags (``--steps``, ``--replay-start-size``,
+   ``--chunk``, ``--eval-interval``), each checked to stop where its flags
+   say with its updates run: ``train_dqn.py --sim`` (then ``--save-to`` and
+   ``--load --demo`` in a fresh runner, the weights equal to the bit),
+   ``train_rainbow.py`` (the prefix-sample kernel at C = 2**17, B = 32 once
+   per update, then held against its plain version on the run's leaves),
+   ``train_dqn_batch_ale.py`` in its batch and ``--actor-learner`` modes
+   over ``SyntheticALE``, ``train_iqn.py`` without ``--sim``, ``train_a2c_ale.py``
+   and ``train_ppo_ale.py --sim``, ``train_acer_ale.py``,
+   ``train_categorical_dqn_ale.py`` and ``train_drqn_ale.py --sim``,
+   ``train_a3c.py``, ``train_dqn_cartpole.py``, ``train_ppo.py --jax-env
+   pendulum``, ``train_reinforce_gym.py`` and
+   ``optuna_dqn_cartpole.objective`` with a stand-in trial. Every command
+   line but Rainbow's asserts 0 launches.
+
+Every phase runs under ``phase``'s watchdog: ``faulthandler`` dumps every
+thread's stack to stderr and ends the run with exit code 1 once a phase
+passes its limit in ``PHASE_LIMITS`` (max(60 s, 3x its seconds in the
+final card run)). Each phase prints ``phase <name>: start`` before it runs
+(stderr also gets its limit) and its seconds after, line-buffered, so a run
+that is cut shows where it was. The first lines print the card, the host's
+CPU model (hosts differ 1.2-2.2x on the same phases) and the versions.
 
 The kernels' launch counts are set to 0 just before each full-width path
 and read just after it; the kernels' JSON line gives their sum over the
@@ -338,6 +363,7 @@ kernels' JSON line, the card's name and power limit, and
 ``chiprun_out/chip_smoke.json``.
 """
 
+import contextlib
 import copy
 import dataclasses
 import functools
@@ -365,64 +391,190 @@ FP32_OPS_PER_S = 67e12
 HOST_TURNS = 6  # host timings alternate direction this many times; median kept
 
 FULL_STEPS_WARM = 32   # t = 2,048 at the end: the first updates run
-FULL_STEPS_TIMED = 64  # t = 6,144 at the end (the target sync at 10,000 is Rainbow's and the small runs' to cross)
+FULL_STEPS_TIMED = 16  # t = 3,072 at the end (cut from 64 for the time limit; the target sync is Rainbow's to cross)
 
-RAINBOW_STEPS = 500     # t = 32,000 at the end: the target sync on the last step
-# The recipe's 20,000, later for the time limit: 16 scan steps and 256 updates
-# before the sync (30,016 gave 32 and 512).
-RAINBOW_REPLAY_START = 31_040
+RAINBOW_STEPS = 128     # t = 8,192 at the end: the target sync on the last step (cut from 500)
+# The recipe's target sync every 32,000 and replay start of 20,000, moved to
+# 8,192 and 7,680 for the time limit (from 32,000 and 31,040): 9 scan steps
+# and 144 updates up to the sync (16 and 256 before).
+RAINBOW_SYNC = 8_192
+RAINBOW_REPLAY_START = 7_680
 RAINBOW_STEPS_WARM = 4  # the first scan steps with updates, before the timed ones
-UNIFORM_STEPS_TIMED = 32
+UNIFORM_STEPS_TIMED = 16  # cut from 32 for the time limit
 
 MUJOCO_STEPS_WARM = 4      # the first scan steps with updates (from t = 1,024), before the timed ones
-MUJOCO_STEPS_TIMED = 24    # 768 updates (cut from 96 for the script's time limit)
+MUJOCO_STEPS_TIMED = 8     # 256 updates (cut from 96, then 24, for the script's time limit)
 MUJOCO_EVAL = (5, 1_000)   # lanes, steps: the truncation at step 1,000 is crossed
 DDPG_STEPS_WARM = 2
-DDPG_STEPS = 405           # every lane is truncated at its steps 200 and 400
+DDPG_STEPS = 205           # every lane is truncated at its step 200 (cut from 405: twice, at 200 and 400)
 DDPG_EVAL = (10, 201)
-# ppo: cut from 10 (PR 14: 8) and ppo-pendulum from 10 for the time limit (PR 15)
-ONPOLICY_ITERATIONS = {"ppo": 4, "ppo-pendulum": 5, "trpo": 10, "a2c": 200}
+# ppo: cut from 10 (then 8); ppo-pendulum from 10 (then 5) and trpo from 10 to 2, one truncation
+# per lane; a2c from 200: for the time limit
+ONPOLICY_ITERATIONS = {"ppo": 4, "ppo-pendulum": 2, "trpo": 2, "a2c": 100}
 ONPOLICY_EVAL = {"ppo-pendulum": (10, 201), "trpo": (10, 201), "a2c": (10, 501)}
-CARTPOLE_STEPS = (32, 64)           # warm, timed: t = 1,024 (first updates), then 3,072
-CARTPOLE_EXAMPLE_STEPS = (8, 16)    # 128 lanes: t = 1,024 (first updates), then 3,072
+CARTPOLE_STEPS = (32, 32)           # warm, timed: t = 1,024 (first updates), then 2,048 (timed cut from 64)
+CARTPOLE_EXAMPLE_STEPS = (8, 8)     # 128 lanes: t = 1,024 (first updates), then 2,048 (timed cut from 16)
 CARTPOLE_BATCH = 64                 # Rainbow-CartPole's minibatch: the kernel's B
 BF16_ULP = 2.0 ** -8                # bf16 keeps 8 significant bits
 BF16_LOSS_ULPS = 8                  # small bf16 runs, card vs CPU: losses and outputs
 BF16_CHANGE_ULPS = 16               # ... each network's change over the run (L2)
 BF16_SENSITIVITY = 4                # ... or this many times what a 1-ulp nudge of the weights moves on the CPU
-BENCH_CHUNK, BENCH_REPS, BENCH_ROUNDS = 16, 2, 2  # bench.py: 200, 2, 3
-BF16_PER_DQN_STEPS_TIMED = 32       # after FULL_STEPS_WARM
-SAC_PENDULUM_STEPS = (64, 96)       # warm (t = 1,024: burn-in done, first updates), timed
+BENCH_CHUNK, BENCH_REPS, BENCH_ROUNDS = 8, 2, 2  # bench.py: 200, 2, 3 (chunk cut from 16 for the time limit)
+BENCH_WARM_CHUNKS = 4               # 32 scan steps: the first updates on the last (replay start 2,000)
+BF16_PER_DQN_STEPS_TIMED = 8        # after FULL_STEPS_WARM (cut from 32 for the time limit)
+BF16_PPO_ITERATIONS = 2             # PPO on MujocoSim at bf16 (cut from 4: its truncations are the fp32 run's to show)
+SAC_PENDULUM_STEPS = (64, 32)       # warm (t = 1,024: burn-in done, first updates), timed (cut from 96)
 FP32_ULP = 2.0 ** -23               # float32 keeps 24 significant bits
 FP32_LOSS_ULPS = 128                # small recurrent runs, card vs CPU: each metric (1.5e-5 of its largest)
 FP32_CHANGE_ULPS = 128              # ... each network's change over the run (L2); the largest difference read
                                     # so far is 38.22 ulps (drqn-delayedcue's carry; a 1-ulp nudge moves it 7.00)
-# DRQN-AtariSim at full width: the replay start is cut from 10,000 to 9,024
-# transitions (282 scan steps of 32 lanes, so that fewer steps update
-# before the sync, for the script's time limit), past the first rows
-# sealed by filling at 128 steps; the timed chunk runs to t = 10,016, the
-# scan step of the target sync at 10,000, where the target must equal the
-# online net.
-DRQN_ATARI_REPLAY_START = 9_024
-DRQN_ATARI_STEPS = (282, 31)        # warm (through replay start), timed
-DRQN_ATARI_PROFILED = 4             # scan steps under torch.profiler: the device's busy time
+# DRQN-AtariSim at full width: the replay start and the target interval are
+# moved from 10,000 and 10,000 (then 9,024 and 10,000) to 4,160 and 4,224
+# transitions for the time limit: 130 scan steps of 32 lanes, just past the
+# first rows sealed by filling at 128 steps; the timed chunk runs to
+# t = 4,224, the scan step of the target sync, where the target must equal
+# the online net.
+DRQN_ATARI_REPLAY_START = 4_160
+DRQN_ATARI_SYNC = 4_224
+DRQN_ATARI_STEPS = (130, 2)         # warm (through replay start), timed (cut from 282, 31)
+DRQN_ATARI_PROFILED = 2             # scan steps under torch.profiler: the device's busy time (cut from 4)
 RECURRENT_FULL_STEPS = {"drqn-po-abc-16": (10, 54), "drqn-delayedcue-16": (18, 46), "riqn-delayedcue-16": (18, 46),
                         "rppo-delayedcue-16": (1, 9), "rtrpo-delayedcue-16": (1, 9)}  # warm, timed
-# ACER-AtariSim at full width, the example's replay start of 10,000 uncut:
-# 625 scan steps of 16 lanes, acting only but for the first update on the
-# last of them, then timed scan steps of one batch-16 update each.
-ACER_ATARI_STEPS = (625, 100)       # warm (through replay start), timed
+# ACER-AtariSim at full width, the example's replay start of 10,000 cut to
+# 832 for the time limit (the first rows sealed at step 50): 52 scan steps
+# of 16 lanes, acting only but for the first update on the last of them,
+# then timed scan steps of one batch-16 update each.
+ACER_ATARI_REPLAY_START = 832
+ACER_ATARI_STEPS = (52, 40)         # warm (through replay start), timed (cut from 625, 100)
 ACER_ATARI_PROFILED = 4             # scan steps under torch.profiler: the device's busy time
 ACER_NUDGES = (1.0 + 2.0**-23, 1.0 - 2.0**-23)  # the small ACER runs' tolerance: the larger of both nudges
-ATARI_ONPOLICY_ITERATIONS = {"a2c-atarisim-16": 40, "ppo-atarisim-8": 4}  # timed, after one warm iteration
+# timed, after one warm iteration (cut from 40 and 4 for the time limit)
+ATARI_ONPOLICY_ITERATIONS = {"a2c-atarisim-16": 20, "ppo-atarisim-8": 2}
 # The Atari examples at their own settings but the replay start (50,000, cut
 # to 20,000 for the script's time limit): 313 scan steps of 64 lanes reach it
 # (t = 20,032, the first 16 updates on the last of them), then timed and
 # profiled scan steps of 16 updates each.
-EXAMPLE_REPLAY_START = 20_000       # cut from the examples' 50,000 for the time limit
-EXAMPLE_ATARI_STEPS = (313, 8, 4)   # warm, timed, profiled
-PIPELINE_SECONDS = (4.0, 2.0)       # the pipeline after its replay start: timed, profiled (cut from 10, 5)
-PIPELINE_MIN_UPDATES = 2_560        # then on to the burst holding the first target sync (the 2,500th update)
+EXAMPLE_REPLAY_START = 4_096        # cut from the examples' 50,000 (then 20,000) for the time limit
+EXAMPLE_ATARI_STEPS = (64, 4, 2)    # warm (cut from 313), timed (cut from 8), profiled (cut from 4)
+PIPELINE_SECONDS = (2.0, 1.0)       # the pipeline after its replay start: timed, profiled (cut from 10, 5; 4, 2)
+# The pipeline's replay start and target interval, moved from the example's
+# 50,000 and 10,000 transitions for the time limit: the first sync comes at
+# the 512th update (from the 2,500th), in the burst of 64 that ends at 576.
+PIPELINE_REPLAY_START = 10_000
+PIPELINE_SYNC = 2_048
+PIPELINE_MIN_UPDATES = 576          # on to the burst holding the first target sync (cut from 2,560)
+
+
+# ------------------------------------------------------------ phases and their watch
+# Each phase's limit in seconds: max(60, 3 x its seconds in the last full
+# card run of this script that set them, PERF.md section 6); every phase
+# must have one. A phase that runs past its limit dumps every thread's stack
+# to stderr and ends the run with exit code 1.
+PHASE_LIMITS = {
+    "build": 60, "frame ops": 60, "kernel checks": 60, "small per-dqn": 60, "small rainbow": 60, "small dqn": 60,
+    "small double-dqn": 60, "small sac": 60, "small td3": 60, "small ddpg": 60, "full per-dqn": 60,
+    "full rainbow": 60, "full dqn": 60, "full double-dqn": 60, "full sac": 60, "full td3": 60, "full ddpg": 60,
+    "small ppo": 60, "small a2c": 60, "small trpo": 60, "full ppo": 60, "full ppo-pendulum": 60, "full trpo": 60,
+    "full a2c": 60, "small dqn-cartpole": 60, "small c51-cartpole": 60, "small rainbow-cartpole": 60,
+    "small al-cartpole": 60, "small iqn-cartpole": 60, "small dqn-cartpole-example": 60, "small pal": 60,
+    "small double-pal": 60, "small dpp": 60, "small double-iqn": 60, "small boltzmann": 60,
+    "small exponential-decay": 60, "small noisy NatureQ": 60, "full dqn-cartpole": 60, "full c51-cartpole": 60,
+    "full rainbow-cartpole": 60, "full al-cartpole": 60, "full iqn-cartpole": 60, "full dqn-cartpole-example": 60,
+    "small dqn-bf16": 60, "small per-dqn-bf16": 60, "small c51-cartpole-bf16": 60, "small iqn-cartpole-bf16": 60,
+    "small sac-pendulum-bf16": 60, "small ppo-bf16": 60, "small noisy NatureQ bf16": 60,
+    "full dqn-atarisim-64 fp32/bf16 A/B": 60, "full per-dqn bf16": 60, "full sac-pendulum bf16": 60,
+    "full ppo bf16": 60, "small drqn-po-abc": 60, "small drqn-delayedcue": 60, "small riqn-delayedcue": 60,
+    "small drqn-atarisim": 60, "small rppo-delayedcue": 60, "small rtrpo-delayedcue": 60,
+    "small drqn-atarisim-bf16": 60, "full drqn-atarisim-32": 60, "full drqn-po-abc-16": 60,
+    "full drqn-delayedcue-16": 60, "full riqn-delayedcue-16": 60, "full rppo-delayedcue-16": 60,
+    "full rtrpo-delayedcue-16": 60, "small acer-abc": 60, "small acer-continuous-abc": 60, "small acer-atarisim": 60,
+    "small acer-atarisim-bf16": 60, "full acer-atarisim-16": 60, "full a2c-atarisim-16": 60,
+    "full ppo-atarisim-8": 60, "small dqn-ale-nips": 60, "small dqn-ale-dueling": 60, "small per-dqn-ale": 60,
+    "small c51-atarisim": 60, "small example cores": 60, "small pipeline": 60, "full dqn-ale-nature-64": 60,
+    "full dqn-ale-nips-64": 60, "full dqn-ale-dueling-64": 60, "full per-dqn-ale-64": 60, "full c51-atarisim-64": 60,
+    "full dqn-pipeline-288": 66, "small host-per-dqn-cartpole": 60, "small host-reinforce-cartpole": 60,
+    "small host-double-dqn-batch-4": 60, "full dqn-batch-ale-8": 60, "small host-ddpg-pendulum-hard": 60,
+    "small host-td3-pendulum-batch-2-burst": 60, "small host-sac-pendulum": 60, "small host-ppo-pendulum": 60,
+    "small host-a2c-cartpole-batch-4": 60, "small host-trpo-mujocosim": 60, "small host-per-al-cartpole": 60,
+    "small host-per-pal-cartpole": 60, "small host-per-doublepal-cartpole": 60, "small host-per-dpp-cartpole": 60,
+    "small host-per-categoricaldqn-cartpole": 60, "small host-per-categoricaldoubledqn-cartpole": 60,
+    "small host-per-iqn-cartpole": 60, "small host-per-doubleiqn-cartpole": 60, "full sac-halfcheetah-host-1": 60,
+    "full td3-halfcheetah-host-1": 60, "full ddpg-halfcheetah-host-1": 60, "full td3-halfcheetah-host-4-burst": 60,
+    "full ppo-hopper-host-1": 60, "full trpo-hopper-host-1": 60, "full rainbow-slimevolley-cartpole-1": 60,
+    "small actor-learner-dqn": 60, "small actor-learner-per-double-dqn": 60, "full dqn-actor-learner-ale-8": 68,
+    "full a3c-atarisim-16": 60, "persistence": 100, "small host-grasping-double-dqn": 60,
+    "small host-naf-pendulum": 60, "small host-c51-cartpole": 60, "small naf-pendulum": 60,
+    "small naf-mountaincar": 60, "full grasping-dqn-batch-1": 60, "full naf-pendulum-32": 60,
+    "full naf-mountaincar-32": 60, "full dqn-gym-cartpole-32": 60, "full naf-pendulum-host-32": 60,
+    "full c51-gym-cartpole-host-1": 60, "small iqn-atarisim": 60, "small quickstart-dqn-cartpole": 60,
+    "small ppo-pendulum-device": 60, "small host-ppo-pendulum-8": 60, "small host-sac-atlas-pendulum-4": 60,
+    "small host-quickstart-dqn-cartpole": 60, "mesh": 80, "full iqn-atarisim-64": 60,
+    "full ppo-pendulum-device-64": 85, "full quickstart-dqn-cartpole-32": 60, "full ppo-pendulum-host-8": 60,
+    "full sac-atlas-pendulum-host-4": 69, "full quickstart-dqn-cartpole-host-1": 60, "full dqn-multihost-ale-8": 60,
+    "full drqn-atarisim-32-mesh": 60, "small dqn-ale-host-per": 60, "full dqn-ale-host-per-1": 60,
+    "siblings and JAX checkpoints": 60, "cli train_dqn.py --sim": 60, "cli train_rainbow.py": 60,
+    "cli train_dqn_batch_ale.py": 60, "cli device loops": 60, "cli reinforce and optuna": 60,
+
+}
+PHASE_TIMES = {}  # name -> seconds, as the phases end
+
+
+def phase(name, fn, *args, limit=None):
+    """``fn(*args)`` as the phase ``name``, under a watchdog of ``limit``
+    seconds (default: its entry in ``PHASE_LIMITS``, which must have one):
+    past it, ``faulthandler`` dumps every thread's stack to stderr and exits
+    with code 1. It prints the phase's start and, once the card is idle, its
+    seconds. Nothing is caught: a phase that raises fails the run."""
+    import faulthandler
+
+    limit = PHASE_LIMITS[name] if limit is None else limit
+    print(f"phase {name}: start")
+    print(f"phase {name}: start, limit {limit:.0f} s", file=sys.stderr, flush=True)
+    faulthandler.dump_traceback_later(limit, exit=True)
+    t0 = time.perf_counter()
+    try:
+        out = fn(*args)
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()  # the next path allocates a ring of its own
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+    PHASE_TIMES[name] = time.perf_counter() - t0
+    print(f"phase {name}: {PHASE_TIMES[name]:.1f} s")
+    return out
+
+
+def host_cpu_model() -> str:
+    """The host's CPU model, its CPU count and clock, from ``/proc/cpuinfo``
+    (hosts differ 1.2-2.2x on the same phases)."""
+    fields = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key, _, value = line.partition(":")
+                fields.setdefault(key.strip().lower(), value.strip())
+    except OSError:
+        pass
+    model = fields.get("model name", "unknown")
+    if model == "unknown":  # some sandboxes hide the name: the family and model numbers identify it
+        model = f"{fields.get('vendor_id', '?')} family {fields.get('cpu family', '?')} model {fields.get('model', '?')}"
+    mhz = f", {fields['cpu mhz']} MHz" if fields.get("cpu mhz") else ""
+    return f"{model}, {os.cpu_count()} CPUs{mhz}"
+
+
+@contextlib.contextmanager
+def spawned_workers_skip_this_script():
+    """The host envs' spawned workers run the port's functions only: hide
+    this script from ``multiprocessing``'s spawn, so
+    that a worker does not re-run its top (which imports torch, seconds per
+    process) before it starts."""
+    main = sys.modules["__main__"]
+    path = main.__dict__.pop("__file__", None)
+    try:
+        yield
+    finally:
+        if path is not None:
+            main.__file__ = path
 
 
 def card_line() -> str:
@@ -856,15 +1008,15 @@ def run_full_slice(card: str, compute_dtype=None, timed_steps: int = FULL_STEPS_
 # --------------------------------------------------------------------- phase 5
 def run_full_rainbow(card: str) -> dict:
     """Rainbow with the recipe's every value but the replay start
-    (``RAINBOW_REPLAY_START``), cut to 500 scan steps: no updates below
-    31,040 transitions, then 16 per scan step, and the target sync when
-    the last step reaches 32,000."""
+    and the target sync (``RAINBOW_REPLAY_START``, ``RAINBOW_SYNC``), cut to
+    128 scan steps: no updates below 7,680 transitions, then 16 per scan
+    step, and the target sync when the last step reaches 8,192."""
     from pfrl_tpu_torch.envs.atari_sim import AtariSim
     from pfrl_tpu_torch.experiments.atari_rainbow import make_rainbow_runner
     from pfrl_tpu_torch.experiments.runner import EvalLoop
     from pfrl_tpu_torch.ops.prefix_sample import prefix_sample
 
-    runner = make_rainbow_runner(replay_start_size=RAINBOW_REPLAY_START)  # the CUDA device
+    runner = make_rainbow_runner(replay_start_size=RAINBOW_REPLAY_START, target_update_interval=RAINBOW_SYNC)
     cfg, buffer, core = runner.config, runner.buffer, runner.core
     state = runner.init(0)
     torch.cuda.synchronize()
@@ -1237,7 +1389,7 @@ def run_full_mujoco(card: str, name: str) -> dict:
 
 def run_full_ddpg(card: str) -> dict:
     """DDPG on the time-limited Pendulum with ``tools/record_curves.py``'s
-    every width and cadence, cut to 405 scan steps: 62 of burn-in and
+    every width and cadence, cut to 205 scan steps: 62 of burn-in and
     collection, then 4 updates per scan step."""
     import copy
 
@@ -1279,9 +1431,9 @@ def run_full_ddpg(card: str) -> dict:
         "losses finite": bool(torch.isfinite(loss).all()) and bool((loss > 0).all()),
         "n_updates and both Adam counts as expected": train.n_updates == updates
         == train.policy_opt_state.count == train.q_opt_state.count > 0,
-        "every lane truncated at its steps 200 and 400, never terminated": int(state.recent_count) == 2 * cfg.num_envs
-        and done.nonzero().flatten().tolist() == [199, 399] and not bool(stored["terminated"].any()),
-        "finished returns finite and <= 0": window == 2 * cfg.num_envs
+        "every lane truncated at its step 200, never terminated": int(state.recent_count) == cfg.num_envs
+        and done.nonzero().flatten().tolist() == [199] and not bool(stored["terminated"].any()),
+        "finished returns finite and <= 0": window == cfg.num_envs
         and bool(torch.isfinite(recent).all()) and bool((recent <= 0).all()),
         "burn-in actions fill [-1, 1)": float(burnin_actions.min()) < -0.9 and float(burnin_actions.max()) > 0.9
         and float(stored["action"][: state.t].abs().max()) <= 1.0,
@@ -1394,9 +1546,10 @@ def _onpolicy_runner(name: str, compute_dtype=None):
     return make(env=watched, compute_dtype=compute_dtype), watched
 
 
-def run_full_onpolicy(card: str, name: str, compute_dtype=None) -> dict:
-    """One on-policy recipe at full width for ``ONPOLICY_ITERATIONS[name]``
-    iterations (the first timed apart), then its evaluation loop."""
+def run_full_onpolicy(card: str, name: str, compute_dtype=None, iterations=None) -> dict:
+    """One on-policy recipe at full width for ``iterations`` (default
+    ``ONPOLICY_ITERATIONS[name]``; the first timed apart), then its
+    evaluation loop."""
     from pfrl_tpu_torch.experiments.runner import EvalLoop
     from pfrl_tpu_torch.ops.prefix_sample import prefix_sample
 
@@ -1404,7 +1557,7 @@ def run_full_onpolicy(card: str, name: str, compute_dtype=None) -> dict:
     if compute_dtype is not None:
         checked = _float32_after_updates(runner.core)
     core, lanes, T = runner.core, runner.num_envs, runner.rollout_len
-    iterations = ONPOLICY_ITERATIONS[name]
+    iterations = iterations or ONPOLICY_ITERATIONS[name]
     state = runner.init(0)
     torch.cuda.synchronize()
     train = state.train_state
@@ -1445,7 +1598,7 @@ def run_full_onpolicy(card: str, name: str, compute_dtype=None) -> dict:
         checks["Adam's count == n_updates == 320 per iteration"] = (
             train.opt_state.count == train.n_updates == 320 * iterations)
         checks["log_std moved"] = abs(float(head.log_std.detach()) - log_std0) > 1e-4
-    if name == "ppo":  # MujocoSim truncates at 1,000 steps; 1,024 steps per lane
+    if name == "ppo" and iterations * T >= 1_000:  # MujocoSim truncates at 1,000 steps; 1,024 steps per lane
         per_lane = iterations * T // 1_000
         checks[f"every lane truncated {per_lane} time(s), never terminated"] = (
             finished == train_truncations == per_lane * lanes > 0 and train_terminations == 0)
@@ -1619,8 +1772,8 @@ def check_small_noisy_nature_q(device) -> dict:
 
 
 def run_full_cartpole(card: str, name: str) -> dict:
-    """One recipe at full width: 96 scan steps of 32 lanes (the example: 24
-    of 128), so that t = 3,072. The timed chunks end on the target syncs,
+    """One recipe at full width: 64 scan steps of 32 lanes (the example: 16
+    of 128), so that t = 2,048. The timed chunks end on the target syncs,
     where the target must equal the online net; then ``EvalLoop``. The
     runners of ``train_dqn_gym.py`` (phase 19, :func:`_gym_recipes`) run
     the same way: one update per scan step, one sync at 2,048."""
@@ -1667,19 +1820,18 @@ def run_full_cartpole(card: str, name: str) -> dict:
     returns = evaluator.evaluate(train, state.draws)
     eval_s = time.perf_counter() - t4
     checks = {
-        "t advanced to 3,072": state.t == steps * cfg.num_envs == 3_072,
+        "t advanced to 2,048": state.t == steps * cfg.num_envs == 2_048,
         "n_updates == updates per scan step x steps with updates": cfg.updates_per_step == per_step
         and train.n_updates == updates == per_step * sum(1 for k in range(1, steps + 1)
                                                           if k * cfg.num_envs >= cfg.replay_start_size),
         "losses finite, positive once updates run": bool(torch.isfinite(loss).all())
         and bool((loss[warm_steps - 1:] > 0).all()),
-        "the target equals the online net right after each sync": len(synced_equal) == (1 if example or gym else 2)
-        and all(synced_equal),
+        "the target equals the online net right after the sync": len(synced_equal) == 1 and all(synced_equal),
         "prefix-sample launches as expected": launches == expected_launches,
         "evaluation returns finite": bool(np.isfinite(returns).all()) and returns.shape == (evaluator.env.num_envs,),
     }
     if name == "rainbow-cartpole":
-        checks["520 launches, one per PER sample of B = 64"] = launches == 520 and cfg.minibatch_size == CARTPOLE_BATCH
+        checks["264 launches, one per PER sample of B = 64"] = launches == 264 and cfg.minibatch_size == CARTPOLE_BATCH
     _raise_on_failed(name, checks)
     result = {
         "steps": steps, "t": state.t, "n_updates": updates, "kernel_launches": launches,
@@ -1964,8 +2116,8 @@ def _nature_flops_per_scan_step(num_envs: int, n_actions: int = 6) -> float:
 
 def run_bench_dqn_ab(card: str) -> dict:
     """``bench.py``'s ``bench_dqn`` A/B at full width: an fp32 and a bf16
-    runner of the uniform-ring Nature DQN, each warmed by two chunks (past
-    replay start), then ``BENCH_ROUNDS`` rounds interleaved, each of
+    runner of the uniform-ring Nature DQN, each warmed by
+    ``BENCH_WARM_CHUNKS`` chunks (past replay start), then ``BENCH_ROUNDS`` rounds interleaved, each of
     ``BENCH_REPS`` chunks of ``BENCH_CHUNK`` scan steps per variant
     (``bench.py:211-224``; its chunks are 200 scan steps). Reports each
     variant's best round, the spread (worst / best), the bf16/fp32 ratio
@@ -1987,7 +2139,7 @@ def run_bench_dqn_ab(card: str) -> dict:
 
     prefix_sample.launches = 0
     for label in variants:
-        for _ in range(2):
+        for _ in range(BENCH_WARM_CHUNKS):
             run(label)
             torch.cuda.synchronize()
     times = {label: [] for label in variants}
@@ -2000,7 +2152,7 @@ def run_bench_dqn_ab(card: str) -> dict:
             times[label].append(time.perf_counter() - t0)
     launches = prefix_sample.launches
     num_envs = variants["fp32"][0].config.num_envs
-    steps = BENCH_CHUNK * (2 + BENCH_REPS * BENCH_ROUNDS)
+    steps = BENCH_CHUNK * (BENCH_WARM_CHUNKS + BENCH_REPS * BENCH_ROUNDS)
     sps = {k: BENCH_REPS * BENCH_CHUNK * num_envs / min(v) for k, v in times.items()}
     flops = _nature_flops_per_scan_step(num_envs)
     result = {
@@ -2019,7 +2171,7 @@ def run_bench_dqn_ab(card: str) -> dict:
         loss = torch.cat(losses)
         checks[f"{label}: t advanced"] = state.t == steps * num_envs
         checks[f"{label}: losses finite, positive once updates run"] = bool(torch.isfinite(loss).all()) and bool(
-            (loss[2 * BENCH_CHUNK - 1:] > 0).all())
+            (loss[BENCH_WARM_CHUNKS * BENCH_CHUNK - 1:] > 0).all())
         checks[f"{label}: masters float32"] = all(p.dtype == torch.float32 for p in state.train_state.model.parameters())
     bf16_runner, bf16_state, _ = variants["bf16"]
     checks["bf16: the network computes in bf16"] = _computes_in(bf16_runner.core, bf16_state, torch.bfloat16)
@@ -2260,7 +2412,7 @@ def run_full_drqn_atarisim(card: str) -> dict:
     buffer with the carries stored, 8 batch-32 updates per scan step over
     windows of 32. The replay start is cut to
     ``DRQN_ATARI_REPLAY_START``; the timed chunk runs through the
-    target sync at 10,000 transitions; then ``DRQN_ATARI_PROFILED`` scan
+    target sync (``DRQN_ATARI_SYNC``); then ``DRQN_ATARI_PROFILED`` scan
     steps under ``torch.profiler``, whose busy time is taken over those same
     steps' wall time (the profiler slows the host, so this share is lower
     than the unprofiled one), and the evaluation loop (5 lanes x 500
@@ -2269,7 +2421,8 @@ def run_full_drqn_atarisim(card: str) -> dict:
     from pfrl_tpu_torch.experiments.recurrent import make_drqn_atarisim_runner
     from pfrl_tpu_torch.ops.prefix_sample import prefix_sample
 
-    runner, evaluator = make_drqn_atarisim_runner(replay_start_size=DRQN_ATARI_REPLAY_START)
+    runner, evaluator = make_drqn_atarisim_runner(replay_start_size=DRQN_ATARI_REPLAY_START,
+                                                  target_update_interval=DRQN_ATARI_SYNC)
     cfg, buf = runner.config, runner.buffer
     state = runner.init(0)
     torch.cuda.synchronize()
@@ -2432,7 +2585,7 @@ def run_full_acer_atarisim(card: str) -> dict:
     84x84x4 frames (episodes of mean length 50), ``SmallAtariCNN`` PiQ,
     RMSprop, the trust region, the 2,048 x 50 episodic buffer (obs,
     next_obs and the behaviour's log-probs), one batch-16 update of whole
-    rows per scan step from the example's replay start of 10,000 on:
+    rows per scan step from the replay start (``ACER_ATARI_REPLAY_START``) on:
     ``ACER_ATARI_STEPS`` scan steps through replay start and on, then
     ``ACER_ATARI_PROFILED`` under ``torch.profiler`` (busy time over those
     steps' own wall time), then the evaluation loop (5 lanes x 500 steps)."""
@@ -2440,7 +2593,7 @@ def run_full_acer_atarisim(card: str) -> dict:
     from pfrl_tpu_torch.experiments.profile_slice import _profiled
     from pfrl_tpu_torch.ops.prefix_sample import prefix_sample
 
-    runner, evaluator = make_acer_atarisim_runner()
+    runner, evaluator = make_acer_atarisim_runner(replay_start_size=ACER_ATARI_REPLAY_START)
     cfg, buf = runner.config, runner.buffer
     state = runner.init(0)
     torch.cuda.synchronize()
@@ -3027,7 +3180,7 @@ def run_full_pipeline(card: str) -> dict:
     from pfrl_tpu_torch.experiments.profile_slice import run_pipeline
     from pfrl_tpu_torch.ops.prefix_sample import prefix_sample
 
-    pipeline = make_dqn_pipeline()
+    pipeline = make_dqn_pipeline(replay_start_size=PIPELINE_REPLAY_START, target_update_interval=PIPELINE_SYNC)
     prefix_sample.launches = 0
     record = run_pipeline(pipeline, *PIPELINE_SECONDS, min_updates=PIPELINE_MIN_UPDATES)
     launches = prefix_sample.launches
@@ -3074,9 +3227,13 @@ def run_full_pipeline(card: str) -> dict:
 
 # -------------------------------------------------------------------- phase 15
 HOST_SMALL_DIR = OUT_DIR / "host_small"
-HOST_BATCH_REPLAY_START = 10_000   # dqn-batch-ale-8's replay start, cut from 50,000 for the time limit
-HOST_BATCH_STEPS = 10_368          # past it, the target sync at 10,000 and the profiled window
-HOST_BATCH_PROFILED = (10_048, 32)  # from t, batch steps under torch.profiler
+# dqn-batch-ale-8's replay start and target interval, moved from 50,000 and
+# 10,000 (then 10,000 and 10,000) for the time limit.
+HOST_BATCH_REPLAY_START = 2_000
+HOST_BATCH_SYNC = 2_048
+HOST_BATCH_STEPS = 2_368           # past the replay start, the target sync at 2,048 and the profiled window
+HOST_BATCH_PROFILED = (2_048, 32)  # from t, batch steps under torch.profiler
+HOST_BATCH_EVAL = 3                # evaluation episodes (the example's 10, cut for the time limit)
 
 
 def _small_host_configs() -> dict:
@@ -3112,15 +3269,15 @@ def _small_host_configs() -> dict:
     return {
         "host-per-dqn-cartpole": (
             dqn(DQN, lambda dev: PrioritizedReplayBuffer(10_000, betasteps=10_000, gamma=0.99, device=dev), 2),
-            cartpole, functools.partial(serial, steps=300, eval_interval=150)),
+            cartpole, functools.partial(serial, steps=180, eval_interval=90)),  # cut from 300
         "host-reinforce-cartpole": (
             lambda dev, draws: make_reinforce_agent(batchsize=2, device=dev, draws=draws),
             cartpole, functools.partial(serial, steps=120, eval_interval=120)),
         "host-double-dqn-batch-4": (
             dqn(DoubleDQN, lambda dev: ReplayBuffer(10_000, gamma=0.99, device=dev), 4),
             lambda dev, seed: SerialVectorEnv([cartpole(dev, seed + i) for i in range(4)]),
-            functools.partial(train_agent_batch_with_evaluation, steps=400, eval_n_steps=None, eval_n_episodes=4,
-                              eval_interval=200, max_episode_len=50)),
+            functools.partial(train_agent_batch_with_evaluation, steps=240, eval_n_steps=None, eval_n_episodes=4,
+                              eval_interval=120, max_episode_len=50)),  # cut from 400
     }
 
 
@@ -3138,7 +3295,7 @@ def run_full_host_batch(card: str) -> dict:
     ``SyntheticALE`` through ``wrap_deepmind``) through its replay start
     (``HOST_BATCH_REPLAY_START``, cut from 50,000) to ``HOST_BATCH_STEPS``,
     one batch step at a time (``profile_host.run_host_batch``), then one
-    evaluation of 10 episodes. The run's length and its replay start are
+    evaluation of ``HOST_BATCH_EVAL`` episodes. The run's length and its replay start are
     its cuts.
     The ring is freed before the phase ends."""
     from pfrl_tpu_torch.envs import synthetic_ale
@@ -3146,12 +3303,13 @@ def run_full_host_batch(card: str) -> dict:
     from pfrl_tpu_torch.experiments.profile_host import run_host_batch
     from pfrl_tpu_torch.ops.prefix_sample import prefix_sample
 
-    agent = make_dqn_batch_agent(replay_start_size=HOST_BATCH_REPLAY_START)
-    env, eval_env = make_vector_envs(8, 0, make_env=synthetic_ale.make_ale_env)
+    agent = make_dqn_batch_agent(replay_start_size=HOST_BATCH_REPLAY_START, target_update_interval=HOST_BATCH_SYNC)
+    with spawned_workers_skip_this_script():
+        env, eval_env = make_vector_envs(8, 0, make_env=synthetic_ale.make_ale_env)
     prefix_sample.launches = 0
     try:
         with tempfile.TemporaryDirectory() as outdir:  # the saved agents: 27 MB each
-            record = run_host_batch(agent, env, eval_env, HOST_BATCH_STEPS, HOST_BATCH_STEPS, 10, outdir,
+            record = run_host_batch(agent, env, eval_env, HOST_BATCH_STEPS, HOST_BATCH_STEPS, HOST_BATCH_EVAL, outdir,
                                     profiled=HOST_BATCH_PROFILED)
     finally:
         for e in (env, eval_env):
@@ -3167,7 +3325,8 @@ def run_full_host_batch(card: str) -> dict:
         and record["n_updates"] == expected_updates,
         "at least one target sync": record["target_syncs"] >= 1,
         "loss finite": math.isfinite(stats["average_loss"]) and math.isfinite(stats["average_q"]),
-        "one evaluation of 10 episodes, finite": len(record["eval"]) == 1 and math.isfinite(record["eval"][0]["mean"]),
+        f"one evaluation of {HOST_BATCH_EVAL} episodes, finite": len(record["eval"]) == 1
+        and math.isfinite(record["eval"][0]["mean"]),
         "every worker ended": all(p.exitcode is not None for e in (env, eval_env) for p in e.ps),
         "no prefix-sample launch": launches == 0,
         "a profiled window": "profiled" in record,
@@ -3188,7 +3347,7 @@ def run_full_host_batch(card: str) -> dict:
           f"{record['n_updates']} updates, {record['target_syncs']} target syncs; over {prof.get('batch_steps')} "
           f"profiled batch steps {prof.get('kernels_per_batch_step', float('nan')):.1f} kernels per batch step, "
           f"device busy {prof.get('device_busy_share', float('nan')) * 100:.1f}%; evaluation mean "
-          f"{record['eval'][0]['mean'] if record['eval'] else float('nan')} over 10 episodes; loss "
+          f"{record['eval'][0]['mean'] if record['eval'] else float('nan')} over {HOST_BATCH_EVAL} episodes; loss "
           f"{stats['average_loss']:.5f}; {launches} prefix-sample launches (fp32, no TF32) on {card}")
     _raise_on_failed("dqn-batch-ale-8", checks)
     agent.replay_state = None
@@ -3264,17 +3423,17 @@ def _small_shell_configs() -> dict:
             lambda dev, draws: agents.DDPG(det(), qf(), Adam(1e-3), Adam(1e-3), ring(dev), 0.99,
                                            AdditiveGaussian(0.1, low=-1.0, high=1.0), target_update_method="hard",
                                            target_update_interval=50, device=dev, draws=draws, **off),
-            pendulum, functools.partial(serial, steps=300, eval_interval=150), 3, (1,)),
+            pendulum, functools.partial(serial, steps=180, eval_interval=90), 3, (1,)),
         "host-td3-pendulum-batch-2-burst": (
             lambda dev, draws: agents.TD3(det(), qf(), qf(), Adam(3e-4), Adam(3e-4), Adam(3e-4), ring(dev), 0.99,
                                           AdditiveGaussian(0.1, low=-1.0, high=1.0), update_burst=True, device=dev,
                                           draws=draws, **off),
-            lanes(pendulum, 2), functools.partial(batch, steps=300, eval_interval=150), 3, (1,)),
+            lanes(pendulum, 2), functools.partial(batch, steps=180, eval_interval=90), 3, (1,)),
         "host-sac-pendulum": (
             lambda dev, draws: agents.SoftActorCritic(
                 MLPPolicy(3, 2, (64, 64), SquashedGaussianHead(1)), qf(), qf(), Adam(3e-4), Adam(3e-4), Adam(3e-4),
                 ring(dev), 0.99, temperature_optimizer_lr=3e-4, device=dev, draws=draws, **off),
-            pendulum, functools.partial(serial, steps=300, eval_interval=150), 3, (1,)),
+            pendulum, functools.partial(serial, steps=180, eval_interval=90), 3, (1,)),
         "host-ppo-pendulum": (
             lambda dev, draws: agents.PPO(GaussianPiV(3, 1, 64, mean_scale=1e-4), Adam(3e-4), gamma=0.995, lambd=0.97,
                                           update_interval=64, minibatch_size=16, epochs=2, entropy_coef=0.0,
@@ -3283,7 +3442,7 @@ def _small_shell_configs() -> dict:
         "host-a2c-cartpole-batch-4": (
             lambda dev, draws: agents.A2C(SoftmaxPiV(4, 2, 64), RMSprop(7e-4, decay=0.99, eps=1e-5), 0.99, 4,
                                           update_steps=5, max_grad_norm=40.0, device=dev, draws=draws),
-            lanes(cartpole, 4), functools.partial(batch, steps=400, eval_interval=200), 4, ()),
+            lanes(cartpole, 4), functools.partial(batch, steps=200, eval_interval=100), 4, ()),
         "host-trpo-mujocosim": (
             lambda dev, draws: agents.TRPO(GaussianPolicy(3, 1, 64, mean_scale=1e-2), MLP(3, 1, (64, 64)),
                                            Adam(1e-3), gamma=0.995, lambd=0.97, update_interval=100, vf_epochs=2,
@@ -3309,7 +3468,7 @@ def _small_shell_configs() -> dict:
                        minibatch_size=32, update_interval=2, target_update_interval=100, device=dev, draws=draws)
 
         configs[f"host-per-{shell.lower()}-cartpole"] = (
-            make, cartpole_on_cpu, functools.partial(serial, steps=160, eval_interval=80), 4, ())
+            make, cartpole_on_cpu, functools.partial(serial, steps=130, eval_interval=65), 4, ())
     return configs
 
 
@@ -3546,21 +3705,30 @@ def resolve_card():
 # on-policy paths, around an update (PPO's first at 2,048, TRPO's first at
 # 5,000).
 HOST_PATH_PROFILED = {"ppo-hopper-host-1": (2_040, 32), "trpo-hopper-host-1": (4_984, 32),
-                      "naf-pendulum-host-32": (1_536, 8)}  # 32 lanes: 8 batch steps of 32 updates each
+                      "naf-pendulum-host-32": (896, 4)}  # 32 lanes: 4 batch steps of 32 updates each
 # Cut for the script's time limit (HOST_PATHS' own: the replay start and burn-in of 10,000, t = 11,000,
-# 2,600, 6,144 and 10,000): the actor-critic paths learn from 2,000 to 2,200 (201 updates, the truncations at
-# steps 1,000 and 2,000 crossed), Rainbow from 1,800 to 2,016 (217 updates, its target sync at 2,000 crossed),
-# PPO to 2,080 (one update) and TRPO to 5,024 (one), each past its profiled window.
+# 2,600, 6,144 and 10,000): the actor-critic paths learn from 1,000 to 1,200 (201 updates, the truncation at
+# step 1,000 crossed; was 2,000 to 2,200), Rainbow from 128 to 192 (65 updates, its target sync moved from
+# 2,000 to 160 and crossed; was 1,800 to 2,016), PPO to 2,080 (one update) and TRPO to 5,024 (one), each
+# past its profiled window.
 ACTOR_CRITIC_HOST_PATHS = ("sac-halfcheetah-host-1", "td3-halfcheetah-host-1", "ddpg-halfcheetah-host-1",
                            "td3-halfcheetah-host-4-burst")
-HOST_PATH_REPLAY_START = {**{name: 2_000 for name in ACTOR_CRITIC_HOST_PATHS}, "rainbow-slimevolley-cartpole-1": 1_800,
-                          # Phase 19's host modes.
-                          "naf-pendulum-host-32": 1_536, "c51-gym-cartpole-host-1": 1_536}
-HOST_PATH_STEPS = {**{name: 2_200 for name in ACTOR_CRITIC_HOST_PATHS}, "rainbow-slimevolley-cartpole-1": 2_016,
+HOST_PATH_REPLAY_START = {**{name: 1_000 for name in ACTOR_CRITIC_HOST_PATHS}, "rainbow-slimevolley-cartpole-1": 128,
+                          # Phase 19's host modes (cut from 1,536).
+                          "naf-pendulum-host-32": 896, "c51-gym-cartpole-host-1": 896}
+HOST_PATH_STEPS = {**{name: 1_200 for name in ACTOR_CRITIC_HOST_PATHS}, "rainbow-slimevolley-cartpole-1": 192,
                    "ppo-hopper-host-1": 2_080, "trpo-hopper-host-1": 5_024,
-                   # Phase 19's host modes, cut from HOST_PATHS' 3,072 to the scan
-                   # past their sync at 2,048: 608 and 577 updates from 1,536.
-                   "naf-pendulum-host-32": 2_112, "c51-gym-cartpole-host-1": 2_112}
+                   # Phase 19's host modes, cut from HOST_PATHS' 3,072 (then 2,112) to the
+                   # scan past their sync, moved from 2,048 to 1,024: 224 and 193 updates from 896.
+                   "naf-pendulum-host-32": 1_088, "c51-gym-cartpole-host-1": 1_088}
+# Keyword arguments a path's agent takes beyond its replay start: the target syncs moved.
+HOST_PATH_AGENT_CUTS = {"rainbow-slimevolley-cartpole-1": {"target_update_interval": 160},
+                        "naf-pendulum-host-32": {"target_update_interval": 1_024},
+                        "c51-gym-cartpole-host-1": {"target_update_interval": 1_024}}
+# Evaluation episodes cut below a path's own (sac-atlas-pendulum-host-4: 20 of 200 steps; the one-lane
+# MuJoCo paths: 2 of 1,000 steps, each through the truncation).
+HOST_PATH_EVAL_EPISODES = {"sac-atlas-pendulum-host-4": 4, "sac-halfcheetah-host-1": 1, "td3-halfcheetah-host-1": 1,
+                           "ddpg-halfcheetah-host-1": 1}
 
 
 def run_full_host_path(card: str, name: str) -> dict:
@@ -3578,15 +3746,16 @@ def run_full_host_path(card: str, name: str) -> dict:
     path = HOST_PATHS[name]
     steps = HOST_PATH_STEPS.get(name, path.steps)
     cut = {"replay_start_size": HOST_PATH_REPLAY_START[name]} if name in HOST_PATH_REPLAY_START else {}
-    agent, env, eval_env = make_host_path(name, **cut)
+    agent, env, eval_env = make_host_path(name, **cut, **HOST_PATH_AGENT_CUTS.get(name, {}))
     if name in SPAWNED_HOST_PATHS:  # the script's MultiprocessVectorEnv in place of the serial lanes
         from pfrl_tpu_torch.experiments import sac_atlas
 
         from pfrl_tpu_torch.envs.multiprocess_vector_env import make_together
 
         args = sac_atlas.parser().parse_args(["--torch-env"])
-        env, eval_env = make_together(functools.partial(sac_atlas.make_batch_env, args, False),
-                                      functools.partial(sac_atlas.make_batch_env, args, True))
+        with spawned_workers_skip_this_script():
+            env, eval_env = make_together(functools.partial(sac_atlas.make_batch_env, args, False),
+                                          functools.partial(sac_atlas.make_batch_env, args, True))
     start = learning_start(agent)
     synced_equal = []
     sync_target = getattr(agent.core, "sync_target", None)
@@ -3603,7 +3772,8 @@ def run_full_host_path(card: str, name: str) -> dict:
     prefix_sample.launches = 0
     try:
         with tempfile.TemporaryDirectory() as outdir:  # the saved agents
-            record = run_host_batch(agent, env, eval_env, steps, steps, path.eval_n_episodes, outdir,
+            record = run_host_batch(agent, env, eval_env, steps, steps,
+                                    HOST_PATH_EVAL_EPISODES.get(name, path.eval_n_episodes), outdir,
                                     profiled=HOST_PATH_PROFILED.get(name, (start, 32)))
     finally:
         if name in SPAWNED_HOST_PATHS:
@@ -3651,7 +3821,8 @@ def run_full_host_path(card: str, name: str) -> dict:
           f"{prof.get('updates')} updates {prof.get('kernels_per_batch_step', float('nan')):.1f} kernels per batch "
           f"step, {prof.get('kernels_per_update') or float('nan'):.1f} per update, device busy "
           f"{prof.get('device_busy_share', float('nan')) * 100:.1f}%; evaluation mean "
-          f"{record['eval'][0]['mean'] if record['eval'] else float('nan'):.3f} over {path.eval_n_episodes} episodes; "
+          f"{record['eval'][0]['mean'] if record['eval'] else float('nan'):.3f} over "
+          f"{HOST_PATH_EVAL_EPISODES.get(name, path.eval_n_episodes)} episodes; "
           f"{launches} prefix-sample launches (fp32, no TF32) on {card}")
     _raise_on_failed(name, checks)
     agent.replay_state = None
@@ -3663,11 +3834,12 @@ def run_full_host_path(card: str, name: str) -> dict:
 # -------------------------------------------------------------------- phase 17
 AL_SMALL_TRANSITIONS = 160  # the one actor's transitions, drained by the poller before the learner runs
 AL_SMALL_UPDATES = 31
-AL_FULL_REPLAY_START = 4_000    # cut from the example's 50,000 for the time limit (20,000 until PR 15)
-AL_FULL_EVAL_INTERVAL = 5_000   # cut from the example's 10^5: one evaluation of 10 episodes
-AL_FULL_UPDATES = 128           # the learner's updates (HOST_PATHS' 640, cut for the time limit; 384 until PR 15)
-AL_FULL_PROFILED = (64, 64)     # the learner's last 64 updates under torch.profiler, after the timed ones
-A3C_ITERATIONS = 40             # a3c-atarisim-16: timed, after one warm iteration
+AL_FULL_REPLAY_START = 400      # cut from the example's 50,000 for the time limit (then 4,000)
+AL_FULL_EVAL_INTERVAL = 800     # cut from the example's 10^5 (then 5,000): one evaluation
+AL_FULL_EVAL = 3                # its episodes (the example's 10, cut for the time limit)
+AL_FULL_UPDATES = 32            # the learner's updates (HOST_PATHS' 640, cut for the time limit; then 128)
+AL_FULL_PROFILED = (16, 16)     # the learner's last 16 updates under torch.profiler, after the timed ones
+A3C_ITERATIONS = 20             # a3c-atarisim-16: timed, after one warm iteration (cut from 40)
 
 
 def _al_script(seed: int, n: int) -> list:
@@ -3800,7 +3972,7 @@ def run_full_actor_learner(card: str) -> dict:
     inference server, the poller and the learner, a publication every 8
     updates) through the replay start (``AL_FULL_REPLAY_START``, cut from
     50,000), until the learner's ``AL_FULL_UPDATES``-th update, with one
-    ``AsyncEvaluator`` evaluation of 10 episodes (``eval_interval`` cut to
+    ``AsyncEvaluator`` evaluation of ``AL_FULL_EVAL`` episodes (``eval_interval`` cut to
     ``AL_FULL_EVAL_INTERVAL``). The run's length, its replay start and the
     evaluation interval are its cuts. The ring is freed
     before the phase ends."""
@@ -3812,7 +3984,7 @@ def run_full_actor_learner(card: str) -> dict:
     prefix_sample.launches = 0
     with tempfile.TemporaryDirectory() as outdir:  # the saved agents: 27 MB each
         record = run_actor_learner_path(agent, path.make_env, path.steps, AL_FULL_EVAL_INTERVAL,
-                                        path.eval_n_episodes, outdir, actors=path.actors, n_updates=AL_FULL_UPDATES,
+                                        AL_FULL_EVAL, outdir, actors=path.actors, n_updates=AL_FULL_UPDATES,
                                         profiled=AL_FULL_PROFILED)
     torch.cuda.synchronize()
     launches = prefix_sample.launches
@@ -3832,7 +4004,7 @@ def run_full_actor_learner(card: str) -> dict:
         "a sane profiled window": prof.get("kernels_per_update") is not None and prof["kernels_per_update"] > 100,
         "a publication every 8 updates": record["publications"] == AL_FULL_UPDATES // 8,
         "loss finite": math.isfinite(stats["average_loss"]) and math.isfinite(stats["average_q"]),
-        "one evaluation of 10 episodes, finite": math.isfinite(record["eval_mean"]),
+        f"one evaluation of {AL_FULL_EVAL} episodes, finite": math.isfinite(record["eval_mean"]),
         "no prefix-sample launch": launches == 0,
         "a profiled window": "profiled" in record,
         "every forward at most 8 rows": 1 <= record["rows_per_forward"] <= 8,
@@ -3868,8 +4040,9 @@ def run_full_actor_learner(card: str) -> dict:
 # -------------------------------------------------------------------- phase 18
 SNAPSHOT_ROOT = HERE / "pfrl_tpu_torch" / "_build" / "snapshots"  # git-ignored, inside the checkout
 RESUME_CAPACITY = 131_072  # the 10^6-slot ring cut to C = 2^17: a 3.7 GB snapshot, not 28.3 GB
-RESUME_REPLAY_START = 4_096  # cut from 50,000
-RESUME_STEPS = (63, 8, 8)  # scan steps: warm (no update), with updates before the save, after it (A and B)
+RESUME_REPLAY_START = 1_024  # cut from 50,000 (then 4,096)
+RESUME_STEPS = (15, 3, 3)  # scan steps: warm (no update; cut from 63), with updates before the save (cut from 8), after it
+#                            (A and B; cut from 8)
 ZOO_OBS = 256
 _KEPT = {}  # what phase 14 hands to phase 18
 
@@ -4064,7 +4237,7 @@ def _check_resume(card: str) -> dict:
         "the restored state equals the saved one to the bit": restored_vs_saved["differing"] == 0,
         "the first resumed step draws the same slots": torch.equal(first_a_slots, first_b_slots)
         and first_a_slots.numel() == per_step * 32,
-        "8 x 16 kernel launches on each side": launches_a == launches_b == after * per_step == 128,
+        f"{after} x 16 kernel launches on each side": launches_a == launches_b == after * per_step == after * 16,
         ("B equals A to the bit (the card repeats to the bit)" if bitwise_repeats else
          "B within the card's own spread"): b_vs_a["differing"] == 0 if bitwise_repeats
         else b_vs_a["max_abs_diff"] <= spread,
@@ -4259,11 +4432,12 @@ def run_persistence(card: str, device) -> dict:
 # phases forbids it; the replay start from 5 x 10^4 to 256 for the time
 # limit (a batch step before it takes 7-13 ms, most of it the PER add over
 # the 19-level trees). 256 updates past it (one per transition), then one
-# evaluation of the script's 100 episodes.
+# evaluation of 20 of the script's 100 episodes.
 GRASPING_CAPACITY = 400_000
 GRASPING_FALLBACK_CAPACITY = 262_144
 GRASPING_REPLAY_START = 256
-GRASPING_UPDATES = 256
+GRASPING_UPDATES = 64  # cut from 256 for the time limit
+GRASPING_EVAL = 20     # evaluation episodes (the script's 100, cut for the time limit)
 GRASPING_PROFILED = (GRASPING_REPLAY_START, 32)  # from t, batch steps under torch.profiler
 GRASPING_SLOT_BYTES = 2 * 21_248 * 4 + 2 * 4 + 4 + 4 + 1 + 1  # both images, both steps, action, reward, flags
 GRASPING_MARGIN_BYTES = 4 * 2**30  # the network, its target, Adam's moments, activations, the trees
@@ -4396,11 +4570,11 @@ def _small_phase19_shells() -> dict:
         "host-naf-pendulum": (
             lambda dev, draws: make_agent(3, spaces.box(-2.0, 2.0, (1,)), num_envs=1, buffer_size=10_000,
                                           device=dev, draws=draws, **small),
-            lambda dev, seed: pendulum("cpu", seed), functools.partial(serial, steps=300, eval_interval=150), 3,
+            lambda dev, seed: pendulum("cpu", seed), functools.partial(serial, steps=180, eval_interval=90), 3,
             (1,), None),
         "host-c51-cartpole": (
             lambda dev, draws: make_c51_agent(4, 2, device=dev, draws=draws, **small),
-            cartpole, functools.partial(serial, steps=160, eval_interval=80), 4, (), None),
+            cartpole, functools.partial(serial, steps=130, eval_interval=65), 4, (), None),
     }
 
 
@@ -4412,7 +4586,7 @@ def run_full_grasping(card: str) -> dict:
     (``GRASPING_CAPACITY``, or the fallback, by the free memory) and the
     replay start (``GRASPING_REPLAY_START``), one batch step at a time
     (``profile_host.run_host_batch``) through 256 updates, then one
-    evaluation of 100 episodes. The kernel runs once per update at the
+    evaluation of ``GRASPING_EVAL`` episodes. The kernel runs once per update at the
     tree's C. The ring is freed before the phase ends."""
     from pfrl_tpu_torch.experiments.grasping_dqn_batch import make_grasping_agent, make_vector_envs
     from pfrl_tpu_torch.experiments.profile_host import run_host_batch
@@ -4428,12 +4602,13 @@ def run_full_grasping(card: str) -> dict:
     print(f"grasping-dqn-batch-1: {free / 1e9:.1f} of {total / 1e9:.1f} GB free before the ring; "
           f"{capacity:,} slots{why}")
     agent = make_grasping_agent(capacity=capacity, replay_start_size=GRASPING_REPLAY_START)
-    env, eval_env = make_vector_envs(1, 0)
+    with spawned_workers_skip_this_script():
+        env, eval_env = make_vector_envs(1, 0)
     steps = GRASPING_REPLAY_START + GRASPING_UPDATES - 1
     prefix_sample.launches = 0
     try:
         with tempfile.TemporaryDirectory() as outdir:  # the saved agents: 27 MB each
-            record = run_host_batch(agent, env, eval_env, steps, steps, 100, outdir, profiled=GRASPING_PROFILED)
+            record = run_host_batch(agent, env, eval_env, steps, steps, GRASPING_EVAL, outdir, profiled=GRASPING_PROFILED)
     finally:
         for e in (env, eval_env):
             if not e.closed:
@@ -4459,7 +4634,7 @@ def run_full_grasping(card: str) -> dict:
         f"{GRASPING_UPDATES} prefix-sample launches, one per update": launches == record["n_updates"]
         == GRASPING_UPDATES,
         "loss finite": math.isfinite(stats["average_loss"]) and math.isfinite(stats["average_q"]),
-        "one evaluation of 100 episodes, finite": len(record["eval"]) == 1
+        f"one evaluation of {GRASPING_EVAL} episodes, finite": len(record["eval"]) == 1
         and math.isfinite(record["eval"][0]["mean"]),
         "every worker ended": all(p.exitcode is not None for e in (env, eval_env) for p in e.ps),
         "a profiled window": "profiled" in record,
@@ -4480,7 +4655,7 @@ def run_full_grasping(card: str) -> dict:
           f"{record['n_updates']} updates; over {prof.get('batch_steps')} profiled batch steps "
           f"{prof.get('kernels_per_update') or float('nan'):.1f} kernels per update, device busy "
           f"{prof.get('device_busy_share', float('nan')) * 100:.1f}%; evaluation mean "
-          f"{record['eval'][0]['mean'] if record['eval'] else float('nan')} over 100 episodes; loss "
+          f"{record['eval'][0]['mean'] if record['eval'] else float('nan')} over {GRASPING_EVAL} episodes; loss "
           f"{stats['average_loss']:.5f}; {launches} prefix-sample launches (fp32, no TF32) on {card}")
     _raise_on_failed("grasping-dqn-batch-1", checks)
     agent.replay_state = None
@@ -4494,10 +4669,14 @@ def run_full_grasping(card: str) -> dict:
 # iqn-atarisim-64: the replay start cut from the script's 50,000 to 9,216, so
 # that the first 16 updates run on scan step 144; then 16 timed scan steps
 # (through the target sync at 10,000, on step 157) and 2 profiled: 304 updates.
-IQN_ATARI_REPLAY_START = 9_216
-IQN_ATARI_STEPS = (144, 16, 2)         # warm (its last one updates), timed, profiled
+# Both moved for the time limit (were 9,216 and the script's 10^4, 144 warm
+# steps): the first updates on scan step 32, the sync at 3,000 on step 47.
+IQN_ATARI_REPLAY_START = 2_048
+IQN_ATARI_SYNC = 3_000
+IQN_ATARI_STEPS = (32, 16, 2)          # warm (its last one updates), timed, profiled
 PPO_DEVICE_ITERATIONS = (1, 1)         # ppo-pendulum-device-64: timed, profiled (8,192 transitions each)
-MULTIHOST_REPLAY_START = 2_000         # cut from 50,000: one chunk of 500 scan steps, 502 updates
+MULTIHOST_REPLAY_START = 400           # cut from 50,000 (then 2,000)
+MULTIHOST_CHUNK = 100                  # one chunk of 100 scan steps (the example's 500), 102 updates
 MULTIHOST_PROFILED = 2                 # scan steps under torch.profiler after the chunk
 # Host paths of phase 20 -> their rings' slots (None: on-policy). Cut for the
 # time limit: PPO to t = 2,304 (its update at 2,048, then 32 batch steps;
@@ -4507,10 +4686,11 @@ MULTIHOST_PROFILED = 2                 # scan steps under torch.profiler after t
 PHASE_20_HOST_PATHS = {"ppo-pendulum-host-8": None, "sac-atlas-pendulum-host-4": 10**6,
                        "quickstart-dqn-cartpole-host-1": 10**4}
 SPAWNED_HOST_PATHS = ("sac-atlas-pendulum-host-4",)  # through MultiprocessVectorEnv, the script's default
-HOST_PATH_STEPS.update({"ppo-pendulum-host-8": 2_304, "sac-atlas-pendulum-host-4": 1_200,
+HOST_PATH_STEPS.update({"ppo-pendulum-host-8": 2_304, "sac-atlas-pendulum-host-4": 640,
                         "quickstart-dqn-cartpole-host-1": 800})
-HOST_PATH_REPLAY_START["sac-atlas-pendulum-host-4"] = 1_000
-HOST_PATH_PROFILED["sac-atlas-pendulum-host-4"] = (1_000, 32)
+# sac-atlas-pendulum-host-4: replay start and t cut further, from 1,000 and 1,200, to 512 and 640.
+HOST_PATH_REPLAY_START["sac-atlas-pendulum-host-4"] = 512
+HOST_PATH_PROFILED["sac-atlas-pendulum-host-4"] = (512, 8)
 
 
 def _phase20_recipes() -> dict:
@@ -4856,7 +5036,8 @@ def run_full_iqn_atari(card: str) -> dict:
     from pfrl_tpu_torch.experiments.atari_iqn import make_iqn_atarisim_runner
     from pfrl_tpu_torch.ops.prefix_sample import prefix_sample
 
-    runner, evaluator = make_iqn_atarisim_runner(replay_start_size=IQN_ATARI_REPLAY_START)
+    runner, evaluator = make_iqn_atarisim_runner(replay_start_size=IQN_ATARI_REPLAY_START,
+                                                 target_update_interval=IQN_ATARI_SYNC)
     cfg, buf = runner.config, runner.buffer
     warm_steps, timed_steps, profiled_steps = IQN_ATARI_STEPS
     state = runner.init(0)
@@ -4887,7 +5068,7 @@ def run_full_iqn_atari(card: str) -> dict:
         "the ring holds 10^5 frame stacks": buf.capacity == 99_968 and nbytes["frames"] >= 99_968 * 28_288,
         "the first updates on the last warm step": _updates_in(cfg, 1, warm_steps) == cfg.updates_per_step,
         "at least 256 updates": train.n_updates == updates >= 256,
-        "the target equals the online net right after the sync at 10,000": synced,
+        "the target equals the online net right after the sync": synced,
         "losses finite, positive once updates run": bool(torch.isfinite(loss).all()) and bool((loss[warm_steps - 1:] > 0).all()),
         "no prefix-sample launch": launches == 0,
         "evaluation returns finite": bool(np.isfinite(returns).all()) and returns.shape == (5,),
@@ -5002,7 +5183,7 @@ def run_full_multihost(card: str) -> dict:
     ``atari_dqn_batch.run_multihost`` at world size 1 over NCCL on the card:
     the script's settings (8 lanes, the 10^6-slot ring, 28.3 GB, the
     ``"sum"`` accumulator) but the replay start (``MULTIHOST_REPLAY_START``),
-    one chunk of 500 scan steps (502 updates), then 2 scan steps under the
+    one chunk of ``MULTIHOST_CHUNK`` scan steps (102 updates), then 2 scan steps under the
     profiler before the job is left. No prefix-sample launch."""
     from pfrl_tpu_torch.experiments.atari_dqn_batch import run_multihost
     from pfrl_tpu_torch.ops.prefix_sample import prefix_sample
@@ -5012,7 +5193,8 @@ def run_full_multihost(card: str) -> dict:
     prefix_sample.launches = 0
     t0 = time.perf_counter()
     out = run_multihost(["--multihost", f"localhost:{_free_port()}", "--replay-start-size",
-                         str(MULTIHOST_REPLAY_START), "--steps", "4000"], keep_job=True)
+                         str(MULTIHOST_REPLAY_START), "--steps", str(MULTIHOST_CHUNK * 8)], keep_job=True,
+                        chunk=MULTIHOST_CHUNK)
     try:
         run_s = time.perf_counter() - t0
         runner, state = out["runner"], out["state"]
@@ -5022,13 +5204,14 @@ def run_full_multihost(card: str) -> dict:
     launches = prefix_sample.launches
     cfg, buf = runner.config, runner.buffer
     (t, sps, loss), = out["chunks"]
-    updates = _updates_in(cfg, 1, 500)
-    chunk_s = 500 * cfg.num_envs / sps
+    updates = _updates_in(cfg, 1, MULTIHOST_CHUNK)
+    chunk_s = MULTIHOST_CHUNK * cfg.num_envs / sps
     nbytes = _ring_bytes(buf.ring, state.replay_state.local)
     checks = {
-        "one chunk of 500 scan steps": t == 4_000 and state.t == 4_000 + MULTIHOST_PROFILED * cfg.num_envs,
+        f"one chunk of {MULTIHOST_CHUNK} scan steps": t == MULTIHOST_CHUNK * cfg.num_envs
+        and state.t == t + MULTIHOST_PROFILED * cfg.num_envs,
         "the updates of the chunk and the profiled steps": state.train_state.n_updates == updates
-        + MULTIHOST_PROFILED * cfg.updates_per_step and updates == 502,
+        + MULTIHOST_PROFILED * cfg.updates_per_step and updates == 102,
         "a mesh of one rank over the sharded 10^6-slot ring": isinstance(buf, LaneShardedBuffer)
         and buf.capacity == buf.ring.capacity == 10**6 and out["mesh"].size == 1,
         "the 'sum' accumulator, its gradients summed": runner.core.batch_accumulator == "sum"
@@ -5057,8 +5240,8 @@ def run_full_multihost(card: str) -> dict:
 # drqn-atarisim-32 on a mesh and without one: the replay start cut further than
 # phase 12's 9,024, to 9,600, for the time limit (the sync at 10,000 kept):
 # 299 scan steps acting, then 14 updating (112 updates) through t = 10,016.
-DRQN_MESH_REPLAY_START = 9_600
-DRQN_MESH_STEPS = (299, 14)  # warm (through replay start), timed
+DRQN_MESH_REPLAY_START = DRQN_ATARI_REPLAY_START  # cut from 9,600, the sync moved with phase 12's
+DRQN_MESH_STEPS = (130, 2)   # warm (through replay start), timed (cut from 299, 14)
 DRQN_MESH_PROFILED = 2  # the mesh run's scan steps under torch.profiler, after the comparison
 
 
@@ -5103,7 +5286,8 @@ def run_full_drqn_atarisim_mesh(card: str) -> dict:
     try:
         with one_rank_mesh() as mesh:
             for label, m in (("no mesh", None), ("mesh", mesh)):
-                runner = make_drqn_atarisim_runner(replay_start_size=DRQN_MESH_REPLAY_START)[0]
+                runner = make_drqn_atarisim_runner(replay_start_size=DRQN_MESH_REPLAY_START,
+                                                   target_update_interval=DRQN_ATARI_SYNC)[0]
                 if m is not None:
                     runner = on_mesh(runner, m)
                 state = runner.init(0)
@@ -5140,7 +5324,7 @@ def run_full_drqn_atarisim_mesh(card: str) -> dict:
         and a.keys() == b.keys() and sa.keys() == sb.keys(),
         "n_updates as expected on both runs": plain["state"].train_state.n_updates == train.n_updates - (
             cfg.updates_per_step * DRQN_MESH_PROFILED) == updates,
-        "the target equals the online net right after the sync at 10,000": synced,
+        "the target equals the online net right after the sync": synced,
         "the buffer of 5.9 GB": 5.5e9 < storage_bytes < 6.5e9,
         "no prefix-sample launch": launches == 0,
     }
@@ -5178,12 +5362,14 @@ def run_full_drqn_atarisim_mesh(card: str) -> dict:
 # at C = 2^20. 16 steps from t = 700 (4 updates) run under the profiler (64
 # took 10 s: ~1,170 kernels per step); the rates after the replay start are
 # taken past that window.
-ALE_REPLAY_START = 600
-ALE_STEPS = 1_600
-ALE_PROFILED = (700, 16)
+ALE_REPLAY_START = 200          # cut from 600 for the time limit
+ALE_STEPS = 400                 # cut from 1,600: 51 updates, one kernel launch each
+ALE_PROFILED = (240, 16)
 # Host paths of HOST_PATHS that phase 22 runs through run_ale itself.
 PHASE_22_HOST_PATHS = ("dqn-ale-host-per-1",)
-ALE_SMALL_ARGS = ["--replay-capacity", "512", "--replay-start-size", "48", "--steps", "240",
+ALE_SMALL_STEPS = 136    # cut from 240 for the time limit
+ALE_SMALL_UPDATES = 23   # one per 4 steps from the replay start of 48 (49 before the cut)
+ALE_SMALL_ARGS = ["--replay-capacity", "512", "--replay-start-size", "48", "--steps", str(ALE_SMALL_STEPS),
                   "--target-update-interval", "64", "--max-frames", "400"]
 
 
@@ -5260,7 +5446,7 @@ def _run_ale(argv, device, make_atari, draws=None, step_hooks=(), scale=1.0, log
 
 def check_small_dqn_ale(device) -> dict:
     """``run_ale --prioritized`` small (``ALE_SMALL_ARGS``: the Nature
-    network at its widths, the ring cut to 512 slots, 49 updates) on the
+    network at its widths, the ring cut to 512 slots, 23 updates) on the
     card and on the CPU from the same weights (the shell draws its initial
     weights from a CPU generator seeded ``--seed``) and draws
     (``SeededDraws``): every action, sync and count equal, the ring's frames
@@ -5309,23 +5495,25 @@ def check_small_dqn_ale(device) -> dict:
     first_unequal = next((i for i, (a, b) in enumerate(zip(card_log["slots"], cpu_log["slots"]))
                           if not np.array_equal(a, b)), None)
     equal_priorities = [torch.equal(a[0], b[0]) for a, b in zip(card_log["samples"], cpu_log["samples"])]
+    steps, updates = ALE_SMALL_STEPS, ALE_SMALL_UPDATES
     checks = {
-        "actions": len(card_log["actions"]) == len(cpu_log["actions"]) == 240 and all(
+        "actions": len(card_log["actions"]) == len(cpu_log["actions"]) == steps and all(
             np.array_equal(a, b) for a, b in zip(card_log["actions"], cpu_log["actions"])),
-        "every sampled slot of the card's kernel equals the plain version's on its tree": len(kernel_vs_plain) == 49
-        and all(kernel_vs_plain) and sum(np.array_equal(a, b) for a, b in zip(card_log["slots"], plain)) >= 1,
-        "the card's and the CPU's slots equal wherever their priorities are": len(cpu_log["slots"]) == 49 and all(
+        "every sampled slot of the card's kernel equals the plain version's on its tree":
+            len(kernel_vs_plain) == updates and all(kernel_vs_plain)
+            and sum(np.array_equal(a, b) for a, b in zip(card_log["slots"], plain)) >= 1,
+        "the card's and the CPU's slots equal wherever their priorities are": len(cpu_log["slots"]) == updates and all(
             np.array_equal(a, b) for a, b, same in zip(card_log["slots"], cpu_log["slots"], equal_priorities)
             if same) and equal_priorities[0],
-        "equal step, update and sync counts": card.t == cpu.t == 240 and card.optim_t == cpu.optim_t == 49
-        and card_log["syncs"] == cpu_log["syncs"] >= 3,
+        "equal step, update and sync counts": card.t == cpu.t == steps and card.optim_t == cpu.optim_t == updates
+        and card_log["syncs"] == cpu_log["syncs"] >= 2,
         "the ring's frames": torch.equal(*storage),
         "statistics within 1e-4, or 4x the nudges": all(
             _within_nudges(float(a), float(b), [float(dict(n[0].get_statistics())[k]) for n in nudged], 1e-4, 5e-5)
             for (k, a), (_, b) in zip(card.get_statistics(), cpu.get_statistics())),
         "learned tensors within their bounds": all(d <= b for d, b in worst.values()),
-        "one prefix-sample launch per update": launches == card.optim_t == 49,
-        "no launch without --prioritized": uniform_launches == 0 and uniform.optim_t == 49,
+        "one prefix-sample launch per update": launches == card.optim_t == updates,
+        "no launch without --prioritized": uniform_launches == 0 and uniform.optim_t == updates,
     }
     top = max(worst.items(), key=lambda kv: kv[1][0] / kv[1][1])
     print(f"small dqn-ale-host-per: run_ale over the ALE stand-in ({'gymnasium' if gymnasium else 'no gymnasium: '
@@ -5465,13 +5653,233 @@ def run_full_dqn_ale(card: str) -> dict:
     return result
 
 
+# -------------------------------------------------------------------- phase 24
+# The command lines of ``examples/``, each through its port module's ``run``
+# at the example's widths (its default lanes, ring and batch) with explicit
+# small depth flags. The recipe behind each is driven at full width by an
+# earlier phase; this phase shows that each command line reaches it.
+CLI_CHUNK = 4            # scan steps per turn of the loops whose example fixes 500 (or 200 iterations)
+CLI_ATARI = ["--steps", "512", "--replay-start-size", "256"]  # 64 lanes: 8 scan steps, 80 updates
+
+
+def _loop_t(steps: int, per_turn: int) -> int:
+    """Where a ``while t < steps`` loop of ``per_turn`` transitions a turn stops."""
+    return -(-steps // per_turn) * per_turn
+
+
+def _cli_checks(name: str, out: dict, want_t: int, want_updates, launches: int, want_launches) -> dict:
+    state = out["state"]
+    n_updates = state.train_state.n_updates
+    checks = {
+        f"stopped at t = {want_t}": state.t == want_t,
+        f"its {want_updates} updates ran": n_updates == want_updates if isinstance(want_updates, int)
+        else n_updates >= 1,
+        f"{want_launches} prefix-sample launches": launches == want_launches,
+    }
+    _raise_on_failed(f"cli {name}", checks)
+    return {"t": state.t, "n_updates": n_updates, "kernel_launches": launches}
+
+
+def _cli_device_loop(name: str, call, want_t: int, want_updates, per_update_launches: int = 0) -> dict:
+    from pfrl_tpu_torch.ops.prefix_sample import prefix_sample
+
+    prefix_sample.launches = 0
+    t0 = time.perf_counter()
+    out = call()
+    torch.cuda.synchronize()
+    launches = prefix_sample.launches
+    n_updates = out["state"].train_state.n_updates
+    result = _cli_checks(name, out, want_t, want_updates, launches, per_update_launches * n_updates)
+    print(f"cli {name}: t = {out['state'].t} in {out['turns']} turns, {n_updates} updates, {launches} "
+          f"prefix-sample launches, {time.perf_counter() - t0:.2f} s")
+    return {**result, "out": out}
+
+
+def cli_flagship(card: str) -> dict:
+    """``train_dqn.py --sim`` (``atari_dqn_reproduction.run``): 64 lanes, the
+    10^5-slot uniform ring, RMSprop with eps inside the root, the ``"sum"``
+    accumulator; 8 scan steps, then ``--save-to`` and, in a fresh runner,
+    ``--load --demo`` (``EvalLoop`` 5 x 500) with the weights equal to the
+    bit."""
+    from pfrl_tpu_torch.experiments import atari_dqn_reproduction
+
+    with tempfile.TemporaryDirectory() as directory:
+        r = _cli_device_loop("train_dqn.py --sim", lambda: atari_dqn_reproduction.run(
+            ["--sim", *CLI_ATARI, "--save-to", directory], chunk=CLI_CHUNK), 512, 80)
+        out = r.pop("out")
+        runner, saved = out["runner"], out["state"].train_state
+        loaded = atari_dqn_reproduction.run(["--sim", "--load", directory, "--demo"])
+    got = dict(loaded["state"].train_state.model.named_parameters())
+    checks = {
+        "the flagship's recipe": runner.core.batch_accumulator == "sum" and runner.buffer.capacity == 99_968
+        and not runner.buffer.store_next_obs and runner.config.num_envs == 64
+        and type(runner.core.optimizer).__name__ == "RMSprop",
+        "saved train state loaded to the bit": all(torch.equal(p, got[n]) for n, p in saved.model.named_parameters()),
+        "the demo's 5 returns, finite": loaded["demo_returns"].shape == (5,)
+        and bool(np.isfinite(loaded["demo_returns"]).all()),
+    }
+    _raise_on_failed("cli train_dqn.py --sim", checks)
+    return r
+
+
+def cli_rainbow(card: str, device) -> dict:
+    """``train_rainbow.py`` (``atari_rainbow.run``): 64 lanes, the 10^5-slot
+    prioritized ring, so the prefix-sample kernel at C = 2^17, B = 32, once
+    per update; then the kernel held against its plain version on the run's
+    own leaves."""
+    from pfrl_tpu_torch.experiments import atari_rainbow
+    from pfrl_tpu_torch.ops import prefix_sample as ps
+
+    r = _cli_device_loop("train_rainbow.py", lambda: atari_rainbow.run(CLI_ATARI, chunk=CLI_CHUNK), 512, 80, 1)
+    out = r.pop("out")
+    buffer, replay = out["runner"].buffer, out["state"].replay_state
+    leaves = replay.tree[buffer.tree_capacity:]
+    targets = torch.rand(32, generator=torch.Generator(device=device).manual_seed(24), device=device) * leaves.sum()
+    got, want = ps.prefix_sample(leaves, targets), ps.prefix_sample_reference(leaves, targets)
+    err = int((got - want).abs().max())
+    _raise_on_failed("cli train_rainbow.py", {
+        "C = 2^17 leaves, B = 32": leaves.numel() == 131_072 and targets.numel() == 32,
+        "the kernel equals its plain version on the run's leaves": err == 0,
+    })
+    print(f"cli train_rainbow.py: the kernel on the run's {leaves.numel()} leaves, B = 32: max |err| {err}")
+    return {**r, "C": leaves.numel(), "max_abs_err": err}
+
+
+def cli_batch_modes(card: str) -> dict:
+    """``train_dqn_batch_ale.py`` (``atari_dqn_batch.run``) over
+    ``SyntheticALE`` (no ALE here): the batch mode (8 + 8 spawned workers,
+    the 10^6-slot ring) and ``--actor-learner`` (8 actor threads), each
+    from a replay start of 128 to t = 256; 0 launches."""
+    from pfrl_tpu_torch.envs import synthetic_ale
+    from pfrl_tpu_torch.experiments import atari_dqn_batch
+    from pfrl_tpu_torch.ops.prefix_sample import prefix_sample
+
+    argv = ["--steps", "256", "--replay-start-size", "128"]
+    results = {}
+    for mode, extra in (("batch", []), ("actor-learner", ["--actor-learner"])):
+        prefix_sample.launches = 0
+        with tempfile.TemporaryDirectory() as outdir, spawned_workers_skip_this_script():
+            out = atari_dqn_batch.run([*extra, *argv, "--outdir", outdir], make_env=synthetic_ale.make_ale_env)
+        agent = out if mode == "actor-learner" else out[0]
+        torch.cuda.synchronize()
+        launches = prefix_sample.launches
+        n_updates = agent.train_state.n_updates
+        _raise_on_failed(f"cli train_dqn_batch_ale.py {mode}", {
+            "the 10^6-slot ring": agent.buffer.capacity == 10**6,
+            "its updates ran": n_updates >= 1,
+            "0 prefix-sample launches": launches == 0,
+        })
+        print(f"cli train_dqn_batch_ale.py {' '.join(extra) or '(batch)'}: {n_updates} updates, {launches} "
+              "prefix-sample launches")
+        results[f"train_dqn_batch_ale.py {mode}"] = {"n_updates": n_updates, "kernel_launches": launches}
+    return results
+
+
+def cli_small_device_loops(card: str) -> dict:
+    """The other device command lines, each at its example's lanes, ring and
+    batch, a few turns deep: IQN without ``--sim``, A2C and PPO ``--sim``,
+    ACER, C51 and DRQN ``--sim``, A3C, DQN-CartPole, PPO ``--jax-env
+    pendulum``; 0 launches each."""
+    from pfrl_tpu_torch.experiments import (
+        acer,
+        atari_a3c,
+        atari_c51,
+        atari_iqn,
+        atari_onpolicy_ale,
+        cartpole_value,
+        mujoco_host,
+        recurrent,
+    )
+    from pfrl_tpu_torch.experiments.recurrent import DRQN_ATARISIM_CUT_REPLAY_START as DRQN_START
+
+    drqn_t = _loop_t(DRQN_START + 1, 32 * 66)
+    runs = {
+        # 64 lanes, the 10^5-slot ring; F4: no --sim.
+        "train_iqn.py": (lambda: atari_iqn.run(CLI_ATARI, chunk=CLI_CHUNK), 512, 80),
+        # 16 lanes x 5 steps, 2 iterations; 8 lanes x 128 steps, 1 iteration of 16 Adam steps.
+        "train_a2c_ale.py --sim": (lambda: atari_onpolicy_ale.run_a2c_ale(["--sim", "--steps", "1"], chunk=2),
+                                   160, 2),
+        "train_ppo_ale.py --sim": (lambda: atari_onpolicy_ale.run_ppo_ale(["--sim", "--steps", "1"], chunk=1),
+                                   1024, 16),
+        # 16 lanes, the 2,048 x 50 episodic buffer: rows sealed by t = 832, then one update per scan step.
+        "train_acer_ale.py --sim": (lambda: acer.run(["--sim", "--steps", "960", "--replay-start-size", "832",
+                                                      "--chunk", "26"]), 1248, 27),
+        # 64 lanes, the 10^6-slot ring.
+        "train_categorical_dqn_ale.py --sim": (lambda: atari_c51.run(["--sim", *CLI_ATARI, "--chunk", "4"]),
+                                               512, 80),
+        # 32 lanes, the 2,048 x 128 episodic buffer: past the first sealed rows, 8 updates a scan step.
+        "train_drqn_ale.py --sim": (lambda: recurrent.run(["--sim", "--steps", str(DRQN_START + 1),
+                                                           "--replay-start-size", str(DRQN_START), "--chunk", "66"]),
+                                    drqn_t, 8 * ((drqn_t - DRQN_START) // 32 + 1)),
+        "train_a3c.py": (lambda: atari_a3c.run(["--steps", "1"], chunk=2), 160, 2),
+        # 128 lanes; 2 chunks of 8 scan steps, each followed by EvalLoop 16 x 500; updates from 1,000.
+        "train_dqn_cartpole.py": (lambda: cartpole_value.run(["--steps", "2048", "--eval-interval", "1024"]),
+                                  2048, 36),
+        # 64 lanes x 128 steps, 1 iteration of 1,280 Adam steps.
+        "train_ppo.py --jax-env pendulum": (lambda: mujoco_host.run_ppo(["--jax-env", "pendulum", "--steps", "1"],
+                                                                        chunk=1), 8192, 1280),
+    }
+    results = {}
+    for name, (call, want_t, want_updates) in runs.items():
+        results[name] = _cli_device_loop(name, call, want_t, want_updates)
+        results[name].pop("out")
+    return results
+
+
+def cli_host_and_objective(card: str) -> dict:
+    """``train_reinforce_gym.py`` (the host CartPole, 10 episodes an update)
+    and ``optuna_dqn_cartpole.objective`` with a stand-in trial (32 lanes,
+    1,280 transitions, 5 reports, updates from 1,024); 0 launches."""
+    import types
+
+    from pfrl_tpu_torch.experiments import optuna_dqn_cartpole, reinforce_gym
+    from pfrl_tpu_torch.ops.prefix_sample import prefix_sample
+
+    prefix_sample.launches = 0
+    with tempfile.TemporaryDirectory() as outdir:
+        agent, _ = reinforce_gym.run(["--steps", "400", "--eval-interval", "200", "--eval-n-runs", "2",
+                                      "--outdir", outdir])
+    reinforce_updates = agent.train_state.n_updates
+
+    class Trial:
+        number, reports = 0, []
+        values = dict(lr=1e-3, n_hidden_channels=64, n_hidden_layers=2, update_per=32, final_epsilon=0.05,
+                      gamma=0.99)
+
+        def suggest_float(self, name, *a, **kw):
+            return self.values[name]
+
+        suggest_categorical = suggest_int = suggest_float
+
+        def report(self, value, step):
+            self.reports.append((value, step))
+
+        def should_prune(self):
+            return False
+
+    trial = Trial()
+    score = optuna_dqn_cartpole.objective(trial, types.SimpleNamespace(steps=1280, bf16=False))
+    torch.cuda.synchronize()
+    launches = prefix_sample.launches
+    _raise_on_failed("cli train_reinforce_gym.py and optuna_dqn_cartpole.py", {
+        "REINFORCE updated": reinforce_updates >= 1,
+        "5 reports at t = 256 ... 1,280, the last the score": [t for _, t in trial.reports] == [256, 512, 768, 1024,
+                                                                                                 1280]
+        and trial.reports[-1][0] == score and math.isfinite(score),
+        "0 prefix-sample launches": launches == 0,
+    })
+    print(f"cli train_reinforce_gym.py: {reinforce_updates} updates; optuna objective reports "
+          f"{[round(v, 1) for v, _ in trial.reports]}, 0 launches")
+    return {"reinforce_updates": reinforce_updates, "objective_reports": trial.reports, "kernel_launches": launches}
+
+
 # -------------------------------------------------------------------- phase 23
 SIBLING_NUDGES = (1.0 + 2.0**-23, 1.0 - 2.0**-23)
 SIBLING_FLOOR = 3e-6      # C22's floor, where 4x the nudges is less
-BN_CRITIC_STEPS = 200     # Adam(1e-3) steps of each batch-norm critic in train mode
+BN_CRITIC_STEPS = 60      # Adam(1e-3) steps of each batch-norm critic in train mode (cut from 200)
 LSTM_Q_UNROLL = 100       # FCLSTMSAQFunction's steps from initial_carry
 NORMALIZER = (17, 2_048, 50, 100_000)  # width, batch, updates, until: the 50th update is frozen
-RMSPROP_STEPS = 100
+RMSPROP_STEPS = 40        # cut from 100
 CHECKPOINT_SCAN_STEPS = 20  # the Nature-CNN DQN's runner, 64 lanes, replay start 1,024: 64 updates
 
 
@@ -5724,6 +6132,7 @@ def run_siblings_and_checkpoints(card: str, device) -> dict:
 
 
 def main() -> int:
+    sys.stdout.reconfigure(line_buffering=True)  # a run that is cut still shows its last phase
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -5735,18 +6144,9 @@ def main() -> int:
     from pfrl_tpu_torch.replay.sum_tree import tree_capacity
 
     device = resolve_device()
-    card = card_line()
-    print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    record = {"card": card, "phase_seconds": {}}
-
-    def phase(name, fn, *args):
-        t0 = time.perf_counter()
-        out = fn(*args)
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()  # the next path allocates a ring of its own
-        record["phase_seconds"][name] = time.perf_counter() - t0
-        print(f"phase {name}: {record['phase_seconds'][name]:.1f} s")
-        return out
+    card, host_cpu = card_line(), host_cpu_model()
+    print(f"card: {card}; host CPU: {host_cpu}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    record = {"card": card, "host_cpu": host_cpu, "phase_seconds": PHASE_TIMES}
 
     record["build"] = phase("build", build_kernels)
     record["frame_ops"] = phase("frame ops", check_frame_ops, card)
@@ -5793,7 +6193,7 @@ def main() -> int:
     record["full_bf16"] = {
         "per-dqn-atarisim-64-bf16": phase("full per-dqn bf16", run_full_slice, card, bf16, BF16_PER_DQN_STEPS_TIMED),
         "sac-pendulum-16-bf16": phase("full sac-pendulum bf16", run_full_sac_pendulum_bf16, card),
-        "ppo-mujocosim-8-bf16": phase("full ppo bf16", run_full_onpolicy, card, "ppo", bf16),
+        "ppo-mujocosim-8-bf16": phase("full ppo bf16", run_full_onpolicy, card, "ppo", bf16, BF16_PPO_ITERATIONS),
     }
     for name, (build, steps, onpolicy, ulp, floor, change_floor) in _small_recurrent_configs().items():
         record["small_slices"][name] = phase(f"small {name}", check_small_in_ulps, name, build, steps, onpolicy,
@@ -5862,6 +6262,13 @@ def main() -> int:
     record["small_slices"]["dqn-ale-host-per"] = phase("small dqn-ale-host-per", check_small_dqn_ale, device)
     record["full_phase22"] = {"dqn-ale-host-per-1": phase("full dqn-ale-host-per-1", run_full_dqn_ale, card)}
     record["phase23"] = phase("siblings and JAX checkpoints", run_siblings_and_checkpoints, card, device)
+    record["phase24"] = {
+        "train_dqn.py --sim": phase("cli train_dqn.py --sim", cli_flagship, card),
+        "train_rainbow.py": phase("cli train_rainbow.py", cli_rainbow, card, device),
+        **phase("cli train_dqn_batch_ale.py", cli_batch_modes, card),
+        **phase("cli device loops", cli_small_device_loops, card),
+        "train_reinforce_gym.py and optuna": phase("cli reinforce and optuna", cli_host_and_objective, card),
+    }
     # Counted over each path that samples by priority, from 0 at its start;
     # every other path asserts a count of 0.
     kernel["launches_by_path"] = {
@@ -5884,7 +6291,7 @@ def main() -> int:
         # The card's side of the PER actor-learner run: one launch per update.
         "actor-learner-per-double-dqn": record["small_slices"]["actor-learner-per-double-dqn"]["kernel_launches"],
         **{name: r["kernel_launches"] for name, r in record["full_actor_learner"].items()},
-        # The resumed PER run, C = 2^17: 8 scan steps of 16 updates, before (A) and after (B) the reload.
+        # The resumed PER run, C = 2^17: 3 scan steps of 16 updates, before (A) and after (B) the reload.
         "resume-A": record["persistence"]["resume"]["launches_a"],
         "resume-B": record["persistence"]["resume"]["launches_b"],
         # The card's side of the grasping shell's card-vs-CPU run (C = 2^14), then
@@ -5905,6 +6312,8 @@ def main() -> int:
         **{name: r["kernel_launches"] for name, r in record["full_phase22"].items()},
         # Phase 23: the sibling modules and the JAX-layout checkpoint (0).
         "siblings and JAX checkpoints": record["phase23"]["kernel_launches"],
+        # Phase 24: the command lines; Rainbow's one launch per update at C = 2^17, B = 32, 0 on the others.
+        **{f"cli {name}": r["kernel_launches"] for name, r in record["phase24"].items()},
     }
     kernel["launches"] = sum(kernel["launches_by_path"].values())
     record["kernels"] = [kernel]
@@ -5915,6 +6324,7 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in record["kernels"]]}))
+    print(f"host CPU: {host_cpu}; {sum(PHASE_TIMES.values()):.1f} s of phases")
     print(card_line())
     print(json.dumps({
         "ok": True,

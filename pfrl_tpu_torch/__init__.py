@@ -74,12 +74,19 @@ collections (:mod:`.collections_`, also ``collections``). A JAX checkpoint
 (flax msgpack) loads through the port's own reader
 (:mod:`.utils.flax_msgpack`) and :mod:`.convert`, with no JAX installed.
 
-Not ported yet: the models and Q-functions with no example (``MLPBN``,
-``EmpiricalNormalization``, ``Branched``, ``Lambda``, the BN and LSTM
-(state, action) Q-functions), ``synchronize_parameters``, the RMSprop with
-eps inside the root as an optimizer of its own, a checkpoint the JAX
-package reads, ``utils/profiling.py`` and the command-line entry points
-(ROADMAP A.4-A.5).
+The sibling modules: ``MLPBN``, ``EmpiricalNormalization``,
+``Branched``, ``Lambda``, the BN and LSTM (state, action) Q-functions,
+``synchronize_parameters`` (whose copies refuse modules of another
+structure), ``RMSpropEpsInsideSqrt``, a checkpoint the JAX package reads
+(``convert.save_flax_checkpoint``) and ``utils/profiling.py``.
+
+Every script of ``examples/`` has a command line here: ``python -m
+pfrl_tpu_torch.experiments.<module> <the example's flags>`` (``README.md``
+maps the 27 scripts to their modules; ``atari_onpolicy_ale`` and
+``mujoco_host`` take the example's name first, ``a2c`` or ``ppo``,
+``sac``, ``td3``, ``ddpg``, ``ppo`` or ``trpo``), each a ``run(argv=None,
+device=None)`` with the example's flags and defaults. Nothing is left to
+port.
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; without a card they raise (see :mod:`._device`). Kernels

@@ -31,10 +31,12 @@ JAX recipes set it. Every Dense layer has flax ``nn.Dense``'s default init
 (the CNN Chainer's, ``FCSAQFunction``'s ``MLP`` too) and each model names its
 flax scopes, so ``convert.acer_state_from_flax`` loads the JAX package's
 states. Widths, buffers and cadences are arguments, so that tests run the
-recipes small; the recipes' values are the defaults.
+recipes small; the recipes' values are the defaults. :func:`run` is
+``train_acer_ale.py``'s ``main``.
 """
 
-from typing import Dict, Optional, Tuple
+import argparse
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -170,21 +172,24 @@ ATARI_SIZES = dict(num_envs=16, max_episodes=2048, max_episode_len=50, replay_st
 
 
 def make_acer_atarisim_runner(n_actions: int = 6, device=None, compute_dtype: Optional[torch.dtype] = None,
+                              lr: float = 7e-4, beta: float = 1e-2, mean_episode_len: int = 50,
                               **sizes) -> Recipe:
+    """The example gives AtariSim episodes of mean length ``--t-max``, its
+    rows' length."""
     sizes = {**ATARI_SIZES, **sizes}
-    env = AtariSim(n_actions=n_actions, mean_episode_len=50, device=device)
+    env = AtariSim(n_actions=n_actions, mean_episode_len=mean_episode_len, device=device)
     core = ACERCore(
         model=AtariPiQ(n_actions),
-        optimizer=RMSprop(7e-4, decay=0.99, eps=1e-2),
+        optimizer=RMSprop(lr, decay=0.99, eps=1e-2),
         gamma=0.99,
-        beta=1e-2,
+        beta=beta,
         truncation_threshold=10.0,
         use_trust_region=True,
         trust_region_delta=0.1,
         phi=atari_phi,
         compute_dtype=compute_dtype,
     )
-    eval_env = AtariSim(n_actions=n_actions, mean_episode_len=50, device=device)
+    eval_env = AtariSim(n_actions=n_actions, mean_episode_len=mean_episode_len, device=device)
     return _episodic(env, core, eval_env, (5, 500), **sizes)
 
 
@@ -194,3 +199,54 @@ RECIPES = {
     "acer-abc-16": make_acer_abc_runner,
     "acer-continuous-abc-16": make_acer_continuous_abc_runner,
 }
+
+
+# ``train_acer_ale.py``'s refusal without ``--sim`` (``:120-124``), as it is.
+ALE_REFUSAL = ("host ALE requires gym[atari]+cv2 (not in this container); "
+               "use --sim, or see train_dqn_ale.py:run_ale for the host path")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    """``train_acer_ale.py``'s flags (``:104-118``)."""
+    from pfrl_tpu_torch.experiments.demo_cli import add_demo_args
+
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--env", default="BreakoutNoFrameskip-v4")
+    parser.add_argument("--sim", action="store_true")
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--bf16", action="store_true", help="bf16 network compute over fp32 master params")
+    parser.add_argument("--chunk", type=int, default=200, help="scan steps per device dispatch")
+    parser.add_argument("--steps", type=int, default=10**7)
+    parser.add_argument("--lr", type=float, default=7e-4)
+    parser.add_argument("--beta", type=float, default=1e-2)
+    parser.add_argument("--batch-size", type=int, default=16)
+    parser.add_argument("--num-envs", type=int, default=16)
+    parser.add_argument("--t-max", type=int, default=50, help="episode chunk length for episodic replay")
+    parser.add_argument("--max-episodes", type=int, default=2048)
+    parser.add_argument("--replay-start-size", type=int, default=10**4)
+    add_demo_args(parser)
+    return parser
+
+
+def run(argv: Optional[Sequence[str]] = None, device=None) -> dict:
+    """``train_acer_ale.py``'s ``main`` with ``argv``'s flags on ``device``
+    (default: the CUDA device): without ``--sim`` the example's
+    ``SystemExit``; with it :func:`make_acer_atarisim_runner` in turns of
+    ``--chunk`` scan steps (one update of ``--batch-size`` rows per
+    ``--num-envs`` transitions). Returns
+    :func:`~.demo_cli.run_device_example`'s dict."""
+    from pfrl_tpu_torch.experiments.demo_cli import run_device_example
+
+    args = build_parser().parse_args(argv)
+    if not args.sim:
+        raise SystemExit(ALE_REFUSAL)
+    runner, eval_loop = make_acer_atarisim_runner(
+        device=device, compute_dtype=torch.bfloat16 if args.bf16 else None, lr=args.lr, beta=args.beta,
+        mean_episode_len=args.t_max, num_envs=args.num_envs, max_episodes=args.max_episodes,
+        max_episode_len=args.t_max,
+        replay_start_size=args.replay_start_size, update_interval=args.num_envs, minibatch_size=args.batch_size)
+    return run_device_example(args, runner, eval_loop, lambda state: runner.run_chunk(state, args.chunk)[0])
+
+
+if __name__ == "__main__":
+    run()

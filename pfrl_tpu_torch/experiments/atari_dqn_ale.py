@@ -329,3 +329,10 @@ def run_ale(argv: Optional[Sequence[str]] = None, device=None, make_atari: Optio
         eval_n_episodes=None, eval_interval=args.eval_interval, outdir=args.outdir, step_hooks=step_hooks,
     )
     return {"agent": agent, "env": env, "history": history}
+
+
+run = run_sim  # the example's ``main``: ``--sim`` or the ALE path
+
+
+if __name__ == "__main__":
+    run()

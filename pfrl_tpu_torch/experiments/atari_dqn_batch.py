@@ -39,6 +39,7 @@ the device runner over a ``dp`` mesh of the joined processes, the lanes and
 the ring's rows split over them (``parallel/``).
 """
 
+import argparse
 import functools
 from typing import Callable, Optional, Sequence, Tuple
 
@@ -226,34 +227,15 @@ def run_actor_learner(
     return agent
 
 
-def run_multihost(argv: Optional[Sequence[str]] = None, device=None, keep_job: bool = False) -> dict:
-    """``train_dqn_batch_ale.py --multihost HOST:PORT --num-processes N
-    --process-id I`` (``run_multihost``, ``:153-224``): every process runs
-    this same call with its own ``--process-id``. They join one job
-    (``parallel.initialize_multihost``: NCCL on the card, Gloo with
-    ``device="cpu"``) and one ``dp`` mesh; the device runner trains DQN on
-    the Nature Q-network (Adam(``--lr``, eps 1.5e-4), the ``"sum"``
-    accumulator, epsilon 1 -> 0.01 over 10^6 transitions, ``atari_phi``)
-    over ``--num-envs`` (8) AtariSim lanes, split over the processes, and
-    the uniform ring of ``--replay-capacity`` (10^6) slots, dequantized by
-    1/255 in the gather, its rows split with the lanes; batch-32 updates
-    every 4 transitions from 50,000 on, hard syncs every 10^4. It runs in
-    chunks of 500 scan steps until ``--steps`` transitions; only the
-    primary process prints. The job is left at the end, or on a failure
-    (``keep_job``: kept after a run that ended well, for the caller to
-    drive the runner further and then call ``parallel.multihost.shutdown``).
-    Returns ``{"runner", "state", "mesh", "chunks"}``, ``chunks`` a list of
-    ``(t, global env-steps/s, last loss)``."""
-    import argparse
-    import time
-
-    from pfrl_tpu_torch.agents.dqn import DQNCore
-    from pfrl_tpu_torch.envs.atari_sim import AtariSim
-    from pfrl_tpu_torch.experiments.runner import OffPolicyRunner, RunnerConfig
-    from pfrl_tpu_torch.parallel.multihost import global_mesh, initialize_multihost, is_primary, shutdown
+def build_parser() -> argparse.ArgumentParser:
+    """``train_dqn_batch_ale.py``'s flags (``:227-252``)."""
+    from pfrl_tpu_torch.experiments.demo_cli import add_demo_args
 
     parser = argparse.ArgumentParser()
-    parser.add_argument("--multihost", required=True, metavar="HOST:PORT")
+    parser.add_argument("--env", default=ENV_ID)
+    parser.add_argument("--actor-learner", action="store_true")
+    parser.add_argument("--multihost", default=None, metavar="HOST:PORT",
+                        help="the coordinator's address; shards the device workload over the joined processes")
     parser.add_argument("--num-processes", type=int, default=1)
     parser.add_argument("--process-id", type=int, default=0)
     parser.add_argument("--seed", type=int, default=0)
@@ -266,7 +248,67 @@ def run_multihost(argv: Optional[Sequence[str]] = None, device=None, keep_job: b
     parser.add_argument("--replay-start-size", type=int, default=5 * 10**4)
     parser.add_argument("--update-interval", type=int, default=4)
     parser.add_argument("--target-update-interval", type=int, default=10**4)
+    parser.add_argument("--eval-interval", type=int, default=10**5)
+    parser.add_argument("--outdir", default="results/dqn_batch_ale")
+    add_demo_args(parser)
+    return parser
+
+
+def _agent_kwargs(args) -> dict:
+    """``build_agent``'s settings from the flags."""
+    return dict(capacity=args.replay_capacity, replay_start_size=args.replay_start_size,
+                update_interval=args.update_interval, target_update_interval=args.target_update_interval,
+                minibatch_size=args.batch_size, lr=args.lr, compute_dtype=torch.bfloat16 if args.bf16 else None)
+
+
+def run(argv: Optional[Sequence[str]] = None, device=None, make_env: Optional[Callable] = None):
+    """``train_dqn_batch_ale.py``'s ``main``: ``--multihost`` goes to
+    :func:`run_multihost`, ``--actor-learner`` to :func:`run_actor_learner`
+    (``--load``/``--demo``/``--save-to`` are parsed and not read, as in the
+    example), anything else to :func:`run_batch`. ``make_env(seed, idx,
+    test)`` replaces the example's ALE env (``synthetic_ale.make_ale_env``
+    where ALE is not installed)."""
+    args = build_parser().parse_args(argv)
+    if args.multihost:
+        return run_multihost(argv, device)
+    common = dict(outdir=args.outdir, steps=args.steps, eval_interval=args.eval_interval, num_envs=args.num_envs,
+                  seed=args.seed, device=device, env_id=args.env, make_env=make_env, **_agent_kwargs(args))
+    if args.actor_learner:
+        return run_actor_learner(**common)
+    return run_batch(load=args.load, demo=args.demo, **common)
+
+
+def run_multihost(argv: Optional[Sequence[str]] = None, device=None, keep_job: bool = False,
+                  chunk: int = 500) -> dict:
+    """``train_dqn_batch_ale.py --multihost HOST:PORT --num-processes N
+    --process-id I`` (``run_multihost``, ``:153-224``): every process runs
+    this same call with its own ``--process-id``. They join one job
+    (``parallel.initialize_multihost``: NCCL on the card, Gloo with
+    ``device="cpu"``) and one ``dp`` mesh; the device runner trains DQN on
+    the Nature Q-network (Adam(``--lr``, eps 1.5e-4), the ``"sum"``
+    accumulator, epsilon 1 -> 0.01 over 10^6 transitions, ``atari_phi``)
+    over ``--num-envs`` (8) AtariSim lanes, split over the processes, and
+    the uniform ring of ``--replay-capacity`` (10^6) slots, dequantized by
+    1/255 in the gather, its rows split with the lanes; batch-32 updates
+    every 4 transitions from 50,000 on, hard syncs every 10^4. It runs in
+    chunks of ``chunk`` scan steps (the example's 500) until ``--steps``
+    transitions; only the
+    primary process prints. The job is left at the end, or on a failure
+    (``keep_job``: kept after a run that ended well, for the caller to
+    drive the runner further and then call ``parallel.multihost.shutdown``).
+    Returns ``{"runner", "state", "mesh", "chunks"}``, ``chunks`` a list of
+    ``(t, global env-steps/s, last loss)``."""
+    import time
+
+    from pfrl_tpu_torch.agents.dqn import DQNCore
+    from pfrl_tpu_torch.envs.atari_sim import AtariSim
+    from pfrl_tpu_torch.experiments.runner import OffPolicyRunner, RunnerConfig
+    from pfrl_tpu_torch.parallel.multihost import global_mesh, initialize_multihost, is_primary, shutdown
+
+    parser = build_parser()
     args = parser.parse_args(argv)
+    if not args.multihost:
+        parser.error("run_multihost needs --multihost HOST:PORT")
     device = initialize_multihost(args.multihost, args.num_processes, args.process_id, device=device)
     try:
         mesh = global_mesh(("dp",))
@@ -284,7 +326,7 @@ def run_multihost(argv: Optional[Sequence[str]] = None, device=None, keep_job: b
         runner = OffPolicyRunner(AtariSim(n_actions=n_actions, device=device), core, buffer, config, device=device,
                                  mesh=mesh)
         state = runner.init(args.seed)
-        chunk, chunks = 500, []
+        chunks = []
         while state.t < args.steps:
             t0 = time.time()
             state, metrics = runner.run_chunk(state, chunk)
@@ -299,3 +341,7 @@ def run_multihost(argv: Optional[Sequence[str]] = None, device=None, keep_job: b
     if not keep_job:
         shutdown()
     return {"runner": runner, "state": state, "mesh": mesh, "chunks": chunks}
+
+
+if __name__ == "__main__":
+    run()

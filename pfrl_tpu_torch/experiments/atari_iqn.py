@@ -1,4 +1,4 @@
-"""``examples/atari/reproduction/iqn/train_iqn.py --sim``: IQN on the Nature
+"""``examples/atari/reproduction/iqn/train_iqn.py``: IQN on the Nature
 CNN at the script's own settings (``main``, ``:28-87``).
 
 :func:`make_iqn_atarisim_runner` returns ``(runner, eval_loop)``: 64 lanes
@@ -16,11 +16,11 @@ card, C56); one batch-32 update per 4 transitions from 50,000 on; hard
 target syncs every 10^4; ``EvalLoop`` 5 x 500. ``--bf16`` is
 ``compute_dtype=torch.bfloat16`` (the taus and the cosine basis stay
 float32, C32). Sizes are arguments; the script's values are the defaults.
-:func:`run_sim` is the script's ``main``.
+:func:`run` is the script's ``main``, which runs AtariSim with or without
+``--sim``, as the example does.
 """
 
 import argparse
-import time
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -36,6 +36,7 @@ from pfrl_tpu_torch.q_functions.quantile_q_functions import ImplicitQuantileQFun
 from pfrl_tpu_torch.replay.uniform import ReplayBuffer
 
 N_ACTIONS = 6
+CHUNK = 500  # scan steps per turn of the example's loop
 
 
 def make_iqn_model(n_actions: int = N_ACTIONS) -> ImplicitQuantileQFunction:
@@ -104,36 +105,22 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def run_sim(argv: Optional[Sequence[str]] = None, device=None) -> dict:
-    """``train_iqn.py --sim`` with ``argv``'s flags on ``device``: chunks of
-    500 scan steps, each printing env-steps/s, the last loss and the recent
-    return; ``--load``/``--demo``/``--save-to``. Returns ``{"runner",
-    "eval_loop", "state"}`` and ``"demo_returns"`` or ``"saved_to"``."""
-    from pfrl_tpu_torch.experiments.demo_cli import (
-        demo_returns,
-        maybe_load_train_state,
-        print_demo_line,
-        save_train_state_if_requested,
-    )
+def run(argv: Optional[Sequence[str]] = None, device=None, chunk: int = CHUNK) -> dict:
+    """``train_iqn.py``'s ``main`` with ``argv``'s flags on ``device``: with
+    or without ``--sim`` (the example parses it and never reads it), IQN on
+    AtariSim in turns of ``chunk`` scan steps (the example's 500) until
+    ``--steps`` transitions; ``--load``/``--demo``/``--save-to``. Returns
+    :func:`~.demo_cli.run_device_example`'s dict."""
+    from pfrl_tpu_torch.experiments.demo_cli import run_device_example
 
     args = build_parser().parse_args(argv)
-    if not args.sim:
-        raise NotImplementedError("the real ALE is not ported: pass --sim")
     runner, eval_loop = make_iqn_atarisim_runner(
         compute_dtype=torch.bfloat16 if args.bf16 else None, device=device, num_envs=args.num_envs,
         capacity=args.replay_capacity, replay_start_size=args.replay_start_size,
         target_update_interval=args.target_update_interval,
     )
-    state = maybe_load_train_state(runner.init(args.seed), args.load, runner.core)
-    out = {"runner": runner, "eval_loop": eval_loop, "state": state}
-    if args.demo:
-        out["demo_returns"] = demo_returns(eval_loop, state.train_state, args.seed)
-        print_demo_line(out["demo_returns"])
-        return out
-    t0 = time.time()
-    while state.t < args.steps:
-        state, metrics = runner.run_chunk(state, 500)
-        print(f"step {state.t:>10d} | {state.t / (time.time() - t0):>8.0f} steps/s | "
-              f"loss {float(metrics['loss'][-1]):.4f} | recent R {runner.recent_return_mean(state):.1f}")
-    out["saved_to"] = save_train_state_if_requested(state.train_state, args.save_to, runner.core)
-    return out
+    return run_device_example(args, runner, eval_loop, lambda state: runner.run_chunk(state, chunk)[0])
+
+
+if __name__ == "__main__":
+    run()

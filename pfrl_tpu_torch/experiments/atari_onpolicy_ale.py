@@ -1,5 +1,19 @@
-"""The host paths of ``examples/atari/train_a2c_ale.py`` and
-``train_ppo_ale.py`` (their ``run_ale``) at the examples' own settings.
+"""``examples/atari/train_a2c_ale.py`` and ``train_ppo_ale.py`` at the
+examples' own settings: :func:`run_a2c_ale` and :func:`run_ppo_ale` are
+their ``main``. Run either as ``python -m
+pfrl_tpu_torch.experiments.atari_onpolicy_ale {a2c,ppo} <the example's
+flags>``.
+
+With ``--sim`` (``run_sim``) each trains on AtariSim through
+``OnPolicyRunner``: A2C by ``onpolicy.make_a2c_atarisim_runner``
+(``--num-envs`` lanes x ``--update-steps``, ``--lr``, ``--use-gae``,
+``--tau``), in turns of ``10,000 // (lanes x update steps)`` iterations;
+PPO by ``make_ppo_atarisim_runner`` (rollouts of ``--update-interval //
+--num-envs`` steps, ``--epochs``, ``--minibatch-size``, ``--lr``), in turns
+of 4 iterations; ``--bf16`` is ``compute_dtype``; ``EvalLoop`` 5 x 500 for
+``--demo``; ``--load``/``--save-to`` through ``demo_cli``.
+
+Without it, the host paths (their ``run_ale``):
 
 Both train over ``MultiprocessVectorEnv`` of ``--num-envs`` spawned workers
 (16 for A2C, 8 for PPO), each ``wrap_deepmind(make_atari(--env))`` (84x84x4
@@ -21,9 +35,7 @@ evaluation episodes every ``--eval-interval``:
   shell no ``--bf16``).
 
 ``--load`` loads the shell's saved state; ``--demo`` evaluates 10 episodes
-on the evaluation envs and prints the example's line. The device paths of
-the same examples (``--sim``) are ``onpolicy.make_a2c_atarisim_runner`` and
-``make_ppo_atarisim_runner``.
+on the evaluation envs and prints the example's line.
 """
 
 import argparse
@@ -36,7 +48,7 @@ from pfrl_tpu_torch import runtime
 from pfrl_tpu_torch.agents.a2c import A2C
 from pfrl_tpu_torch.agents.ppo import PPO
 from pfrl_tpu_torch.envs.multiprocess_vector_env import MultiprocessVectorEnv, make_together
-from pfrl_tpu_torch.experiments.onpolicy import AtariPiV
+from pfrl_tpu_torch.experiments.onpolicy import AtariPiV, make_a2c_atarisim_runner, make_ppo_atarisim_runner
 from pfrl_tpu_torch.experiments.train_agent_batch import train_agent_batch_with_evaluation
 from pfrl_tpu_torch.optimizers import Adam, RMSprop
 from pfrl_tpu_torch.utils.batch_states import atari_phi
@@ -59,6 +71,7 @@ def _parser(num_envs: int, steps: int, lr: float, outdir: str) -> argparse.Argum
 
     parser = argparse.ArgumentParser()
     parser.add_argument("--env", default="BreakoutNoFrameskip-v4")
+    parser.add_argument("--sim", action="store_true")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--bf16", action="store_true", help="bf16 network compute over fp32 master params")
     parser.add_argument("--steps", type=int, default=steps)
@@ -71,7 +84,7 @@ def _parser(num_envs: int, steps: int, lr: float, outdir: str) -> argparse.Argum
 
 
 def a2c_parser() -> argparse.ArgumentParser:
-    """``train_a2c_ale.py``'s flags but ``--sim`` (``:158-173``)."""
+    """``train_a2c_ale.py``'s flags (``:158-173``)."""
     parser = _parser(16, 5 * 10**7, 7e-4, "results/a2c_ale")
     parser.add_argument("--update-steps", type=int, default=5)
     parser.add_argument("--use-gae", action="store_true")
@@ -80,7 +93,7 @@ def a2c_parser() -> argparse.ArgumentParser:
 
 
 def ppo_parser() -> argparse.ArgumentParser:
-    """``train_ppo_ale.py``'s flags but ``--sim`` (``:152-166``)."""
+    """``train_ppo_ale.py``'s flags (``:152-166``)."""
     parser = _parser(8, 10**7, 2.5e-4, "results/ppo_ale")
     parser.add_argument("--update-interval", type=int, default=128 * 8)
     parser.add_argument("--minibatch-size", type=int, default=32 * 8)
@@ -130,13 +143,49 @@ def _run(args, make_agent, device) -> dict:
                 e.close()
 
 
-def run_a2c_ale(argv: Optional[Sequence[str]] = None, device=None) -> dict:
-    """``train_a2c_ale.py`` without ``--sim`` with ``argv``'s flags on
-    ``device`` (default: the CUDA device). Returns ``{"agent", "history"}``
-    (``{"agent", "stats"}`` with ``--demo``); the envs are closed."""
-    return _run(a2c_parser().parse_args(argv), make_a2c_agent, device)
+def _run_sim(args, runner, chunk: int) -> dict:
+    from pfrl_tpu_torch.envs.atari_sim import AtariSim
+    from pfrl_tpu_torch.experiments.demo_cli import run_device_example
+    from pfrl_tpu_torch.experiments.runner import EvalLoop
+
+    eval_loop = EvalLoop(AtariSim(n_actions=6, device=runner.device), runner.core, 5, 500, device=runner.device)
+    return run_device_example(args, runner, eval_loop, lambda state: runner.run_iterations(state, chunk)[0])
 
 
-def run_ppo_ale(argv: Optional[Sequence[str]] = None, device=None) -> dict:
-    """``train_ppo_ale.py`` without ``--sim``, as :func:`run_a2c_ale`."""
-    return _run(ppo_parser().parse_args(argv), make_ppo_agent, device)
+def run_a2c_ale(argv: Optional[Sequence[str]] = None, device=None, chunk: Optional[int] = None) -> dict:
+    """``train_a2c_ale.py``'s ``main`` with ``argv``'s flags on ``device``
+    (default: the CUDA device). With ``--sim``, turns of ``chunk``
+    iterations (the example's ``max(1, 10,000 // (lanes x update
+    steps))``) and :func:`~.demo_cli.run_device_example`'s dict; else the
+    ALE path's ``{"agent", "history"}`` (``{"agent", "stats"}`` with
+    ``--demo``), its envs closed."""
+    args = a2c_parser().parse_args(argv)
+    if not args.sim:
+        return _run(args, make_a2c_agent, device)
+    runner = make_a2c_atarisim_runner(
+        args.num_envs, args.update_steps, use_gae=args.use_gae, lr=args.lr, tau=args.tau,
+        compute_dtype=torch.bfloat16 if args.bf16 else None, device=device)
+    return _run_sim(args, runner, chunk or max(1, 10_000 // (args.num_envs * args.update_steps)))
+
+
+def run_ppo_ale(argv: Optional[Sequence[str]] = None, device=None, chunk: int = 4) -> dict:
+    """``train_ppo_ale.py``'s ``main``, as :func:`run_a2c_ale`; ``--sim``
+    runs turns of ``chunk`` iterations (the example's 4) of rollouts of
+    ``--update-interval // --num-envs`` steps."""
+    args = ppo_parser().parse_args(argv)
+    if not args.sim:
+        return _run(args, make_ppo_agent, device)
+    runner = make_ppo_atarisim_runner(
+        args.num_envs, args.update_interval // args.num_envs, epochs=args.epochs,
+        minibatch_size=args.minibatch_size, lr=args.lr, compute_dtype=torch.bfloat16 if args.bf16 else None,
+        device=device)
+    return _run_sim(args, runner, chunk)
+
+
+COMMANDS = {"a2c": run_a2c_ale, "ppo": run_ppo_ale}
+
+
+if __name__ == "__main__":
+    from pfrl_tpu_torch.experiments.demo_cli import run_command
+
+    run_command(COMMANDS)

@@ -104,16 +104,20 @@ def make_dqn_runner(
     noisy_net_sigma: Optional[float] = None,
     compute_dtype: Optional[torch.dtype] = None,
     device=None,
+    final_epsilon: float = 0.1,
+    final_exploration_frames: int = 1_000_000,
 ) -> OffPolicyRunner:
     """Nature DQN at the given sizes (defaults: the full configuration) on
-    ``device`` (default: the CUDA device)."""
+    ``device`` (default: the CUDA device); epsilon decays from 1 to
+    ``final_epsilon`` over ``final_exploration_frames`` transitions."""
     env = AtariSim(n_actions=n_actions, frame_shape=frame_shape, device=device)
     noisy = noisy_net_sigma is not None
     dense_cls = to_factorized_noisy(nn.Linear, sigma_scale=noisy_net_sigma) if noisy else None
     core = (DoubleDQNCore if double else DQNCore)(
         model=NatureQ(n_actions, frame_shape, dense_cls),
         optimizer=RMSprop(2.5e-4, decay=0.95, eps=1e-2),
-        explorer=Greedy() if noisy else LinearDecayEpsilonGreedy(1.0, 0.1, 1_000_000, n_actions),
+        explorer=Greedy() if noisy else LinearDecayEpsilonGreedy(
+            1.0, final_epsilon, final_exploration_frames, n_actions),
         gamma=0.99,
         batch_accumulator="sum",
         phi=atari_phi,

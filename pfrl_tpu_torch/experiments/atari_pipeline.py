@@ -178,3 +178,7 @@ def run(argv: Optional[Sequence[str]] = None, device=None, env_factory: Optional
         pipe.stop()
     saved_to = save_train_state_if_requested(pipe.train_state, args.save_to, pipe.core)
     return {"train_state": pipe.train_state, "pipeline": pipe, "saved_to": saved_to}
+
+
+if __name__ == "__main__":
+    run()

@@ -13,20 +13,27 @@ scaled by ``phi`` on the act path and after the gather alike
 (``x / 255``; the ring does not dequantize). ``compute_dtype`` is
 ``--bf16``: the torso and the softmax compute in bf16; the noisy streams
 compute in float32 by promotion (their noise is float32), as in JAX.
+
+:func:`run` is the example's ``main`` (its 9 flags, ``--load``/``--demo``/
+``--save-to``, ``EvalLoop`` 5 x 500); the 10^5-slot ring puts the
+prefix-sample kernel at C = 2^17, B = 32.
 """
 
-from typing import Optional, Tuple
+import argparse
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from pfrl_tpu_torch.agents.categorical_dqn import CategoricalDoubleDQNCore
 from pfrl_tpu_torch.envs.atari_sim import AtariSim
-from pfrl_tpu_torch.experiments.runner import OffPolicyRunner, RunnerConfig
+from pfrl_tpu_torch.experiments.runner import EvalLoop, OffPolicyRunner, RunnerConfig
 from pfrl_tpu_torch.explorers.greedy import Greedy
 from pfrl_tpu_torch.models.noisy_linear import FactorizedNoisyLinear
 from pfrl_tpu_torch.optimizers.adam import Adam
 from pfrl_tpu_torch.q_functions.dueling_dqn import DistributionalDuelingDQN
 from pfrl_tpu_torch.replay.prioritized import PrioritizedReplayBuffer
+
+CHUNK = 500  # scan steps per turn of the example's loop
 
 
 def phi(x: torch.Tensor) -> torch.Tensor:
@@ -94,3 +101,42 @@ def make_rainbow_runner(
     core = make_rainbow_core(n_actions, frame_shape, compute_dtype)
     return OffPolicyRunner(env, core, buffer, config, device=env.device)
 
+
+def build_parser() -> argparse.ArgumentParser:
+    """``train_rainbow.py``'s flags (``:55-66``)."""
+    from pfrl_tpu_torch.experiments.demo_cli import add_demo_args
+
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--sim", action="store_true")
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--bf16", action="store_true", help="bf16 network compute over fp32 master params")
+    parser.add_argument("--steps", type=int, default=5 * 10**7)
+    parser.add_argument("--num-envs", type=int, default=64)
+    parser.add_argument("--replay-capacity", type=int, default=10**5)
+    parser.add_argument("--replay-start-size", type=int, default=2 * 10**4)
+    parser.add_argument("--target-update-interval", type=int, default=32_000)
+    parser.add_argument("--outdir", default="results/rainbow")
+    add_demo_args(parser)
+    return parser
+
+
+def run(argv: Optional[Sequence[str]] = None, device=None, chunk: int = CHUNK) -> dict:
+    """``train_rainbow.py``'s ``main`` with ``argv``'s flags on ``device``
+    (default: the CUDA device): AtariSim with or without ``--sim``, as the
+    example runs it, in turns of ``chunk`` scan steps (the example's 500)
+    until ``--steps`` transitions. Returns
+    :func:`~.demo_cli.run_device_example`'s dict."""
+    from pfrl_tpu_torch.experiments.demo_cli import run_device_example
+
+    args = build_parser().parse_args(argv)
+    runner = make_rainbow_runner(
+        num_envs=args.num_envs, capacity=args.replay_capacity, replay_start_size=args.replay_start_size,
+        target_update_interval=args.target_update_interval, steps=args.steps,
+        compute_dtype=torch.bfloat16 if args.bf16 else None, device=device,
+    )
+    eval_loop = EvalLoop(AtariSim(n_actions=6, device=runner.device), runner.core, 5, 500, device=runner.device)
+    return run_device_example(args, runner, eval_loop, lambda state: runner.run_chunk(state, chunk)[0])
+
+
+if __name__ == "__main__":
+    run()

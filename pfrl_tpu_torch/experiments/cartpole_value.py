@@ -30,7 +30,8 @@ with ``EvalLoop`` 10 x 501:
 lanes of ``TimeLimit(CartPole())``, FC 4 -> 128 -> 128 -> 2, Adam(1e-3),
 epsilon 1 -> 0.05 over half of 200,000 transitions, one batch-128 update
 per 32 transitions (4 per scan step) from 1,000 on, syncs every 2,000, and
-``EvalLoop`` 16 x 500. Its ``compute_dtype`` is the example's ``--bf16``.
+``EvalLoop`` 16 x 500. Its ``compute_dtype`` is the example's ``--bf16``;
+:func:`run` is the example's ``main``.
 
 :func:`make_dqn_cartpole_bf16_runner` is ``run_dqn_cartpole_bf16``, the
 recipe of the ``zoo/dqn_bf16/cartpole`` checkpoint: the DQN recipe with
@@ -45,7 +46,9 @@ small; the recipes' values are the defaults. ``TimeLimit(CartPole())`` is
 the 500-step limit.
 """
 
-from typing import Dict, Optional, Tuple
+import argparse
+import time
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -112,11 +115,11 @@ EXAMPLE_SIZES = dict(num_envs=128, capacity=100_000, replay_start_size=1_000, up
 
 
 def _recipe(core, env: Optional[TorchEnv], device, sizes: dict, eval_loop=(10, 501),
-            buffer_cls=ReplayBuffer, **buffer_kw) -> Recipe:
+            buffer_cls=ReplayBuffer, gamma: float = 0.99, **buffer_kw) -> Recipe:
     env = time_limited_cartpole(device) if env is None else env
     sizes = dict(sizes)
     num_envs, capacity = sizes.pop("num_envs"), sizes.pop("capacity")
-    buffer = buffer_cls(capacity, gamma=0.99, num_lanes=num_envs, device=env.device, **buffer_kw)
+    buffer = buffer_cls(capacity, gamma=gamma, num_lanes=num_envs, device=env.device, **buffer_kw)
     runner = OffPolicyRunner(env, core, buffer, RunnerConfig(num_envs=num_envs, **sizes), device=env.device)
     return runner, EvalLoop(env, core, *eval_loop, device=env.device)
 
@@ -182,11 +185,12 @@ def make_iqn_cartpole_runner(hidden: int = 100, feature_size: int = 64, n_taus: 
 
 
 def make_dqn_cartpole_example_runner(hidden: int = 128, steps: int = 200_000, env: Optional[TorchEnv] = None,
-                                     device=None, compute_dtype: Optional[torch.dtype] = None, **sizes) -> Recipe:
+                                     device=None, compute_dtype: Optional[torch.dtype] = None, gamma: float = 0.99,
+                                     lr: float = 1e-3, **sizes) -> Recipe:
     """``steps`` is the run's length (``--steps``): epsilon decays over half."""
-    core = DQNCore(model=_fc(hidden), optimizer=Adam(1e-3), explorer=_epsilon(steps // 2), gamma=0.99,
+    core = DQNCore(model=_fc(hidden), optimizer=Adam(lr), explorer=_epsilon(steps // 2), gamma=gamma,
                    compute_dtype=compute_dtype)
-    return _recipe(core, env, device, {**EXAMPLE_SIZES, **sizes}, eval_loop=(16, 500))
+    return _recipe(core, env, device, {**EXAMPLE_SIZES, **sizes}, eval_loop=(16, 500), gamma=gamma)
 
 
 # ``--config`` name -> recipe, for the tools that run them by name.
@@ -198,3 +202,69 @@ RECIPES = {
     "iqn-cartpole": make_iqn_cartpole_runner,
     "dqn-cartpole-example": make_dqn_cartpole_example_runner,
 }
+
+
+def build_parser() -> argparse.ArgumentParser:
+    """``train_dqn_cartpole.py``'s flags (``:34-48``)."""
+    from pfrl_tpu_torch.experiments.demo_cli import add_demo_args
+
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--steps", type=int, default=200_000, help="total env transitions")
+    parser.add_argument("--num-envs", type=int, default=128)
+    parser.add_argument("--eval-interval", type=int, default=50_000)
+    parser.add_argument("--gamma", type=float, default=0.99)
+    parser.add_argument("--lr", type=float, default=1e-3)
+    parser.add_argument("--replay-capacity", type=int, default=100_000)
+    parser.add_argument("--replay-start-size", type=int, default=1_000)
+    parser.add_argument("--minibatch-size", type=int, default=128)
+    parser.add_argument("--update-per", type=int, default=32, help="one gradient step per this many env transitions")
+    parser.add_argument("--bf16", action="store_true", help="bf16 network compute over fp32 master params")
+    add_demo_args(parser)
+    return parser
+
+
+def run(argv: Optional[Sequence[str]] = None, device=None) -> dict:
+    """``train_dqn_cartpole.py``'s ``main`` with ``argv``'s flags on
+    ``device`` (default: the CUDA device): ``--load``/``--demo``, then
+    ``max(1, --steps // (chunk x lanes))`` chunks of ``max(1, min(
+    --eval-interval, --steps) // lanes)`` scan steps, each followed by an
+    evaluation on draws seeded ``--seed + 1 + chunk``, then ``--save-to``.
+    Returns ``{"runner", "eval_loop", "state", "eval_returns", "turns"}``
+    (``turns`` the chunks run) and, after training, ``"saved_to"``."""
+    from pfrl_tpu_torch.experiments.demo_cli import (
+        maybe_load_train_state,
+        run_demo_if_requested,
+        save_train_state_if_requested,
+    )
+    from pfrl_tpu_torch.utils.draws import Draws
+
+    args = build_parser().parse_args(argv)
+    runner, eval_loop = make_dqn_cartpole_example_runner(
+        steps=args.steps, device=device, compute_dtype=torch.bfloat16 if args.bf16 else None, gamma=args.gamma,
+        lr=args.lr, num_envs=args.num_envs, capacity=args.replay_capacity, replay_start_size=args.replay_start_size,
+        update_interval=args.update_per, minibatch_size=args.minibatch_size)
+    state = maybe_load_train_state(runner.init(args.seed), args.load, runner.core)
+    out = {"runner": runner, "eval_loop": eval_loop, "state": state, "eval_returns": [], "turns": 0}
+    if run_demo_if_requested(args, eval_loop, state.train_state, seed=args.seed):
+        return out
+    steps_per_chunk = max(1, min(args.eval_interval, args.steps) // args.num_envs)
+    total_chunks = max(1, args.steps // (steps_per_chunk * args.num_envs))
+    t0 = time.time()
+    for chunk in range(total_chunks):
+        state, metrics = runner.run_chunk(state, steps_per_chunk)
+        draws = Draws(torch.Generator(device=runner.device).manual_seed(args.seed + 1 + chunk))
+        returns = eval_loop.evaluate(state.train_state, draws)
+        out["eval_returns"].append(returns)
+        out["turns"] += 1
+        print(f"step {state.t:>8d} | {state.t / (time.time() - t0):>10.0f} env-steps/s | "
+              f"eval mean R {returns.mean():7.1f} | recent train R {runner.recent_return_mean(state):7.1f} | "
+              f"loss {float(metrics['loss'][-1]):.4f}", flush=True)
+    print(f"done: {state.t} transitions in {time.time() - t0:.1f}s")
+    out["state"] = state
+    out["saved_to"] = save_train_state_if_requested(state.train_state, args.save_to, runner.core)
+    return out
+
+
+if __name__ == "__main__":
+    run()

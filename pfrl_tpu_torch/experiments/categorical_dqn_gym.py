@@ -133,3 +133,7 @@ def run(argv: Optional[Sequence[str]] = None, device=None, env_factory: Optional
         return run_gymnasium(args, env_factory, device)
     return dqn_gym.run_device(args, device, make_runner=lambda *a, **kw: make_c51_gym_runner(
         *a, n_atoms=args.n_atoms, lr=args.lr, **kw))
+
+
+if __name__ == "__main__":
+    run()

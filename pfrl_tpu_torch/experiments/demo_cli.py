@@ -25,7 +25,9 @@ loaded in its place.
 """
 
 import os
-from typing import Optional
+import sys
+import time
+from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -39,6 +41,8 @@ __all__ = [
     "run_demo_if_requested",
     "print_demo_line",
     "save_train_state_if_requested",
+    "run_device_example",
+    "run_command",
 ]
 
 _STATE_FILE = "train_state.pt"
@@ -158,3 +162,37 @@ def save_train_state_if_requested(train_state, save_dir: Optional[str], core=Non
         flax_path = convert.save_flax_checkpoint(core, train_state, os.path.join(save_dir, _FLAX_STATE_FILE))
         print(f"saved the JAX package's train_state to {flax_path}")
     return path
+
+
+def run_device_example(args, runner, eval_loop, advance: Callable) -> dict:
+    """The device examples' ``main`` once their recipe is built: the runner
+    initialised from ``--seed``, ``--load`` (through the runner's core, so a
+    JAX checkpoint converts), then ``--demo`` (the evaluation's line) or
+    ``state = advance(state)`` until ``--steps`` transitions, each turn
+    printing env-steps/s, and ``--save-to``. Returns ``{"runner",
+    "eval_loop", "state", "turns"}`` and ``"demo_returns"`` or
+    ``"saved_to"``."""
+    state = maybe_load_train_state(runner.init(args.seed), args.load, runner.core)
+    out = {"runner": runner, "eval_loop": eval_loop, "state": state, "turns": 0}
+    if args.demo:
+        out["demo_returns"] = demo_returns(eval_loop, state.train_state, args.seed)
+        print_demo_line(out["demo_returns"])
+        return out
+    t0 = time.time()
+    while state.t < args.steps:
+        state = advance(state)
+        out["turns"] += 1
+        print(f"step {state.t:>10d} | {state.t / (time.time() - t0):>8.0f} env-steps/s | "
+              f"recent R {runner.recent_return_mean(state):.1f}", flush=True)
+    out["state"] = state
+    out["saved_to"] = save_train_state_if_requested(state.train_state, getattr(args, "save_to", None), runner.core)
+    return out
+
+
+def run_command(commands: Dict[str, Callable], argv: Optional[Sequence[str]] = None):
+    """A module that holds several examples' ``main``: ``argv``'s first
+    word names the example, the rest are its flags."""
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if not argv or argv[0] not in commands:
+        raise SystemExit(f"usage: {{{','.join(commands)}}} [the example's flags]")
+    return commands[argv[0]](argv[1:])

@@ -246,3 +246,7 @@ def run(argv: Optional[Sequence[str]] = None, device=None, env_factory: Optional
     if args.env not in ENVS:
         return run_gymnasium(args, env_factory, device)
     return run_device(args, device)
+
+
+if __name__ == "__main__":
+    run()

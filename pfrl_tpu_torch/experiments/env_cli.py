@@ -9,8 +9,8 @@ Each real-env script has two backends:
   ``NormalizeActionSpace`` (the reference's wrapper order,
   ``train_soft_actor_critic.py:66-79``). An unavailable backend or env id is
   a hard error naming it, never a silent substitute.
-* ``--torch-env``: explicit opt-in to an in-repo env of the port behind
-  ``HostTorchEnv``, the counterpart of the JAX scripts' ``--jax-env``.
+* ``--torch-env`` (or ``--jax-env``, the JAX scripts' spelling): explicit
+  opt-in to an in-repo env of the port behind ``HostTorchEnv``.
 """
 
 from typing import Callable, Optional
@@ -18,9 +18,14 @@ from typing import Callable, Optional
 __all__ = ["add_env_backend_args", "make_backend_env"]
 
 
-def add_env_backend_args(parser):
+def add_env_backend_args(parser, jax_alias: bool = True):
+    """``--torch-env``, also spelt as the JAX scripts' ``--jax-env`` unless
+    ``jax_alias`` is false (a script whose ``--jax-env`` means another
+    thing)."""
     parser.add_argument(
         "--torch-env",
+        *(("--jax-env",) if jax_alias else ()),
+        dest="torch_env",
         action="store_true",
         help="train on the in-repo simulator of the port instead of the real "
         "gymnasium env (--env is ignored); without this flag an unavailable "

@@ -245,3 +245,7 @@ def run(argv: Optional[Sequence[str]] = None, device=None):
         for e in (env, eval_env):
             if not getattr(e, "closed", False):
                 e.close()
+
+
+if __name__ == "__main__":
+    run()

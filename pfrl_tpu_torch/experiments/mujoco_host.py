@@ -32,12 +32,18 @@ with ``--num-envs > 1`` where the script has that flag,
   gradient for 20 iterations at damping 0.1.
 
 The scripts' ``--jax-env`` backend, the JAX package's Pendulum, has its
-counterpart in ``--torch-env``: the port's Pendulum limited to 200 steps on
-the CPU behind ``HostTorchEnv``. ``torch_env_factory`` replaces it, as
+counterpart in ``--torch-env`` (also spelt ``--jax-env``, but in the PPO
+script): the port's Pendulum limited to 200 steps on the CPU behind
+``HostTorchEnv``. ``torch_env_factory`` replaces it, as
 :func:`mujoco_sim_env` does with a ``MujocoSim`` at an env's own
 observation and action sizes (``HALFCHEETAH`` 17 and 6, ``HOPPER`` 11 and
-3) and its 1,000-step episodes. PPO's device runner (``--jax-env
-pendulum``) is not ported here.
+3) and its 1,000-step episodes. In the PPO script ``--jax-env pendulum``
+is the device runner: :func:`run_ppo` hands it to
+``ppo_pendulum.run_device_args`` (``--num-envs`` lanes,
+``--load``/``--demo``/``--save-to`` through ``demo_cli``).
+
+Run one as ``python -m pfrl_tpu_torch.experiments.mujoco_host
+{sac,td3,ddpg,ppo,trpo} <the script's flags>``.
 """
 
 import argparse
@@ -164,12 +170,17 @@ def make_trpo_agent(obs_size: int, action_size: int, compute_dtype: Optional[tor
 
 
 # ---------------------------------------------------------------- the CLIs
-def _parser(env: str, outdir: str, off_policy: bool) -> argparse.ArgumentParser:
+def _parser(env: str, outdir: str, off_policy: bool, device_ppo: bool = False) -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser()
     parser.add_argument("--env", default=env)
-    add_env_backend_args(parser)
+    add_env_backend_args(parser, jax_alias=not device_ppo)
+    if device_ppo:
+        parser.add_argument("--jax-env", choices=["pendulum"], default=None,
+                            help="run fully on the device against the port's Pendulum")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--steps", type=int, default=10**6 if off_policy else 2 * 10**6)
+    if device_ppo:
+        parser.add_argument("--num-envs", type=int, default=64)
     parser.add_argument("--eval-interval", type=int, default=5000 if off_policy else 100_000)
     if off_policy:
         parser.add_argument("--eval-n-envs", type=int, default=1)
@@ -179,9 +190,19 @@ def _parser(env: str, outdir: str, off_policy: bool) -> argparse.ArgumentParser:
         parser.add_argument("--checkpoint-freq", type=int, default=None)
     parser.add_argument("--outdir", default=outdir)
     parser.add_argument("--bf16", action="store_true", help="bf16 network compute over fp32 master params")
+    if device_ppo:
+        from pfrl_tpu_torch.experiments.demo_cli import add_demo_args
+
+        return add_demo_args(parser)
     parser.add_argument("--load", metavar="PATH", default=None, help="a directory the shell's save wrote")
     parser.add_argument("--demo", action="store_true", help="evaluate the (loaded) agent and exit")
     return parser
+
+
+def ppo_parser() -> argparse.ArgumentParser:
+    """``train_ppo.py``'s flags (``:105-118``), with ``--torch-env`` for the
+    host Pendulum."""
+    return _parser("Hopper-v5", "results/ppo", off_policy=False, device_ppo=True)
 
 
 def _envs(args, factory, lanes: int, seed: int):
@@ -234,11 +255,14 @@ def run_ddpg(argv=None, torch_env_factory: Optional[Callable] = None, device=Non
     return _run_off_policy(make_ddpg_agent, "results/ddpg", argv, torch_env_factory, device)
 
 
-def _run_on_policy(make_agent, outdir: str, argv, torch_env_factory, device, refuse_bf16: bool):
-    parser = _parser("Hopper-v5", outdir, off_policy=False)
+def _run_on_policy(make_agent, parser, argv, torch_env_factory, device, refuse_bf16: bool, chunk: int = 10):
     args = parser.parse_args(argv)
     if refuse_bf16 and args.bf16:
         parser.error(TRPO_BF16)
+    if getattr(args, "jax_env", None):
+        from pfrl_tpu_torch.experiments.ppo_pendulum import run_device_args
+
+        return run_device_args(args, device, chunk)
     factory = torch_env_factory or pendulum_env
     env = make_backend_env(args, args.seed, factory)
     eval_env = make_backend_env(args, args.seed + 100, factory)
@@ -248,11 +272,25 @@ def _run_on_policy(make_agent, outdir: str, argv, torch_env_factory, device, ref
     return agent, _load_demo_or_train(args, agent, env, eval_env, batch=False)
 
 
-def run_ppo(argv=None, torch_env_factory: Optional[Callable] = None, device=None):
-    """``train_ppo.py``'s host ``main`` (no ``--num-envs``), as :func:`run_sac`."""
-    return _run_on_policy(make_ppo_agent, "results/ppo", argv, torch_env_factory, device, refuse_bf16=False)
+def run_ppo(argv=None, torch_env_factory: Optional[Callable] = None, device=None, chunk: int = 10):
+    """``train_ppo.py``'s ``main``: with ``--jax-env pendulum`` the device
+    runner in turns of ``chunk`` iterations (``ppo_pendulum.run_device_args``'s
+    dict), else the host path as :func:`run_sac` (which reads no
+    ``--num-envs`` and no ``--save-to``, as the script's)."""
+    return _run_on_policy(make_ppo_agent, ppo_parser(), argv, torch_env_factory, device, refuse_bf16=False,
+                          chunk=chunk)
 
 
 def run_trpo(argv=None, torch_env_factory: Optional[Callable] = None, device=None):
     """``train_trpo.py``'s ``main``; ``--bf16`` is a usage error naming TRPO."""
-    return _run_on_policy(make_trpo_agent, "results/trpo", argv, torch_env_factory, device, refuse_bf16=True)
+    parser = _parser("Hopper-v5", "results/trpo", off_policy=False)
+    return _run_on_policy(make_trpo_agent, parser, argv, torch_env_factory, device, refuse_bf16=True)
+
+
+COMMANDS = {"sac": run_sac, "td3": run_td3, "ddpg": run_ddpg, "ppo": run_ppo, "trpo": run_trpo}
+
+
+if __name__ == "__main__":
+    from pfrl_tpu_torch.experiments.demo_cli import run_command
+
+    run_command(COMMANDS)

@@ -309,16 +309,18 @@ def make_a2c_atarisim_runner(
     env: Optional[TorchEnv] = None,
     compute_dtype: Optional[torch.dtype] = None,
     device=None,
+    lr: float = 7e-4,
+    tau: float = 0.95,
 ) -> OnPolicyRunner:
     """A2C at the given sizes (defaults: ``train_a2c_ale.py --sim``'s);
     ``env`` defaults to ``AtariSim(n_actions)``."""
     env = AtariSim(n_actions=n_actions, device=device) if env is None else env
     core = A2CCore(
         AtariPiV(n_actions),
-        RMSprop(7e-4, decay=0.99, eps=1e-5),
+        RMSprop(lr, decay=0.99, eps=1e-5),
         gamma=0.99,
         use_gae=use_gae,
-        tau=0.95,
+        tau=tau,
         entropy_coeff=0.01,
         v_loss_coef=0.5,
         max_grad_norm=40.0,
@@ -337,13 +339,14 @@ def make_ppo_atarisim_runner(
     env: Optional[TorchEnv] = None,
     compute_dtype: Optional[torch.dtype] = None,
     device=None,
+    lr: float = 2.5e-4,
 ) -> OnPolicyRunner:
     """PPO at the given sizes (defaults: ``train_ppo_ale.py --sim``'s);
     ``env`` defaults to ``AtariSim(n_actions)``."""
     env = AtariSim(n_actions=n_actions, device=device) if env is None else env
     core = PPOCore(
         AtariPiV(n_actions),
-        Adam(2.5e-4, eps=1e-5),
+        Adam(lr, eps=1e-5),
         gamma=0.99,
         lambd=0.95,
         clip_eps=0.1,

@@ -12,8 +12,9 @@
   ``TimeLimit(Pendulum())`` (200 steps) x 128 collect steps (8,192
   transitions, 1,280 Adam steps per iteration); ``EvalLoop`` 10 x 200.
   ``onpolicy.make_ppo_pendulum_runner`` is ``tools/record_curves.py``'s
-  recipe, with no entropy bonus: not this one. :func:`run_device` is the
-  script's device branch.
+  recipe, with no entropy bonus: not this one. :func:`run_device_args` is
+  the script's device branch (``mujoco_host.run_ppo`` hands it
+  ``--jax-env pendulum``), with ``--load``/``--demo``/``--save-to``.
 - ``examples/gym/train_ppo_pendulum.py`` (``:52-130``): :func:`make_agent`
   is the ``PPO`` shell over the same ``PiV`` with Adam(3e-4), gamma 0.99,
   lambda 0.95, 2,048 transitions per update, 10 epochs of batch-64
@@ -26,7 +27,6 @@
 """
 
 import argparse
-import time
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -63,25 +63,16 @@ def make_ppo_pendulum_device_runner(
     return runner, EvalLoop(time_limited_pendulum(env.device), core, 10, 200, device=env.device)
 
 
-def run_device(argv: Optional[Sequence[str]] = None, device=None) -> dict:
-    """``train_ppo.py --jax-env pendulum``'s loop: 10 iterations per print
-    until ``--steps`` (default 2 x 10^6) transitions. Returns ``{"runner",
-    "eval_loop", "state"}``."""
-    parser = argparse.ArgumentParser()
-    parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--steps", type=int, default=2 * 10**6)
-    parser.add_argument("--num-envs", type=int, default=64)
-    parser.add_argument("--bf16", action="store_true", help="bf16 network compute over fp32 master params")
-    args = parser.parse_args(argv)
+def run_device_args(args, device=None, chunk: int = 10) -> dict:
+    """``train_ppo.py``'s device branch for its parsed ``args``:
+    ``--num-envs`` lanes in turns of ``chunk`` iterations (the script's 10)
+    until ``--steps`` (default 2 x 10^6) transitions, ``--load``/``--demo``/
+    ``--save-to``. Returns :func:`~.demo_cli.run_device_example`'s dict."""
+    from pfrl_tpu_torch.experiments.demo_cli import run_device_example
+
     runner, eval_loop = make_ppo_pendulum_device_runner(
         args.num_envs, compute_dtype=torch.bfloat16 if args.bf16 else None, device=device)
-    state = runner.init(args.seed)
-    t0 = time.time()
-    while state.t < args.steps:
-        state, _ = runner.run_iterations(state, 10)
-        print(f"step {state.t:>9d} | {state.t / (time.time() - t0):>8.0f} steps/s | "
-              f"recent R {runner.recent_return_mean(state):8.1f}")
-    return {"runner": runner, "eval_loop": eval_loop, "state": state}
+    return run_device_example(args, runner, eval_loop, lambda state: runner.run_iterations(state, chunk)[0])
 
 
 def make_agent(action_size: int = 1, compute_dtype: Optional[torch.dtype] = None, seed: int = 0, device=None,
@@ -149,3 +140,7 @@ def run(argv: Optional[Sequence[str]] = None, device=None):
         eval_interval=args.eval_interval, outdir=args.outdir, eval_env=make_vec(args.seed * 100 + 50),
         log_interval=10_000,
     )
+
+
+if __name__ == "__main__":
+    run()

@@ -149,3 +149,7 @@ def run(argv: Optional[Sequence[str]] = None, device=None):
     if args.hostloop:
         return run_hostloop(args.steps, args.seed, args=args, device=device)
     return run_device(args.steps, args.seed, args=args, device=device)
+
+
+if __name__ == "__main__":
+    run()

@@ -33,7 +33,7 @@ the JAX package's widths, on the CUDA device unless given ``device="cpu"``:
   carries stored (about 5.9 GB on the card), windows of 32, one batch-32
   update per 4 transitions from 10^4 on, syncs every 10^4, the optional
   ``burn_in`` and ``compute_dtype`` of the example's flags; ``EvalLoop``
-  5 x 500.
+  5 x 500. :func:`run` is that example's ``main``.
 
 Every layer has flax ``nn.Dense``'s default init (the Nature CNN Chainer's)
 and each model names its flax scopes, so ``convert.py`` loads the JAX
@@ -45,6 +45,7 @@ and the LSTM's input side run on all steps of a window at once. The carry
 is the one-element tuple of the JAX modules.
 """
 
+import argparse
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
@@ -207,11 +208,12 @@ ATARI_SIZES = dict(num_envs=32, max_episodes=2048, max_episode_len=128, subseq_l
 
 def make_drqn_atarisim_runner(lstm_size: int = 512, n_actions: int = 6, frame_shape=(84, 84, 1),
                               final_exploration_frames: int = 10**6, burn_in: int = 0, device=None,
-                              compute_dtype: Optional[torch.dtype] = None, **sizes) -> Recipe:
+                              compute_dtype: Optional[torch.dtype] = None, lr: float = 2.5e-4,
+                              **sizes) -> Recipe:
     env = AtariSim(n_actions=n_actions, frame_shape=frame_shape, device=device)
     core = RecurrentDQNCore(
         model=RecurrentNatureQ(n_actions, lstm_size, frame_shape),
-        optimizer=Adam(2.5e-4, eps=1e-2),
+        optimizer=Adam(lr, eps=1e-2),
         explorer=LinearDecayEpsilonGreedy(1.0, 0.01, final_exploration_frames, n_actions),
         gamma=0.99,
         phi=atari_phi,
@@ -267,3 +269,62 @@ RECIPES = {
     "rppo-delayedcue-16": make_rppo_delayed_cue_runner,
     "rtrpo-delayedcue-16": make_rtrpo_delayed_cue_runner,
 }
+
+
+# ``train_drqn_ale.py``'s refusal without ``--sim`` (``:149-154``), as it is.
+ALE_REFUSAL = ("host ALE requires gym[atari]+cv2 (not in this container); "
+               "use --sim, or see train_dqn_ale.py:run_ale for the host "
+               "wrapper stack incl. FlickerFrame")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    """``train_drqn_ale.py``'s flags (``:120-147``)."""
+    from pfrl_tpu_torch.experiments.demo_cli import add_demo_args
+
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--env", default="BreakoutNoFrameskip-v4")
+    parser.add_argument("--sim", action="store_true")
+    parser.add_argument("--flicker", action="store_true")
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--bf16", action="store_true", help="bf16 network compute over fp32 master params")
+    parser.add_argument("--chunk", type=int, default=200, help="scan steps per device dispatch")
+    parser.add_argument("--steps", type=int, default=5 * 10**7)
+    parser.add_argument("--lr", type=float, default=2.5e-4)
+    parser.add_argument("--batch-size", type=int, default=32)
+    parser.add_argument("--num-envs", type=int, default=32)
+    parser.add_argument("--max-episodes", type=int, default=2048)
+    parser.add_argument("--episodic-update-len", type=int, default=32, help="truncated-BPTT window")
+    parser.add_argument("--burn-in", type=int, default=0, help="burn-in steps per replayed window")
+    parser.add_argument("--max-episode-chunk", type=int, default=128, help="storage row length")
+    parser.add_argument("--replay-start-size", type=int, default=10**4)
+    parser.add_argument("--update-interval", type=int, default=4)
+    parser.add_argument("--target-update-interval", type=int, default=10**4)
+    parser.add_argument("--final-exploration-frames", type=int, default=10**6)
+    add_demo_args(parser)
+    return parser
+
+
+def run(argv: Optional[Sequence[str]] = None, device=None) -> dict:
+    """``train_drqn_ale.py``'s ``main`` with ``argv``'s flags on ``device``
+    (default: the CUDA device): without ``--sim`` the example's
+    ``SystemExit``; with it :func:`make_drqn_atarisim_runner` in turns of
+    ``--chunk`` scan steps (``--flicker`` is parsed and not read, as in the
+    example's ``--sim``). Returns :func:`~.demo_cli.run_device_example`'s
+    dict."""
+    from pfrl_tpu_torch.experiments.demo_cli import run_device_example
+
+    args = build_parser().parse_args(argv)
+    if not args.sim:
+        raise SystemExit(ALE_REFUSAL)
+    runner, eval_loop = make_drqn_atarisim_runner(
+        final_exploration_frames=args.final_exploration_frames, burn_in=args.burn_in, device=device,
+        compute_dtype=torch.bfloat16 if args.bf16 else None, lr=args.lr, num_envs=args.num_envs,
+        max_episodes=args.max_episodes, max_episode_len=args.max_episode_chunk,
+        subseq_len=args.episodic_update_len, replay_start_size=args.replay_start_size,
+        update_interval=args.update_interval, target_update_interval=args.target_update_interval,
+        minibatch_size=args.batch_size)
+    return run_device_example(args, runner, eval_loop, lambda state: runner.run_chunk(state, args.chunk)[0])
+
+
+if __name__ == "__main__":
+    run()

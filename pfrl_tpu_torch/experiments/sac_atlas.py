@@ -152,3 +152,7 @@ def run(argv: Optional[Sequence[str]] = None, device=None):
     finally:
         env.close()
         eval_env.close()
+
+
+if __name__ == "__main__":
+    run()

@@ -121,6 +121,7 @@ def make_rainbow_agent(
     seed: int = 0,
     device=None,
     draws=None,
+    target_update_interval: int = 2000,
 ) -> CategoricalDoubleDQN:
     """The example's agent (``train_rainbow.py:128-151``); ``steps`` is the
     run's length, over which beta anneals."""
@@ -134,7 +135,7 @@ def make_rainbow_agent(
         replay_start_size=replay_start_size,
         minibatch_size=32,
         update_interval=1,
-        target_update_interval=2000,
+        target_update_interval=target_update_interval,
         compute_dtype=compute_dtype,
         seed=seed,
         device=device,
@@ -198,3 +199,7 @@ def run(argv=None, device=None):
         agent, env, steps=args.steps, eval_n_steps=None, eval_n_episodes=10, eval_interval=args.eval_interval,
         outdir=args.outdir, eval_env=eval_env,
     )
+
+
+if __name__ == "__main__":
+    run()

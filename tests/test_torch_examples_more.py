@@ -72,6 +72,7 @@ from pfrl_tpu.replay import Transition as JaxTransition
 from pfrl_tpu_torch import convert
 from pfrl_tpu_torch.agents import DQN, PPO, IQNCore, PPOCore, SoftActorCritic
 from pfrl_tpu_torch.envs import SerialVectorEnv
+from pfrl_tpu_torch.envs.atari_sim import AtariSim
 from pfrl_tpu_torch.experiments import atari_iqn, onpolicy, ppo_pendulum, profile_host, profile_slice, quickstart
 from pfrl_tpu_torch.experiments import sac_atlas
 from pfrl_tpu_torch.explorers import ConstantEpsilonGreedy, LinearDecayEpsilonGreedy
@@ -177,8 +178,9 @@ def test_iqn_recipe_holds_the_scripts_settings(monkeypatch):
     assert model.flax_names()["phi"] == "Dense_0" and model.flax_names()["head"] == "Dense_1"
     runner, _ = atari_iqn.make_iqn_atarisim_runner(compute_dtype=torch.bfloat16, device="cpu", capacity=4_096)
     assert runner.core.compute_dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="--sim"):
-        atari_iqn.run_sim([], device="cpu")
+    # Without --sim the command line runs AtariSim, as the example's main does.
+    out = atari_iqn.run(["--num-envs", "4", "--replay-capacity", "4096", "--steps", "0"], device="cpu")
+    assert isinstance(out["runner"].env.env, AtariSim) and out["state"].t == 0
 
 
 def _frames(seed, n):
