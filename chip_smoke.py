@@ -345,7 +345,18 @@ result, without them. Its phases, each raising on failure:
    ``train_a3c.py``, ``train_dqn_cartpole.py``, ``train_ppo.py --jax-env
    pendulum``, ``train_reinforce_gym.py`` and
    ``optuna_dqn_cartpole.objective`` with a stand-in trial. Every command
-   line but Rainbow's asserts 0 launches.
+   line but Rainbow's asserts 0 launches;
+25. the learning-curve entry point (``experiments/record_curves.py``):
+   ``acer_abc`` and ``rppo_delayed_cue`` trained through ``record_curves.run``
+   to their successful scores within their own ``steps`` caps, on the seeds
+   that solved in the card runs (``CURVE_QUICK``); ``rppo_delayed_cue``
+   again, paused after its first evaluation with its snapshot kept (as a
+   run cut there ends) and resumed, its rows equal to the uninterrupted
+   run's but for ``elapsed``; then ``rainbow_cartpole`` through
+   ``curve_loop`` at a cut depth (``RAINBOW_CURVE_*``: the replay start and
+   one evaluation interval), the prefix-sample kernel at C = 2**17, B = 64
+   once per update, then held against its plain version on the run's
+   leaves.
 
 Every phase runs under ``phase``'s watchdog: ``faulthandler`` dumps every
 thread's stack to stderr and ends the run with exit code 1 once a phase
@@ -367,6 +378,7 @@ import contextlib
 import copy
 import dataclasses
 import functools
+import gc
 import json
 import math
 import os
@@ -513,7 +525,7 @@ PHASE_LIMITS = {
     "full sac-atlas-pendulum-host-4": 69, "full quickstart-dqn-cartpole-host-1": 60, "full dqn-multihost-ale-8": 60,
     "full drqn-atarisim-32-mesh": 60, "small dqn-ale-host-per": 60, "full dqn-ale-host-per-1": 60,
     "siblings and JAX checkpoints": 60, "cli train_dqn.py --sim": 60, "cli train_rainbow.py": 60,
-    "cli train_dqn_batch_ale.py": 60, "cli device loops": 60, "cli reinforce and optuna": 60,
+    "cli train_dqn_batch_ale.py": 60, "cli device loops": 60, "cli reinforce and optuna": 60, "curves": 97,
 
 }
 PHASE_TIMES = {}  # name -> seconds, as the phases end
@@ -5772,6 +5784,12 @@ def cli_batch_modes(card: str) -> dict:
         print(f"cli train_dqn_batch_ale.py {' '.join(extra) or '(batch)'}: {n_updates} updates, {launches} "
               "prefix-sample launches")
         results[f"train_dqn_batch_ale.py {mode}"] = {"n_updates": n_updates, "kernel_launches": launches}
+        # Each mode's 26.35 GB ring: the first is freed before the second
+        # allocates (once, the two side by side and the cache's fragments
+        # passed the card's 79 GB).
+        del out, agent
+        gc.collect()
+        torch.cuda.empty_cache()
     return results
 
 
@@ -6131,6 +6149,104 @@ def run_siblings_and_checkpoints(card: str, device) -> dict:
     return record
 
 
+# -------------------------------------------------------------------- phase 25
+# The quick recipes phase 25 trains to their successful scores, each on a
+# seed that solved in the builder's card runs of the whole recipe (PERF.md
+# section 6): name -> seed. The second is also paused and resumed.
+CURVE_QUICK = {"acer_abc": 0, "rppo_delayed_cue": 1}
+CURVE_RESUMED = "rppo_delayed_cue"
+# rainbow_cartpole through curve_loop, cut in depth only: the replay start
+# 1,024 -> 256 and one evaluation interval 10,000 -> 2,048 transitions (64
+# scan steps of 32 lanes; 57 of them with 8 batch-64 updates).
+RAINBOW_CURVE_REPLAY_START = 256
+RAINBOW_CURVE_EVAL_EVERY = 2_048
+
+
+def _curve_rows(path) -> list:
+    """A ``scores.txt``'s rows without ``elapsed``."""
+    with open(path) as f:
+        return [line.split("\t")[:2] + line.split("\t")[3:] for line in f.read().splitlines()[1:]]
+
+
+def run_curves(card: str, device) -> dict:
+    """Phase 25: the learning-curve entry point on the card."""
+    from pfrl_tpu_torch.experiments import record_curves
+    from pfrl_tpu_torch.ops import prefix_sample as ps
+
+    out = {}
+    with tempfile.TemporaryDirectory() as outdir:
+        for name, seed in CURVE_QUICK.items():
+            ps.prefix_sample.launches = 0
+            r = record_curves.run(name, outdir, device, seed=seed)
+            entry = os.path.join(outdir, "zoo", *r["zoo_entry"], "best", "train_state.msgpack")
+            _raise_on_failed(f"curves {name}", {
+                "reached its successful score": r["solved"] and not r["paused"],
+                "within its steps cap": r["t"] <= r["steps"],
+                "its best state in the zoo": os.path.exists(entry),
+                "0 prefix-sample launches": ps.prefix_sample.launches == 0,
+            })
+            print(f"curves {name} (seed {seed}): solved at t = {r['t']}, episode {r['episodes']}, {r['rows']} "
+                  f"evaluations, best {r['best']}, {r['seconds']:.2f} s")
+            out[name] = {k: r[k] for k in ("t", "episodes", "rows", "best", "seconds")}
+        whole = _curve_rows(os.path.join(outdir, CURVE_RESUMED, "scores.txt"))
+        resumed_dir = os.path.join(outdir, "resumed")
+        seed = CURVE_QUICK[CURVE_RESUMED]
+        first = record_curves.run(CURVE_RESUMED, resumed_dir, device, seed=seed, pause=lambda n: n >= 1)
+        kept = os.path.exists(os.path.join(resumed_dir, CURVE_RESUMED, ".resume", "runner_state.pt"))
+        rest = record_curves.run(CURVE_RESUMED, resumed_dir, device, seed=seed)
+        resumed = _curve_rows(os.path.join(resumed_dir, CURVE_RESUMED, "scores.txt"))
+        _raise_on_failed(f"curves {CURVE_RESUMED} resumed", {
+            "paused after its first evaluation, its snapshot kept": first["paused"] and first["rows"] == 1 and kept,
+            "the resumed rows equal the uninterrupted run's but for elapsed": resumed == whole and rest["solved"],
+        })
+        print(f"curves {CURVE_RESUMED}: paused at t = {first['t']}, resumed to t = {rest['t']}; {len(resumed)} rows "
+              "equal to the uninterrupted run's but for elapsed")
+        out["resume"] = {"paused_at": first["t"], "rows": len(resumed), "equal": True}
+
+        curve = record_curves.RUNS["rainbow_cartpole"](device)
+        runner = curve.runner
+        runner.config.replay_start_size = RAINBOW_CURVE_REPLAY_START
+        states = []
+        chunk = runner.run_chunk
+
+        def run_chunk(state, n):
+            states.append(chunk(state, n)[0])
+            return states[-1], None
+
+        runner.run_chunk = run_chunk
+        cfg = runner.config
+        updates = sum(cfg.updates_per_step for k in range(1, RAINBOW_CURVE_EVAL_EVERY // cfg.num_envs + 1)
+                      if k * cfg.num_envs >= RAINBOW_CURVE_REPLAY_START)
+        ps.prefix_sample.launches = 0
+        t0 = time.perf_counter()
+        r = record_curves.curve_loop(
+            "rainbow_cartpole", runner, curve.evaluator, steps=RAINBOW_CURVE_EVAL_EVERY,
+            eval_every=RAINBOW_CURVE_EVAL_EVERY, outdir=outdir, zoo_entry=curve.zoo_entry,
+            successful_score=curve.successful_score, seed=curve.seed, min_rows=curve.min_rows)
+        torch.cuda.synchronize()
+        launches = ps.prefix_sample.launches
+        seconds = time.perf_counter() - t0
+        state = states[-1]
+        leaves = state.replay_state.tree[runner.buffer.tree_capacity:]
+        targets = torch.rand(64, generator=torch.Generator(device=device).manual_seed(25), device=device) * leaves.sum()
+        err = int((ps.prefix_sample(leaves, targets) - ps.prefix_sample_reference(leaves, targets)).abs().max())
+        with open(os.path.join(outdir, "rainbow_cartpole", "scores.txt")) as f:
+            rows = f.read().splitlines()[1:]
+        _raise_on_failed("curves rainbow_cartpole", {
+            "one evaluation row written": r["rows"] == 1 and len(rows) == 1 and rows[0].startswith(
+                f"{RAINBOW_CURVE_EVAL_EVERY}\t"),
+            f"{updates} updates": state.train_state.n_updates == updates,
+            "one prefix-sample launch per update": launches == updates,
+            "C = 2^17 leaves": leaves.numel() == 131_072,
+            "the kernel equals its plain version on the run's leaves": err == 0,
+        })
+        print(f"curves rainbow_cartpole (cut): t = {r['t']}, {updates} updates, {launches} prefix-sample launches, "
+              f"eval mean {r['last']}, {seconds:.2f} s; the kernel on the run's leaves, B = 64: max |err| {err}")
+        out["rainbow_cartpole"] = {"t": r["t"], "n_updates": updates, "kernel_launches": launches,
+                                   "max_abs_err": err, "eval_mean": r["last"], "seconds": seconds}
+    return out
+
+
 def main() -> int:
     sys.stdout.reconfigure(line_buffering=True)  # a run that is cut still shows its last phase
     if not torch.cuda.is_available():
@@ -6269,6 +6385,7 @@ def main() -> int:
         **phase("cli device loops", cli_small_device_loops, card),
         "train_reinforce_gym.py and optuna": phase("cli reinforce and optuna", cli_host_and_objective, card),
     }
+    record["phase25"] = phase("curves", run_curves, card, device)
     # Counted over each path that samples by priority, from 0 at its start;
     # every other path asserts a count of 0.
     kernel["launches_by_path"] = {
@@ -6314,6 +6431,9 @@ def main() -> int:
         "siblings and JAX checkpoints": record["phase23"]["kernel_launches"],
         # Phase 24: the command lines; Rainbow's one launch per update at C = 2^17, B = 32, 0 on the others.
         **{f"cli {name}": r["kernel_launches"] for name, r in record["phase24"].items()},
+        # Phase 25: the two quick recipes 0 each; Rainbow-CartPole through
+        # curve_loop one launch per update at C = 2^17, B = 64.
+        "curves rainbow_cartpole": record["phase25"]["rainbow_cartpole"]["kernel_launches"],
     }
     kernel["launches"] = sum(kernel["launches_by_path"].values())
     record["kernels"] = [kernel]

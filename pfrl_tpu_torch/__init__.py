@@ -85,8 +85,10 @@ pfrl_tpu_torch.experiments.<module> <the example's flags>`` (``README.md``
 maps the 27 scripts to their modules; ``atari_onpolicy_ale`` and
 ``mujoco_host`` take the example's name first, ``a2c`` or ``ppo``,
 ``sac``, ``td3``, ``ddpg``, ``ppo`` or ``trpo``), each a ``run(argv=None,
-device=None)`` with the example's flags and defaults. Nothing is left to
-port.
+device=None)`` with the example's flags and defaults. So has
+``tools/record_curves.py``: ``python -m
+pfrl_tpu_torch.experiments.record_curves [names ...]`` trains its 21
+recipes to their successful scores, resumably. Nothing is left to port.
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; without a card they raise (see :mod:`._device`). Kernels

@@ -43,3 +43,19 @@ def test_a_phase_past_its_limit_ends_the_run_with_its_name_and_a_traceback():
 def test_a_phase_that_raises_fails_the_run():
     out = _run("cs.phase('broken', lambda: 1 / 0, limit=5)")
     assert out.returncode != 0 and "ZeroDivisionError" in out.stderr
+
+
+def test_phase_25_trains_the_quick_recipes_and_cuts_rainbow_in_depth_only():
+    out = _run(
+        "from pfrl_tpu_torch.experiments import record_curves as rc\n"
+        "assert set(cs.CURVE_QUICK) == {'acer_abc', 'rppo_delayed_cue'} and cs.CURVE_RESUMED in cs.CURVE_QUICK\n"
+        "assert all(isinstance(seed, int) for seed in cs.CURVE_QUICK.values())\n"
+        "curve = rc.RUNS['rainbow_cartpole']('cpu')\n"
+        "cfg = curve.runner.config\n"
+        "assert (cfg.replay_start_size, curve.eval_every, cfg.num_envs) == (1024, 10000, 32)\n"  # the recipe's, uncut
+        "assert 0 < cs.RAINBOW_CURVE_REPLAY_START < cs.RAINBOW_CURVE_EVAL_EVERY < curve.eval_every\n"
+        "assert cs.RAINBOW_CURVE_REPLAY_START < cfg.replay_start_size and cs.RAINBOW_CURVE_EVAL_EVERY % 32 == 0\n"
+        "assert curve.runner.buffer.tree_capacity == 131072 and cfg.minibatch_size == 64\n"
+        "assert cs.PHASE_LIMITS['curves'] >= 60\n"
+        "print('ok')")
+    assert out.returncode == 0 and "ok" in out.stdout, out.stderr
