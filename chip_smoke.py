@@ -6127,11 +6127,45 @@ def check_flax_checkpoint(device, card: str) -> dict:
     return result
 
 
+ACTIVATION_BATCH = 32  # frames per forward of the non-ReLU torsos
+
+
+def check_activations(device, card: str) -> dict:
+    """A Nature torso with ``activation=torch.tanh`` and a dueling head
+    (6 actions) with ``activation=F.elu``, fp32 without TF32, one forward on
+    ``ACTIVATION_BATCH`` frames on the card and on the CPU from the same
+    weights: within rtol 1e-4, floor 1e-5, as ``check_small_noisy_nature_q``
+    holds the Nature network's Q-values (fp32 convolutions reduce in other
+    orders)."""
+    import torch.nn.functional as F
+
+    from pfrl_tpu_torch._device import use_full_fp32
+    from pfrl_tpu_torch.models.atari_cnn import LargeAtariCNN
+    from pfrl_tpu_torch.q_functions.dueling_dqn import DuelingDQN
+
+    use_full_fp32()
+    x = torch.rand(ACTIVATION_BATCH, 84, 84, 4, generator=torch.Generator().manual_seed(27))
+    differences = _Differences("activations")
+    for name, make, read in (("nature-torso-tanh", lambda: LargeAtariCNN(activation=torch.tanh), lambda y: y),
+                             ("dueling-dqn-elu", lambda: DuelingDQN(6, activation=F.elu), lambda y: y.q_values)):
+        model = make()
+        model.reset_parameters(torch.Generator().manual_seed(28))
+        with torch.no_grad():
+            cpu = read(model(x))
+            on_card = read(copy.deepcopy(model).to(device)(x.to(device)))
+        if name == "nature-torso-tanh" and not float(cpu.min()) < 0.0:
+            raise AssertionError("phase 23 nature-torso-tanh: no negative feature; tanh not applied")
+        differences.close(name, on_card, cpu, 1e-4, 1e-5)
+    print(f"phase 23 non-ReLU activations, card vs CPU: {differences.summary()} ({card})")
+    return {"max_abs_diff": differences.largest}
+
+
 def run_siblings_and_checkpoints(card: str, device) -> dict:
     """Phase 23: the batch-norm critics, the LSTM critic, the normalizer,
-    RMSpropEpsInsideSqrt and a JAX-layout checkpoint, each on the card
-    against the CPU. No kernel of the port lies on them: the prefix-sample
-    kernel's count is set to 0 before and must read 0 after."""
+    RMSpropEpsInsideSqrt, a JAX-layout checkpoint and the Atari torsos with
+    a non-ReLU activation, each on the card against the CPU. No kernel of
+    the port lies on them: the prefix-sample kernel's count is set to 0
+    before and must read 0 after."""
     from pfrl_tpu_torch.ops.prefix_sample import prefix_sample
 
     prefix_sample.launches = 0
@@ -6142,6 +6176,7 @@ def run_siblings_and_checkpoints(card: str, device) -> dict:
         "empirical-normalization-17x2048": check_empirical_normalization(device, card),
         "rmsprop-eps-inside-sqrt-nature": check_rmsprop_eps_inside_sqrt(device, card),
         "flax-checkpoint-nature-dqn": check_flax_checkpoint(device, card),
+        "activations": check_activations(device, card),
     }
     record["kernel_launches"] = prefix_sample.launches
     if record["kernel_launches"]:

@@ -1,7 +1,8 @@
 """Action values returned by Q-networks (counterpart of
-``pfrl_tpu/action_value.py``): the discrete, the categorical
-distributional and the quantile variants, NAF's quadratic one and the
-per-action :class:`SingleActionValue`."""
+``pfrl_tpu/action_value.py``): the :class:`ActionValue` interface, the
+discrete, the categorical distributional and the quantile variants, NAF's
+quadratic one and the per-action :class:`SingleActionValue`. ``params``
+is the tuple of tensors a variant is made of."""
 
 import dataclasses
 from typing import Callable, Optional
@@ -9,8 +10,21 @@ from typing import Callable, Optional
 import torch
 
 
+class ActionValue:
+    """The interface: ``greedy_actions``, ``max``, ``evaluate_actions``."""
+
+    def greedy_actions(self) -> torch.Tensor:
+        raise NotImplementedError
+
+    def max(self) -> torch.Tensor:
+        raise NotImplementedError
+
+    def evaluate_actions(self, actions: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+
 @dataclasses.dataclass
-class DiscreteActionValue:
+class DiscreteActionValue(ActionValue):
     """Plain Q-values over discrete actions ``[B, A]``."""
 
     q_values: torch.Tensor
@@ -30,6 +44,10 @@ class DiscreteActionValue:
         idx = actions.to(torch.int64).unsqueeze(-1)
         return torch.gather(self.q_values, -1, idx).squeeze(-1)
 
+    @property
+    def params(self):
+        return (self.q_values,)
+
 
 def _take_action(x: torch.Tensor, actions: torch.Tensor) -> torch.Tensor:
     """``x[b, actions[b]]`` over a leading batch: ``[B, A, ...] -> [B, ...]``."""
@@ -38,7 +56,7 @@ def _take_action(x: torch.Tensor, actions: torch.Tensor) -> torch.Tensor:
 
 
 @dataclasses.dataclass
-class DistributionalDiscreteActionValue:
+class DistributionalDiscreteActionValue(ActionValue):
     """C51-style categorical return distributions: ``q_dist`` ``[B, A, N]``
     probabilities over the support ``z_values`` ``[N]``."""
 
@@ -65,9 +83,13 @@ class DistributionalDiscreteActionValue:
     def evaluate_actions_as_distribution(self, actions: torch.Tensor) -> torch.Tensor:
         return _take_action(self.q_dist, actions)
 
+    @property
+    def params(self):
+        return (self.q_dist,)
+
 
 @dataclasses.dataclass
-class QuantileDiscreteActionValue:
+class QuantileDiscreteActionValue(ActionValue):
     """IQN's quantile estimates ``quantiles`` ``[B, n_taus, A]``; the
     Q-values are their mean over the taus."""
 
@@ -91,9 +113,13 @@ class QuantileDiscreteActionValue:
         idx = actions.to(torch.int64).view(-1, 1, 1).expand(-1, self.quantiles.shape[1], 1)
         return torch.gather(self.quantiles, 2, idx).squeeze(2)
 
+    @property
+    def params(self):
+        return (self.quantiles,)
+
 
 @dataclasses.dataclass
-class QuadraticActionValue:
+class QuadraticActionValue(ActionValue):
     """NAF's quadratic Q: ``Q(s, a) = v - 1/2 (a - mu)^T mat (a - mu)``.
 
     ``mu`` ``[B, d]``, ``mat`` ``[B, d, d]`` (positive semi-definite), ``v``
@@ -125,8 +151,12 @@ class QuadraticActionValue:
         d = actions - self.mu
         return self.v - 0.5 * torch.einsum("bi,bij,bj->b", d, self.mat, d)
 
+    @property
+    def params(self):
+        return (self.mu, self.mat, self.v)
 
-class SingleActionValue:
+
+class SingleActionValue(ActionValue):
     """Q-values computable only per action, through ``evaluator(actions)``;
     ``maximizer()`` gives the greedy actions (a continuous actor-critic's
     policy). Not a dataclass: it wraps callables and is never cast or

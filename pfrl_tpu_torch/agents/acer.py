@@ -266,8 +266,9 @@ class ACERSDNModel(nn.Module):
     """The stochastic dueling head: submodules ``pi`` (obs -> ``Normal``),
     ``vf`` (obs -> ``[B, 1]``) and ``adv`` ((obs, action) -> ``[B]`` or
     ``[B, 1]``, an ``FCSAQFunction``), the flax scopes ``pi``, ``vf`` and
-    ``adv``. ``forward(x)`` is the JAX model's ``pi_v``: ``(Normal, V
-    [B])``; ``forward(x, a)`` its ``advantage``: ``A(x, a) [B]``."""
+    ``adv``. :meth:`pi_v` gives ``(Normal, V [B])`` and :meth:`advantage`
+    ``A(x, a) [B]``, as the JAX model's methods do; ``forward(x)`` is
+    ``pi_v(x)`` and ``forward(x, a)`` is ``advantage(x, a)``."""
 
     def __init__(self, pi: nn.Module, vf: nn.Module, adv: nn.Module):
         super().__init__()
@@ -283,12 +284,16 @@ class ACERSDNModel(nn.Module):
         return {**scoped_names("pi", "pi", self.pi), **scoped_names("vf", "vf", self.vf),
                 **scoped_names("adv", "adv", self.adv)}
 
-    def forward(self, x: torch.Tensor, a: Optional[torch.Tensor] = None):
-        if a is not None:
-            q = self.adv(x, a)
-            return q[..., 0] if q.dim() > 1 else q
+    def pi_v(self, x: torch.Tensor):
         v = self.vf(x)
         return self.pi(x), (v[..., 0] if v.dim() > 1 else v)
+
+    def advantage(self, x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+        q = self.adv(x, a)
+        return q[..., 0] if q.dim() > 1 else q
+
+    def forward(self, x: torch.Tensor, a: Optional[torch.Tensor] = None):
+        return self.pi_v(x) if a is None else self.advantage(x, a)
 
 
 class ACERContinuousCore:

@@ -180,11 +180,14 @@ class DDPGCore(CastApplies):
         return explore_or_burn_in(self, draws, obs, t, greedy)
 
     # ---------------------------------------------------------------- update
+    def target_next_q(self, state: ActorCriticState, batch: TransitionBatch) -> torch.Tensor:
+        """The target critic at the target policy's mode on ``next_obs``."""
+        next_a = self.policy_dist(state.target_policy, batch.next_obs).mode()
+        return self.q_value(state.target_q_func, self.phi(batch.next_obs), next_a)
+
     def critic_loss(self, state: ActorCriticState, batch: TransitionBatch):
         with torch.no_grad():
-            next_a = self.policy_dist(state.target_policy, batch.next_obs).mode()
-            next_q = self.q_value(state.target_q_func, self.phi(batch.next_obs), next_a)
-            t = bootstrap_target(batch, next_q)
+            t = bootstrap_target(batch, self.target_next_q(state, batch))
         y = self.q_value(state.q_func, self.phi(batch.obs), batch.action)
         return compute_value_loss(y, t, clip_delta=self.clip_delta), torch.abs(y - t).detach()
 

@@ -136,18 +136,24 @@ class TRPOCore:
         return TRPOState(policy=policy, vf=vf, vf_opt_state=self.vf_optimizer.init(list(vf.parameters())))
 
     # ------------------------------------------------------------------- act
+    def forward(self, state_or_policy, obs: torch.Tensor):
+        """The policy's distribution at ``obs``; ``state_or_policy`` is a
+        :class:`TRPOState` or the policy module."""
+        policy = state_or_policy.policy if isinstance(state_or_policy, TRPOState) else state_or_policy
+        return policy(self.phi(obs))
+
     def value(self, vf: nn.Module, obs: torch.Tensor) -> torch.Tensor:
         v = vf(self.phi(obs))
         return v[..., 0] if v.dim() > 1 else v
 
     @torch.no_grad()
     def select_action(self, state: TRPOState, draws, obs, t: int, training: bool):
-        dist = state.policy(self.phi(obs))
+        dist = self.forward(state, obs)
         return dist.sample(draws) if training else dist.mode()
 
     @torch.no_grad()
     def act_with_aux(self, state: TRPOState, draws, obs, training: bool = True):
-        dist = state.policy(self.phi(obs))
+        dist = self.forward(state, obs)
         action = dist.sample(draws) if training else dist.mode()
         return action, {"log_prob": dist.log_prob(action), "value": self.value(state.vf, obs)}
 

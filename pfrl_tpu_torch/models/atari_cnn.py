@@ -7,10 +7,11 @@ back to NHWC before the flatten, so the first Linear sees flax's (H, W, C)
 feature order and the weight converter only transposes kernels. Each layer
 computes in the promoted dtype of its input and weights, as flax's do
 (:mod:`~pfrl_tpu_torch.models.layers`). Every layer has Chainer's default
-weights and a constant bias, VALID padding and a ReLU after it.
+weights and a constant bias, VALID padding and ``activation`` after it
+(``torch.relu`` by default; any callable, as the flax modules' field).
 """
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -25,9 +26,11 @@ class _AtariCNN(nn.Module):
 
     convs_spec: Sequence[Tuple[int, int, int]] = ()
 
-    def __init__(self, n_input_channels: int, n_output_channels: int, bias: float, input_hw):
+    def __init__(self, n_input_channels: int, n_output_channels: int, bias: float, input_hw,
+                 activation: Callable):
         super().__init__()
         self.bias = bias
+        self.activation = activation
         convs, c, (h, w) = [], n_input_channels, input_hw
         for features, k, s in self.convs_spec:
             convs.append(Conv2d(c, features, k, stride=s))
@@ -49,9 +52,9 @@ class _AtariCNN(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW
         for conv in self.convs:
-            x = torch.relu(conv(x))
+            x = self.activation(conv(x))
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)  # flax's HWC order
-        return torch.relu(self.dense(x))
+        return self.activation(self.dense(x))
 
 
 class LargeAtariCNN(_AtariCNN):
@@ -60,8 +63,8 @@ class LargeAtariCNN(_AtariCNN):
     convs_spec = ((32, 8, 4), (64, 4, 2), (64, 3, 1))
 
     def __init__(self, n_input_channels: int = 4, n_output_channels: int = 512, bias: float = 0.1,
-                 input_hw=(84, 84)):
-        super().__init__(n_input_channels, n_output_channels, bias, input_hw)
+                 input_hw=(84, 84), activation: Callable = torch.relu):
+        super().__init__(n_input_channels, n_output_channels, bias, input_hw, activation)
 
 
 class SmallAtariCNN(_AtariCNN):
@@ -70,5 +73,5 @@ class SmallAtariCNN(_AtariCNN):
     convs_spec = ((16, 8, 4), (32, 4, 2))
 
     def __init__(self, n_input_channels: int = 4, n_output_channels: int = 256, bias: float = 0.1,
-                 input_hw=(84, 84)):
-        super().__init__(n_input_channels, n_output_channels, bias, input_hw)
+                 input_hw=(84, 84), activation: Callable = torch.relu):
+        super().__init__(n_input_channels, n_output_channels, bias, input_hw, activation)

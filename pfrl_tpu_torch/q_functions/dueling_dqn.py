@@ -2,11 +2,11 @@
 ``pfrl_tpu/q_functions/dueling_dqn.py``).
 
 Value and advantage streams with mean-subtracted advantages over a
-:class:`LargeAtariCNN` torso. ``dense_cls`` lets Rainbow swap in
-:class:`FactorizedNoisyLinear`. The advantage layer is built and called
-before the value layer, as in the flax modules: flax numbers the scopes in
-that order (``..._0`` advantage, ``..._1`` value) and noise is consumed in
-that order.
+:class:`LargeAtariCNN` torso, which takes the head's ``activation``.
+``dense_cls`` lets Rainbow swap in :class:`FactorizedNoisyLinear`. The
+advantage layer is built and called before the value layer, as in the
+flax modules: flax numbers the scopes in that order (``..._0`` advantage,
+``..._1`` value) and noise is consumed in that order.
 """
 
 from typing import Callable, Dict, Optional, Tuple
@@ -63,11 +63,13 @@ class _Dueling(nn.Module):
         value_features: int,
         dense_cls: Optional[Callable[[int, int], nn.Module]],
         frame_shape: Tuple[int, int, int],
+        activation: Callable,
     ):
         super().__init__()
         dense = dense_cls or Dense
         h, w, c = frame_shape
-        self.torso = LargeAtariCNN(n_input_channels=c, n_output_channels=512, input_hw=(h, w))
+        self.torso = LargeAtariCNN(n_input_channels=c, n_output_channels=512, input_hw=(h, w),
+                                   activation=activation)
         width = self.torso.dense.out_features
         self.advantage = dense(width, advantage_features)
         self.value = dense(width, value_features)
@@ -95,8 +97,8 @@ class _Dueling(nn.Module):
 class DuelingDQN(_Dueling):
     """``Q = V + A - mean_a A``."""
 
-    def __init__(self, n_actions: int, dense_cls=None, frame_shape=(84, 84, 4)):
-        super().__init__(n_actions, 1, dense_cls, frame_shape)
+    def __init__(self, n_actions: int, dense_cls=None, frame_shape=(84, 84, 4), activation: Callable = torch.relu):
+        super().__init__(n_actions, 1, dense_cls, frame_shape, activation)
 
     def forward(self, x: torch.Tensor, draws=None) -> DiscreteActionValue:
         a, v = self._streams(x, draws)
@@ -115,8 +117,9 @@ class DistributionalDuelingDQN(_Dueling):
         v_max: float,
         dense_cls=None,
         frame_shape=(84, 84, 4),
+        activation: Callable = torch.relu,
     ):
-        super().__init__(n_actions * n_atoms, n_atoms, dense_cls, frame_shape)
+        super().__init__(n_actions * n_atoms, n_atoms, dense_cls, frame_shape, activation)
         self.n_actions = n_actions
         self.n_atoms = n_atoms
         self.register_buffer("z_values", support(v_min, v_max, n_atoms))

@@ -122,6 +122,18 @@ class EpisodicReplayBuffer:
         self.stores_carries = store_carries
         self.device = resolve_device(device)
 
+    @property
+    def wants_next_obs(self) -> bool:
+        """The buffer protocol's flag (``ReplayBuffer.wants_next_obs``): a
+        row keeps whole trajectories, ``next_obs`` included."""
+        return True
+
+    def configure_lanes(self, num_lanes: int) -> "EpisodicReplayBuffer":
+        """A copy for ``num_lanes`` lanes (a host shell learns its vector
+        env's width at its first step)."""
+        return EpisodicReplayBuffer(self.max_episodes, self.max_episode_len, num_lanes, subseq_len=self.subseq_len,
+                                    gamma=self.gamma, store_carries=self.stores_carries, device=self.device)
+
     # ------------------------------------------------------------------ init
     def init(self, example: Transition, storage_rows: Optional[int] = None) -> EpisodicReplayState:
         """Allocate storage from one example transition (no batch dim).

@@ -49,6 +49,11 @@ class PrioritizedEpisodicReplayBuffer(EpisodicReplayBuffer):
         self.eps = eps
         self.tree_capacity = sum_tree.tree_capacity(max_episodes)
 
+    def configure_lanes(self, num_lanes: int) -> "PrioritizedEpisodicReplayBuffer":
+        return PrioritizedEpisodicReplayBuffer(
+            self.max_episodes, self.max_episode_len, num_lanes, uniform_ratio=self.uniform_ratio, alpha=self.alpha,
+            eps=self.eps, subseq_len=self.subseq_len, store_carries=self.stores_carries, device=self.device)
+
     def init(self, example: Transition, storage_rows=None) -> PrioritizedEpisodicReplayState:
         base = super().init(example, storage_rows)
         return PrioritizedEpisodicReplayState(

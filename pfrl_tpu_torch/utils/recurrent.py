@@ -5,33 +5,11 @@ branch), with the batch on the leading axis. Sequences are time-major
 ``[T, B, ...]``; :func:`unroll` is a Python loop over T.
 """
 
-import dataclasses
 from typing import Any, Callable, Optional, Sequence, Tuple
 
 import torch
 
-
-def tree_map(fn: Callable, *trees) -> Any:
-    """``fn`` over the tensors of carries of one structure."""
-    first = trees[0]
-    if isinstance(first, torch.Tensor):
-        return fn(*trees)
-    if isinstance(first, (tuple, list)):
-        return type(first)(tree_map(fn, *xs) for xs in zip(*trees))
-    raise TypeError(f"not a carry: {type(first).__name__}")
-
-
-def tree_leaves(tree) -> list:
-    if isinstance(tree, torch.Tensor):
-        return [tree]
-    if isinstance(tree, (tuple, list)):
-        return [leaf for x in tree for leaf in tree_leaves(x)]
-    return []
-
-
-def tree_where(mask: torch.Tensor, a: Any, b: Any) -> Any:
-    """Per row of the leading axis, ``a`` where ``mask [B]`` else ``b``."""
-    return tree_map(lambda x, y: torch.where(mask.view(-1, *([1] * (x.dim() - 1))), x, y), a, b)
+from pfrl_tpu_torch.utils.pytree import tree_leaves, tree_map, tree_stack, tree_where  # noqa: F401  (re-exported)
 
 
 def mask_recurrent_state_at(state: Any, mask: torch.Tensor, zero_state: Optional[Any] = None) -> Any:
@@ -44,15 +22,14 @@ def mask_recurrent_state_at(state: Any, mask: torch.Tensor, zero_state: Optional
 def stack(trees: Sequence[Any], dim: int = 0) -> Any:
     """Stack a sequence of outputs of one structure: tensors, tuples and
     lists, and dataclasses of tensors (action values, distributions)."""
-    first = trees[0]
-    if isinstance(first, torch.Tensor):
-        return torch.stack(list(trees), dim=dim)
-    if isinstance(first, (tuple, list)):
-        return type(first)(stack(xs, dim) for xs in zip(*trees))
-    if dataclasses.is_dataclass(first):
-        fields = [f.name for f in dataclasses.fields(first) if f.init]
-        return dataclasses.replace(first, **{f: stack([getattr(t, f) for t in trees], dim) for f in fields})
-    raise TypeError(f"cannot stack {type(first).__name__}")
+    return tree_stack(trees, dim)
+
+
+def one_step_forward(apply_fn: Callable, x: Any, recurrent_state: Any) -> Tuple[Any, Any]:
+    """One recurrent step, ``apply_fn(x [B, ...], carry) -> (y, carry)``
+    (the JAX function's ``apply_fn(params, x, carry)``; here the parameters
+    live in the module)."""
+    return apply_fn(x, recurrent_state)
 
 
 def unroll(
@@ -92,4 +69,4 @@ def get_recurrent_state_at(state: Any, index, detach: bool = False) -> Any:
 
 def concatenate_recurrent_states(states: Sequence[Any]) -> Any:
     """Stack carries along a new leading axis."""
-    return tree_map(lambda *xs: torch.stack(xs, dim=0), *states)
+    return tree_stack(states, 0)
