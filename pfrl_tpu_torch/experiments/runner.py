@@ -26,6 +26,13 @@ distribution) stores them with each transition; ``init`` sizes the
 buffer's extras from one call of it. A core without ``sync_target`` (ACER)
 is never synced. :class:`EvalLoop` is the counterpart of ``JaxEvalLoop``.
 
+**Spans** (``utils/profiling.py``; recorded only under
+``profiling.recording()``): ``init``; per scan step ``step`` around
+``act``, ``env``, ``add``, ``returns``, each update's ``sample`` (``draw``
+and ``gather`` inside a prioritized buffer's; the uniform ring's one id
+draw per scan step, then each update's ``gather``), ``update`` and
+``feedback`` (counters ``updates`` and ``feedbacks``), and ``sync``.
+
 **A mesh** (``mesh=``, :func:`pfrl_tpu_torch.parallel.mesh.make_mesh`: one rank
 per process) changes the layout, not the result, as in the JAX package,
 for every core and buffer. Each rank steps, acts for and stores only its
@@ -64,6 +71,7 @@ from pfrl_tpu_torch.parallel.lane_sharding import LaneDraws, LaneShardedBuffer, 
 from pfrl_tpu_torch.parallel.mesh import all_gather_rows, local_rows, replicate
 from pfrl_tpu_torch.replay.transition import Transition
 from pfrl_tpu_torch.utils.draws import Draws
+from pfrl_tpu_torch.utils.profiling import count, span
 from pfrl_tpu_torch.utils.recurrent import tree_map
 
 
@@ -158,51 +166,52 @@ class OffPolicyRunner:
         """``draws`` replaces the default source, one ``torch.Generator`` on
         the device seeded with ``seed``. The weights are drawn from a CPU
         generator seeded with ``seed``."""
-        if draws is None:
-            gen = torch.Generator(device=self.device)
-            gen.manual_seed(seed)
-            draws = Draws(gen)
-        env_states, obs = self.env.reset(self._lane_draws(draws))
-        example_action = self._example_action()
-        L = self.config.num_envs
-        train_state = self.core.init(
-            torch.Generator().manual_seed(seed), obs, torch.stack([example_action] * self.env.num_envs)
-        )
-        if self.mesh is not None:
-            replicate(self.mesh, train_state)
-        zeros = lambda dtype: torch.zeros((), dtype=dtype, device=self.device)  # noqa: E731
-        act_state = self.core.init_act_state(self.env.num_envs, self.device) if self.recurrent else ()
-        extras = None
-        if self.store_carries:
-            one = tree_map(lambda x: x[0], act_state)
-            extras = {"carry": one, "next_carry": one}
-        elif self.acts_with_extras:
-            # The shapes of one call, from a draw source of its own: the
-            # JAX runner takes them by ``eval_shape``, which draws nothing.
-            own = Draws(torch.Generator(device=self.device).manual_seed(seed))
-            _, ex = self.core.select_action_with_extras(train_state, own, obs, 0, True)
-            extras = {k: torch.zeros_like(v[0]) for k, v in ex.items()}
-        example = Transition(
-            obs=obs[0],
-            action=example_action,
-            reward=zeros(torch.float32),
-            next_obs=obs[0],
-            terminated=zeros(torch.bool),
-            done=zeros(torch.bool),
-            extras=extras,
-        )
-        return RunnerState(
-            env_states=env_states,
-            obs=obs,
-            train_state=train_state,
-            replay_state=self.buffer.init(example),
-            draws=draws,
-            t=0,
-            episode_return=torch.zeros(L, dtype=torch.float32, device=self.device),
-            recent_returns=torch.zeros(self.return_window, dtype=torch.float32, device=self.device),
-            recent_count=zeros(torch.int32),
-            act_state=act_state,
-        )
+        with span("init"):
+            if draws is None:
+                gen = torch.Generator(device=self.device)
+                gen.manual_seed(seed)
+                draws = Draws(gen)
+            env_states, obs = self.env.reset(self._lane_draws(draws))
+            example_action = self._example_action()
+            L = self.config.num_envs
+            train_state = self.core.init(
+                torch.Generator().manual_seed(seed), obs, torch.stack([example_action] * self.env.num_envs)
+            )
+            if self.mesh is not None:
+                replicate(self.mesh, train_state)
+            zeros = lambda dtype: torch.zeros((), dtype=dtype, device=self.device)  # noqa: E731
+            act_state = self.core.init_act_state(self.env.num_envs, self.device) if self.recurrent else ()
+            extras = None
+            if self.store_carries:
+                one = tree_map(lambda x: x[0], act_state)
+                extras = {"carry": one, "next_carry": one}
+            elif self.acts_with_extras:
+                # The shapes of one call, from a draw source of its own: the
+                # JAX runner takes them by ``eval_shape``, which draws nothing.
+                own = Draws(torch.Generator(device=self.device).manual_seed(seed))
+                _, ex = self.core.select_action_with_extras(train_state, own, obs, 0, True)
+                extras = {k: torch.zeros_like(v[0]) for k, v in ex.items()}
+            example = Transition(
+                obs=obs[0],
+                action=example_action,
+                reward=zeros(torch.float32),
+                next_obs=obs[0],
+                terminated=zeros(torch.bool),
+                done=zeros(torch.bool),
+                extras=extras,
+            )
+            return RunnerState(
+                env_states=env_states,
+                obs=obs,
+                train_state=train_state,
+                replay_state=self.buffer.init(example),
+                draws=draws,
+                t=0,
+                episode_return=torch.zeros(L, dtype=torch.float32, device=self.device),
+                recent_returns=torch.zeros(self.return_window, dtype=torch.float32, device=self.device),
+                recent_count=zeros(torch.int32),
+                act_state=act_state,
+            )
 
     def _lane_draws(self, draws):
         """The source of the act's and the env's draws: this rank's lanes'
@@ -234,57 +243,65 @@ class OffPolicyRunner:
     def _one_step(self, state: RunnerState) -> Dict[str, torch.Tensor]:
         cfg = self.config
         L = cfg.num_envs
-        extras = None
-        draws = self._lane_draws(state.draws)
-        if self.recurrent:
-            actions, act_state = self.core.select_action_recurrent(
-                state.train_state, draws, state.obs, state.t, True, state.act_state)
-        elif self.acts_with_extras:
-            actions, extras = self.core.select_action_with_extras(
-                state.train_state, draws, state.obs, state.t, True)
-        else:
-            actions = self.core.select_action(state.train_state, draws, state.obs, state.t, True)
-        env_states, vec = self.env.step(draws, state.env_states, actions)
-        ts = vec.ts
-        if self.recurrent:
-            if self.store_carries:
-                # Before the reset at the episode boundary: the carry before
-                # the step seeds a window's online unroll, the one after it
-                # the target's.
-                extras = {"carry": state.act_state, "next_carry": act_state}
-            state.act_state = self.core.reset_act_state(act_state, ts.done)
-        self.buffer.add(
-            state.replay_state,
-            Transition(
-                obs=state.obs,
-                action=actions,
-                reward=ts.reward,
-                next_obs=ts.obs,
-                terminated=ts.terminated,
-                done=ts.done,
-                extras=extras,
-            ),
-        )
-        t_prev, t = state.t, state.t + L
-        reward, done = self._global_lanes(ts.reward, ts.done)
-        n_finished = record_returns(state, reward, done, self.return_window)
+        with span("step"):
+            extras = None
+            draws = self._lane_draws(state.draws)
+            with span("act"):
+                if self.recurrent:
+                    actions, act_state = self.core.select_action_recurrent(
+                        state.train_state, draws, state.obs, state.t, True, state.act_state)
+                elif self.acts_with_extras:
+                    actions, extras = self.core.select_action_with_extras(
+                        state.train_state, draws, state.obs, state.t, True)
+                else:
+                    actions = self.core.select_action(state.train_state, draws, state.obs, state.t, True)
+            with span("env"):
+                env_states, vec = self.env.step(draws, state.env_states, actions)
+            ts = vec.ts
+            if self.recurrent:
+                if self.store_carries:
+                    # Before the reset at the episode boundary: the carry before
+                    # the step seeds a window's online unroll, the one after it
+                    # the target's.
+                    extras = {"carry": state.act_state, "next_carry": act_state}
+                state.act_state = self.core.reset_act_state(act_state, ts.done)
+            with span("add"):
+                self.buffer.add(
+                    state.replay_state,
+                    Transition(
+                        obs=state.obs,
+                        action=actions,
+                        reward=ts.reward,
+                        next_obs=ts.obs,
+                        terminated=ts.terminated,
+                        done=ts.done,
+                        extras=extras,
+                    ),
+                )
+            t_prev, t = state.t, state.t + L
+            with span("returns"):
+                reward, done = self._global_lanes(ts.reward, ts.done)
+                n_finished = record_returns(state, reward, done, self.return_window)
 
-        loss = self._maybe_update(state, t)
+            loss = self._maybe_update(state, t)
 
-        # Target sync on interval crossing (in env transitions), for a core
-        # that has a target.
-        crossed = t // cfg.target_update_interval != t_prev // cfg.target_update_interval
-        if crossed and hasattr(self.core, "sync_target"):
-            self.core.sync_target(state.train_state)
+            # Target sync on interval crossing (in env transitions), for a core
+            # that has a target.
+            crossed = t // cfg.target_update_interval != t_prev // cfg.target_update_interval
+            if crossed and hasattr(self.core, "sync_target"):
+                with span("sync"):
+                    self.core.sync_target(state.train_state)
 
-        state.env_states = env_states
-        state.obs = vec.obs
-        state.t = t
-        return {"reward_mean": torch.mean(reward), "loss": loss, "done_count": n_finished}
+            state.env_states = env_states
+            state.obs = vec.obs
+            state.t = t
+            return {"reward_mean": torch.mean(reward), "loss": loss, "done_count": n_finished}
 
     def _maybe_update(self, state: RunnerState, t: int) -> torch.Tensor:
         """``updates_per_step`` gradient steps once ``t >= replay_start_size``;
-        returns the last loss."""
+        returns the last loss. The counters ``updates`` and ``feedbacks``
+        count the gradient steps and priority feedbacks, whatever spans
+        hold them."""
         cfg = self.config
         loss = torch.zeros((), dtype=torch.float32, device=self.device)
         if t < cfg.replay_start_size:
@@ -294,25 +311,40 @@ class OffPolicyRunner:
             feedback = hasattr(self.buffer, "update_episode_priorities") and getattr(
                 self.core, "reports_window_errors", False)
             for _ in range(cfg.updates_per_step):
-                batch = self.buffer.sample_episodes(replay, draws, cfg.minibatch_size)
-                _, aux = self._update(train, batch, draws)
+                with span("sample"):
+                    batch = self.buffer.sample_episodes(replay, draws, cfg.minibatch_size)
+                with span("update"):
+                    _, aux = self._update(train, batch, draws)
+                count("updates")
                 if feedback:
-                    self.buffer.update_episode_priorities(replay, batch.rows, aux["errors"])
+                    with span("feedback"):
+                        self.buffer.update_episode_priorities(replay, batch.rows, aux["errors"])
+                    count("feedbacks")
             return aux["loss"]
         if self.buffer.iid_samples:
             # The ids of every minibatch of this scan step in one draw; each
             # update gathers only its own rows. Ids first, then each update's
             # noise, as the JAX runner splits its key.
-            all_ids = self.buffer.sample_indices(
-                replay, draws, cfg.updates_per_step * cfg.minibatch_size
-            ).reshape(cfg.updates_per_step, cfg.minibatch_size)
+            with span("sample"):
+                all_ids = self.buffer.sample_indices(
+                    replay, draws, cfg.updates_per_step * cfg.minibatch_size
+                ).reshape(cfg.updates_per_step, cfg.minibatch_size)
             for ids in all_ids:
-                _, aux = self._update(train, self.buffer.gather(replay, ids), draws)
+                with span("gather"):
+                    batch = self.buffer.gather(replay, ids)
+                with span("update"):
+                    _, aux = self._update(train, batch, draws)
+                count("updates")
             return aux["loss"]
         for _ in range(cfg.updates_per_step):
-            batch, _ = self.buffer.sample(replay, draws, cfg.minibatch_size)
-            _, aux = self._update(train, batch, draws)
-            self.buffer.update_priorities(replay, batch.indices, aux["errors"])
+            with span("sample"):
+                batch, _ = self.buffer.sample(replay, draws, cfg.minibatch_size)
+            with span("update"):
+                _, aux = self._update(train, batch, draws)
+            count("updates")
+            with span("feedback"):
+                self.buffer.update_priorities(replay, batch.indices, aux["errors"])
+            count("feedbacks")
         return aux["loss"]
 
     # ---------------------------------------------------------------- chunks

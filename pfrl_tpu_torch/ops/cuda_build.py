@@ -4,7 +4,7 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for ``sm_90a`` into ``_build/lib<name>-<hash>.so`` beside this package (a
 directory git ignores), keyed by a hash of the source and the flags, so an
 edited source is rebuilt and an unchanged one is reused. Nothing is built
-on import.
+on import. A load is the span ``kernel_load`` (``utils/profiling.py``).
 """
 
 import ctypes
@@ -14,6 +14,8 @@ import shutil
 import subprocess
 from pathlib import Path
 from typing import Dict, Iterable
+
+from pfrl_tpu_torch.utils.profiling import span
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -79,6 +81,7 @@ def load(name: str) -> ctypes.CDLL:
     """The built library for ``csrc/<name>.cu``, building it if needed."""
     lib = _loaded.get(name)
     if lib is None:
-        lib = ctypes.CDLL(str(build([name])[name]))
+        with span("kernel_load"):
+            lib = ctypes.CDLL(str(build([name])[name]))
         _loaded[name] = lib
     return lib

@@ -22,6 +22,7 @@ from pfrl_tpu_torch.replay import sum_tree
 from pfrl_tpu_torch.replay.transition import Transition
 from pfrl_tpu_torch.replay.uniform import ReplayBuffer, ReplayState
 from pfrl_tpu_torch.utils.batch_states import first_leaf
+from pfrl_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -156,8 +157,10 @@ class PrioritizedReplayBuffer(ReplayBuffer):
 
     def sample(self, state: PrioritizedReplayState, draws, batch_size: int):
         """Returns ``(batch, state)``; beta anneals per call, in place."""
-        ids, slots, weights = self.draw(state, draws, batch_size)
-        batch = self.gather(state.base, ids)
+        with span("draw"):
+            ids, slots, weights = self.draw(state, draws, batch_size)
+        with span("gather"):
+            batch = self.gather(state.base, ids)
         batch.weight = weights
         batch.indices = slots
         return batch, state
